@@ -1,0 +1,39 @@
+"""Hand-written CUDA kernels of the port, one module each.
+
+Each module holds the kernel's wrapper (which counts its launches in
+``<wrapper>.launches``), its plain PyTorch version, and a header naming the
+TPU kernel it replaces and its bound on the card. Importing needs no nvcc:
+kernels are built at their first launch (``_build.py``).
+"""
+from .cooccurrence import cooccurrence_counts, cooccurrence_counts_plain
+from .patch_projection import patch_projection, patch_projection_plain
+from .time_channel import time_channel_projection, time_channel_projection_plain
+
+# kernel name -> its wrapper
+KERNELS = {
+    "time_channel": time_channel_projection,
+    "cooccurrence": cooccurrence_counts,
+    "patch_projection": patch_projection,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+__all__ = [
+    "KERNELS",
+    "launch_counts",
+    "reset_launch_counts",
+    "cooccurrence_counts",
+    "cooccurrence_counts_plain",
+    "patch_projection",
+    "patch_projection_plain",
+    "time_channel_projection",
+    "time_channel_projection_plain",
+]

@@ -1,0 +1,147 @@
+#!/usr/bin/env python3
+"""Where the time of the PyTorch port's DyGFormer evaluation goes, on one card.
+
+    python3 scripts/profile_torch_eval.py [--batches 10]
+
+Same setting as chip_smoke.py (synthetic wikipedia-scale stream, seed 1;
+random weights, seed 0; B = 200; random val negatives), for the wikipedia
+(maxlen 32, patch 1) and CanParl (maxlen 2048, patch 64) configurations,
+kernel path. For each configuration it traces one ``evaluate`` sweep with
+torch.profiler and reports:
+
+  * per batch, the host time and the device time of each of the evaluate
+    loop's profiler ranges: ``eval/staging`` (negative draw, bucket pick,
+    host-to-device copies), ``eval/sample`` (``DyGFormer.sample``),
+    ``eval/forward`` (the network), ``eval/head`` (head + loss) and
+    ``eval/metrics`` (copy-back, which waits for the device, + metrics).
+    A range's device time is that of the kernels launched inside it;
+  * the device busy share of the window (the union of device kernel
+    intervals over the wall time), and the ten device kernels and the ten
+    PyTorch ops with the most self device time. The profiler also draws
+    each range on the device timeline; those spans are not device work and
+    are left out of both.
+
+First it prints the host cost of one profiler range with no profiler
+running (evaluate opens five per batch), then one JSON line per
+configuration. Needs a CUDA card; raises if the profiler records no
+device time.
+"""
+import argparse
+import json
+import os
+import sys
+import time
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+B = 200
+CONFIGS = (("wikipedia", 32, 1), ("CanParl", 2048, 64))
+
+
+def is_range(name: str) -> bool:
+    return name.startswith("eval/")
+
+
+def range_cost_us(n: int = 20000) -> float:
+    """Host microseconds to open and close one profiler range, unprofiled."""
+    from torch.profiler import record_function
+
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with record_function("eval/cost"):
+            pass
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def device_profile(tr, stream) -> dict:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.evaluate(stream, tr.val_neg)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    intervals = sorted(
+        (e.time_range.start, e.time_range.end)
+        for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and not is_range(e.name)
+        and e.time_range.end > e.time_range.start
+    )
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in intervals:  # union of device intervals
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    if busy <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    self_dev = lambda e: getattr(e, "self_device_time_total", 0.0)
+    rows = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    phases = {
+        e.key: {
+            "host_ms_per_batch": e.cpu_time_total / e.count / 1e3,
+            "device_ms_per_batch": getattr(e, "device_time_total", 0.0) / e.count / 1e3,
+        }
+        for e in rows
+        if is_range(e.key) and e.device_type != cuda
+    }
+    if not phases:
+        raise RuntimeError("the trace holds none of evaluate's eval/* ranges")
+    kernels = sorted(
+        (e for e in rows if e.device_type == cuda and not is_range(e.key)), key=self_dev,
+        reverse=True,
+    )
+    ops = sorted((e for e in rows if e.device_type != cuda), key=self_dev, reverse=True)
+    top = lambda evs: [
+        {"name": e.key[:90], "calls": e.count, "ms": self_dev(e) / 1e3} for e in evs[:10]
+    ]
+    return {
+        "phases": phases,
+        "wall_ms": wall_us / 1e3,
+        "device_busy_ms": busy / 1e3,
+        "device_busy_share": busy / wall_us,
+        "top_kernels": top(kernels),
+        "top_ops": top(ops),
+    }
+
+
+def main() -> int:
+    import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--batches", type=int, default=10)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_eval: needs a CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO_ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from dyglib_tpu_torch.data import synthetic_link_prediction_data
+    from dyglib_tpu_torch.models import DyGFormer
+    from dyglib_tpu_torch.train import LinkPredictionTrainer, TrainConfig
+
+    print(json.dumps({"record_function_us": range_cost_us()}), flush=True)
+    data = synthetic_link_prediction_data(num_src=8227, num_dst=1000, num_edges=157474, seed=1)
+    stream = data.val.slice(0, args.batches * B)
+    for config, maxlen, patch in CONFIGS:
+        tr = LinkPredictionTrainer(
+            DyGFormer(max_input_sequence_length=maxlen, patch_size=patch), data,
+            TrainConfig(batch_size=B), device="cuda",
+        )
+        tr.init_params(0)
+        tr.evaluate(data.val.slice(0, B), tr.val_neg)  # warm-up
+        torch.cuda.synchronize()
+        out = {"config": config, "batches": args.batches}
+        out.update(device_profile(tr, stream))
+        print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
