@@ -1,39 +1,51 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA H100 and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py            (from the root of a checkout)
 
-The main path is DyGFormer link-prediction evaluation
-(``dyglib_tpu_torch.train.LinkPredictionTrainer.evaluate``) at the model's
-published widths (channel embedding 50, time features 100, 2 layers,
-2 heads, node and edge features 172), random weights from seed 0, on the
-wikipedia-scale synthetic stream (8227 users, 1000 items, 157474 edges,
-seed 1) built in memory, B = 200, random negatives on the val split, at
-two published configurations: wikipedia (maxlen 32, patch 1) and CanParl
-(maxlen 2048, patch 64).
+The main paths are DyGFormer link-prediction evaluation
+(``dyglib_tpu_torch.train.LinkPredictionTrainer.evaluate``) and training
+(``LinkPredictionTrainer.train_step`` over train batches, and ``fit``) at
+the model's published widths (channel embedding 50, time features 100,
+2 layers, 2 heads, node and edge features 172), random weights from seed 0,
+on the wikipedia-scale synthetic stream (8227 users, 1000 items, 157474
+edges, seed 1) built in memory, B = 200, at two published configurations:
+wikipedia (maxlen 32, patch 1) and CanParl (maxlen 2048, patch 64).
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
   1. require a CUDA card and the package beside this script; print the
      card's name and power limit as nvidia-smi reports them;
-  2. build the three CUDA kernels from dyglib_tpu_torch/csrc (one nvcc per
+  2. build the CUDA kernels from dyglib_tpu_torch/csrc (one nvcc per
      source, all at once) and print the build time and ptxas's report;
-  3. at the shapes the main path gives each kernel, hold the kernel to its
-     plain PyTorch version on the card (stated tolerances) and time the
-     kernel, the plain version and, where one exists, one PyTorch library
-     call computing the same function; compute each bound from bytes and
-     operations;
-  4. for each configuration: zero the launch counters, run evaluate on the
-     val batches through the kernels, read the counters (every kernel must
-     have launched), check the probabilities are finite and the metrics in
-     range; hold one batch's embeddings through the kernels to those
-     through the plain versions; run the same batches in turns, plain,
-     plain, kernels (so the kernel path is timed in sweeps 1 and 4 and the
-     plain path in sweeps 2 and 3, against the drift of the host clock),
-     and require every sweep's probabilities to agree with the first; at
-     wikipedia also hold the first batches to the port's CPU path (the
-     path the CPU tests hold to the JAX package);
-  5. print one JSON line of kernel numbers, then the device JSON line.
+  3. at the shapes the main paths give each kernel (M = 600 rows of the
+     B = 200 triple), hold the kernel to its plain PyTorch version on the
+     card (stated tolerances) and time the kernel, the plain version and,
+     where one exists, one PyTorch library call computing the same
+     function; compute each bound from bytes and operations;
+  4. evaluation, for each configuration: zero the launch counters, run
+     evaluate on the val batches through the kernels, read the counters
+     (every forward kernel must have launched), check the probabilities
+     are finite and the metrics in range; hold one batch's embeddings
+     through the kernels to those through the plain versions; run the same
+     batches in turns, plain, plain, kernels, and require every sweep's
+     probabilities to agree with the first; at wikipedia also hold the
+     first batches to the port's CPU path;
+  5. training, for each configuration (wikipedia on the gather path,
+     CanParl with use_entry_fetch): the last train batches (so that CanParl
+     picks its full 2048 bucket), dropout 0, the same steps from the same
+     parameters in sweeps of kernels, plain, plain, kernels: zero the
+     counters before each sweep and read them after (every kernel of the
+     path launched on the kernel path, none on the plain path), require
+     finite gradients for every parameter, per-step losses and final
+     parameters that agree; then the kernel path with the other feature
+     fetch (entry fetch at wikipedia, gather at CanParl) in turns with the
+     first, for their step times;
+  6. fit on the JAX test fixture (the 2000-edge synthetic stream of
+     tests/conftest.py, DyGFormer 32/2, 2 layers, dropout 0.1, 4 epochs,
+     lr 5e-4): test AP above 0.50 and the least epoch loss below 0.67,
+     the JAX package's floors (tests/test_remaining_models.py);
+  7. print one JSON line of kernel numbers, then the device JSON line.
 """
 import json
 import math
@@ -55,13 +67,44 @@ KERNEL_ATOL = 1e-4
 # the embeddings differ by the same sum-order noise; the sigmoid's slope is
 # at most 1/4
 PROB_ATOL = 1e-4
+# backward kernels vs plain versions: every gradient entry is a sum over
+# rows (and patch slots), 19,200 or 1.2 M f32 terms, that the two take in
+# different orders; the difference is held to this share of the sum of the
+# absolute values of its terms. dtw's terms are scaled by dt up to 1e6, so
+# no fixed atol fits it.
+GRAD_RTOL = 3e-5
+# training, kernel path vs plain path, dropout 0.
+# In lockstep (both paths' loss and gradients from the same parameters at
+# every step, then the kernel path's step): losses within LOSS_ATOL (the
+# forwards differ by sum-order noise, ~1e-6) and every gradient but the
+# time encoder's frequencies within GRAD_STEP_RTOL of its tensor's largest
+# entry (the kernels sum their rows in another order than cuBLAS). The
+# frequencies' gradient (dtw) is a sum of terms scaled by dt up to 1e6 that
+# cancel; the kernel phase holds it to its sum of |terms| instead.
+# Free-running (each path its own N steps from the same start): the first
+# loss within LOSS_ATOL, the later ones within LOSS_DRIFT_ATOL, the final
+# parameters within 2 * steps * lr. Adam moves every frequency by ~lr a
+# step whatever its gradient's size, and lr * dt reaches 100 rad, so the
+# two paths' high-frequency time features decorrelate after one step and
+# the losses drift apart (0.0048 over 10 wikipedia steps on the H100,
+# PERF.md); the parameters stay within the ~lr-a-step bound.
+LOSS_ATOL = 1e-4
+GRAD_STEP_RTOL = 1e-3
+LOSS_DRIFT_ATOL = 0.05
+TRAIN_LR = 1e-4
+# end-metric floors of the fixture fit (tests/test_remaining_models.py) and
+# the JAX package's band there (tests/calibration_fixture.json)
+FIT_AP_FLOOR, FIT_LOSS_CEIL, FIT_BAND = 0.50, 0.67, (0.6368, 0.0438)
 
 B = 200
-CONFIGS = (  # (name, maxlen, patch, val batches driven)
-    ("wikipedia", 32, 1, 40),
-    ("CanParl", 2048, 64, 10),
+CONFIGS = (  # (name, maxlen, patch, val batches driven, train steps driven)
+    ("wikipedia", 32, 1, 40, 10),
+    ("CanParl", 2048, 64, 10, 5),
 )
 CED, DT_DIM, FEAT = 50, 100, 172
+# the kernels of the evaluation path (the training path adds the backward
+# kernels, and window_fetch with the entry fetch)
+EVAL_KERNELS = ("time_channel", "cooccurrence", "patch_projection")
 
 
 def log(msg: str) -> None:
@@ -122,7 +165,7 @@ def check_kernels(dev) -> dict:
         log(f"  {key[0]:<16} {key[1]:<9} {part:<26} err {err:.3g}  kernel {ms:.4f} ms  "
             f"plain {plain:.4f} ms  library {lib if lib is None else round(lib, 4)} ms")
 
-    for config, maxlen, patch, _ in CONFIGS:
+    for config, maxlen, patch, _, _ in CONFIGS:
         lp = maxlen
         rows = m * (lp // patch)
         iters = 20 if lp > 100 else 200
@@ -212,6 +255,142 @@ def check_kernels(dev) -> dict:
     return results
 
 
+def grad_errors(got, want, terms) -> tuple[float, float]:
+    """(largest |kernel - plain|, largest |kernel - plain| / sum|terms|)
+    over the entries of a list of gradients."""
+    diffs = [(g - w).abs() for g, w in zip(got, want)]
+    return (
+        max(d.max().item() for d in diffs),
+        max((d / t.clamp_min(1e-30)).max().item() for d, t in zip(diffs, terms)),
+    )
+
+
+def check_training_kernels(dev) -> dict:
+    """Phase 3, the training path's kernels: the two backward kernels and
+    the entry-window fetch, at each configuration's training shapes."""
+    import torch
+
+    from dyglib_tpu_torch import ops
+    from dyglib_tpu_torch.nn.modules import time_encoder_spectrum
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    m = 3 * B
+    results = {}
+
+    def record(key, part, err, rel, ms, plain, lib, nbytes, nops):
+        results[key] = {"parts": [dict(part=part, max_abs_err=err, ms=ms, plain_ms=plain,
+                                       library_ms=lib, bytes=nbytes, ops=nops)]}
+        log(f"  {key[0]:<20} {key[1]:<9} {part:<26} err {err:.3g} ({rel:.3g} of sum|terms|)  "
+            f"kernel {ms:.4f} ms  plain {plain:.4f} ms  "
+            f"library {lib if lib is None else round(lib, 4)} ms")
+
+    for config, maxlen, patch, _, _ in CONFIGS:
+        lp = maxlen
+        rows = m * (lp // patch)
+        iters = 10 if lp > 100 else 100
+        # ---- time channel backward
+        dt = torch.randint(0, 1_000_000, (m, lp), device=dev, generator=gen).float()
+        valid = torch.rand((m, lp), device=dev, generator=gen) < 0.8
+        tw = torch.from_numpy(time_encoder_spectrum(DT_DIM)).reshape(-1).to(dev)
+        tb = 0.1 * torch.randn(DT_DIM, device=dev, generator=gen)
+        k = patch * DT_DIM
+        w = ((torch.rand((CED, k), device=dev, generator=gen) * 2 - 1) * k**-0.5).t()
+        dout = 1e-3 * torch.randn((m, lp // patch, CED), device=dev, generator=gen)
+        args = (dt, valid, tw, tb, w, dout, patch)
+        got = ops.time_channel_backward(*args)
+        want = ops.time_channel_backward_plain(*args)
+        # the same sums over |operands|: each entry's sum of |terms|
+        theta = dt[..., None] * tw + tb
+        mask = valid[..., None]
+        g_abs = dout.reshape(rows, CED).abs()
+        phi_abs = torch.where(mask, torch.cos(theta).abs(), 0.0).reshape(rows, k)
+        common = torch.where(
+            mask, (g_abs @ w.abs().t()).reshape(theta.shape) * torch.sin(theta).abs(), 0.0
+        )
+        terms = ((common * dt[..., None]).sum((0, 1)), common.sum((0, 1)), phi_abs.t() @ g_abs,
+                 g_abs.sum(0))
+        torch.cuda.synchronize()
+        err, rel = grad_errors(got, want, terms)
+        if not rel <= GRAD_RTOL:
+            raise AssertionError(f"time_channel_bwd@{config}: error {rel} of sum|terms| > {GRAD_RTOL}")
+        del theta, mask, phi_abs, common, got, want
+        n_valid = int(valid.sum())
+        record(
+            ("time_channel_bwd", config), f"M{m} L{lp} patch{patch}", err, rel,
+            cuda_ms(lambda: ops.time_channel_backward(*args), iters),
+            cuda_ms(lambda: ops.time_channel_backward_plain(*args), max(2, iters // 5)),
+            None,
+            4 * m * lp + m * lp + 4 * (2 * DT_DIM + k * CED + rows * CED)
+            + 4 * (k * CED + CED + 2 * DT_DIM),
+            # dW and dPhi products, plus per valid (entry, feature): theta
+            # (2), the mask (1), -sin * dPhi (1), dtb add (1), dtw mul-add (2)
+            4 * rows * k * CED + 7 * n_valid * DT_DIM,
+        )
+        del dt, valid, dout, args
+        torch.cuda.empty_cache()
+
+        # ---- patch projection backward: gathered 172-wide rows, pads zero
+        x = torch.randn((m, lp, FEAT), device=dev, generator=gen)
+        x[:, lp // 2 :, :] = 0.0
+        k = patch * FEAT
+        dout = 1e-3 * torch.randn((m, lp // patch, CED), device=dev, generator=gen)
+        got = ops.patch_projection_backward(x, dout, patch)
+        want = ops.patch_projection_backward_plain(x, dout, patch)
+        x2, g2 = x.view(rows, k), dout.view(rows, CED)
+        terms = (x2.abs().t() @ g2.abs(), g2.abs().sum(0))
+        torch.cuda.synchronize()
+        err, rel = grad_errors(got, want, terms)
+        if not rel <= GRAD_RTOL:
+            raise AssertionError(
+                f"patch_projection_bwd@{config}: error {rel} of sum|terms| > {GRAD_RTOL}")
+        del got, want, terms
+        record(
+            ("patch_projection_bwd", config), f"M{m} Lp{lp} D{FEAT} patch{patch}", err, rel,
+            cuda_ms(lambda: ops.patch_projection_backward(x, dout, patch), iters),
+            cuda_ms(lambda: ops.patch_projection_backward_plain(x, dout, patch), iters),
+            cuda_ms(lambda: torch.mm(x2.t(), g2), iters),
+            4 * (m * lp * FEAT + rows * CED + (k + 1) * CED),
+            2 * rows * (k + 1) * CED,
+        )
+        del x, x2, g2, dout
+        torch.cuda.empty_cache()
+
+        # ---- entry-window fetch from a table of the full stream's size
+        # (2 x 157474 entries, 344-wide rows, guard pads of maxlen rows)
+        pad, entries, nodes = max(512, lp), 2 * 157474, 9229
+        table = torch.randn((2 * pad + entries + nodes + 16, 2 * FEAT), device=dev, generator=gen)
+        table[:pad] = 0.0
+        table[pad + entries : 2 * pad + entries] = 0.0
+        counts = torch.randint(0, lp, (m,), device=dev, generator=gen, dtype=torch.int32)
+        starts = pad + torch.randint(0, entries - lp, (m,), device=dev, generator=gen,
+                                     dtype=torch.int32)
+        tgts = 2 * pad + entries + torch.randint(0, nodes, (m,), device=dev, generator=gen,
+                                                 dtype=torch.int32)
+        args = (table, tgts, starts, counts, lp, FEAT)
+        node, edge = ops.fetch_sequence_features(*args)
+        ref_node, ref_edge = ops.fetch_sequence_features_plain(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(node, ref_node) and torch.equal(edge, ref_edge)):
+            raise AssertionError(f"window_fetch@{config}: not bitwise equal to the plain version")
+        err = max((node - ref_node).abs().max().item(), (edge - ref_edge).abs().max().item())
+        del node, edge, ref_node, ref_edge
+        from dyglib_tpu_torch.ops.window_fetch import window_rows
+
+        idx = window_rows(tgts, starts, counts, lp).view(-1)
+        rows_read = m + int(counts.sum())
+        record(
+            ("window_fetch", config), f"M{m} L{lp} W{2 * FEAT}", err, 0.0,
+            cuda_ms(lambda: ops.fetch_sequence_features(*args), iters),
+            cuda_ms(lambda: ops.fetch_sequence_features_plain(*args), iters),
+            cuda_ms(lambda: table.index_select(0, idx), iters),
+            4 * (m * lp * 2 * FEAT + rows_read * 2 * FEAT) + 12 * m,
+            0,
+        )
+        del table, idx, args
+        torch.cuda.empty_cache()
+    return results
+
+
 def max_prob_diff(probs, other) -> float:
     """Largest |p - q| over two evaluate runs' per-batch (pos, neg) arrays."""
     import numpy as np
@@ -257,7 +436,7 @@ def run_config(data, config, maxlen, patch, n_batches, dev, cpu_reference: bool)
 
     # the main path: counters zeroed just before, read just after
     launches, kernel_s, (losses, metrics, probs) = sweep(True)
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in EVAL_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"{config}: kernels never launched on the main path: {missing}")
     if len(probs) != n_batches:
@@ -321,6 +500,190 @@ def run_config(data, config, maxlen, patch, n_batches, dev, cpu_reference: bool)
     return result
 
 
+def lockstep(tr, backbone, batches, fetch, config) -> tuple[float, float]:
+    """At every step, both paths' loss and gradients from the same
+    parameters (the kernel path's trajectory), then the kernel path's
+    optimizer step. Returns the largest loss difference and the largest
+    gradient error as a share of its tensor's largest entry."""
+    import torch
+
+    tr.init_params(0)
+    backbone.use_entry_fetch = fetch
+    named = [*(("backbone." + k, p) for k, p in tr.model.named_parameters()),
+             *(("head." + k, p) for k, p in tr.head.named_parameters())]
+    params = [p for _, p in named]
+    loss_diff, grad_err = 0.0, 0.0
+    for arrays, bucket in batches:
+        src, dst, _, neg_dst, ts, _, valid = arrays
+        out = {}
+        for use_kernels in (True, False):
+            tr.model.use_kernels = use_kernels
+            inputs = tr._sample(tr.train_csr, src, dst, neg_dst, ts, bucket)
+            loss, _ = tr._head_loss(tr.model.train()(tr.tables, inputs, triple=True), valid)
+            out[use_kernels] = (float(loss.detach()), torch.autograd.grad(loss, params))
+        loss_diff = max(loss_diff, abs(out[True][0] - out[False][0]))
+        top = max(float(g.abs().max()) for g in out[False][1])
+        for (name, _), gk, gp in zip(named, out[True][1], out[False][1]):
+            if name == "backbone.time_encoder.w":
+                continue
+            scale = max(float(gp.abs().max()), 1e-3 * top)  # zero-in-theory tensors
+            grad_err = max(grad_err, float((gk - gp).abs().max()) / scale)
+        for p, g in zip(params, out[True][1]):
+            p.grad = g
+        tr.optimizer.step()
+    if not (loss_diff <= LOSS_ATOL and grad_err <= GRAD_STEP_RTOL):
+        raise AssertionError(f"{config} training in lockstep: losses differ by {loss_diff}, "
+                             f"gradients by {grad_err} of their largest entries")
+    return loss_diff, grad_err
+
+
+def run_training(data, config, maxlen, patch, n_steps, dev) -> dict:
+    """Phase 5 for one configuration."""
+    import numpy as np
+    import torch
+
+    from dyglib_tpu_torch import ops
+    from dyglib_tpu_torch.graph import NegativeEdgeSampler
+    from dyglib_tpu_torch.models import DyGFormer
+    from dyglib_tpu_torch.train import LinkPredictionTrainer, TrainConfig
+
+    fetch_main = config == "CanParl"  # the path this configuration drives
+    backbone = DyGFormer(
+        max_input_sequence_length=maxlen, patch_size=patch, channel_embedding_dim=CED,
+        num_layers=2, num_heads=2, time_feat_dim=DT_DIM, dropout=0.0, use_entry_fetch=True,
+    )
+    tr = LinkPredictionTrainer(
+        backbone, data, TrainConfig(batch_size=B, learning_rate=TRAIN_LR), device=dev
+    )
+    if tr.train_csr.feat_entry is None:
+        raise AssertionError(f"{config}: the trainer built no feat_entry table")
+    # the last n_steps train batches, negatives from a seeded sampler so
+    # that every sweep sees the same batches
+    tr.train_neg = NegativeEdgeSampler(data.train.src, data.train.dst, seed=11)
+    n = data.train.num_interactions
+    stream = data.train.slice(n - n_steps * B, n)
+    batches = [(arrays, bucket) for _, arrays, bucket in tr.train_batches(stream)]
+    buckets = [bucket or backbone.seq_len for _, bucket in batches]
+
+    def sweep(use_kernels: bool, fetch: bool, steps=batches):
+        """n_steps train steps from the seed-0 parameters; returns launch
+        counts, ms per step, losses, the final parameters and whether every
+        parameter's gradient was finite."""
+        tr.init_params(0)
+        tr.model.use_kernels = use_kernels
+        backbone.use_entry_fetch = fetch
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = [tr.train_step(arrays, bucket)[0] for arrays, bucket in steps]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / len(steps) * 1e3
+        counts = ops.launch_counts()
+        params = [p.detach().clone() for p in tr.model.parameters()]
+        finite = all(
+            p.grad is not None and bool(torch.isfinite(p.grad).all())
+            for mod in (tr.model, tr.head) for p in mod.parameters()
+        )
+        return counts, ms, [float(x) for x in losses], params, finite
+
+    for use_kernels in (False, True):  # warm-up of both paths: allocator, cuBLAS
+        sweep(use_kernels, fetch_main, batches[:1])
+    sweep(True, not fetch_main, batches[:1])
+
+    # the main path: counters zeroed just before, read just after
+    launches, k_ms, k_losses, k_params, k_finite = sweep(True, fetch_main)
+    path_kernels = [*EVAL_KERNELS, "time_channel_bwd", "patch_projection_bwd"] + (
+        ["window_fetch"] if fetch_main else [])
+    missing = [k for k in path_kernels if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{config} training: kernels never launched: {missing}")
+    if not k_finite or not np.isfinite(k_losses).all():
+        raise AssertionError(f"{config} training: a gradient or loss is not finite")
+    def drift(losses, what):
+        """Free-running losses against the first kernel sweep's."""
+        diffs = [abs(a - b) for a, b in zip(losses, k_losses)]
+        if not (diffs[0] <= LOSS_ATOL and max(diffs) <= LOSS_DRIFT_ATOL):
+            raise AssertionError(f"{config} training, {what}: losses differ by {diffs}")
+        return max(diffs)
+
+    kernel_ms, plain_ms, loss_diff, param_diff = [k_ms], [], 0.0, 0.0
+    for use_kernels in (False, False, True):
+        counts, ms, losses, params, finite = sweep(use_kernels, fetch_main)
+        if use_kernels and counts != launches:
+            raise AssertionError(f"{config}: kernel sweeps launched {counts} vs {launches}")
+        if not use_kernels and any(counts.values()):
+            raise AssertionError(f"{config}: the plain training path launched a kernel: {counts}")
+        if not finite:
+            raise AssertionError(f"{config} training: a gradient is not finite")
+        (kernel_ms if use_kernels else plain_ms).append(ms)
+        loss_diff = max(loss_diff, drift(losses, "kernel vs plain" if not use_kernels else "rerun"))
+        param_diff = max(param_diff, max((a - b).abs().max().item()
+                                         for a, b in zip(params, k_params)))
+    param_atol = 2 * n_steps * TRAIN_LR
+    if not param_diff <= param_atol:
+        raise AssertionError(
+            f"{config} training: kernel vs plain parameters differ by {param_diff} > {param_atol}")
+    step_loss_diff, step_grad_err = lockstep(tr, backbone, batches, fetch_main, config)
+
+    # the other feature fetch, kernels on, in turns with the main one
+    other_ms, main_ms, other_launches = [], [], None
+    for fetch in (not fetch_main, fetch_main, fetch_main, not fetch_main):
+        counts, ms, losses, _, _ = sweep(True, fetch)
+        (main_ms if fetch == fetch_main else other_ms).append(ms)
+        if fetch != fetch_main:
+            other_launches = counts
+        drift(losses, "entry fetch vs gather")
+    fetch_ms = main_ms if fetch_main else other_ms
+    gather_ms = other_ms if fetch_main else main_ms
+    window_launches = launches["window_fetch"] if fetch_main else other_launches["window_fetch"]
+    if window_launches == 0:
+        raise AssertionError(f"{config}: the entry-fetch sweep never launched window_fetch")
+    result = dict(
+        config=config, maxlen=maxlen, patch=patch, steps=n_steps, buckets=buckets,
+        path="entry fetch" if fetch_main else "gather", launches=launches,
+        window_fetch_launches=window_launches,
+        kernel_ms_per_step=kernel_ms, plain_ms_per_step=plain_ms,
+        entry_fetch_ms_per_step=fetch_ms, gather_ms_per_step=gather_ms,
+        losses=k_losses, max_loss_drift_vs_plain=loss_diff, max_param_diff_vs_plain=param_diff,
+        lockstep_max_loss_diff=step_loss_diff, lockstep_max_grad_err=step_grad_err,
+    )
+    log(f"  {json.dumps(result)}")
+    return result
+
+
+def run_fit(dev) -> dict:
+    """Phase 6: fit on the JAX test fixture, held to the end-metric floors."""
+    import numpy as np
+
+    from dyglib_tpu_torch.data import synthetic_link_prediction_data
+    from dyglib_tpu_torch.models import DyGFormer
+    from dyglib_tpu_torch.train import LinkPredictionTrainer, TrainConfig
+
+    data = synthetic_link_prediction_data(
+        num_src=120, num_dst=60, num_edges=2000, node_feat_scale=1.0, seed=7
+    )
+    save_path = os.path.join(REPO_ROOT, "dyglib_tpu_torch", "build", "chip_smoke_fit.pkl")
+    tr = LinkPredictionTrainer(
+        DyGFormer(max_input_sequence_length=32, patch_size=2, num_layers=2, dropout=0.1),
+        data,
+        TrainConfig(batch_size=B, num_epochs=4, learning_rate=5e-4, patience=5),
+        save_path=save_path, device=dev,
+    )
+    t0 = time.perf_counter()
+    res = tr.fit(seed=0, log=lambda msg: log(f"  {msg}"))
+    seconds = time.perf_counter() - t0
+    ap = res["test metrics"]["average_precision"]
+    losses = res["train losses"]
+    mean, std = FIT_BAND
+    log(f"  fixture fit: test AP {ap:.4f} (JAX band {mean} +- {std}; floor {FIT_AP_FLOOR}), "
+        f"epoch losses {[round(x, 4) for x in losses]} (least must be < {FIT_LOSS_CEIL}), "
+        f"{seconds:.1f} s")
+    if not (ap > FIT_AP_FLOOR and min(losses) < FIT_LOSS_CEIL and np.isfinite(losses).all()):
+        raise AssertionError(f"fixture fit below the floors: AP {ap}, losses {losses}")
+    return {"test_ap": ap, "train_losses": losses, "seconds": seconds,
+            "test_metrics": res["test metrics"], "validate_metrics": res["validate metrics"]}
+
+
 def main() -> int:
     import torch
 
@@ -356,6 +719,9 @@ def main() -> int:
     log("kernels vs plain versions (tolerance: time_channel and patch_projection "
         f"atol {KERNEL_ATOL}, cooccurrence exact):")
     kernel_results = check_kernels(dev)
+    log(f"training kernels vs plain versions (gradients within {GRAD_RTOL} of sum|terms|, "
+        "window_fetch bitwise):")
+    kernel_results.update(check_training_kernels(dev))
 
     # ---- 4. the main path
     from dyglib_tpu_torch.data import synthetic_link_prediction_data
@@ -364,20 +730,43 @@ def main() -> int:
     data = synthetic_link_prediction_data(num_src=8227, num_dst=1000, num_edges=157474, seed=1)
     log(f"synthetic stream: {data.full.num_interactions} edges, val "
         f"{data.val.num_interactions}, built in {time.perf_counter() - t0:.1f} s")
-    log(f"main path (probability tolerance {PROB_ATOL}):")
-    runs = {}
-    for config, maxlen, patch, n_batches in CONFIGS:
+    log(f"evaluation path (probability tolerance {PROB_ATOL}):")
+    runs, train_runs = {}, {}
+    for config, maxlen, patch, n_batches, _ in CONFIGS:
         runs[config] = run_config(
             data, config, maxlen, patch, n_batches, dev, cpu_reference=config == "wikipedia"
         )
+    log(f"training path (lockstep: losses within {LOSS_ATOL}, gradients within "
+        f"{GRAD_STEP_RTOL} of their largest entries; free-running: first loss within "
+        f"{LOSS_ATOL}, later ones within {LOSS_DRIFT_ATOL}, parameters within 2 x steps x lr "
+        f"{TRAIN_LR}):")
+    for config, maxlen, patch, _, n_steps in CONFIGS:
+        train_runs[config] = run_training(data, config, maxlen, patch, n_steps, dev)
+        torch.cuda.empty_cache()
+    log("fit on the JAX test fixture:")
+    run_fit(dev)
 
     # ---- 5. results
     rows = []
     replaces = {
         "time_channel": "dyglib_tpu/ops/pallas/time_channel.py:119",
+        "time_channel_bwd": "dyglib_tpu/ops/pallas/time_channel.py:201",
         "cooccurrence": "dyglib_tpu/ops/pallas/cooccurrence.py:35",
         "patch_projection": "dyglib_tpu/ops/pallas/patch_projection.py:59",
+        "patch_projection_bwd": "dyglib_tpu/ops/pallas/patch_projection.py:71",
+        "window_fetch": "dyglib_tpu/ops/pallas/window_fetch.py:51",
     }
+    source = {"time_channel_bwd": "time_channel", "patch_projection_bwd": "patch_projection"}
+
+    def main_path_launches(kernel, config):
+        """Forward kernels: the evaluation sweep; backward kernels: the
+        training sweep; window_fetch: its entry-fetch training sweep."""
+        if kernel == "window_fetch":
+            return train_runs[config]["window_fetch_launches"]
+        if kernel.endswith("_bwd"):
+            return train_runs[config]["launches"][kernel]
+        return runs[config]["launches"][kernel]
+
     for (kernel, config), entry in kernel_results.items():
         parts = entry["parts"]
         nbytes = sum(p["bytes"] for p in parts)
@@ -387,9 +776,9 @@ def main() -> int:
         rows.append({
             "name": f"{kernel}@{config}",
             "route": "cuda",
-            "source": f"dyglib_tpu_torch/csrc/{kernel}.cu",
+            "source": f"dyglib_tpu_torch/csrc/{source.get(kernel, kernel)}.cu",
             "replaces": replaces[kernel],
-            "launches": runs[config]["launches"][kernel],
+            "launches": main_path_launches(kernel, config),
             "max_abs_err": max(p["max_abs_err"] for p in parts),
             "ms": sum(p["ms"] for p in parts),
             "plain_ms": sum(p["plain_ms"] for p in parts),

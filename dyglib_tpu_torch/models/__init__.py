@@ -1,10 +1,17 @@
 from .base import FeatureTables
-from .dygformer import DyGFormer, DyGFormerInputs, DyGFormerNet, PreLNTransformerEncoder
+from .dygformer import (
+    DyGFormer,
+    DyGFormerInputs,
+    DyGFormerNet,
+    EntryWindow,
+    PreLNTransformerEncoder,
+)
 
 __all__ = [
     "FeatureTables",
     "DyGFormer",
     "DyGFormerInputs",
     "DyGFormerNet",
+    "EntryWindow",
     "PreLNTransformerEncoder",
 ]

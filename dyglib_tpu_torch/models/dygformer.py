@@ -30,13 +30,26 @@ left = [src, neg_src] with right = [dst, neg_dst]; a triple
 left = [src, src] with right = [dst, neg_dst] and computes the src rows'
 own channels and self-counts once. The output is always in quad order.
 
-Kernels (``ops/``): the time channel, the co-occurrence counts and the
-frozen node/edge channel projections each have a hand-written CUDA kernel.
-With ``use_kernels`` (the default) the forward calls the kernels' wrappers,
-which launch the kernels on CUDA tensors and take their plain versions on
-CPU tensors; ``use_kernels=False`` calls the plain PyTorch versions on any
-device. Unlike the JAX package, the patch kernel also runs at patch 1 (it
-is then a plain projection of the gathered rows).
+Kernels (``ops/``): the time channel, the co-occurrence counts, the
+frozen node/edge channel projections and the entry-window fetch each have
+a hand-written CUDA kernel; the time channel and the projections have
+backward kernels too, behind ``torch.autograd.Function``s. With
+``use_kernels`` (the default) the net calls the kernels' wrappers, which
+launch the kernels on CUDA tensors and take their plain versions on CPU
+tensors; ``use_kernels=False`` calls the plain PyTorch versions on any
+device. ``sample`` launches no kernel, so the net's flag is the one
+switch. Unlike the JAX package, the patch kernel also runs
+at patch 1 (it is then a plain projection of the gathered rows).
+
+Training: in train mode the transformer's dropout draws its masks from a
+``torch.Generator`` the caller passes (the trainer owns one, seeded from
+``fit``'s seed), never from the global RNG.
+
+Entry fetch (``use_entry_fetch``, default off as in the JAX package):
+``sample`` records where each row's node and edge features lie in
+``csr.feat_entry`` (target row, then the recent window, one contiguous
+run), and the net fetches them there in place of the per-table gathers;
+the two give bitwise-equal tensors.
 """
 from __future__ import annotations
 
@@ -54,6 +67,8 @@ from ..nn.modules import LN_EPS, TimeEncoder, linear
 from ..ops import (
     cooccurrence_counts,
     cooccurrence_counts_plain,
+    fetch_sequence_features,
+    fetch_sequence_features_plain,
     patch_projection,
     time_channel_projection,
 )
@@ -64,11 +79,42 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+class EntryWindow(NamedTuple):
+    """Where each sequence's features lie in ``csr.feat_entry``: row 0 is
+    the target's per-node row, rows 1..count the window from start."""
+
+    table: torch.Tensor  # csr.feat_entry
+    tgt_rows: torch.Tensor  # (M,) int32
+    starts: torch.Tensor  # (M,) int32
+    counts: torch.Tensor  # (M,) int32
+    node_dim: int
+
+    def fetch(self, seq_len: int, use_kernels: bool = True):
+        """(M, seq_len, Dn) node and (M, seq_len, De) edge features, pads
+        zero: through the kernel wrapper, or the plain version."""
+        f = fetch_sequence_features if use_kernels else fetch_sequence_features_plain
+        return f(self.table, self.tgt_rows, self.starts, self.counts, seq_len, self.node_dim)
+
+
 class DyGFormerInputs(NamedTuple):
     seq_ids: torch.Tensor  # (M, Lp) int32 — target first, then chronological
     seq_eids: torch.Tensor  # (M, Lp) int32
     seq_ts: torch.Tensor  # (M, Lp) int32
     query_ts: torch.Tensor  # (M,) int32
+    # set when sample read a csr with feat_entry and the backbone fetches:
+    # the net then fetches the rows' features; None: it gathers them from
+    # the tables
+    entry_window: EntryWindow | None = None
+
+
+def dropout(x: torch.Tensor, p: float, gen: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout with masks drawn from ``gen`` (keep w.p. 1 - p)."""
+    if p == 0.0:
+        return x
+    if gen is None:
+        raise ValueError("dropout in train mode needs a torch.Generator (dropout_gen)")
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - p
+    return x * keep / (1.0 - p)
 
 
 class PreLNTransformerEncoder(nn.Module):
@@ -88,9 +134,11 @@ class PreLNTransformerEncoder(nn.Module):
         self.norm2 = nn.LayerNorm(d, eps=LN_EPS)
         self.ffn1 = linear(d, 4 * d, gen)
         self.ffn2 = linear(4 * d, d, gen)
-        self.drop = nn.Dropout(dropout)
+        self.dropout = dropout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dropout_gen: torch.Generator | None = None) -> torch.Tensor:
+        p = self.dropout if self.training else 0.0
+        drop = lambda y: dropout(y, p, dropout_gen)
         b, t, d = x.shape
         hd = d // self.num_heads
         h = self.norm1(x)
@@ -98,12 +146,12 @@ class PreLNTransformerEncoder(nn.Module):
         k = self.k_proj(h).view(b, t, self.num_heads, hd)
         v = self.v_proj(h).view(b, t, self.num_heads, hd)
         attn = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
-        scores = self.drop(torch.softmax(attn, dim=-1))
+        scores = drop(torch.softmax(attn, dim=-1))
         hidden = torch.einsum("bhqk,bkhd->bqhd", scores, v).reshape(b, t, d)
-        x = x + self.drop(self.out_proj(hidden))
+        x = x + drop(self.out_proj(hidden))
         h = self.norm2(x)
         h = F.gelu(self.ffn1(h))  # exact erf
-        return x + self.drop(self.ffn2(self.drop(h)))
+        return x + drop(self.ffn2(drop(h)))
 
 
 class DyGFormerNet(nn.Module):
@@ -150,8 +198,15 @@ class DyGFormerNet(nn.Module):
         return lin(self._patches(x))
 
     def forward(
-        self, tables: FeatureTables, inputs: DyGFormerInputs, *, triple: bool = False
+        self,
+        tables: FeatureTables,
+        inputs: DyGFormerInputs,
+        *,
+        triple: bool = False,
+        dropout_gen: torch.Generator | None = None,
     ) -> torch.Tensor:
+        """Quad-order embeddings (4B, Dn). In train mode with dropout > 0,
+        ``dropout_gen`` (on the inputs' device) draws the dropout masks."""
         seq_ids = inputs.seq_ids
         m, lp = seq_ids.shape
         p = lp // self.patch_size
@@ -196,8 +251,11 @@ class DyGFormerNet(nn.Module):
         co_l, co_r = co(cnt_l), co(cnt_r)
 
         # ---- per-row channels (M rows, shared across pairs)
-        node_feat = tables.node[seq_ids]  # (M, Lp, Dn)
-        edge_feat = tables.edge[inputs.seq_eids]
+        if inputs.entry_window is None:
+            node_feat = tables.node[seq_ids]  # (M, Lp, Dn)
+            edge_feat = tables.edge[inputs.seq_eids]
+        else:
+            node_feat, edge_feat = inputs.entry_window.fetch(lp, self.use_kernels)
         dt = (inputs.query_ts[:, None] - inputs.seq_ts).to(torch.float32)
         node_ch = self._frozen_channel(self.proj_node, node_feat)
         edge_ch = self._frozen_channel(self.proj_edge, edge_feat)
@@ -219,7 +277,7 @@ class DyGFormerNet(nn.Module):
         # ---- joint src||dst attention per pair
         joint = torch.cat([xl, xr], dim=1)
         for i in range(self.num_layers):
-            joint = getattr(self, f"transformer_{i}")(joint)
+            joint = getattr(self, f"transformer_{i}")(joint, dropout_gen)
         emb_l = self.output_layer(joint[:, :p, :].mean(dim=1))
         emb_r = self.output_layer(joint[:, p:, :].mean(dim=1))
         return torch.cat([emb_l[:b], emb_r[:b], emb_l[b:], emb_r[b:]], dim=0)
@@ -236,7 +294,13 @@ class DyGFormer:
     num_heads: int = 2
     dropout: float = 0.1
     time_feat_dim: int = 100
+    # the built net's initial setting; the net's own ``use_kernels`` is
+    # the switch from then on
     use_kernels: bool = True
+    # fetch node/edge features from csr.feat_entry (ops/window_fetch.py)
+    # instead of two table gathers; off, as the JAX package resolves it,
+    # until the card's numbers argue otherwise (PERF.md)
+    use_entry_fetch: bool = False
 
     @property
     def seq_len(self) -> int:
@@ -268,13 +332,19 @@ class DyGFormer:
         )
 
     def sample(
-        self, csr: TemporalCSR, ids: torch.Tensor, ts: torch.Tensor, seq_len: int | None = None
+        self,
+        csr: TemporalCSR,
+        ids: torch.Tensor,
+        ts: torch.Tensor,
+        seq_len: int | None = None,
     ) -> DyGFormerInputs:
         """Most recent interactions, left-aligned after the target.
 
         ``seq_len`` overrides the padded sequence length with a smaller
         bucket; histories are then truncated to the bucket's most recent
         seq_len - 1 entries, exactly what a maxlen = seq_len model sees.
+        With ``use_entry_fetch`` and a CSR that holds ``feat_entry``, the
+        inputs carry the rows' windows in that table, for the net to fetch.
         """
         total = self.seq_len if seq_len is None else seq_len
         ids = ids.to(torch.int32)
@@ -294,9 +364,19 @@ class DyGFormer:
             z = torch.zeros((ids.shape[0], pad_cols), dtype=torch.int32, device=ids.device)
             nbr, eid, tsn = (torch.cat([a, z], dim=1) for a in (nbr, eid, tsn))
         zeros = torch.zeros_like(ids)[:, None]
+        window = None
+        if self.use_entry_fetch and csr.feat_entry is not None:
+            pad = csr.feat_entry_guard_pad
+            if k > pad:
+                raise ValueError(f"window of {k} entries exceeds the feat_entry guard pad {pad}")
+            window = EntryWindow(
+                csr.feat_entry, 2 * pad + csr.num_entries + ids, start + pad, hi - start,
+                csr.feat_entry_node_dim,
+            )
         return DyGFormerInputs(
             seq_ids=torch.cat([ids[:, None], nbr], dim=1),
             seq_eids=torch.cat([zeros, eid], dim=1),
             seq_ts=torch.cat([ts[:, None], tsn], dim=1),
             query_ts=ts,
+            entry_window=window,
         )

@@ -2,18 +2,34 @@
 
 Each module holds the kernel's wrapper (which counts its launches in
 ``<wrapper>.launches``), its plain PyTorch version, and a header naming the
-TPU kernel it replaces and its bound on the card. Importing needs no nvcc:
-kernels are built at their first launch (``_build.py``).
+TPU kernel it replaces and its bound on the card. A kernel with a gradient
+is wrapped in a ``torch.autograd.Function`` whose backward calls the
+backward kernel's wrapper. Importing needs no nvcc: kernels are built at
+their first launch (``_build.py``).
 """
 from .cooccurrence import cooccurrence_counts, cooccurrence_counts_plain
-from .patch_projection import patch_projection, patch_projection_plain
-from .time_channel import time_channel_projection, time_channel_projection_plain
+from .patch_projection import (
+    patch_projection,
+    patch_projection_backward,
+    patch_projection_backward_plain,
+    patch_projection_plain,
+)
+from .time_channel import (
+    time_channel_backward,
+    time_channel_backward_plain,
+    time_channel_projection,
+    time_channel_projection_plain,
+)
+from .window_fetch import fetch_sequence_features, fetch_sequence_features_plain
 
 # kernel name -> its wrapper
 KERNELS = {
     "time_channel": time_channel_projection,
+    "time_channel_bwd": time_channel_backward,
     "cooccurrence": cooccurrence_counts,
     "patch_projection": patch_projection,
+    "patch_projection_bwd": patch_projection_backward,
+    "window_fetch": fetch_sequence_features,
 }
 
 
@@ -32,8 +48,14 @@ __all__ = [
     "reset_launch_counts",
     "cooccurrence_counts",
     "cooccurrence_counts_plain",
+    "fetch_sequence_features",
+    "fetch_sequence_features_plain",
     "patch_projection",
+    "patch_projection_backward",
+    "patch_projection_backward_plain",
     "patch_projection_plain",
+    "time_channel_backward",
+    "time_channel_backward_plain",
     "time_channel_projection",
     "time_channel_projection_plain",
 ]

@@ -22,14 +22,20 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
-KERNEL_SOURCES = ("time_channel", "cooccurrence", "patch_projection")
+KERNEL_SOURCES = ("time_channel", "cooccurrence", "patch_projection", "window_fetch")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
 _libs: dict[str, ctypes.CDLL] = {}
+_declared: set[tuple[str, str]] = set()
 _lock = threading.Lock()
+# output rows of one GEMM tile (csrc/tiled_gemm.cuh kBM): per-tile scratch
+# that a wrapper allocates is sized by it
+TILE_ROWS = 64
+# blocks that fill one H100 (132 SMs, ~8 resident 256-thread blocks each)
+_FULL_CARD_BLOCKS = 8 * 132
 
 
 def nvcc_path() -> str:
@@ -82,7 +88,9 @@ def build(names=KERNEL_SOURCES, ptxas_verbose: bool = False) -> dict[str, str]:
 
 def load(name: str, entry: str, argtypes: list) -> ctypes.CDLL:
     """The loaded library ``name`` (built first if missing), with the C
-    entry point ``entry`` declared as ``int entry(argtypes...)``."""
+    entry point ``entry`` declared as ``int entry(argtypes...)``. Every
+    entry point of a library is declared on its own first ``load``:
+    undeclared, ctypes would pass each pointer as a 32-bit int."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -92,11 +100,23 @@ def load(name: str, entry: str, argtypes: list) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             lib.dyglib_error_string.argtypes = [ctypes.c_int]
             lib.dyglib_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+        if (name, entry) not in _declared:
             fn = getattr(lib, entry)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _libs[name] = lib
+            _declared.add((name, entry))
     return lib
+
+
+def weight_grad_chunk_rows(rows: int, k_total: int, n: int) -> int:
+    """Rows per partial sum of a weight gradient (csrc/weight_grad.cuh):
+    enough row chunks that its first pass fills the card, each a whole
+    number of tiles, and at most 65535 chunks (the grid's z limit)."""
+    tiles = -(-(k_total + 1) // TILE_ROWS) * -(-n // TILE_ROWS)
+    chunks = max(1, -(-_FULL_CARD_BLOCKS // tiles))
+    chunk = -(-max(1, -(-rows // chunks)) // TILE_ROWS) * TILE_ROWS
+    return max(chunk, -(-rows // 65535))
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -2,26 +2,37 @@
 
     out = patches(where(valid, cos(dt[..., None] * tw + tb), 0)) @ w + bias
 
-Replaces ``dyglib_tpu/ops/pallas/time_channel.py::_fwd_kernel`` (the
-forward of ``time_channel_projection``; the backward comes with training).
-The masked Phi tensor (M, L, Dt) is computed tile by tile in shared memory
-and contracted at once; it never reaches device memory.
+Replaces ``dyglib_tpu/ops/pallas/time_channel.py``: ``_fwd_kernel``
+(forward) and ``_bwd_kernel`` (backward; the slot-batched variants run only
+under the JAX package's ``TC_SLOT`` > 1, off by default). The masked Phi
+tensor (M, L, Dt) is computed tile by tile in shared memory and contracted
+at once; it never reaches device memory, in either direction.
+``time_channel_projection`` is a ``torch.autograd.Function``: on CUDA
+tensors its forward and backward launch the two kernels, on CPU tensors
+they run the plain versions below. Gradients flow to tw, tb, w and bias;
+dt and valid are data.
 
-Bound on one H100 at the slice's shapes (B=200 eval triple, M=600 rows,
-Dt=100, ced=50), counting each input read once and the output written once,
-operations (matmul multiply-adds as two, plus the argument's multiply and
-add and the mask's multiply; the cosines uncounted) against the 67 TFLOP/s
+Bounds on one H100 (M = 600 rows of the B = 200 triple, Dt = 100,
+ced = 50), each input read once and each output written once, operations
+(matmul multiply-adds as two, plus the argument's multiply and add and the
+mask's multiply, the cosines and sines uncounted) against the 67 T/s
 float32 CUDA-core peak and bytes against 3.35 TB/s:
-  * CanParl (L=2048, patch 64): 12.7 G operations -> 0.19 ms; 11.3 MB
-    (valid is bool) -> 3.4 us. Bound by operations.
-  * wikipedia (L=32, patch 1): 0.20 G operations -> 3.0 us; 4.0 MB ->
-    1.2 us. Bound by operations, and in practice by launch latency.
+  * forward, CanParl (L = 2048, patch 64): 12.7 G operations -> 0.19 ms;
+    11.3 MB -> 3.4 us. wikipedia (L = 32, patch 1): 0.20 G -> 3.0 us.
+  * backward, CanParl: two (19200 x 6400 x 50) products, 24.6 G
+    operations -> 0.37 ms; 13 MB -> 4 us. wikipedia: 0.39 G -> 6 us.
+Bound by operations, and at wikipedia in practice by launch latency.
 
-What the simple design leaves on the table: it runs f32 FMAs on CUDA
-cores (TF32 or bf16 tensor cores would lift the bound ~7-15x); the
-accurate ``cosf`` takes its slow path above |theta| ~ 1e5, which the
-synthetic and real streams reach; the 64-wide column tile wastes 14 of
-64 lanes at ced=50; slices of Phi and W are not double-buffered.
+The backward sums dW, dtw and dtb over every patch row; blocks cannot
+carry a sum across a grid as the Pallas kernel does, so both are
+deterministic two-pass reductions (``csrc/weight_grad.cuh``) into scratch
+this wrapper allocates: two runs give identical gradients.
+
+What the simple design leaves on the table: f32 FMAs on CUDA cores (TF32
+or bf16 tensor cores would lift the bound ~7-15x); the accurate cosf and
+sinf take their slow path above |theta| ~ 1e5, which the streams reach;
+the backward computes Phi once in the dW pass and sin(theta) again in the
+dPhi pass; the 64-wide column tile wastes 14 of 64 lanes at ced = 50.
 """
 from __future__ import annotations
 
@@ -31,6 +42,11 @@ from . import _build
 
 _NAME = "time_channel"
 _ARGTYPES = [_build.P] * 5 + [_build.I] * 2 + [_build.P] * 2 + [_build.I] * 4 + [_build.P]
+_BWD_ARGTYPES = [_build.P] * 5 + [_build.I] * 2 + [_build.P] * 7 + [_build.I] * 5 + [_build.P]
+
+
+def _theta(dt, tw, tb):
+    return dt[..., None] * tw + tb
 
 
 def time_channel_projection_plain(
@@ -52,11 +68,138 @@ def time_channel_projection_plain(
     """
     m, l = dt.shape
     p = l // patch
-    phi = torch.where(valid[..., None] != 0, torch.cos(dt[..., None] * tw + tb), 0.0)
+    phi = torch.where(valid[..., None] != 0, torch.cos(_theta(dt, tw, tb)), 0.0)
     x = phi.reshape(m * p, patch * tw.shape[-1])
     if compute_dtype != torch.float32:
         x, w = x.to(compute_dtype).float(), w.to(compute_dtype).float()
     return (x @ w + bias).reshape(m, p, -1)
+
+
+def time_channel_backward_plain(
+    dt: torch.Tensor,
+    valid: torch.Tensor,
+    tw: torch.Tensor,
+    tb: torch.Tensor,
+    w: torch.Tensor,
+    dout: torch.Tensor,
+    patch: int,
+    compute_dtype: torch.dtype = torch.float32,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dtw (Dt,), dtb (Dt,), dW (patch*Dt, ced), dbias (ced,)) for dout
+    (M, L // patch, ced), by the explicit formulas:
+
+        dW = Phi^T @ dout,  dbias = sum dout,  dPhi = dout @ W^T,
+        dtb = sum where(valid, -dPhi * sin(theta), 0),  dtw = same * dt
+
+    ``compute_dtype=torch.bfloat16`` rounds Phi, dout and W to bf16 for the
+    two products, the math of the JAX kernel's ``_bwd_kernel``.
+    """
+    m, l = dt.shape
+    dt_dim = tw.shape[-1]
+    theta = _theta(dt, tw, tb)
+    mask = valid[..., None] != 0
+    phi = torch.where(mask, torch.cos(theta), 0.0).reshape(-1, patch * dt_dim)
+    g = dout.reshape(-1, dout.shape[-1])
+    gm = g
+    if compute_dtype != torch.float32:
+        phi, gm, w = (a.to(compute_dtype).float() for a in (phi, g, w))
+    dphi = (gm @ w.t()).reshape(m, l, dt_dim)
+    common = torch.where(mask, dphi * -torch.sin(theta), 0.0)
+    dtw = (common * dt[..., None]).sum((0, 1))
+    return dtw, common.sum((0, 1)), phi.t() @ gm, g.sum(0)
+
+
+def _check(dt, valid, tw, tb, w, patch):
+    m, l = dt.shape
+    dt_dim = tw.shape[0]
+    ced = w.shape[-1]
+    if patch < 1 or l % patch:
+        raise ValueError(f"sequence length {l} is not a multiple of patch {patch}")
+    f32, dev = torch.float32, dt.device
+    for t, name, dtype, shape in (
+        (dt, "dt", f32, (m, l)), (valid, "valid", torch.bool, (m, l)),
+        (tw, "tw", f32, (dt_dim,)), (tb, "tb", f32, (dt_dim,)),
+    ):
+        _build.require(t, name, dtype, shape, dev)
+    return _build.require_weight(w, "w", f32, (patch * dt_dim, ced), dev)
+
+
+def _forward_kernel(dt, valid, tw, tb, w, bias, patch):
+    w_sk, w_sn = _check(dt, valid, tw, tb, w, patch)
+    m, l = dt.shape
+    dt_dim, ced, dev = tw.shape[0], w.shape[-1], dt.device
+    _build.require(bias, "bias", torch.float32, (ced,), dev)
+    rows = m * (l // patch)
+    out = torch.empty((rows, ced), dtype=torch.float32, device=dev)
+    lib = _build.load(_NAME, "time_channel_forward", _ARGTYPES)
+    rc = lib.time_channel_forward(
+        dt.data_ptr(), valid.data_ptr(), tw.data_ptr(), tb.data_ptr(), w.data_ptr(), w_sk,
+        w_sn, bias.data_ptr(), out.data_ptr(), rows, patch, dt_dim, ced,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(lib, rc, _NAME)
+    time_channel_projection.launches += 1
+    return out.view(m, l // patch, ced)
+
+
+def time_channel_backward(
+    dt: torch.Tensor,
+    valid: torch.Tensor,
+    tw: torch.Tensor,
+    tb: torch.Tensor,
+    w: torch.Tensor,
+    dout: torch.Tensor,
+    patch: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The forward's arguments (no bias) and dout (M, L // patch, ced) f32
+    -> (dtw (Dt,), dtb (Dt,), dW (patch*Dt, ced), dbias (ced,)).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    """
+    if dt.device.type == "cpu":
+        return time_channel_backward_plain(dt, valid, tw, tb, w, dout, patch)
+    if dt.device.type != "cuda":
+        raise ValueError(f"time_channel_backward: unsupported device {dt.device}")
+    w_sk, w_sn = _check(dt, valid, tw, tb, w, patch)
+    m, l = dt.shape
+    dt_dim, ced = tw.shape[0], w.shape[-1]
+    rows, k = m * (l // patch), patch * dt_dim
+    f32, dev = torch.float32, dt.device
+    _build.require(dout, "dout", f32, (m, l // patch, ced), dev)
+    chunk = _build.weight_grad_chunk_rows(rows, k, ced)
+    row_tiles = max(1, -(-rows // _build.TILE_ROWS))
+    new = lambda *shape: torch.empty(shape, dtype=f32, device=dev)
+    dw_ext, dtw, dtb = new(k + 1, ced), new(dt_dim), new(dt_dim)
+    partial = new(max(1, -(-rows // chunk)), k + 1, ced)
+    part_tw, part_tb = new(row_tiles, k), new(row_tiles, k)
+    lib = _build.load(_NAME, "time_channel_backward", _BWD_ARGTYPES)
+    rc = lib.time_channel_backward(
+        dt.data_ptr(), valid.data_ptr(), tw.data_ptr(), tb.data_ptr(), w.data_ptr(), w_sk,
+        w_sn, dout.data_ptr(), dw_ext.data_ptr(), dtw.data_ptr(), dtb.data_ptr(),
+        partial.data_ptr(), part_tw.data_ptr(), part_tb.data_ptr(), rows, patch, dt_dim, ced,
+        chunk, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(lib, rc, f"{_NAME} backward")
+    time_channel_backward.launches += 1
+    return dtw, dtb, dw_ext[:k], dw_ext[k]
+
+
+class _TimeChannel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dt, valid, tw, tb, w, bias, patch):
+        ctx.patch = patch
+        ctx.save_for_backward(dt, valid, tw, tb, w)
+        if dt.device.type == "cpu":
+            return time_channel_projection_plain(dt, valid, tw, tb, w, bias, patch)
+        return _forward_kernel(dt, valid, tw, tb, w, bias, patch)
+
+    @staticmethod
+    def backward(ctx, dout):
+        dt, valid, tw, tb, w = ctx.saved_tensors
+        dtw, dtb, dw, dbias = time_channel_backward(
+            dt, valid, tw, tb, w, dout.contiguous(), ctx.patch
+        )
+        return None, None, dtw, dtb, dw, dbias, None
 
 
 def time_channel_projection(
@@ -72,36 +215,14 @@ def time_channel_projection(
     bias (ced,) -> (M, L // patch, ced) f32.
 
     ``w`` may be row-major or the transpose of nn.Linear's (ced, patch*Dt)
-    weight; the kernel reads either in place. CPU tensors take the plain
-    version; CUDA tensors launch the kernel.
+    weight; the kernels read either in place. Differentiable in tw, tb, w
+    and bias. CPU tensors take the plain versions; CUDA tensors launch the
+    kernels.
     """
-    if dt.device.type == "cpu":
-        return time_channel_projection_plain(dt, valid, tw, tb, w, bias, patch)
-    if dt.device.type != "cuda":
+    if dt.device.type not in ("cpu", "cuda"):
         raise ValueError(f"time_channel_projection: unsupported device {dt.device}")
-    m, l = dt.shape
-    dt_dim = tw.shape[0]
-    ced = w.shape[-1]
-    if patch < 1 or l % patch:
-        raise ValueError(f"sequence length {l} is not a multiple of patch {patch}")
-    f32, dev = torch.float32, dt.device
-    for t, name, dtype, shape in (
-        (dt, "dt", f32, (m, l)), (valid, "valid", torch.bool, (m, l)),
-        (tw, "tw", f32, (dt_dim,)), (tb, "tb", f32, (dt_dim,)), (bias, "bias", f32, (ced,)),
-    ):
-        _build.require(t, name, dtype, shape, dev)
-    w_sk, w_sn = _build.require_weight(w, "w", f32, (patch * dt_dim, ced), dev)
-    rows = m * (l // patch)
-    out = torch.empty((rows, ced), dtype=f32, device=dev)
-    lib = _build.load(_NAME, "time_channel_forward", _ARGTYPES)
-    rc = lib.time_channel_forward(
-        dt.data_ptr(), valid.data_ptr(), tw.data_ptr(), tb.data_ptr(), w.data_ptr(), w_sk,
-        w_sn, bias.data_ptr(), out.data_ptr(), rows, patch, dt_dim, ced,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(lib, rc, _NAME)
-    time_channel_projection.launches += 1
-    return out.view(m, l // patch, ced)
+    return _TimeChannel.apply(dt, valid, tw, tb, w, bias, patch)
 
 
 time_channel_projection.launches = 0
+time_channel_backward.launches = 0

@@ -1,29 +1,37 @@
 #!/usr/bin/env python3
-"""Where the time of the PyTorch port's DyGFormer evaluation goes, on one card.
+"""Where the time of the PyTorch port's DyGFormer evaluation or training goes, on one card.
 
-    python3 scripts/profile_torch_eval.py [--batches 10]
+    python3 scripts/profile_torch_eval.py [--mode eval|train] [--batches 10]
 
 Same setting as chip_smoke.py (synthetic wikipedia-scale stream, seed 1;
-random weights, seed 0; B = 200; random val negatives), for the wikipedia
-(maxlen 32, patch 1) and CanParl (maxlen 2048, patch 64) configurations,
-kernel path. For each configuration it traces one ``evaluate`` sweep with
-torch.profiler and reports:
+random weights, seed 0; B = 200), for the wikipedia (maxlen 32, patch 1)
+and CanParl (maxlen 2048, patch 64) configurations, kernel path. For each
+configuration it traces, with torch.profiler, one ``evaluate`` sweep over
+the first val batches (``--mode eval``, random val negatives) or one
+``train_epoch`` over the last train batches (``--mode train``, dropout
+0.1; wikipedia on the gather path, CanParl with the entry fetch, as
+chip_smoke.py drives them), and reports:
 
-  * per batch, the host time and the device time of each of the evaluate
-    loop's profiler ranges: ``eval/staging`` (negative draw, bucket pick,
-    host-to-device copies), ``eval/sample`` (``DyGFormer.sample``),
+  * per batch, the host time and the device time of each of the loop's
+    own profiler ranges. evaluate: ``eval/staging`` (negative draw, bucket
+    pick, host-to-device copies), ``eval/sample`` (``DyGFormer.sample``),
     ``eval/forward`` (the network), ``eval/head`` (head + loss) and
     ``eval/metrics`` (copy-back, which waits for the device, + metrics).
-    A range's device time is that of the kernels launched inside it;
+    train_step: ``train/sample``, ``train/forward`` (network, with the
+    entry fetch where it runs, head and loss), ``train/backward`` and
+    ``train/optimizer`` (Adam).
+    A range's device time is that of the kernels launched, from any host
+    thread, while the range was open: autograd launches the backward's
+    kernels from its own thread, outside the range's child ops;
   * the device busy share of the window (the union of device kernel
     intervals over the wall time), and the ten device kernels and the ten
     PyTorch ops with the most self device time. The profiler also draws
-    each range on the device timeline; those spans are not device work and
-    are left out of both.
+    each range (and the optimizer's step range) on the device timeline;
+    those spans are not device work and are left out of both.
 
 First it prints the host cost of one profiler range with no profiler
-running (evaluate opens five per batch), then one JSON line per
-configuration. Needs a CUDA card; raises if the profiler records no
+running (evaluate opens five per batch, train_step four), then one JSON
+line per configuration. Needs a CUDA card; raises if the profiler records no
 device time.
 """
 import argparse
@@ -38,7 +46,14 @@ CONFIGS = (("wikipedia", 32, 1), ("CanParl", 2048, 64))
 
 
 def is_range(name: str) -> bool:
-    return name.startswith("eval/")
+    """One of the loops' own profiler ranges."""
+    return name.startswith(("eval/", "train/"))
+
+
+def is_span(name: str) -> bool:
+    """A range drawn on the device timeline that is not device work: the
+    loops' ranges and the optimizer's own step range."""
+    return is_range(name) or name.startswith("Optimizer.")
 
 
 def range_cost_us(n: int = 20000) -> float:
@@ -52,20 +67,41 @@ def range_cost_us(n: int = 20000) -> float:
     return (time.perf_counter() - t0) / n * 1e6
 
 
-def device_profile(tr, stream) -> dict:
+def phase_device_ms(prof) -> dict[str, float]:
+    """Device ms of each range: the kernels and copies whose host launch
+    call fell inside one of the range's host intervals."""
+    from torch.autograd import DeviceType
+
+    evs = prof.profiler.kineto_results.events()
+    cpu = [e for e in evs if e.device_type() == DeviceType.CPU]
+    ranges = [(e.name(), e.start_ns(), e.end_ns()) for e in cpu if is_range(e.name())]
+    launched = {e.correlation_id(): e.start_ns() for e in cpu if e.name().startswith("cu")}
+    out = {name: 0.0 for name, _, _ in ranges}
+    for e in evs:
+        if e.device_type() != DeviceType.CUDA or is_span(e.name()):
+            continue
+        t = launched.get(e.correlation_id(), launched.get(e.linked_correlation_id()))
+        for name, start, end in ranges:
+            if t is not None and start <= t <= end:
+                out[name] += e.duration_ns() / 1e6
+                break
+    return out
+
+
+def device_profile(run) -> dict:
+    """Trace ``run()`` (which ends in a synchronize)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tr.evaluate(stream, tr.val_neg)
-        torch.cuda.synchronize()
+        run()
         wall_us = (time.perf_counter() - t0) * 1e6
     intervals = sorted(
         (e.time_range.start, e.time_range.end)
         for e in prof.events()
         if e.device_type == torch.autograd.DeviceType.CUDA
-        and not is_range(e.name)
+        and not is_span(e.name)
         and e.time_range.end > e.time_range.start
     )
     busy, cur_s, cur_e = 0.0, None, None
@@ -83,18 +119,21 @@ def device_profile(tr, stream) -> dict:
     self_dev = lambda e: getattr(e, "self_device_time_total", 0.0)
     rows = prof.key_averages()
     cuda = torch.autograd.DeviceType.CUDA
+    device_ms = phase_device_ms(prof)
     phases = {
         e.key: {
             "host_ms_per_batch": e.cpu_time_total / e.count / 1e3,
-            "device_ms_per_batch": getattr(e, "device_time_total", 0.0) / e.count / 1e3,
+            "device_ms_per_batch": device_ms.get(e.key, 0.0) / e.count,
         }
         for e in rows
         if is_range(e.key) and e.device_type != cuda
     }
     if not phases:
-        raise RuntimeError("the trace holds none of evaluate's eval/* ranges")
+        raise RuntimeError("the trace holds none of the loop's eval/* or train/* ranges")
+    if not any(device_ms.values()):
+        raise RuntimeError("no device time could be tied to a range's launches")
     kernels = sorted(
-        (e for e in rows if e.device_type == cuda and not is_range(e.key)), key=self_dev,
+        (e for e in rows if e.device_type == cuda and not is_span(e.key)), key=self_dev,
         reverse=True,
     )
     ops = sorted((e for e in rows if e.device_type != cuda), key=self_dev, reverse=True)
@@ -115,6 +154,7 @@ def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--mode", choices=("eval", "train"), default="eval")
     parser.add_argument("--batches", type=int, default=10)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -126,19 +166,33 @@ def main() -> int:
     from dyglib_tpu_torch.models import DyGFormer
     from dyglib_tpu_torch.train import LinkPredictionTrainer, TrainConfig
 
+    def synced(fn):
+        def run():
+            fn()
+            torch.cuda.synchronize()
+        return run
+
     print(json.dumps({"record_function_us": range_cost_us()}), flush=True)
     data = synthetic_link_prediction_data(num_src=8227, num_dst=1000, num_edges=157474, seed=1)
-    stream = data.val.slice(0, args.batches * B)
+    n = data.train.num_interactions
     for config, maxlen, patch in CONFIGS:
+        fetch = args.mode == "train" and config == "CanParl"
         tr = LinkPredictionTrainer(
-            DyGFormer(max_input_sequence_length=maxlen, patch_size=patch), data,
-            TrainConfig(batch_size=B), device="cuda",
+            DyGFormer(max_input_sequence_length=maxlen, patch_size=patch, use_entry_fetch=fetch),
+            data, TrainConfig(batch_size=B), device="cuda",
         )
         tr.init_params(0)
-        tr.evaluate(data.val.slice(0, B), tr.val_neg)  # warm-up
+        if args.mode == "eval":
+            tr.evaluate(data.val.slice(0, B), tr.val_neg)  # warm-up
+            run = synced(lambda: tr.evaluate(data.val.slice(0, args.batches * B), tr.val_neg))
+        else:
+            tr.train_epoch(data.train.slice(n - B, n))  # warm-up
+            stream = data.train.slice(n - args.batches * B, n)
+            run = synced(lambda: tr.train_epoch(stream))
         torch.cuda.synchronize()
-        out = {"config": config, "batches": args.batches}
-        out.update(device_profile(tr, stream))
+        out = {"config": config, "mode": args.mode, "batches": args.batches,
+               "entry_fetch": fetch}
+        out.update(device_profile(run))
         print(json.dumps(out), flush=True)
     return 0
 

@@ -150,3 +150,164 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="dtype"):  # valid must be bool on the card
         ops.time_channel_projection(dt, dt, tw, tw, w, bias, 2)
     assert ops.launch_counts() == before
+
+
+# ---- backward kernels and the window fetch
+#
+# Gradient tolerance: each entry of dW, dbias, dtw and dtb is a sum over
+# rows (and patch slots) that the kernel and the plain version take in
+# different orders; the difference is held to 3e-5 of the sum of the
+# absolute values of its terms (the same sums of |terms|, computed by the
+# plain formulas on |operands|). dtw's terms carry dt up to 1e7, so a fixed
+# atol would be meaningless there. The fetch must be bitwise equal.
+GRAD_RTOL = 3e-5
+
+
+def _abs_terms_time(dt, valid, tw, tb, w, dout, patch):
+    """Per-entry sums of |terms| of the four time-channel gradients."""
+    theta = dt[..., None] * tw + tb
+    mask = valid[..., None]
+    phi = torch.where(mask, torch.cos(theta).abs(), 0.0).reshape(-1, w.shape[0])
+    g = dout.reshape(-1, dout.shape[-1]).abs()
+    common = torch.where(mask, (g @ w.abs().t()).reshape(theta.shape) * torch.sin(theta).abs(), 0.0)
+    return ((common * dt[..., None].abs()).sum((0, 1)), common.sum((0, 1)), phi.t() @ g, g.sum(0))
+
+
+def _assert_grads_close(got, want, terms, names):
+    for g, w, t, name in zip(got, want, terms, names):
+        assert g.shape == w.shape, name
+        excess = ((g - w).abs() - GRAD_RTOL * t).max().item()
+        assert excess <= 1e-30, f"{name}: |kernel - plain| exceeds {GRAD_RTOL} x sum|terms|"
+
+
+# (seed, M, L, patch, Dt, ced, dt scale)
+TIME_BWD_CASES = [
+    (0, 7, 12, 4, 6, 9, 1e2),  # ragged everything
+    (1, 70, 33, 1, 100, 50, 1e6),  # patch 1, two row tiles (the second ragged)
+    (2, 9, 64, 8, 100, 130, 1e7),  # ced 130: three column tiles
+    (3, 600, 64, 64, 100, 50, 1e6),  # patch 64, several row chunks
+]
+
+
+@pytest.mark.parametrize("layout", ["rows", "linear"])
+@pytest.mark.parametrize("seed,m,l,patch,dt_dim,ced,scale", TIME_BWD_CASES)
+def test_time_channel_backward_kernel_matches_plain(
+    dev, seed, m, l, patch, dt_dim, ced, scale, layout
+):
+    rng = np.random.RandomState(seed)
+    dt = np.floor(rng.rand(m, l) * scale).astype(np.float32)
+    valid = rng.rand(m, l) > 0.3
+    tw = (1.0 / 10 ** np.linspace(0, 9, dt_dim)).astype(np.float32)
+    tb = (rng.randn(dt_dim) * 0.1).astype(np.float32)
+    w = (rng.randn(patch * dt_dim, ced) * (patch * dt_dim) ** -0.5).astype(np.float32)
+    dout = rng.randn(m, l // patch, ced).astype(np.float32)
+    dt, valid, tw, tb, w, dout = _on(dev, dt, valid, tw, tb, w, dout)
+    args = (dt, valid, tw, tb, _layout(w, layout), dout, patch)
+    before = ops.time_channel_backward.launches
+    got = ops.time_channel_backward(*args)
+    again = ops.time_channel_backward(*args)
+    assert ops.time_channel_backward.launches == before + 2
+    want = ops.time_channel_backward_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):  # the two-pass reduction is deterministic
+        assert torch.equal(a, b)
+    _assert_grads_close(got, want, _abs_terms_time(*args), ("dtw", "dtb", "dW", "dbias"))
+
+
+# (seed, M, Lp, D, patch, ced)
+PATCH_BWD_CASES = [
+    (0, 5, 12, 7, 3, 9),  # K = 21, ragged
+    (1, 70, 32, 172, 1, 50),  # patch 1
+    (2, 11, 64, 17, 64, 100),  # K = 1088, two column tiles
+    (3, 600, 128, 172, 64, 50),  # the CanParl K = 11008, many row chunks
+]
+
+
+@pytest.mark.parametrize("seed,m,lp,d,patch,ced", PATCH_BWD_CASES)
+def test_patch_projection_backward_kernel_matches_plain(dev, seed, m, lp, d, patch, ced):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(m, lp, d).astype(np.float32)
+    x[:, lp // 2 :] = 0.0
+    dout = rng.randn(m, lp // patch, ced).astype(np.float32)
+    x, dout = _on(dev, x, dout)
+    before = ops.patch_projection_backward.launches
+    got = ops.patch_projection_backward(x, dout, patch)
+    again = ops.patch_projection_backward(x, dout, patch)
+    assert ops.patch_projection_backward.launches == before + 2
+    want = ops.patch_projection_backward_plain(x, dout, patch)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    g = dout.reshape(-1, ced).abs()
+    terms = (x.reshape(g.shape[0], -1).abs().t() @ g, g.sum(0))
+    _assert_grads_close(got, want, terms, ("dW", "dbias"))
+
+
+# (seed, M, seq_len, dn, de): 16-byte path (widths multiples of 4) and the
+# scalar path; seq_len not a multiple of the 16-position tile
+FETCH_CASES = [(0, 37, 64, 172, 172), (1, 5, 33, 10, 7), (2, 600, 2048, 172, 172)]
+
+
+@pytest.mark.parametrize("seed,m,seq_len,dn,de", FETCH_CASES)
+def test_window_fetch_kernel_equals_plain(dev, seed, m, seq_len, dn, de):
+    rng = np.random.RandomState(seed)
+    pad, entries = seq_len, 3000
+    table = rng.randn(2 * pad + entries + 64, dn + de).astype(np.float32)
+    table[:pad] = 0.0  # the guard rows, row 0 among them
+    counts = rng.randint(0, seq_len, m).astype(np.int32)
+    counts[:2] = (0, seq_len - 1)  # an empty and a full window
+    starts = (pad + rng.randint(0, entries - seq_len, m)).astype(np.int32)
+    tgts = (2 * pad + entries + rng.randint(0, 64, m)).astype(np.int32)
+    args = (*_on(dev, table, tgts, starts, counts), seq_len, dn)
+    before = ops.fetch_sequence_features.launches
+    node, edge = ops.fetch_sequence_features(*args)
+    assert ops.fetch_sequence_features.launches == before + 1
+    ref_node, ref_edge = ops.fetch_sequence_features_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(node, ref_node) and torch.equal(edge, ref_edge)
+    assert not node[0, 1:].any() and torch.equal(node[1, seq_len - 1], args[0][int(starts[1]) + seq_len - 2, :dn])
+
+
+def test_every_parameter_gets_a_gradient_through_the_kernels(dev):
+    """One backward on the card through the kernels: every parameter of
+    DyGFormerNet and MergeLayer has a finite gradient, equal to the plain
+    path's within the gradient tolerance of the layers above."""
+    from dyglib_tpu_torch.models import DyGFormer, DyGFormerInputs, FeatureTables
+    from dyglib_tpu_torch.nn import MergeLayer
+
+    rng = np.random.RandomState(0)
+    m, lp, n_nodes, n_edges, feat = 3 * 8, 16, 50, 200, 12
+    seq_ids = rng.randint(1, n_nodes, (m, lp)).astype(np.int32)
+    seq_ids[:, 10:] = 0
+    inputs = DyGFormerInputs(
+        *_on(dev, seq_ids, np.where(seq_ids > 0, rng.randint(1, n_edges, (m, lp)), 0).astype(np.int32),
+             rng.randint(0, 1000, (m, lp)).astype(np.int32), np.full(m, 2000, np.int32))
+    )
+    node = rng.randn(n_nodes, feat).astype(np.float32)
+    edge = rng.randn(n_edges, feat).astype(np.float32)
+    node[0] = edge[0] = 0.0
+    tables = FeatureTables(*_on(dev, node, edge))
+    grads = {}
+    for use_kernels in (True, False):
+        gen = torch.Generator().manual_seed(0)
+        net = DyGFormer(max_input_sequence_length=lp, patch_size=4, channel_embedding_dim=8,
+                        time_feat_dim=8, dropout=0.0, use_kernels=use_kernels).build(feat, feat, gen)
+        head = MergeLayer(2 * feat, feat, 1, gen)
+        net, head = net.to(dev), head.to(dev)
+        before = ops.launch_counts()
+        emb = net(tables, inputs, triple=True)
+        s, d, ns, nd = emb.split(8)
+        (head(s, d).sum() - head(ns, nd).sum()).backward()
+        after = ops.launch_counts()
+        launched = {k for k in after if after[k] > before[k]}
+        if use_kernels:
+            assert {"time_channel_bwd", "patch_projection_bwd"} <= launched
+        else:
+            assert not launched
+        grads[use_kernels] = {
+            k: p.grad for mod in (net, head) for k, p in mod.named_parameters(prefix=mod._get_name())
+        }
+    for k, g in grads[True].items():
+        assert g is not None and torch.isfinite(g).all(), k
+        ref = grads[False][k]
+        torch.testing.assert_close(g, ref, atol=1e-4 * (1 + float(ref.abs().max())), rtol=0, msg=k)
