@@ -3,14 +3,16 @@
 
     python3 chip_smoke.py            (from the root of a checkout)
 
-The main paths are DyGFormer link-prediction evaluation
-(``dyglib_tpu_torch.train.LinkPredictionTrainer.evaluate``) and training
-(``LinkPredictionTrainer.train_step`` over train batches, and ``fit``) at
-the model's published widths (channel embedding 50, time features 100,
-2 layers, 2 heads, node and edge features 172), random weights from seed 0,
-on the wikipedia-scale synthetic stream (8227 users, 1000 items, 157474
-edges, seed 1) built in memory, B = 200, at two published configurations:
-wikipedia (maxlen 32, patch 1) and CanParl (maxlen 2048, patch 64).
+The main paths are TGAT link-prediction evaluation and DyGFormer
+link-prediction evaluation (``dyglib_tpu_torch.train.LinkPredictionTrainer
+.evaluate``) and training (``LinkPredictionTrainer.train_step`` over train
+batches, and ``fit``), each model at its published widths (TGAT: 20
+neighbours, 2 layers, 2 heads; DyGFormer: channel embedding 50, 2 layers,
+2 heads; both: time features 100, node and edge features 172), random
+weights from seed 0, on the wikipedia-scale synthetic stream (8227 users,
+1000 items, 157474 edges, seed 1) built in memory, B = 200; DyGFormer at
+two published configurations: wikipedia (maxlen 32, patch 1) and CanParl
+(maxlen 2048, patch 64).
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
@@ -19,11 +21,23 @@ and prints no result):
   2. build the CUDA kernels from dyglib_tpu_torch/csrc (one nvcc per
      source, all at once) and print the build time and ptxas's report;
   3. at the shapes the main paths give each kernel (M = 600 rows of the
-     B = 200 triple), hold the kernel to its plain PyTorch version on the
-     card (stated tolerances) and time the kernel, the plain version and,
+     B = 200 triple; TGAT's layer 1 at hop 1: 12,000 queries, 240,000 kv
+     rows), hold the kernel to its plain PyTorch version on the card
+     (stated tolerances) and time the kernel, the plain version and,
      where one exists, one PyTorch library call computing the same
-     function; compute each bound from bytes and operations;
-  4. evaluation, for each configuration: zero the launch counters, run
+     function (for TGAT's attention kernels only a part of it, the K/V
+     products); compute each bound from bytes and operations;
+  4. TGAT evaluation on the first val batches, one set of weights in four
+     configurations (plain versions; default kernels: gathered attention
+     at layer 1, fused attention at layer 2; window attention with the
+     entry table; the Phi projection), swept in turns, forward and back:
+     zero the launch counters before each sweep and read them after (each
+     configuration launches exactly its kernels, a fixed number a batch),
+     finite probabilities, metrics in range, every sweep within the
+     probability tolerance of the first plain sweep, one batch's
+     embeddings through the kernels vs the plain versions, and the first
+     batches vs the port's CPU path; ms per eval batch for each;
+  4b. DyGFormer evaluation, for each configuration: zero the launch counters, run
      evaluate on the val batches through the kernels, read the counters
      (every forward kernel must have launched), check the probabilities
      are finite and the metrics in range; hold one batch's embeddings
@@ -105,6 +119,23 @@ CED, DT_DIM, FEAT = 50, 100, 172
 # the kernels of the evaluation path (the training path adds the backward
 # kernels, and window_fetch with the entry fetch)
 EVAL_KERNELS = ("time_channel", "cooccurrence", "patch_projection")
+# TGAT at its published widths (best_configs.py: K = 20 neighbours, 2
+# layers; 2 heads, Dt = 100, features 172), evaluated on the first val
+# batches in four configurations: (TGAT kwargs, use_kernels, the kernels
+# that must launch and their launches per batch: layer 1 runs on hops 0
+# and 1, layer 2 on hop 0; the Phi projection runs twice per convolution)
+TGAT_K, TGAT_BATCHES = 20, 20
+TGAT_CONFIGS = {
+    "plain": ({}, False, {}),
+    "default": ({}, True, {"gathered_attention": 2, "temporal_attention": 1}),
+    "window": (dict(wants_entry_features=True), True,
+               {"window_attention": 2, "temporal_attention": 1}),
+    "phi_fusion": (dict(use_gathered_attention=False, use_phi_fusion=True), True,
+                   {"phi_projection": 6}),
+}
+# the configuration whose sweep counts each TGAT kernel's main-path launches
+TGAT_KERNEL_CONFIG = {"temporal_attention": "default", "gathered_attention": "default",
+                      "window_attention": "window", "phi_projection": "phi_fusion"}
 
 
 def log(msg: str) -> None:
@@ -391,6 +422,149 @@ def check_training_kernels(dev) -> dict:
     return results
 
 
+def tgat_batch(data, dev):
+    """TGAT at its published widths (weights from seed 0, on the card) and
+    the hop tensors of the first val batch's triple, sampled from the full
+    stream's CSR with its entry table: (net, tables, csr, inputs)."""
+    import numpy as np
+    import torch
+
+    from dyglib_tpu_torch.graph import build_temporal_csr
+    from dyglib_tpu_torch.graph.csr import time_keys
+    from dyglib_tpu_torch.models import TGAT, FeatureTables
+
+    tgat = TGAT(num_neighbors=TGAT_K, num_layers=2, num_heads=2, time_feat_dim=DT_DIM,
+                wants_entry_features=True)
+    net = tgat.build(FEAT, FEAT, torch.Generator().manual_seed(0)).to(dev).eval()
+    feats = (data.node_raw_features, data.edge_raw_features)
+    csr = build_temporal_csr(data.full, num_nodes=data.num_nodes, device=dev, feat_entry_of=feats)
+    tables = FeatureTables(*(torch.from_numpy(f).to(dev) for f in feats))
+    rng = np.random.RandomState(0)
+    ids = np.concatenate([data.val.src[:B], data.val.dst[:B],
+                          rng.randint(1, data.num_nodes, B)]).astype(np.int32)
+    ts = np.tile(time_keys(data.val.ts[:B]), 3).astype(np.int32)
+    inputs = tgat.sample(csr, torch.from_numpy(ids).to(dev), torch.from_numpy(ts).to(dev))
+    return net, tables, csr, inputs
+
+
+def check_tgat_kernels(data, dev) -> dict:
+    """Phase 3, TGAT's four attention kernels, at the shapes TGAT's
+    evaluation gives them (the B = 200 triple: M0 = 600 queries, K = 20):
+    temporal attention at layer 2 (M = 600), gathered and window attention
+    at layer 1, hop 1 (M = 12,000, 240,000 kv rows; window attention reads
+    the stream's feat_entry), the Phi projection at R = 240,000. Inputs are
+    the sampled batch's (features, time deltas, masks, windows) and the
+    seed-0 weights. The library yardstick is partial: the plain path's two
+    K/V torch.mm's on the materialized kv (for the Phi projection, torch.mm
+    on a precomputed Phi), timed alone."""
+    import torch
+
+    from dyglib_tpu_torch import ops
+
+    net, tables, csr, inputs = tgat_batch(data, dev)
+    conv = net.temporal_conv_0
+    heads, k = conv.num_heads, TGAT_K
+    tw, tb = net.time_encoder.w.detach().reshape(-1), net.time_encoder.b.detach()
+    wk, wv = conv.key_projection.weight.detach().t(), conv.value_projection.weight.detach().t()
+    kv_dim, dq = wk.shape
+    results = {}
+
+    def hop(h):
+        """Layer-1 operands of hop h: q3, dt, mask, keep."""
+        ids = inputs.hop_ids[h].reshape(-1).long()
+        m = ids.shape[0]
+        dt = (inputs.hop_ts[h].reshape(-1, 1) - inputs.hop_ts[h + 1].reshape(m, k)).float()
+        phi0 = net.time_encoder(torch.zeros((m, 1), device=dev))[:, 0, :]
+        q3 = conv.query_projection(torch.cat([tables.node[ids], phi0], dim=-1))
+        mask = inputs.hop_mask[h].reshape(m, k).float()
+        return q3.contiguous(), dt, mask, torch.ones((m, heads, k), device=dev)
+
+    def record(kernel, part, err, fn, plain, lib, nbytes, nops, iters):
+        entry = dict(part=part, max_abs_err=err, ms=cuda_ms(fn, iters, 3),
+                     plain_ms=cuda_ms(plain, iters, 3), library_ms=cuda_ms(lib, iters, 3),
+                     bytes=nbytes, ops=nops)
+        results[(kernel, "tgat")] = {"parts": [entry]}
+        what = "Phi @ W mm" if kernel == "phi_projection" else "K/V mm's"
+        log(f"  {kernel:<20} {part:<26} err {err:.3g}  kernel {entry['ms']:.4f} ms  "
+            f"plain {entry['plain_ms']:.4f} ms  library (partial: {what}) "
+            f"{entry['library_ms']:.4f} ms")
+
+    def compare(kernel, got, want):
+        torch.cuda.synchronize()
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        if not (all(g.shape == w.shape for g, w in zip(got, want)) and err <= KERNEL_ATOL):
+            raise AssertionError(f"{kernel}@tgat: max abs err {err} > {KERNEL_ATOL}")
+        return err
+
+    with torch.inference_mode():
+        # attention ops beyond the projections, per kv row: the logit and the
+        # weighted sum (2 dq each); per (query, head, neighbor) ~6 for the
+        # mask, softmax and keep
+        attn_ops = lambda m: 4 * m * k * dq + 6 * m * heads * k
+        small = lambda m: 4 * (2 * m * dq + 2 * m * k + m * heads * k + 2 * kv_dim * dq)
+
+        # ---- temporal attention, layer 2 (M = 600): kv = [layer-1
+        # embeddings || edge rows || Phi(dt)]
+        q3, dt, mask, keep = hop(0)
+        m = q3.shape[0]
+        nbr = torch.randn((m, k, FEAT), device=dev, generator=torch.Generator(device=dev).manual_seed(5))
+        edge = tables.edge[inputs.hop_eids[0].reshape(m, k).long()]
+        phi = net.time_encoder(dt)
+        args = (q3, nbr, edge, phi, mask, keep, wk, wv, heads)
+        err = compare("temporal_attention", ops.temporal_attention(*args),
+                      ops.temporal_attention_plain(*args))
+        kv = torch.cat([nbr, edge, phi], dim=-1).reshape(m * k, kv_dim)
+        record("temporal_attention", f"M{m} K{k} Dkv{kv_dim} Dq{dq}", err,
+               lambda: ops.temporal_attention(*args), lambda: ops.temporal_attention_plain(*args),
+               lambda: (torch.mm(kv, wk), torch.mm(kv, wv)),
+               small(m) + 4 * m * k * kv_dim, 4 * m * k * kv_dim * dq + attn_ops(m), 50)
+        del nbr, edge, phi, kv, args
+
+        # ---- gathered and window attention, layer 1, hop 1 (M = 12,000)
+        q3, dt, mask, keep = hop(1)
+        m = q3.shape[0]
+        feat_n = tables.node[inputs.hop_ids[2].reshape(-1).long()]
+        feat_e = tables.edge[inputs.hop_eids[1].reshape(-1).long()]
+        args = (q3, feat_n, feat_e, dt, mask, keep, (tw, tb), (wk, wv), heads)
+        err = compare("gathered_attention", [ops.gathered_attention(*args)],
+                      [ops.gathered_attention_plain(*args)])
+        kv = torch.cat([feat_n, feat_e, torch.cos(dt.reshape(-1, 1) * tw + tb)], dim=-1)
+        lib = lambda: (torch.mm(kv, wk), torch.mm(kv, wv))
+        theta_ops = 2 * m * k * DT_DIM  # Phi's argument; the cosines uncounted
+        record("gathered_attention", f"M{m} K{k} Dkv{kv_dim} Dq{dq}", err,
+               lambda: ops.gathered_attention(*args), lambda: ops.gathered_attention_plain(*args),
+               lib, small(m) + 4 * (m * k * 2 * FEAT + 2 * DT_DIM),
+               4 * m * k * kv_dim * dq + attn_ops(m) + theta_ops, 5)
+
+        starts = inputs.hop_win_start[1].reshape(-1)
+        args = (q3, starts, dt, mask, keep, csr.feat_entry, tw, tb, (wk, wv), heads)
+        err = compare("window_attention", [ops.window_attention(*args)],
+                      [ops.window_attention_plain(*args)])
+        # the table rows this run needs: the valid window rows (the others
+        # are multiplied by a zero mask)
+        n_valid = int(mask.sum())
+        record("window_attention", f"M{m} K{k} W{2 * FEAT} valid rows {n_valid}", err,
+               lambda: ops.window_attention(*args), lambda: ops.window_attention_plain(*args),
+               lib, small(m) + 4 * (n_valid * 2 * FEAT + 2 * DT_DIM) + 4 * m,
+               4 * m * k * kv_dim * dq + attn_ops(m) + theta_ops + m * k * 2 * FEAT, 5)
+        del feat_n, feat_e, kv, args
+
+        # ---- Phi projection, R = 240,000 (hop 1's deltas), Wk's Phi rows
+        dt_flat, w_phi = dt.reshape(-1), wk[2 * FEAT:]
+        r = dt_flat.shape[0]
+        args = (dt_flat, tw, tb, w_phi)
+        err = compare("phi_projection", [ops.phi_projection(*args)],
+                      [ops.phi_projection_plain(*args)])
+        phi = torch.cos(dt_flat[:, None] * tw + tb)
+        record("phi_projection", f"R{r} Dt{DT_DIM} Dq{dq}", err,
+               lambda: ops.phi_projection(*args), lambda: ops.phi_projection_plain(*args),
+               lambda: torch.mm(phi, w_phi), 4 * (r + 2 * DT_DIM + DT_DIM * dq + r * dq),
+               2 * r * DT_DIM * dq + 2 * r * DT_DIM, 10)
+    del net, tables, csr, inputs
+    torch.cuda.empty_cache()
+    return results
+
+
 def max_prob_diff(probs, other) -> float:
     """Largest |p - q| over two evaluate runs' per-batch (pos, neg) arrays."""
     import numpy as np
@@ -496,6 +670,105 @@ def run_config(data, config, maxlen, patch, n_batches, dev, cpu_reference: bool)
         if not cdiff <= PROB_ATOL:
             raise AssertionError(f"{config}: card vs CPU probabilities differ by {cdiff}")
         result["max_prob_diff_vs_cpu"] = cdiff
+    log(f"  {json.dumps(result)}")
+    return result
+
+
+def run_tgat(data, n_batches, dev) -> dict:
+    """The TGAT evaluation phase: four configurations of one set of seed-0
+    weights, each evaluated on the first n_batches val batches, in turns
+    (each once forward, then once in reverse order)."""
+    import numpy as np
+    import torch
+
+    from dyglib_tpu_torch import ops
+    from dyglib_tpu_torch.data import chronological_batches
+    from dyglib_tpu_torch.models import TGAT
+    from dyglib_tpu_torch.train import LinkPredictionTrainer, TrainConfig
+
+    trainers, params = {}, None
+    for name, (kw, use_kernels, _) in TGAT_CONFIGS.items():
+        backbone = TGAT(num_neighbors=TGAT_K, num_layers=2, num_heads=2, time_feat_dim=DT_DIM,
+                        **kw)
+        tr = LinkPredictionTrainer(backbone, data, TrainConfig(batch_size=B), device=dev)
+        if (tr.full_csr.feat_entry is not None) != (name == "window"):
+            raise AssertionError(f"TGAT {name}: the entry table is built iff the window path runs")
+        if params is None:
+            tr.init_params(0)
+            params = tr.state_dicts()
+        else:
+            tr.load_params(params)
+        tr.model.use_kernels = use_kernels
+        tr.evaluate(data.val.slice(0, B), tr.val_neg)  # warm-up: allocator, cuBLAS
+        trainers[name] = tr
+    stream = data.val.slice(0, n_batches * B)
+    torch.cuda.synchronize()
+
+    launches, ms, probs_of, diffs, metrics_of = {}, {n: [] for n in TGAT_CONFIGS}, {}, {}, {}
+    for name in list(TGAT_CONFIGS) + list(reversed(TGAT_CONFIGS)):
+        tr = trainers[name]
+        ops.reset_launch_counts()  # just before the sweep
+        t0 = time.perf_counter()
+        losses, metrics, probs = tr.evaluate(stream, tr.val_neg)
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) / n_batches * 1e3)
+        counts = ops.launch_counts()  # just after
+        want = TGAT_CONFIGS[name][2]
+        if {k for k, v in counts.items() if v} != set(want) or any(
+            counts[k] != per_batch * n_batches for k, per_batch in want.items()
+        ):
+            raise AssertionError(f"TGAT {name}: launched {counts}, expected {want} per batch")
+        launches[name] = {k: v for k, v in counts.items() if v}
+        if len(probs) != n_batches or not all(
+            pos.shape == neg.shape == (B,) and np.isfinite(pos).all() and np.isfinite(neg).all()
+            for pos, neg in probs
+        ):
+            raise AssertionError(f"TGAT {name}: probabilities malformed or not finite")
+        mean = tr.mean_metrics(metrics)
+        if not all(0.0 <= v <= 1.0 for v in mean.values()) or not np.isfinite(losses).all():
+            raise AssertionError(f"TGAT {name}: metrics out of range {mean}")
+        metrics_of[name] = mean
+        if "plain" not in probs_of:
+            probs_of["plain"] = probs  # the first sweep is the plain one
+        diffs[name] = max(diffs.get(name, 0.0), max_prob_diff(probs, probs_of["plain"]))
+        if not diffs[name] <= PROB_ATOL:
+            raise AssertionError(f"TGAT {name} vs plain: probabilities differ by {diffs[name]}")
+        probs_of.setdefault(name, probs)
+
+    # one batch's embeddings through each configuration's kernels vs its
+    # plain versions (the probabilities can round a small difference away)
+    emb_diffs = {}
+    with torch.inference_mode():
+        for name, tr in trainers.items():
+            if not TGAT_CONFIGS[name][1]:
+                continue
+            b = next(iter(chronological_batches(stream, B)))
+            ns, nd = tr._pad_negs(b.src, b), tr._pad_negs(np.roll(b.dst, 1), b)
+            src, dst, _, neg_dst, ts, _, _ = tr._batch_arrays(b, ns, nd)
+            inputs = tr._sample(tr.full_csr, src, dst, neg_dst, ts, None)
+            emb_kernel = tr._embed(inputs)
+            tr.model.use_kernels = False
+            emb_plain = tr._embed(inputs)
+            tr.model.use_kernels = True
+            emb_diffs[name] = (emb_kernel - emb_plain).abs().max().item()
+            if not emb_diffs[name] <= KERNEL_ATOL:
+                raise AssertionError(f"TGAT {name}: kernel vs plain embeddings differ by "
+                                     f"{emb_diffs[name]}")
+
+    # the first batches on the port's CPU path, default configuration
+    n_cpu = 2
+    cpu = LinkPredictionTrainer(TGAT(num_neighbors=TGAT_K, time_feat_dim=DT_DIM), data,
+                                TrainConfig(batch_size=B), device="cpu")
+    cpu.load_params({part: {k: v.cpu() for k, v in sd.items()} for part, sd in params.items()})
+    _, _, cpu_probs = cpu.evaluate(data.val.slice(0, n_cpu * B), cpu.val_neg)
+    cpu_diff = max_prob_diff(probs_of["default"][:n_cpu], cpu_probs)
+    if not cpu_diff <= PROB_ATOL:
+        raise AssertionError(f"TGAT: card vs CPU probabilities differ by {cpu_diff}")
+    result = dict(
+        batches=n_batches, launches=launches, ms_per_batch=ms, metrics=metrics_of,
+        max_prob_diff_vs_plain=diffs, max_embedding_diff_vs_plain=emb_diffs,
+        max_prob_diff_vs_cpu=cpu_diff,
+    )
     log(f"  {json.dumps(result)}")
     return result
 
@@ -715,6 +988,13 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
+    from dyglib_tpu_torch.data import synthetic_link_prediction_data
+
+    t0 = time.perf_counter()
+    data = synthetic_link_prediction_data(num_src=8227, num_dst=1000, num_edges=157474, seed=1)
+    log(f"synthetic stream: {data.full.num_interactions} edges, val "
+        f"{data.val.num_interactions}, built in {time.perf_counter() - t0:.1f} s")
+
     # ---- 3. kernels against their plain versions
     log("kernels vs plain versions (tolerance: time_channel and patch_projection "
         f"atol {KERNEL_ATOL}, cooccurrence exact):")
@@ -722,15 +1002,14 @@ def main() -> int:
     log(f"training kernels vs plain versions (gradients within {GRAD_RTOL} of sum|terms|, "
         "window_fetch bitwise):")
     kernel_results.update(check_training_kernels(dev))
+    log(f"TGAT kernels vs plain versions (atol {KERNEL_ATOL}):")
+    kernel_results.update(check_tgat_kernels(data, dev))
 
-    # ---- 4. the main path
-    from dyglib_tpu_torch.data import synthetic_link_prediction_data
-
-    t0 = time.perf_counter()
-    data = synthetic_link_prediction_data(num_src=8227, num_dst=1000, num_edges=157474, seed=1)
-    log(f"synthetic stream: {data.full.num_interactions} edges, val "
-        f"{data.val.num_interactions}, built in {time.perf_counter() - t0:.1f} s")
-    log(f"evaluation path (probability tolerance {PROB_ATOL}):")
+    # ---- 4. the main paths
+    log(f"TGAT evaluation path (probability tolerance {PROB_ATOL}):")
+    tgat_run = run_tgat(data, TGAT_BATCHES, dev)
+    torch.cuda.empty_cache()
+    log(f"DyGFormer evaluation path (probability tolerance {PROB_ATOL}):")
     runs, train_runs = {}, {}
     for config, maxlen, patch, n_batches, _ in CONFIGS:
         runs[config] = run_config(
@@ -755,12 +1034,19 @@ def main() -> int:
         "patch_projection": "dyglib_tpu/ops/pallas/patch_projection.py:59",
         "patch_projection_bwd": "dyglib_tpu/ops/pallas/patch_projection.py:71",
         "window_fetch": "dyglib_tpu/ops/pallas/window_fetch.py:51",
+        "temporal_attention": "dyglib_tpu/ops/pallas/temporal_attention.py:99",
+        "gathered_attention": "dyglib_tpu/ops/pallas/gathered_attention.py:83",
+        "window_attention": "dyglib_tpu/ops/pallas/window_attention.py:133",
+        "phi_projection": "dyglib_tpu/ops/pallas/phi_projection.py:48",
     }
     source = {"time_channel_bwd": "time_channel", "patch_projection_bwd": "patch_projection"}
 
     def main_path_launches(kernel, config):
         """Forward kernels: the evaluation sweep; backward kernels: the
-        training sweep; window_fetch: its entry-fetch training sweep."""
+        training sweep; window_fetch: its entry-fetch training sweep; TGAT's
+        kernels: the first evaluation sweep of their configuration."""
+        if kernel in TGAT_KERNEL_CONFIG:
+            return tgat_run["launches"][TGAT_KERNEL_CONFIG[kernel]][kernel]
         if kernel == "window_fetch":
             return train_runs[config]["window_fetch_launches"]
         if kernel.endswith("_bwd"):
@@ -785,6 +1071,8 @@ def main() -> int:
             "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": None if None in libs else sum(libs),
+            # TGAT's yardsticks time only the K/V products (or Phi @ W)
+            "library_partial": kernel in TGAT_KERNEL_CONFIG,
         })
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({

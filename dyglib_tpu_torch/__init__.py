@@ -5,9 +5,12 @@ layout and names. It imports torch, numpy and the standard library only,
 never JAX or anything of ``dyglib_tpu``. Hand-written CUDA kernels live in
 ``csrc/`` and are compiled with nvcc at first use (``ops/_build.py``).
 
-Ported so far: DyGFormer link-prediction evaluation (data, temporal CSR,
-recent-window sampling, random negatives, the DyGFormer network with its
-time-channel, co-occurrence and patch-projection kernels, AP/AUC).
+Ported so far: DyGFormer link-prediction evaluation and training (data,
+temporal CSR, recent-window sampling, random negatives, the DyGFormer
+network with its time-channel, co-occurrence, patch-projection and
+window-fetch kernels, the trainer, AP/AUC) and TGAT link-prediction
+evaluation (multi-hop recent sampling, temporal attention with its
+temporal, gathered and window attention and Phi projection kernels).
 """
 from .device import resolve_device
 

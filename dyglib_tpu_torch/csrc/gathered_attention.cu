@@ -1,0 +1,50 @@
+// TGAT's post-gather fused attention at layer 1:
+//   kv[r] = [feat_n[r] || feat_e[r] || cos(dt[r] * tw + tb)]   r = m * K + j
+// then key, val, masked softmax, keep and weighted sum in shared memory
+// (attention_core.cuh); writes out (m, dq).
+//
+// Replaces dyglib_tpu/ops/pallas/gathered_attention.py::_fwd_kernel. The
+// gathered node and edge rows arrive as two slabs; Phi is computed in the
+// A loader (phi.cuh rounding, accurate cosf), so neither the time features
+// nor the concatenation nor key and val reach device memory. No mask in
+// the loader: gathered pad rows are already the zero id-0 rows.
+#include "attention_core.cuh"
+
+namespace {
+
+struct GatheredLoader {
+  static constexpr bool k_fast = true;
+  const float* __restrict__ feat_n;  // (rows, dn)
+  const float* __restrict__ feat_e;  // (rows, de)
+  const float* __restrict__ dt;      // (rows)
+  const float* __restrict__ tw;      // (dt_dim)
+  const float* __restrict__ tb;      // (dt_dim)
+  int dn;
+  int de;
+
+  __device__ __forceinline__ float operator()(int r, int c) const {
+    if (c < dn) return feat_n[static_cast<size_t>(r) * dn + c];
+    c -= dn;
+    if (c < de) return feat_e[static_cast<size_t>(r) * de + c];
+    c -= de;
+    return cosf(dyglib::theta_of(dt[r], tw[c], tb[c]));
+  }
+};
+
+}  // namespace
+
+// q3: (m, dq); feat_n, feat_e: (m * k, dn / de); dt, mask: (m, k); tw, tb:
+// (dt_dim); keep: (m, heads, k); wk, wv: (dn + de + dt_dim, dq) by element
+// strides; out: (m, dq). All f32.
+DYGLIB_API int gathered_attention_forward(const float* q3, const float* feat_n,
+                                          const float* feat_e, const float* dt, const float* tw,
+                                          const float* tb, const float* mask, const float* keep,
+                                          const float* wk, int wk_sk, int wk_sn, const float* wv,
+                                          int wv_sk, int wv_sn, float* out, int m, int k, int dn,
+                                          int de, int dt_dim, int dq, int heads, float scale,
+                                          cudaStream_t stream) {
+  const dyglib::AttentionParams p{q3,  mask,    keep, wk, wk_sk,            wk_sn, wv,    wv_sk, wv_sn,
+                                  out, nullptr, m,    k,  dn + de + dt_dim, dq,    heads, scale};
+  return static_cast<int>(
+      dyglib::launch_attention(GatheredLoader{feat_n, feat_e, dt, tw, tb, dn, de}, p, stream));
+}

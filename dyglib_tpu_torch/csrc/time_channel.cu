@@ -19,38 +19,15 @@
 //   then adds the row tiles and patch slots in a fixed order)
 // No gradient for dt or valid.
 //
-// theta is rounded exactly as PyTorch's separate multiply and add round it
-// (no fused multiply-add), and cosf / sinf are the accurate functions: dt
-// reaches 1e6 and more, where one rounding more or less moves theta by up
-// to ulp(1e6) = 0.06 rad, and where the fast __cosf / __sinf are wrong.
+// theta and Phi come from phi.cuh (exact rounding of the argument, the
+// accurate cosf); sinf is the accurate function too, for the same reason.
+#include "phi.cuh"
 #include "weight_grad.cuh"
 
 namespace {
 
-__device__ __forceinline__ float theta_of(float dt, float tw, float tb) {
-  return __fadd_rn(__fmul_rn(dt, tw), tb);
-}
-
-// Phi(r, k) for k = j * dt_dim + f. As the forward's A operand it is
-// staged k-fast: a warp reads one (r, j) slot's dt and valid as a
-// broadcast and consecutive tw / tb.
-struct PhiLoader {
-  static constexpr bool k_fast = true;
-  const float* __restrict__ dt;
-  const bool* __restrict__ valid;
-  const float* __restrict__ tw;
-  const float* __restrict__ tb;
-  int patch;
-  int dt_dim;
-
-  __device__ __forceinline__ float operator()(int r, int k) const {
-    const int j = k / dt_dim;
-    const int f = k - j * dt_dim;
-    const size_t idx = static_cast<size_t>(r) * patch + j;
-    const float theta = theta_of(dt[idx], tw[f], tb[f]);
-    return valid[idx] ? cosf(theta) : 0.f;
-  }
-};
+using dyglib::theta_of;
+using PhiLoader = dyglib::PhiLoaderT<true>;
 
 __global__ void __launch_bounds__(dyglib::kThreads)
     time_channel_fwd_kernel(PhiLoader phi, const float* __restrict__ w, int w_sk, int w_sn,

@@ -1,0 +1,56 @@
+// TGAT's window-gather fused attention at layer 1:
+//   kv[r] = [table[starts[m] + j] * mask[r] || cos(dt[r] * tw + tb)]   r = m * K + j
+// then key, val, masked softmax, keep and weighted sum in shared memory
+// (attention_core.cuh); writes out (m, dq).
+//
+// Replaces dyglib_tpu/ops/pallas/window_attention.py::_fwd_kernel (_core).
+// Under the recent strategy a query's K neighbors are K consecutive rows
+// of the entry-ordered table (graph/csr.py feat_entry, packed row-major,
+// dn + de columns): the A loader reads exactly those rows, times the mask
+// (invalid rows become zero, as gathered id-0 rows are), and computes Phi
+// (phi.cuh rounding, accurate cosf). No aligned superset windows, keep
+// rescale or zero weight rows: those are Mosaic DMA aids. Every
+// starts[m] + j lies inside the table (the caller clamps the starts).
+#include "attention_core.cuh"
+
+namespace {
+
+struct WindowLoader {
+  static constexpr bool k_fast = true;
+  const float* __restrict__ table;  // (t_rows, width)
+  const int* __restrict__ starts;   // (m)
+  const float* __restrict__ mask;   // (m * k)
+  const float* __restrict__ dt;     // (m * k)
+  const float* __restrict__ tw;     // (dt_dim)
+  const float* __restrict__ tb;     // (dt_dim)
+  int k;
+  int width;
+
+  __device__ __forceinline__ float operator()(int r, int c) const {
+    if (c < width) {
+      const int q = r / k;
+      const size_t row = static_cast<size_t>(starts[q]) + (r - q * k);
+      return table[row * width + c] * mask[r];
+    }
+    c -= width;
+    return cosf(dyglib::theta_of(dt[r], tw[c], tb[c]));
+  }
+};
+
+}  // namespace
+
+// q3: (m, dq); table: (t_rows, width); starts: (m) int32; dt, mask: (m, k);
+// tw, tb: (dt_dim); keep: (m, heads, k); wk, wv: (width + dt_dim, dq) by
+// element strides; out: (m, dq). All f32 but starts.
+DYGLIB_API int window_attention_forward(const float* q3, const float* table, const int* starts,
+                                        const float* dt, const float* tw, const float* tb,
+                                        const float* mask, const float* keep, const float* wk,
+                                        int wk_sk, int wk_sn, const float* wv, int wv_sk,
+                                        int wv_sn, float* out, int m, int k, int width,
+                                        int dt_dim, int dq, int heads, float scale,
+                                        cudaStream_t stream) {
+  const dyglib::AttentionParams p{q3,  mask,    keep, wk, wk_sk,          wk_sn, wv,    wv_sk, wv_sn,
+                                  out, nullptr, m,    k,  width + dt_dim, dq,    heads, scale};
+  return static_cast<int>(dyglib::launch_attention(
+      WindowLoader{table, starts, mask, dt, tw, tb, k, width}, p, stream));
+}

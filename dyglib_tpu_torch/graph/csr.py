@@ -1,7 +1,8 @@
 """Device-resident temporal adjacency in CSR form.
 
-Counterpart of ``dyglib_tpu/graph/csr.py`` (``offsets/nbr/eid/ts`` and
-the entry-ordered feature table ``feat_entry``; the TPU layout aid
+Counterpart of ``dyglib_tpu/graph/csr.py`` (``offsets/nbr/eid/ts``, the
+next-hop window bounds ``nbr_hi`` and the entry-ordered feature table
+``feat_entry``; the TPU layout aid
 ``pack``, the 128-lane slab transpose of ``feat_entry`` and the
 CAWN/GraphMixer tables are not ported). The undirected temporal graph is
 stored as three flat arrays plus ``offsets``; each node's segment is
@@ -32,6 +33,11 @@ class TemporalCSR:
     nbr: torch.Tensor  # (M,) int32 — neighbor node ids
     eid: torch.Tensor  # (M,) int32 — edge ids
     ts: torch.Tensor  # (M,) int32 — interaction time keys (sorted per segment)
+    # (M,) int32 — for entry e = (u -> v at time t): the left insertion
+    # point of t in v's segment, so the strictly-before window of the
+    # next-hop query (v, t) is [offsets[v], nbr_hi[e]): one gather in place
+    # of a bisection per multi-hop query (graph/sampler.py)
+    nbr_hi: torch.Tensor
     # unroll count of per-segment binary searches: ceil(log2(max degree)) + 1
     segment_bisect_steps: int
     # (pad + M + pad + node_rows, Dn + De) f32 or None — per-entry
@@ -112,6 +118,12 @@ def build_temporal_csr(
     peer, eid, ts = peer[order], eid[order], ts[order]
     offsets = np.zeros(num_nodes + 1, dtype=np.int64)
     np.cumsum(np.bincount(node, minlength=num_nodes), out=offsets[1:])
+    keys = time_keys(ts)
+    # the flat arrays are sorted by (node, time key), so one global
+    # searchsorted of every entry's (peer, time key) gives offsets[peer]
+    # plus the left insertion point in the peer's segment
+    seg_node = np.repeat(np.arange(num_nodes, dtype=np.int64), np.diff(offsets))
+    nbr_hi = np.searchsorted((seg_node << 32) | keys, (peer << 32) | keys, side="left")
 
     as_i32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
     feat_entry, node_dim, pad = None, 0, 0
@@ -130,7 +142,8 @@ def build_temporal_csr(
         offsets=as_i32(offsets),
         nbr=as_i32(peer),
         eid=as_i32(eid),
-        ts=as_i32(time_keys(ts)),
+        ts=as_i32(keys),
+        nbr_hi=as_i32(nbr_hi),
         segment_bisect_steps=_segment_steps(offsets),
         feat_entry=feat_entry,
         feat_entry_node_dim=node_dim,

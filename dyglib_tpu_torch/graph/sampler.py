@@ -1,15 +1,37 @@
-"""Temporal neighbor-window bounds on the device.
+"""Temporal neighbor sampling on the device.
 
-Counterpart of ``dyglib_tpu/graph/sampler.py::window_bounds``: a batched,
-fixed-step binary search over each node's time-sorted CSR segment for the
-strictly-before (t' < t) history. The other strategies (uniform,
-time-interval-aware, multi-hop) come with the models that use them.
+Counterpart of ``dyglib_tpu/graph/sampler.py`` for the ``recent``
+strategy: ``window_bounds`` (a batched, fixed-step binary search over each
+node's time-sorted CSR segment for the strictly-before (t' < t) history),
+``sample_recent``, ``sample_multi_hop`` and ``fetch_entry_windows``. Every
+operation is a fixed-shape batch of tensor ops. Semantics:
+
+  * neighbor visibility is strictly-before (t' < t);
+  * ``recent`` returns the last K interactions RIGHT-ALIGNED, zero padding
+    at the front;
+  * empty windows yield all-zero rows (id 0 = padding sentinel).
+
+The stochastic strategies (``uniform``, ``time_interval_aware``) come with
+the slices that need them; asking for one raises. The TPU's packed
+``csr.pack`` row gather is not ported: rows are gathered from the flat
+arrays.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from .csr import TemporalCSR
+
+
+class NeighborBlock(NamedTuple):
+    """Fixed-K sampled neighborhood; rows are time-sorted where valid."""
+
+    nbr: torch.Tensor  # (..., K) int32, 0 where padded
+    eid: torch.Tensor  # (..., K) int32, 0 where padded
+    ts: torch.Tensor  # (..., K) int32 time keys, 0 where padded
+    mask: torch.Tensor  # (..., K) bool, True on real samples
 
 
 def window_bounds(
@@ -34,3 +56,99 @@ def window_bounds(
         lo_ = torch.where(active & below, mid + 1, lo_)
         hi_ = torch.where(active & ~below, mid, hi_)
     return lo, hi_
+
+
+def _gather_rows(
+    csr: TemporalCSR, idx: torch.Tensor, valid: torch.Tensor
+) -> tuple[NeighborBlock, torch.Tensor]:
+    """(block, next-hop hi bounds) for the sampled flat indices."""
+    safe = idx.clamp(0, max(csr.num_entries - 1, 0)).long()
+    block = NeighborBlock(
+        nbr=torch.where(valid, csr.nbr[safe], 0),
+        eid=torch.where(valid, csr.eid[safe], 0),
+        ts=torch.where(valid, csr.ts[safe], 0),
+        mask=valid,
+    )
+    return block, csr.nbr_hi[safe]
+
+
+def _recent_indices(
+    lo: torch.Tensor, hi: torch.Tensor, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Flat indices of the last k window entries, right-aligned, and their
+    validity."""
+    idx = hi[..., None] - k + torch.arange(k, dtype=torch.int32, device=hi.device)
+    return idx, idx >= lo[..., None]
+
+
+def require_recent(strategy: str) -> None:
+    """Raise for a sample strategy other than ``recent``."""
+    if strategy != "recent":
+        raise ValueError(
+            f"sample strategy {strategy!r} is not ported (only 'recent'; "
+            "ROADMAP.md Queue 1 lists the others)"
+        )
+
+
+def sample_recent(
+    csr: TemporalCSR, node_ids: torch.Tensor, times: torch.Tensor, k: int
+) -> NeighborBlock:
+    """Most recent k interactions, right-aligned."""
+    lo, hi = window_bounds(csr, node_ids, times)
+    return _gather_rows(csr, *_recent_indices(lo, hi, k))[0]
+
+
+def sample_multi_hop(
+    csr: TemporalCSR,
+    node_ids: torch.Tensor,
+    times: torch.Tensor,
+    k: int,
+    num_hops: int,
+    strategy: str = "recent",
+    return_windows: bool = False,
+) -> list[NeighborBlock] | tuple[list[NeighborBlock], list[torch.Tensor]]:
+    """Recursive fan-out: hop h has shape (B, k**h).
+
+    Hop h+1 queries are the flattened ids/times of hop h; padded entries
+    (id 0) get empty windows and stay padded. Hop h+1's window bounds come
+    from ``csr.nbr_hi``, one gather per row.
+
+    ``return_windows``: also return each hop's flat window base
+    (start = hi - k, that hop's query shape): the sampled indices are
+    exactly start + j, the contiguous ranges ``fetch_entry_windows`` reads.
+    """
+    require_recent(strategy)
+    blocks: list[NeighborBlock] = []
+    wins: list[torch.Tensor] = []
+    b = node_ids.shape[0]
+    lo, hi = window_bounds(csr, node_ids, times)
+    for h in range(num_hops):
+        idx, valid = _recent_indices(lo, hi, k)
+        wins.append(hi - k)
+        blk, nhi = _gather_rows(csr, idx, valid)
+        blocks.append(blk)
+        if h + 1 == num_hops:
+            break
+        lo = csr.offsets[blk.nbr.reshape(b, -1).long()]
+        hi = torch.where(valid.reshape(b, -1), nhi.reshape(b, -1), lo)
+    return (blocks, wins) if return_windows else blocks
+
+
+def fetch_entry_windows(csr: TemporalCSR, start: torch.Tensor, k: int) -> torch.Tensor:
+    """(..., k, Dn + De) rows of ``csr.feat_entry`` for contiguous windows.
+
+    ``start``: flat window base per query (hi - k from the recent sampler;
+    may be negative by up to k, which the table's zero guard rows absorb,
+    so row j is exactly entry start + j). Invalid positions return guard
+    zeros or other entries' rows; callers mask with the block's validity,
+    which reproduces the row-gather path's id-0 zero rows exactly.
+    """
+    if csr.feat_entry is None:
+        raise ValueError("the CSR was built without feat_entry")
+    pad = csr.feat_entry_guard_pad
+    if k > pad:
+        raise ValueError(f"window of {k} entries exceeds the feat_entry guard pad {pad}")
+    flat = start.reshape(-1).to(torch.int32) + pad
+    idx = flat[:, None] + torch.arange(k, dtype=torch.int32, device=start.device)
+    win = csr.feat_entry[idx.long()]  # (Q, k, D) row gather
+    return win.reshape(*start.shape, k, csr.feat_entry.shape[1])

@@ -6,6 +6,7 @@ from .dygformer import (
     EntryWindow,
     PreLNTransformerEncoder,
 )
+from .tgat import TGAT, TGATInputs, TGATNet
 
 __all__ = [
     "FeatureTables",
@@ -14,4 +15,7 @@ __all__ = [
     "DyGFormerNet",
     "EntryWindow",
     "PreLNTransformerEncoder",
+    "TGAT",
+    "TGATInputs",
+    "TGATNet",
 ]

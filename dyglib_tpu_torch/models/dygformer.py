@@ -63,7 +63,7 @@ from torch import nn
 
 from ..graph.csr import TemporalCSR
 from ..graph.sampler import window_bounds
-from ..nn.modules import LN_EPS, TimeEncoder, linear
+from ..nn.modules import LN_EPS, TimeEncoder, dropout, linear
 from ..ops import (
     cooccurrence_counts,
     cooccurrence_counts_plain,
@@ -105,16 +105,6 @@ class DyGFormerInputs(NamedTuple):
     # the net then fetches the rows' features; None: it gathers them from
     # the tables
     entry_window: EntryWindow | None = None
-
-
-def dropout(x: torch.Tensor, p: float, gen: torch.Generator | None) -> torch.Tensor:
-    """Inverted dropout with masks drawn from ``gen`` (keep w.p. 1 - p)."""
-    if p == 0.0:
-        return x
-    if gen is None:
-        raise ValueError("dropout in train mode needs a torch.Generator (dropout_gen)")
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - p
-    return x * keep / (1.0 - p)
 
 
 class PreLNTransformerEncoder(nn.Module):
@@ -305,6 +295,16 @@ class DyGFormer:
     @property
     def seq_len(self) -> int:
         return _round_up(self.max_input_sequence_length, self.patch_size)
+
+    @property
+    def wants_entry_features(self) -> bool:
+        """Ask the trainer to build csr.feat_entry (see use_entry_fetch)."""
+        return self.use_entry_fetch
+
+    @property
+    def entry_window_rows(self) -> int:
+        """Guard-pad rows the entry table needs for this model's windows."""
+        return self.seq_len
 
     @property
     def bucket_candidates(self) -> tuple[int, ...]:

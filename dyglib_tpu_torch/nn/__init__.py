@@ -1,9 +1,19 @@
-from .modules import LN_EPS, MergeLayer, TimeEncoder, linear, time_encoder_spectrum
+from .modules import (
+    LN_EPS,
+    MergeLayer,
+    TemporalMultiHeadAttention,
+    TimeEncoder,
+    dropout,
+    linear,
+    time_encoder_spectrum,
+)
 
 __all__ = [
     "LN_EPS",
     "MergeLayer",
+    "TemporalMultiHeadAttention",
     "TimeEncoder",
+    "dropout",
     "linear",
     "time_encoder_spectrum",
 ]

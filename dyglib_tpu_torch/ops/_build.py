@@ -22,7 +22,10 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
-KERNEL_SOURCES = ("time_channel", "cooccurrence", "patch_projection", "window_fetch")
+KERNEL_SOURCES = (
+    "time_channel", "cooccurrence", "patch_projection", "window_fetch",
+    "temporal_attention", "gathered_attention", "window_attention", "phi_projection",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -156,3 +159,4 @@ def require_weight(w, name: str, dtype, shape: tuple, device) -> tuple[int, int]
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+F = ctypes.c_float

@@ -1,23 +1,26 @@
 """Dynamic link prediction: training and evaluation loops.
 
 Counterpart of ``dyglib_tpu/train/link_prediction.py`` for stateless
-backbones (DyGFormer): ``TrainConfig``, ``make_optimizer``, the train
-step, ``train_epoch``, ``evaluate`` and ``fit``. Not ported yet: the
+backbones (DyGFormer, TGAT): ``TrainConfig``, ``make_optimizer``, the
+train step, ``train_epoch``, ``evaluate`` and ``fit``. Not ported yet: the
 memory-model paths, resume checkpoints, scan epochs, tensorboard, the
 profiler hook in ``fit`` and the historical/inductive negative strategies.
 
 Protocol (the JAX package's):
   * chronological batches, never shuffled, the last one padded and masked;
   * train negatives: only destinations are drawn (unseeded sampler),
-    neg_src = src, and DyGFormer embeds the triple [src || dst || neg_dst]
-    (its neg_src rows' sequences are the src rows'); the loss is the masked
-    mean BCE over positives and negatives, on logits;
+    neg_src = src, and the backbone embeds the triple [src || dst ||
+    neg_dst]: a pair-independent one (TGAT) reuses src's embeddings for
+    neg_src, DyGFormer pairs the triple's rows itself (its neg_src rows'
+    sequences are the src rows'); the loss is the masked mean BCE over
+    positives and negatives, on logits;
   * training samples histories from train_csr, evaluation from full_csr;
   * the eval samplers' seeded streams are reset before every sweep; under
     the random strategy the sampler's neg_src draw is made and discarded:
     the negative edge is (src, neg_dst), embedded as a triple too;
-  * each batch runs at the smallest sequence bucket covering its longest
-    strictly-before history; metrics are per batch, averaged over batches;
+  * with a backbone that publishes sequence buckets (DyGFormer), each
+    batch runs at the smallest bucket covering its longest strictly-before
+    history; metrics are per batch, averaged over batches;
   * early stopping when no validation metric improves (ties count as
     improvement) for ``patience`` epochs, then the best checkpoint is
     reloaded for the final val / new-node val / test / new-node test sweeps.
@@ -42,7 +45,7 @@ from ..data.batching import Batch, chronological_batches
 from ..data.containers import EdgeStream
 from ..data.datasets import LinkPredictionData
 from ..device import resolve_device
-from ..graph.csr import TemporalCSR, build_temporal_csr, time_keys
+from ..graph.csr import FEAT_ENTRY_PAD, TemporalCSR, build_temporal_csr, time_keys
 from ..graph.neg_sampler import NegativeEdgeSampler
 from ..models.base import FeatureTables
 from ..nn.modules import MergeLayer
@@ -132,14 +135,17 @@ class LinkPredictionTrainer:
             edge=torch.from_numpy(data.edge_raw_features).to(dev),
         )
         # the entry-ordered feature table, for backbones that fetch their
-        # windows from it, under the JAX package's byte budget
+        # windows from it, under the JAX package's byte budget; its guard
+        # pads cover the backbone's longest window
         entry = {}
-        if getattr(backbone, "use_entry_fetch", False):
+        if getattr(backbone, "wants_entry_features", False) and (
+            getattr(backbone, "sample_strategy", "recent") == "recent"
+        ):
             width = data.node_raw_features.shape[1] + data.edge_raw_features.shape[1]
             if 2 * data.full.num_interactions * width * 4 <= ENTRY_TABLE_BUDGET:
                 entry = dict(
                     feat_entry_of=(data.node_raw_features, data.edge_raw_features),
-                    feat_entry_pad=backbone.seq_len,
+                    feat_entry_pad=max(FEAT_ENTRY_PAD, backbone.entry_window_rows),
                 )
         # training samples histories from train_csr; evaluation reads full_csr
         self.train_csr = build_temporal_csr(
@@ -154,8 +160,9 @@ class LinkPredictionTrainer:
         self.nn_val_neg = NegativeEdgeSampler(d.new_node_val.src, d.new_node_val.dst, seed=1)
         self.test_neg = NegativeEdgeSampler(d.full.src, d.full.dst, seed=2)
         self.nn_test_neg = NegativeEdgeSampler(d.new_node_test.src, d.new_node_test.dst, seed=3)
-        # sequence buckets: smallest static length covering a batch's histories
-        cands = backbone.bucket_candidates if cfg.sequence_buckets else ()
+        # sequence buckets, for backbones that publish them: smallest static
+        # length covering a batch's histories
+        cands = getattr(backbone, "bucket_candidates", ()) if cfg.sequence_buckets else ()
         self._buckets: tuple[int, ...] | None = tuple(cands) if len(cands) > 1 else None
         self._host_hist: dict[int, tuple[np.ndarray, np.ndarray, int]] = {}
         self.model: torch.nn.Module | None = None
@@ -197,7 +204,20 @@ class LinkPredictionTrainer:
     def _sample(self, csr: TemporalCSR, src, dst, neg_dst, ts, bucket):
         """The triple [src || dst || neg_dst] (neg_src = src)."""
         ids, tsx = torch.cat([src, dst, neg_dst]), ts.repeat(3)
+        if bucket is None:
+            return self.backbone.sample(csr, ids, tsx)
         return self.backbone.sample(csr, ids, tsx, seq_len=bucket)
+
+    def _embed(self, inputs, dropout_gen=None) -> torch.Tensor:
+        """Quad-order embeddings [src, dst, neg_src, neg_dst] of a triple's
+        inputs: a pair-independent backbone embeds the triple and reuses
+        src's rows for neg_src; a pair-aware one (DyGFormer) pairs the rows
+        itself (``triple=True``)."""
+        if getattr(self.backbone, "pair_independent", False):
+            embs = self.model(self.tables, inputs, dropout_gen=dropout_gen)
+            b = embs.shape[0] // 3
+            return torch.cat([embs[: 2 * b], embs[:b], embs[2 * b :]])
+        return self.model(self.tables, inputs, triple=True, dropout_gen=dropout_gen)
 
     def _head_loss(self, embs, valid):
         """Quad-order embeddings -> (masked mean BCE, (pos_logit, neg_logit))."""
@@ -220,7 +240,7 @@ class LinkPredictionTrainer:
         with record_function("train/sample"):
             inputs = self._sample(self.train_csr, src, dst, neg_dst, ts, bucket)
         with record_function("train/forward"):
-            embs = self.model(self.tables, inputs, triple=True, dropout_gen=self.dropout_gen)
+            embs = self._embed(inputs, self.dropout_gen)
             loss, (pos_logit, neg_logit) = self._head_loss(embs, valid)
         with record_function("train/backward"):
             self.optimizer.zero_grad(set_to_none=True)
@@ -240,7 +260,7 @@ class LinkPredictionTrainer:
         with record_function("eval/sample"):
             inputs = self._sample(csr, src, dst, neg_dst, ts, bucket)
         with record_function("eval/forward"):
-            embs = self.model(self.tables, inputs, triple=True)  # quad order
+            embs = self._embed(inputs)
         with record_function("eval/head"):
             loss, (pos_logit, neg_logit) = self._head_loss(embs, valid)
             return loss, (torch.sigmoid(pos_logit), torch.sigmoid(neg_logit))

@@ -11,7 +11,12 @@ checkpoint's ``"params"``) and returns ``{"backbone": state_dict,
   * a LayerNorm's ``scale``/``bias`` map to ``weight``/``bias``;
   * ``time_encoder/w`` (1, Dt) and ``time_encoder/b`` (Dt,) keep their shapes;
   * nested module names join with ".", so ``transformer_0/q_proj`` becomes
-    ``transformer_0.q_proj`` (the port names its modules alike).
+    ``transformer_0.q_proj`` (the port names its modules alike). TGAT's
+    tree (``temporal_conv_{l}/{query,key,value}_projection/kernel``, no
+    bias; ``.../residual_fc``, ``.../layer_norm``, ``merge_{l}/fc1|fc2``,
+    ``time_encoder/w|b``) maps the same way; the JAX kernel paths'
+    ``_RawKernel`` projections share ``Dense``'s names, so one tree serves
+    every configuration.
 """
 from __future__ import annotations
 

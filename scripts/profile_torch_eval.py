@@ -1,22 +1,27 @@
 #!/usr/bin/env python3
-"""Where the time of the PyTorch port's DyGFormer evaluation or training goes, on one card.
+"""Where the time of the PyTorch port's evaluation or training goes, on one card.
 
-    python3 scripts/profile_torch_eval.py [--mode eval|train] [--batches 10]
+    python3 scripts/profile_torch_eval.py [--model dygformer|tgat] [--mode eval|train]
+                                          [--batches 10]
 
 Same setting as chip_smoke.py (synthetic wikipedia-scale stream, seed 1;
-random weights, seed 0; B = 200), for the wikipedia (maxlen 32, patch 1)
-and CanParl (maxlen 2048, patch 64) configurations, kernel path. For each
-configuration it traces, with torch.profiler, one ``evaluate`` sweep over
-the first val batches (``--mode eval``, random val negatives) or one
-``train_epoch`` over the last train batches (``--mode train``, dropout
-0.1; wikipedia on the gather path, CanParl with the entry fetch, as
-chip_smoke.py drives them), and reports:
+random weights, seed 0; B = 200). DyGFormer: the wikipedia (maxlen 32,
+patch 1) and CanParl (maxlen 2048, patch 64) configurations, kernel path.
+TGAT (evaluation only: its kernels have no backward yet): the published
+widths (K = 20, 2 layers, 2 heads, Dt = 100), the default kernel path
+(gathered attention at layer 1, fused attention at layer 2) and the plain
+path. For each configuration it traces, with torch.profiler, one
+``evaluate`` sweep over the first val batches (``--mode eval``, random val
+negatives) or one ``train_epoch`` over the last train batches (``--mode
+train``, dropout 0.1; wikipedia on the gather path, CanParl with the entry
+fetch, as chip_smoke.py drives them), and reports:
 
   * per batch, the host time and the device time of each of the loop's
     own profiler ranges. evaluate: ``eval/staging`` (negative draw, bucket
     pick, host-to-device copies), ``eval/sample`` (``DyGFormer.sample``),
     ``eval/forward`` (the network), ``eval/head`` (head + loss) and
-    ``eval/metrics`` (copy-back, which waits for the device, + metrics).
+    ``eval/metrics`` (copy-back, which waits for the device, + metrics);
+    for TGAT ``eval/sample`` is ``TGAT.sample`` (the multi-hop fan-out).
     train_step: ``train/sample``, ``train/forward`` (network, with the
     entry fetch where it runs, head and loss), ``train/backward`` and
     ``train/optimizer`` (Adam).
@@ -43,6 +48,7 @@ import time
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B = 200
 CONFIGS = (("wikipedia", 32, 1), ("CanParl", 2048, 64))
+TGAT_CONFIGS = (("TGAT default", True), ("TGAT plain", False))  # (name, use_kernels)
 
 
 def is_range(name: str) -> bool:
@@ -154,16 +160,19 @@ def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--model", choices=("dygformer", "tgat"), default="dygformer")
     parser.add_argument("--mode", choices=("eval", "train"), default="eval")
     parser.add_argument("--batches", type=int, default=10)
     args = parser.parse_args()
+    if args.model == "tgat" and args.mode == "train":
+        parser.error("TGAT's kernels have no backward yet: --model tgat takes --mode eval")
     if not torch.cuda.is_available():
         print("profile_torch_eval: needs a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO_ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     from dyglib_tpu_torch.data import synthetic_link_prediction_data
-    from dyglib_tpu_torch.models import DyGFormer
+    from dyglib_tpu_torch.models import TGAT, DyGFormer
     from dyglib_tpu_torch.train import LinkPredictionTrainer, TrainConfig
 
     def synced(fn):
@@ -175,13 +184,19 @@ def main() -> int:
     print(json.dumps({"record_function_us": range_cost_us()}), flush=True)
     data = synthetic_link_prediction_data(num_src=8227, num_dst=1000, num_edges=157474, seed=1)
     n = data.train.num_interactions
-    for config, maxlen, patch in CONFIGS:
-        fetch = args.mode == "train" and config == "CanParl"
-        tr = LinkPredictionTrainer(
-            DyGFormer(max_input_sequence_length=maxlen, patch_size=patch, use_entry_fetch=fetch),
-            data, TrainConfig(batch_size=B), device="cuda",
-        )
+    if args.model == "tgat":
+        runs = [(name, TGAT(), use_kernels, False) for name, use_kernels in TGAT_CONFIGS]
+    else:
+        runs = [
+            (config, DyGFormer(max_input_sequence_length=maxlen, patch_size=patch,
+                               use_entry_fetch=args.mode == "train" and config == "CanParl"),
+             True, args.mode == "train" and config == "CanParl")
+            for config, maxlen, patch in CONFIGS
+        ]
+    for config, backbone, use_kernels, fetch in runs:
+        tr = LinkPredictionTrainer(backbone, data, TrainConfig(batch_size=B), device="cuda")
         tr.init_params(0)
+        tr.model.use_kernels = use_kernels
         if args.mode == "eval":
             tr.evaluate(data.val.slice(0, B), tr.val_neg)  # warm-up
             run = synced(lambda: tr.evaluate(data.val.slice(0, args.batches * B), tr.val_neg))
@@ -191,7 +206,7 @@ def main() -> int:
             run = synced(lambda: tr.train_epoch(stream))
         torch.cuda.synchronize()
         out = {"config": config, "mode": args.mode, "batches": args.batches,
-               "entry_fetch": fetch}
+               "use_kernels": use_kernels, "entry_fetch": fetch}
         out.update(device_profile(run))
         print(json.dumps(out), flush=True)
     return 0

@@ -311,3 +311,188 @@ def test_every_parameter_gets_a_gradient_through_the_kernels(dev):
         assert g is not None and torch.isfinite(g).all(), k
         ref = grads[False][k]
         torch.testing.assert_close(g, ref, atol=1e-4 * (1 + float(ref.abs().max())), rtol=0, msg=k)
+
+
+# ---- TGAT's attention kernels (forward only; no backward kernel yet)
+#
+# Tolerance: ATOL. An output is a softmax-weighted sum of val rows, each a
+# sum of Dkv <= 444 products of O(1) values; the kernel takes the sums in
+# another order than cuBLAS. The all-padded row (row 0) attends uniformly.
+
+# (seed, M, K, dn, de, Dt, Dq, heads)
+ATTN_CASES = [
+    (0, 2, 20, 172, 172, 100, 272, 2),  # fewer queries than one block holds (3)
+    (1, 700, 20, 172, 172, 100, 272, 2),  # published widths, many blocks, ragged last
+    (2, 37, 7, 12, 5, 9, 30, 3),  # ragged widths, 9 queries a block
+    (3, 5, 64, 8, 8, 8, 16, 4),  # K = 64: one query a block
+    (4, 70, 1, 12, 12, 10, 22, 2),  # K = 1: 64 queries a block
+]
+
+
+def _attention_case(dev, seed, m, k, dn, de, dt_dim, dq, heads, layout="linear"):
+    rng = np.random.RandomState(seed)
+    f = lambda *s: rng.randn(*s).astype(np.float32)
+    mask = (rng.rand(m, k) > 0.3).astype(np.float32)
+    mask[0] = 0.0
+    t_rows = 3 * k + 50
+    kv = dn + de + dt_dim
+    arrays = dict(
+        q3=f(m, dq), nbr=f(m, k, dn), edge=f(m, k, de), phi=f(m, k, dt_dim),
+        dt=np.floor(rng.rand(m, k) * 2.6e6).astype(np.float32), mask=mask,
+        keep=((rng.rand(m, heads, k) > 0.1) / 0.9).astype(np.float32),
+        tw=(1.0 / 10 ** np.linspace(0, 9, dt_dim)).astype(np.float32), tb=f(dt_dim) * 0.1,
+        table=f(t_rows, dn + de), starts=rng.randint(0, t_rows - k + 1, m).astype(np.int32),
+        wk=f(kv, dq) * kv**-0.5, wv=f(kv, dq) * kv**-0.5,
+    )
+    t = {name: torch.from_numpy(a).to(dev) for name, a in arrays.items()}
+    t["wk"], t["wv"] = _layout(t["wk"], layout), _layout(t["wv"], layout)
+    return t
+
+
+def _launched_once(fn, *args):
+    before = fn.launches
+    out = fn(*args)
+    assert fn.launches == before + 1
+    return out
+
+
+@pytest.mark.parametrize("seed,m,k,dn,de,dt_dim,dq,heads", ATTN_CASES)
+def test_temporal_attention_kernel_matches_plain(dev, seed, m, k, dn, de, dt_dim, dq, heads):
+    t = _attention_case(dev, seed, m, k, dn, de, dt_dim, dq, heads)
+    args = (t["q3"], t["nbr"], t["edge"], t["phi"], t["mask"], t["keep"], t["wk"], t["wv"], heads)
+    out, scores = _launched_once(ops.temporal_attention, *args)
+    ref_out, ref_scores = ops.temporal_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert out.shape == (m, dq) and scores.shape == (m, heads, k)
+    torch.testing.assert_close(out, ref_out, atol=ATOL, rtol=0)
+    torch.testing.assert_close(scores, ref_scores, atol=ATOL, rtol=0)
+    torch.testing.assert_close(scores[0], t["keep"][0] / k, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("layout", ["rows", "linear"])
+@pytest.mark.parametrize("seed,m,k,dn,de,dt_dim,dq,heads", ATTN_CASES)
+def test_gathered_attention_kernel_matches_plain(dev, seed, m, k, dn, de, dt_dim, dq, heads,
+                                                 layout):
+    t = _attention_case(dev, seed, m, k, dn, de, dt_dim, dq, heads, layout)
+    args = (t["q3"], t["nbr"].reshape(m * k, dn), t["edge"].reshape(m * k, de), t["dt"],
+            t["mask"], t["keep"], (t["tw"], t["tb"]), (t["wk"], t["wv"]), heads)
+    out = _launched_once(ops.gathered_attention, *args)
+    ref = ops.gathered_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert out.shape == (m, dq) and torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("seed,m,k,dn,de,dt_dim,dq,heads", ATTN_CASES)
+def test_window_attention_kernel_matches_plain(dev, seed, m, k, dn, de, dt_dim, dq, heads):
+    t = _attention_case(dev, seed, m, k, dn, de, dt_dim, dq, heads)
+    args = (t["q3"], t["starts"], t["dt"], t["mask"], t["keep"], t["table"], t["tw"], t["tb"],
+            (t["wk"], t["wv"]), heads)
+    out = _launched_once(ops.window_attention, *args)
+    ref = ops.window_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert out.shape == (m, dq) and torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+
+
+# (seed, R, Dt, Dq): ragged rows and columns; hop 1's R at the published widths
+PHI_CASES = [(0, 7, 10, 16), (1, 130, 9, 70), (2, 240_000, 100, 272)]
+
+
+@pytest.mark.parametrize("layout", ["rows", "linear_slice"])
+@pytest.mark.parametrize("seed,r,dt_dim,dq", PHI_CASES)
+def test_phi_projection_kernel_matches_plain(dev, seed, r, dt_dim, dq, layout):
+    rng = np.random.RandomState(seed)
+    dt = torch.from_numpy(np.floor(rng.rand(r) * 2.6e6).astype(np.float32)).to(dev)
+    tw = torch.from_numpy((1.0 / 10 ** np.linspace(0, 9, dt_dim)).astype(np.float32)).to(dev)
+    tb = torch.from_numpy((rng.randn(dt_dim) * 0.1).astype(np.float32)).to(dev)
+    if layout == "rows":
+        w = torch.from_numpy((rng.randn(dt_dim, dq) * dt_dim**-0.5).astype(np.float32)).to(dev)
+    else:  # the Phi rows of nn.Linear's (dq, 24 + Dt) weight, transposed: a strided view
+        weight = torch.from_numpy(rng.randn(dq, 24 + dt_dim).astype(np.float32)).to(dev)
+        w = weight.t()[24:]
+        assert not w.is_contiguous() and not w.t().is_contiguous()
+    out = _launched_once(ops.phi_projection, dt, tw, tb, w)
+    ref = ops.phi_projection_plain(dt, tw, tb, w)
+    torch.cuda.synchronize()
+    assert out.shape == (r, dq)
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+
+
+def test_attention_wrappers_refuse_grad_mode_and_what_they_do_not_take(dev):
+    """A CUDA call of any of the four wrappers with an input that requires
+    grad raises (the outputs would carry no grad_fn, silently); under
+    no_grad the same call launches. Shapes the kernels do not take raise
+    before any launch."""
+    m, k, heads = 4, 5, 2
+    t = _attention_case(dev, 9, m, k, 8, 8, 6, 14, heads)
+    wk = t["wk"].detach().clone().requires_grad_(True)
+    calls = {
+        "temporal_attention": lambda w: ops.temporal_attention(
+            t["q3"], t["nbr"], t["edge"], t["phi"], t["mask"], t["keep"], w, t["wv"], heads),
+        "gathered_attention": lambda w: ops.gathered_attention(
+            t["q3"], t["nbr"].reshape(m * k, -1), t["edge"].reshape(m * k, -1), t["dt"],
+            t["mask"], t["keep"], (t["tw"], t["tb"]), (w, t["wv"]), heads),
+        "window_attention": lambda w: ops.window_attention(
+            t["q3"], t["starts"], t["dt"], t["mask"], t["keep"], t["table"], t["tw"], t["tb"],
+            (w, t["wv"]), heads),
+        "phi_projection": lambda w: ops.phi_projection(t["dt"], t["tw"], t["tb"], w[-6:]),
+    }
+    for name, call in calls.items():
+        before = ops.launch_counts()
+        with pytest.raises(RuntimeError, match="no backward kernel"):
+            call(wk)
+        assert ops.launch_counts() == before, name
+        with torch.no_grad():
+            call(wk)
+        assert ops.launch_counts()[name] == before[name] + 1, name
+    before = ops.launch_counts()
+    big_k = _attention_case(dev, 10, 2, 65, 4, 4, 4, 8, 2)
+    with pytest.raises(ValueError, match="neighbors"):
+        ops.temporal_attention(big_k["q3"], big_k["nbr"], big_k["edge"], big_k["phi"],
+                               big_k["mask"], big_k["keep"], big_k["wk"], big_k["wv"], 2)
+    with pytest.raises(ValueError, match="heads"):
+        ops.temporal_attention(t["q3"], t["nbr"], t["edge"], t["phi"], t["mask"], t["keep"],
+                               t["wk"], t["wv"], 3)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.window_attention(t["q3"], t["starts"].long(), t["dt"], t["mask"], t["keep"],
+                             t["table"], t["tw"], t["tb"], (t["wk"], t["wv"]), heads)
+    assert ops.launch_counts() == before
+
+
+@pytest.mark.parametrize("config", ["default", "entry_table", "window", "phi_fusion"])
+def test_tgat_configurations_run_their_kernels(dev, config):
+    """TGATNet on the card, small widths: each configuration launches its
+    kernels (and only those) on inputs as TGAT.sample makes them, and its
+    embeddings equal the plain versions' within the kernels' tolerance."""
+    from dyglib_tpu_torch.data import synthetic_link_prediction_data
+    from dyglib_tpu_torch.graph import build_temporal_csr
+    from dyglib_tpu_torch.models import TGAT, FeatureTables
+
+    kw, kernels = {
+        "default": ({}, {"gathered_attention": 2, "temporal_attention": 1}),
+        "entry_table": ({}, {"gathered_attention": 2, "temporal_attention": 1}),
+        "window": (dict(wants_entry_features=True), {"window_attention": 2,
+                                                     "temporal_attention": 1}),
+        "phi_fusion": (dict(use_gathered_attention=False, use_phi_fusion=True),
+                       {"phi_projection": 6}),
+    }[config]
+    data = synthetic_link_prediction_data(num_src=60, num_dst=30, num_edges=1500, seed=3)
+    feats = (data.node_raw_features[:, :12].copy(), data.edge_raw_features[:, :12].copy())
+    table = dict(feat_entry_of=feats) if config in ("entry_table", "window") else {}
+    csr = build_temporal_csr(data.full, num_nodes=data.num_nodes, device=dev, **table)
+    tables = FeatureTables(*(torch.from_numpy(f).to(dev) for f in feats))
+    tgat = TGAT(num_neighbors=5, time_feat_dim=10, **kw)
+    net = tgat.build(12, 12, torch.Generator().manual_seed(0)).to(dev).eval()
+    ids = torch.from_numpy(np.concatenate([data.val.src[:20], data.val.dst[:20]]).astype(np.int32))
+    ts = torch.from_numpy(data.val.ts[:20].astype(np.int32)).repeat(2)
+    inputs = tgat.sample(csr, ids.to(dev), ts.to(dev))
+    with torch.inference_mode():
+        before = ops.launch_counts()
+        emb = net(tables, inputs)
+        after = ops.launch_counts()
+        net.use_kernels = False
+        ref = net(tables, inputs)
+    torch.cuda.synchronize()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == kernels
+    torch.testing.assert_close(emb, ref, atol=ATOL, rtol=0)

@@ -160,7 +160,8 @@ def test_launch_counters_reset():
     ops.reset_launch_counts()
     assert ops.launch_counts() == {
         "time_channel": 0, "time_channel_bwd": 0, "cooccurrence": 0, "patch_projection": 0,
-        "patch_projection_bwd": 0, "window_fetch": 0,
+        "patch_projection_bwd": 0, "window_fetch": 0, "temporal_attention": 0,
+        "gathered_attention": 0, "window_attention": 0, "phi_projection": 0,
     }
 
 
