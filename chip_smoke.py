@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py            (from the root of a checkout)
 
-The main paths are TGAT link-prediction evaluation and DyGFormer
-link-prediction evaluation (``dyglib_tpu_torch.train.LinkPredictionTrainer
-.evaluate``) and training (``LinkPredictionTrainer.train_step`` over train
-batches, and ``fit``), each model at its published widths (TGAT: 20
+The main paths are TGAT and DyGFormer link-prediction evaluation
+(``dyglib_tpu_torch.train.LinkPredictionTrainer.evaluate``) and training
+(``LinkPredictionTrainer.train_step`` over train batches, and ``fit``),
+each model at its published widths (TGAT: 20
 neighbours, 2 layers, 2 heads; DyGFormer: channel embedding 50, 2 layers,
 2 heads; both: time features 100, node and edge features 172), random
 weights from seed 0, on the wikipedia-scale synthetic stream (8227 users,
@@ -26,7 +26,12 @@ and prints no result):
      (stated tolerances) and time the kernel, the plain version and,
      where one exists, one PyTorch library call computing the same
      function (for TGAT's attention kernels only a part of it, the K/V
-     products); compute each bound from bytes and operations;
+     products); compute each bound from bytes and operations (for TGAT's
+     attention kernels, the operations the function needs, reassociated:
+     no kv row projected); the same for TGAT's four backward kernels at
+     its training shapes (gradients within GRAD_RTOL of their sums of
+     |terms|, a second launch bitwise equal to the first; library
+     yardsticks partial: the two weight-gradient products);
   4. TGAT evaluation on the first val batches, one set of weights in four
      configurations (plain versions; default kernels: gathered attention
      at layer 1, fused attention at layer 2; window attention with the
@@ -55,10 +60,27 @@ and prints no result):
      parameters that agree; then the kernel path with the other feature
      fetch (entry fetch at wikipedia, gather at CanParl) in turns with the
      first, for their step times;
+  5t. TGAT training over the last train batches, one set of seed-0
+     weights in the four evaluation configurations, swept in turns (plain,
+     default, window, Phi fusion, and back), dropout 0: zero the launch
+     counters before each sweep and read them after (each configuration
+     launches exactly its forward and backward kernels, a fixed number a
+     step; the plain one none), finite gradients for every parameter, ms
+     per train step; then each kernel configuration in lockstep with its
+     plain versions (losses within LOSS_ATOL, gradients within
+     GRAD_STEP_RTOL of each tensor's largest entry but the time encoder's
+     frequencies, which phase 3 holds to their sums of |terms|), and one
+     lockstep step at dropout 0.1 (the same dropout_gen seed for both
+     paths: the keep masks go through the backward kernels);
+  5u. TGAT with the uniform strategy (default kernels): a few train steps
+     (its kernels launch, forward and backward), then two evaluate sweeps
+     over the first val batches with identical probabilities;
   6. fit on the JAX test fixture (the 2000-edge synthetic stream of
-     tests/conftest.py, DyGFormer 32/2, 2 layers, dropout 0.1, 4 epochs,
-     lr 5e-4): test AP above 0.50 and the least epoch loss below 0.67,
-     the JAX package's floors (tests/test_remaining_models.py);
+     tests/conftest.py): DyGFormer 32/2, 2 layers, dropout 0.1, 4 epochs,
+     lr 5e-4, test AP above 0.50 and the least epoch loss below 0.67
+     (tests/test_remaining_models.py); TGAT K = 10, 2 layers, 4 epochs,
+     lr 1e-3, default kernels, test AP above 0.58 and AUC above 0.57
+     (tests/test_tgat_end_to_end.py): the JAX package's floors;
   7. print one JSON line of kernel numbers, then the device JSON line.
 """
 import json
@@ -106,9 +128,11 @@ LOSS_ATOL = 1e-4
 GRAD_STEP_RTOL = 1e-3
 LOSS_DRIFT_ATOL = 0.05
 TRAIN_LR = 1e-4
-# end-metric floors of the fixture fit (tests/test_remaining_models.py) and
-# the JAX package's band there (tests/calibration_fixture.json)
+# end-metric floors of the fixture fits (tests/test_remaining_models.py,
+# tests/test_tgat_end_to_end.py) and the JAX package's bands there
+# (tests/calibration_fixture.json)
 FIT_AP_FLOOR, FIT_LOSS_CEIL, FIT_BAND = 0.50, 0.67, (0.6368, 0.0438)
+TGAT_FIT_AP_FLOOR, TGAT_FIT_AUC_FLOOR, TGAT_FIT_BAND = 0.58, 0.57, (0.6171, 0.0078)
 
 B = 200
 CONFIGS = (  # (name, maxlen, patch, val batches driven, train steps driven)
@@ -134,8 +158,13 @@ TGAT_CONFIGS = {
                    {"phi_projection": 6}),
 }
 # the configuration whose sweep counts each TGAT kernel's main-path launches
+# (forward kernels: its evaluation sweep; backward kernels: its training
+# sweep)
 TGAT_KERNEL_CONFIG = {"temporal_attention": "default", "gathered_attention": "default",
                       "window_attention": "window", "phi_projection": "phi_fusion"}
+# TGAT training: the last train batches, dropout 0 (and one lockstep step at
+# the published dropout)
+TGAT_TRAIN_STEPS, TGAT_DROPOUT = 5, 0.1
 
 
 def log(msg: str) -> None:
@@ -497,11 +526,19 @@ def check_tgat_kernels(data, dev) -> dict:
         return err
 
     with torch.inference_mode():
-        # attention ops beyond the projections, per kv row: the logit and the
-        # weighted sum (2 dq each); per (query, head, neighbor) ~6 for the
-        # mask, softmax and keep
-        attn_ops = lambda m: 4 * m * k * dq + 6 * m * heads * k
+        # the operations the function needs (reassociated, as the backward
+        # kernels compute it; no kv row projected): qk = Wk_h q3_h and out_h
+        # = Av_h Wv_h (2 dq kv_dim each a query), the logits and Av = sum_j w
+        # kv_j (2 kv_dim each per (query, head, neighbor)), ~6 for the mask,
+        # softmax and keep. The kernels project every kv row instead: that
+        # count (direct) is logged beside it.
+        fwd_ops = lambda m: 4 * m * dq * kv_dim + 4 * m * heads * k * kv_dim + 6 * m * heads * k
+        direct_ops = lambda m: 4 * m * k * kv_dim * dq + 4 * m * k * dq + 6 * m * heads * k
         small = lambda m: 4 * (2 * m * dq + 2 * m * k + m * heads * k + 2 * kv_dim * dq)
+
+        def log_direct(kernel, m, nbytes, extra_ops=0):
+            b_ms, _ = bound_ms(nbytes, direct_ops(m) + extra_ops)
+            log(f"  {kernel:<20} bound of the direct projection (every kv row): {b_ms:.4f} ms")
 
         # ---- temporal attention, layer 2 (M = 600): kv = [layer-1
         # embeddings || edge rows || Phi(dt)]
@@ -514,10 +551,11 @@ def check_tgat_kernels(data, dev) -> dict:
         err = compare("temporal_attention", ops.temporal_attention(*args),
                       ops.temporal_attention_plain(*args))
         kv = torch.cat([nbr, edge, phi], dim=-1).reshape(m * k, kv_dim)
+        nbytes = small(m) + 4 * m * k * kv_dim
         record("temporal_attention", f"M{m} K{k} Dkv{kv_dim} Dq{dq}", err,
                lambda: ops.temporal_attention(*args), lambda: ops.temporal_attention_plain(*args),
-               lambda: (torch.mm(kv, wk), torch.mm(kv, wv)),
-               small(m) + 4 * m * k * kv_dim, 4 * m * k * kv_dim * dq + attn_ops(m), 50)
+               lambda: (torch.mm(kv, wk), torch.mm(kv, wv)), nbytes, fwd_ops(m), 50)
+        log_direct("temporal_attention", m, nbytes)
         del nbr, edge, phi, kv, args
 
         # ---- gathered and window attention, layer 1, hop 1 (M = 12,000)
@@ -531,10 +569,11 @@ def check_tgat_kernels(data, dev) -> dict:
         kv = torch.cat([feat_n, feat_e, torch.cos(dt.reshape(-1, 1) * tw + tb)], dim=-1)
         lib = lambda: (torch.mm(kv, wk), torch.mm(kv, wv))
         theta_ops = 2 * m * k * DT_DIM  # Phi's argument; the cosines uncounted
+        nbytes = small(m) + 4 * (m * k * 2 * FEAT + 2 * DT_DIM)
         record("gathered_attention", f"M{m} K{k} Dkv{kv_dim} Dq{dq}", err,
                lambda: ops.gathered_attention(*args), lambda: ops.gathered_attention_plain(*args),
-               lib, small(m) + 4 * (m * k * 2 * FEAT + 2 * DT_DIM),
-               4 * m * k * kv_dim * dq + attn_ops(m) + theta_ops, 5)
+               lib, nbytes, fwd_ops(m) + theta_ops, 5)
+        log_direct("gathered_attention", m, nbytes, theta_ops)
 
         starts = inputs.hop_win_start[1].reshape(-1)
         args = (q3, starts, dt, mask, keep, csr.feat_entry, tw, tb, (wk, wv), heads)
@@ -543,10 +582,11 @@ def check_tgat_kernels(data, dev) -> dict:
         # the table rows this run needs: the valid window rows (the others
         # are multiplied by a zero mask)
         n_valid = int(mask.sum())
+        nbytes = small(m) + 4 * (n_valid * 2 * FEAT + 2 * DT_DIM) + 4 * m
         record("window_attention", f"M{m} K{k} W{2 * FEAT} valid rows {n_valid}", err,
                lambda: ops.window_attention(*args), lambda: ops.window_attention_plain(*args),
-               lib, small(m) + 4 * (n_valid * 2 * FEAT + 2 * DT_DIM) + 4 * m,
-               4 * m * k * kv_dim * dq + attn_ops(m) + theta_ops + m * k * 2 * FEAT, 5)
+               lib, nbytes, fwd_ops(m) + theta_ops + m * k * 2 * FEAT, 5)
+        log_direct("window_attention", m, nbytes, theta_ops + m * k * 2 * FEAT)
         del feat_n, feat_e, kv, args
 
         # ---- Phi projection, R = 240,000 (hop 1's deltas), Wk's Phi rows
@@ -560,6 +600,144 @@ def check_tgat_kernels(data, dev) -> dict:
                lambda: ops.phi_projection(*args), lambda: ops.phi_projection_plain(*args),
                lambda: torch.mm(phi, w_phi), 4 * (r + 2 * DT_DIM + DT_DIM * dq + r * dq),
                2 * r * DT_DIM * dq + 2 * r * DT_DIM, 10)
+    del net, tables, csr, inputs
+    torch.cuda.empty_cache()
+    return results
+
+
+def check_tgat_backward_kernels(data, dev) -> dict:
+    """Phase 3, TGAT's four backward kernels at the shapes TGAT's training
+    gives them (the B = 200 triple, K = 20, dropout keep masks at p = 0.1):
+    temporal attention at layer 2 (M = 600), gathered and window attention
+    at layer 1 on hop 0 (M = 600) and hop 1 (M = 12,000, 240,000 kv rows),
+    the Phi projection at R = 240,000. Each against its plain backward
+    (every gradient within GRAD_RTOL of its sum of |terms|), a second launch
+    bitwise equal to the first. The library yardstick is partial: the two
+    weight-gradient torch.mm's on the materialized kv and dkey / dval (for
+    the Phi projection, Phi^T @ dout and dout @ w^T on a precomputed Phi),
+    timed alone; the port never calls them. Bounds count the operations
+    the function needs, reassociated as the kernels compute it."""
+    import torch
+
+    from dyglib_tpu_torch import ops
+    from dyglib_tpu_torch.ops import _attention
+
+    net, tables, csr, inputs = tgat_batch(data, dev)
+    conv = net.temporal_conv_0
+    heads, k = conv.num_heads, TGAT_K
+    tw, tb = net.time_encoder.w.detach().reshape(-1), net.time_encoder.b.detach()
+    wk, wv = conv.key_projection.weight.detach().t(), conv.value_projection.weight.detach().t()
+    kv_dim, dq = wk.shape
+    gen = torch.Generator(device=dev).manual_seed(77)
+    results = {}
+
+    def hop(h):
+        """Layer-1 operands of hop h: q3, dt, mask, a p = 0.1 keep mask and
+        an output cotangent."""
+        ids = inputs.hop_ids[h].reshape(-1).long()
+        m = ids.shape[0]
+        dt = (inputs.hop_ts[h].reshape(-1, 1) - inputs.hop_ts[h + 1].reshape(m, k)).float()
+        phi0 = net.time_encoder(torch.zeros((m, 1), device=dev))[:, 0, :]
+        q3 = conv.query_projection(torch.cat([tables.node[ids], phi0], dim=-1))
+        mask = inputs.hop_mask[h].reshape(m, k).float()
+        keep = (torch.rand((m, heads, k), device=dev, generator=gen) < 1 - TGAT_DROPOUT) / (
+            1 - TGAT_DROPOUT)
+        dout = 1e-3 * torch.randn((m, dq), device=dev, generator=gen)
+        return q3.detach().contiguous(), dt, mask, keep, dout
+
+    def check(kernel, part, bwd, plain, args, lib, nbytes, nops, iters):
+        """Hold the backward kernel to its plain backward, time the three."""
+        got = bwd(*args)
+        again = bwd(*args)
+        want = plain(*args)
+        terms = plain(*args, abs_terms=True)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{kernel}@tgat {part}: two launches differ")
+        if not all(torch.isfinite(a).all() for a in got):
+            raise AssertionError(f"{kernel}@tgat {part}: a gradient is not finite")
+        err, rel = grad_errors(got, want, terms)
+        if not rel <= GRAD_RTOL:
+            raise AssertionError(f"{kernel}@tgat {part}: error {rel} of sum|terms| > {GRAD_RTOL}")
+        del got, again, want, terms
+        entry = dict(part=part, max_abs_err=err, ms=cuda_ms(lambda: bwd(*args), iters, 3),
+                     plain_ms=cuda_ms(lambda: plain(*args), iters, 3),
+                     library_ms=cuda_ms(lib, iters, 3), bytes=nbytes, ops=nops)
+        results.setdefault((kernel, "tgat"), {"parts": []})["parts"].append(entry)
+        log(f"  {kernel:<24} {part:<24} err {err:.3g} ({rel:.3g} of sum|terms|)  kernel "
+            f"{entry['ms']:.4f} ms  plain {entry['plain_ms']:.4f} ms  library (partial: weight "
+            f"gradient mm's) {entry['library_ms']:.4f} ms")
+
+    def weight_grad_mms(kv, q3, mask, keep, dout, wkv):
+        """The partial yardstick's operands: kv (R, Dkv), dkey, dval (R, Dq)."""
+        m = q3.shape[0]
+        key, val = _attention.project_kv(kv, *wkv)
+        _, dkey, dval = _attention.attend_backward(
+            q3, key.view(m, k, -1), val.view(m, k, -1), mask, keep, dout, None, heads)
+        dkey, dval = dkey.reshape(m * k, dq), dval.reshape(m * k, dq)
+        return lambda: (torch.mm(kv.t(), dkey), torch.mm(kv.t(), dval))
+
+    # operations of the reassociated backward: qk, gv, dq3, dWk, dWv (10 dq
+    # kv_dim a query); logits, ds_d, Ak, Av (8 kv_dim per (query, head,
+    # neighbor)); dkv's needed columns (4 each); ~12 for the softmax's
+    # backward; Phi's argument (2) and -sin * dPhi, dtb, dtw (5) per kv row
+    # and Phi column where dtw and dtb are returned
+    def bwd_ops(m, kv_cols, phi_cols=0):
+        return (10 * m * dq * kv_dim + 8 * m * heads * k * kv_dim
+                + 4 * m * heads * k * kv_cols + 12 * m * heads * k + 7 * m * k * phi_cols)
+
+    small = lambda m: 4 * (3 * m * dq + 2 * m * k + m * heads * k + 4 * kv_dim * dq)
+
+    with torch.no_grad():
+        # ---- temporal attention, layer 2 (M = 600), no scores cotangent
+        q3, dt, mask, keep, dout = hop(0)
+        m = q3.shape[0]
+        nbr = torch.randn((m, k, FEAT), device=dev, generator=gen)
+        edge = tables.edge[inputs.hop_eids[0].reshape(m, k).long()]
+        phi = net.time_encoder(dt)
+        args = (q3, nbr, edge, phi, mask, keep, wk, wv, dout, None, heads)
+        kv = torch.cat([nbr, edge, phi], dim=-1).reshape(m * k, kv_dim)
+        check("temporal_attention_bwd", f"M{m} K{k} Dkv{kv_dim} Dq{dq}",
+              ops.temporal_attention_backward, ops.temporal_attention_backward_plain, args,
+              weight_grad_mms(kv, q3, mask, keep, dout, (wk, wv)),
+              small(m) + 2 * 4 * m * k * kv_dim, bwd_ops(m, kv_dim), 20)
+        del nbr, edge, phi, kv, args
+
+        # ---- gathered and window attention, layer 1, hops 0 and 1
+        for h in (0, 1):
+            q3, dt, mask, keep, dout = hop(h)
+            m = q3.shape[0]
+            feat_n = tables.node[inputs.hop_ids[h + 1].reshape(-1).long()]
+            feat_e = tables.edge[inputs.hop_eids[h].reshape(-1).long()]
+            kv = torch.cat([feat_n, feat_e, torch.cos(dt.reshape(-1, 1) * tw + tb)], dim=-1)
+            lib = weight_grad_mms(kv, q3, mask, keep, dout, (wk, wv))
+            iters = 20 if m < 1000 else 3
+            part = f"M{m} K{k} Dkv{kv_dim} Dq{dq}"
+            args = (q3, feat_n, feat_e, dt, mask, keep, (tw, tb), (wk, wv), dout, heads)
+            check("gathered_attention_bwd", part, ops.gathered_attention_backward,
+                  ops.gathered_attention_backward_plain, args, lib,
+                  small(m) + 4 * (m * k * (2 * FEAT + 1) + 4 * DT_DIM),
+                  bwd_ops(m, DT_DIM, DT_DIM), iters)
+            starts = inputs.hop_win_start[h].reshape(-1)
+            n_valid = int(mask.sum())
+            args = (q3, starts, dt, mask, keep, csr.feat_entry, tw, tb, (wk, wv), dout, heads)
+            check("window_attention_bwd", f"{part} valid rows {n_valid}",
+                  ops.window_attention_backward, ops.window_attention_backward_plain, args, lib,
+                  small(m) + 4 * (n_valid * 2 * FEAT + m * k + 4 * DT_DIM + m),
+                  bwd_ops(m, DT_DIM, DT_DIM) + m * k * 2 * FEAT, iters)
+            del feat_n, feat_e, kv, lib, args
+            torch.cuda.empty_cache()
+
+        # ---- Phi projection, R = 240,000 (hop 1's deltas), Wk's Phi rows
+        dt_flat, w_phi = dt.reshape(-1), wk[2 * FEAT:]
+        r = dt_flat.shape[0]
+        dout = 1e-3 * torch.randn((r, dq), device=dev, generator=gen)
+        phi = torch.cos(dt_flat[:, None] * tw + tb)
+        check("phi_projection_bwd", f"R{r} Dt{DT_DIM} Dq{dq}", ops.phi_projection_backward,
+              ops.phi_projection_backward_plain, (dt_flat, tw, tb, w_phi, dout),
+              lambda: (torch.mm(phi.t(), dout), torch.mm(dout, w_phi.t())),
+              4 * (r + 4 * DT_DIM + 2 * DT_DIM * dq + r * dq),
+              4 * r * DT_DIM * dq + 7 * r * DT_DIM, 10)
     del net, tables, csr, inputs
     torch.cuda.empty_cache()
     return results
@@ -773,6 +951,185 @@ def run_tgat(data, n_batches, dev) -> dict:
     return result
 
 
+def tgat_trainers(data, dev, dropout=0.0, **extra):
+    """One TGAT trainer per configuration of TGAT_CONFIGS, at the published
+    widths, all holding the same seed-0 weights; returns (trainers, the
+    weights' state dicts)."""
+    from dyglib_tpu_torch.models import TGAT
+    from dyglib_tpu_torch.train import LinkPredictionTrainer, TrainConfig
+
+    trainers, params = {}, None
+    for name, (kw, use_kernels, _) in TGAT_CONFIGS.items():
+        backbone = TGAT(num_neighbors=TGAT_K, num_layers=2, num_heads=2, time_feat_dim=DT_DIM,
+                        dropout=dropout, **kw, **extra)
+        tr = LinkPredictionTrainer(
+            backbone, data, TrainConfig(batch_size=B, learning_rate=TRAIN_LR), device=dev)
+        if params is None:
+            tr.init_params(0)
+            # a copy: the state dicts share the live weights, which training moves
+            params = {part: {n: v.clone() for n, v in sd.items()}
+                      for part, sd in tr.state_dicts().items()}
+        else:
+            tr.load_params(params)
+        tr.model.use_kernels = use_kernels
+        trainers[name] = tr
+    return trainers, params
+
+
+def tgat_lockstep(tr, params, batches, dropout: float, name: str) -> tuple[float, float]:
+    """TGAT's train steps in lockstep: at every step both paths' loss and
+    gradients from the same parameters (the kernel path's trajectory), the
+    dropout generator reseeded the same way for both, then the kernel
+    path's optimizer step. Returns the largest loss difference and the
+    largest gradient error as a share of its tensor's largest entry (the
+    time encoder's frequencies left to phase 3's sum-of-|terms| check)."""
+    import torch
+
+    tr.backbone.dropout = dropout
+    tr.init_params(0)
+    tr.load_params(params)
+    tr.model.train()
+    tr.head.train()
+    named = [*(("backbone." + k, p) for k, p in tr.model.named_parameters()),
+             *(("head." + k, p) for k, p in tr.head.named_parameters())]
+    weights = [p for _, p in named]
+    loss_diff, grad_err = 0.0, 0.0
+    for step, (arrays, bucket) in enumerate(batches):
+        src, dst, _, neg_dst, ts, _, valid = arrays
+        out = {}
+        for use_kernels in (True, False):
+            tr.model.use_kernels = use_kernels
+            tr.dropout_gen.manual_seed(1000 + step)
+            inputs = tr._sample(tr.train_csr, src, dst, neg_dst, ts, bucket)
+            loss, _ = tr._head_loss(tr._embed(inputs, tr.dropout_gen), valid)
+            out[use_kernels] = (float(loss.detach()), torch.autograd.grad(loss, weights))
+        loss_diff = max(loss_diff, abs(out[True][0] - out[False][0]))
+        top = max(float(g.abs().max()) for g in out[False][1])
+        for (pname, _), gk, gp in zip(named, out[True][1], out[False][1]):
+            if not torch.isfinite(gk).all():
+                raise AssertionError(f"TGAT {name} lockstep: {pname}'s gradient is not finite")
+            if pname == "backbone.time_encoder.w":
+                continue
+            scale = max(float(gp.abs().max()), 1e-3 * top)  # zero-in-theory tensors
+            grad_err = max(grad_err, float((gk - gp).abs().max()) / scale)
+        for p, g in zip(weights, out[True][1]):
+            p.grad = g
+        tr.optimizer.step()
+    tr.model.use_kernels = True
+    tr.backbone.dropout = 0.0
+    if not (loss_diff <= LOSS_ATOL and grad_err <= GRAD_STEP_RTOL):
+        raise AssertionError(f"TGAT {name} training in lockstep (dropout {dropout}): losses "
+                             f"differ by {loss_diff}, gradients by {grad_err} of their largest "
+                             "entries")
+    return loss_diff, grad_err
+
+
+def run_tgat_training(data, dev) -> dict:
+    """Phase 5t: TGAT's train step in four configurations, in turns."""
+    import numpy as np
+    import torch
+
+    from dyglib_tpu_torch import ops
+    from dyglib_tpu_torch.graph import NegativeEdgeSampler
+
+    trainers, params = tgat_trainers(data, dev)
+    # the last train batches, negatives from a seeded sampler
+    first = trainers["plain"]
+    first.train_neg = NegativeEdgeSampler(data.train.src, data.train.dst, seed=13)
+    n = data.train.num_interactions
+    stream = data.train.slice(n - TGAT_TRAIN_STEPS * B, n)
+    batches = [(arrays, bucket) for _, arrays, bucket in first.train_batches(stream)]
+
+    def sweep(name, steps=batches):
+        """The steps from the seed-0 weights; returns launch counts, ms per
+        step, losses and whether every gradient was finite."""
+        tr = trainers[name]
+        tr.load_params(params)
+        tr.optimizer = type(tr.optimizer)(
+            list(tr.model.parameters()) + list(tr.head.parameters()), lr=TRAIN_LR)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()  # just before the sweep
+        t0 = time.perf_counter()
+        losses = [tr.train_step(arrays, bucket)[0] for arrays, bucket in steps]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / len(steps) * 1e3
+        counts = ops.launch_counts()  # just after
+        finite = all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                     for mod in (tr.model, tr.head) for p in mod.parameters())
+        return counts, ms, [float(x) for x in losses], finite
+
+    for name in TGAT_CONFIGS:  # warm-up: allocator, cuBLAS
+        sweep(name, batches[:1])
+    launches, ms, losses_of = {}, {name: [] for name in TGAT_CONFIGS}, {}
+    for name in list(TGAT_CONFIGS) + list(reversed(TGAT_CONFIGS)):
+        counts, step_ms, losses, finite = sweep(name)
+        per_step = TGAT_CONFIGS[name][2]
+        want = {**per_step, **{f"{k}_bwd": v for k, v in per_step.items()}}
+        got = {k: v for k, v in counts.items() if v}
+        if got != {k: v * len(batches) for k, v in want.items()}:
+            raise AssertionError(f"TGAT {name} training: launched {got}, expected {want} a step")
+        if not finite or not np.isfinite(losses).all():
+            raise AssertionError(f"TGAT {name} training: a gradient or loss is not finite")
+        launches.setdefault(name, got)
+        ms[name].append(step_ms)
+        losses_of.setdefault(name, losses)
+    # free-running: the same steps from the same weights; the first loss
+    # shares the parameters, the later ones drift (see LOSS_DRIFT_ATOL)
+    for name, losses in losses_of.items():
+        diffs = [abs(a - b) for a, b in zip(losses, losses_of["plain"])]
+        if not (diffs[0] <= LOSS_ATOL and max(diffs) <= LOSS_DRIFT_ATOL):
+            raise AssertionError(f"TGAT {name} vs plain training: losses differ by {diffs}")
+    steps = {name: tgat_lockstep(trainers[name], params, batches, 0.0, name)
+             for name in TGAT_CONFIGS if TGAT_CONFIGS[name][1]}
+    dropped = {name: tgat_lockstep(trainers[name], params, batches[-1:], TGAT_DROPOUT, name)
+               for name in TGAT_CONFIGS if TGAT_CONFIGS[name][1]}
+    result = dict(
+        steps=len(batches), launches=launches, ms_per_step=ms, losses=losses_of,
+        lockstep_dropout0=steps, lockstep_dropout01_one_step=dropped,
+    )
+    del trainers
+    torch.cuda.empty_cache()
+    log(f"  {json.dumps(result)}")
+    return result
+
+
+def run_tgat_uniform(data, dev, n_steps: int = 3, n_batches: int = 5) -> dict:
+    """Phase 5u: TGAT under the uniform strategy (default kernels) trains a
+    few steps through its kernels and evaluates the first val batches twice
+    with identical probabilities."""
+    import numpy as np
+    import torch
+
+    from dyglib_tpu_torch import ops
+    from dyglib_tpu_torch.models import TGAT
+    from dyglib_tpu_torch.train import LinkPredictionTrainer, TrainConfig
+
+    tr = LinkPredictionTrainer(
+        TGAT(num_neighbors=TGAT_K, num_layers=2, num_heads=2, time_feat_dim=DT_DIM,
+             sample_strategy="uniform"),
+        data, TrainConfig(batch_size=B, learning_rate=TRAIN_LR), device=dev)
+    tr.init_params(0)
+    n = data.train.num_interactions
+    batches = list(tr.train_batches(data.train.slice(n - n_steps * B, n)))
+    ops.reset_launch_counts()
+    losses = [float(tr.train_step(arrays, bucket)[0]) for _, arrays, bucket in batches]
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    want = {"gathered_attention": 2, "gathered_attention_bwd": 2, "temporal_attention": 1,
+            "temporal_attention_bwd": 1}
+    if counts != {k: v * n_steps for k, v in want.items()} or not np.isfinite(losses).all():
+        raise AssertionError(f"TGAT uniform training: launched {counts}, losses {losses}")
+    stream = data.val.slice(0, n_batches * B)
+    (_, m1, p1), (_, _, p2) = (tr.evaluate(stream, tr.val_neg) for _ in range(2))
+    diff = max_prob_diff(p1, p2)
+    if diff != 0.0 or len(p1) != n_batches:
+        raise AssertionError(f"TGAT uniform: two evaluate sweeps differ by {diff}")
+    result = dict(train_losses=losses, train_launches=counts, eval_batches=n_batches,
+                  eval_sweep_diff=diff, metrics=tr.mean_metrics(m1))
+    log(f"  {json.dumps(result)}")
+    return result
+
+
 def lockstep(tr, backbone, batches, fetch, config) -> tuple[float, float]:
     """At every step, both paths' loss and gradients from the same
     parameters (the kernel path's trajectory), then the kernel path's
@@ -957,6 +1314,36 @@ def run_fit(dev) -> dict:
             "test_metrics": res["test metrics"], "validate_metrics": res["validate metrics"]}
 
 
+def run_tgat_fit(dev) -> dict:
+    """Phase 6, TGAT: fit on the JAX test fixture, held to the JAX floors."""
+    from dyglib_tpu_torch.data import synthetic_link_prediction_data
+    from dyglib_tpu_torch.models import TGAT
+    from dyglib_tpu_torch.train import LinkPredictionTrainer, TrainConfig
+
+    data = synthetic_link_prediction_data(
+        num_src=120, num_dst=60, num_edges=2000, node_feat_scale=1.0, seed=7
+    )
+    save_path = os.path.join(REPO_ROOT, "dyglib_tpu_torch", "build", "chip_smoke_tgat_fit.pkl")
+    tr = LinkPredictionTrainer(
+        TGAT(num_neighbors=10, num_layers=2, time_feat_dim=DT_DIM), data,
+        TrainConfig(batch_size=B, num_epochs=4, learning_rate=1e-3, patience=5),
+        save_path=save_path, device=dev,
+    )
+    t0 = time.perf_counter()
+    res = tr.fit(seed=0, log=lambda msg: log(f"  {msg}"))
+    seconds = time.perf_counter() - t0
+    test = res["test metrics"]
+    ap, auc = test["average_precision"], test["roc_auc"]
+    mean, std = TGAT_FIT_BAND
+    log(f"  TGAT fixture fit: test AP {ap:.4f} (JAX band {mean} +- {std}; floor "
+        f"{TGAT_FIT_AP_FLOOR}), AUC {auc:.4f} (floor {TGAT_FIT_AUC_FLOOR}), epoch losses "
+        f"{[round(x, 4) for x in res['train losses']]}, {seconds:.1f} s")
+    if not (ap > TGAT_FIT_AP_FLOOR and auc > TGAT_FIT_AUC_FLOOR):
+        raise AssertionError(f"TGAT fixture fit below the floors: AP {ap}, AUC {auc}")
+    return {"test_ap": ap, "test_auc": auc, "train_losses": res["train losses"],
+            "seconds": seconds, "validate_metrics": res["validate metrics"]}
+
+
 def main() -> int:
     import torch
 
@@ -1004,6 +1391,9 @@ def main() -> int:
     kernel_results.update(check_training_kernels(dev))
     log(f"TGAT kernels vs plain versions (atol {KERNEL_ATOL}):")
     kernel_results.update(check_tgat_kernels(data, dev))
+    log(f"TGAT backward kernels vs plain backwards (gradients within {GRAD_RTOL} of sum|terms|, "
+        "a second launch bitwise equal):")
+    kernel_results.update(check_tgat_backward_kernels(data, dev))
 
     # ---- 4. the main paths
     log(f"TGAT evaluation path (probability tolerance {PROB_ATOL}):")
@@ -1022,8 +1412,15 @@ def main() -> int:
     for config, maxlen, patch, _, n_steps in CONFIGS:
         train_runs[config] = run_training(data, config, maxlen, patch, n_steps, dev)
         torch.cuda.empty_cache()
+    log(f"TGAT training path ({TGAT_TRAIN_STEPS} steps a sweep; lockstep as above, and one "
+        f"step at dropout {TGAT_DROPOUT}):")
+    tgat_train = run_tgat_training(data, dev)
+    log("TGAT with the uniform strategy:")
+    run_tgat_uniform(data, dev)
+    torch.cuda.empty_cache()
     log("fit on the JAX test fixture:")
     run_fit(dev)
+    run_tgat_fit(dev)
 
     # ---- 5. results
     rows = []
@@ -1038,15 +1435,21 @@ def main() -> int:
         "gathered_attention": "dyglib_tpu/ops/pallas/gathered_attention.py:83",
         "window_attention": "dyglib_tpu/ops/pallas/window_attention.py:133",
         "phi_projection": "dyglib_tpu/ops/pallas/phi_projection.py:48",
+        "temporal_attention_bwd": "dyglib_tpu/ops/pallas/temporal_attention.py:109",
+        "gathered_attention_bwd": "dyglib_tpu/ops/pallas/gathered_attention.py:97",
+        "window_attention_bwd": "dyglib_tpu/ops/pallas/window_attention.py:167",
+        "phi_projection_bwd": "dyglib_tpu/ops/pallas/phi_projection.py:56",
     }
-    source = {"time_channel_bwd": "time_channel", "patch_projection_bwd": "patch_projection"}
 
     def main_path_launches(kernel, config):
         """Forward kernels: the evaluation sweep; backward kernels: the
         training sweep; window_fetch: its entry-fetch training sweep; TGAT's
-        kernels: the first evaluation sweep of their configuration."""
+        kernels: the first evaluation (forward) or training (backward)
+        sweep of their configuration."""
         if kernel in TGAT_KERNEL_CONFIG:
             return tgat_run["launches"][TGAT_KERNEL_CONFIG[kernel]][kernel]
+        if kernel.removesuffix("_bwd") in TGAT_KERNEL_CONFIG:
+            return tgat_train["launches"][TGAT_KERNEL_CONFIG[kernel.removesuffix("_bwd")]][kernel]
         if kernel == "window_fetch":
             return train_runs[config]["window_fetch_launches"]
         if kernel.endswith("_bwd"):
@@ -1062,7 +1465,7 @@ def main() -> int:
         rows.append({
             "name": f"{kernel}@{config}",
             "route": "cuda",
-            "source": f"dyglib_tpu_torch/csrc/{source.get(kernel, kernel)}.cu",
+            "source": f"dyglib_tpu_torch/csrc/{kernel.removesuffix('_bwd')}.cu",
             "replaces": replaces[kernel],
             "launches": main_path_launches(kernel, config),
             "max_abs_err": max(p["max_abs_err"] for p in parts),
@@ -1071,8 +1474,9 @@ def main() -> int:
             "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": None if None in libs else sum(libs),
-            # TGAT's yardsticks time only the K/V products (or Phi @ W)
-            "library_partial": kernel in TGAT_KERNEL_CONFIG,
+            # TGAT's yardsticks time only the K/V products (or Phi @ W), and
+            # in the backward the two weight-gradient products
+            "library_partial": kernel.removesuffix("_bwd") in TGAT_KERNEL_CONFIG,
         })
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({

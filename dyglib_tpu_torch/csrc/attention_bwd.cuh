@@ -1,0 +1,438 @@
+// The backward of single-query temporal attention (attention_core.cuh), for
+// TGAT's three attention kernels (temporal_attention.cu,
+// gathered_attention.cu, window_attention.cu). Given the output's cotangent
+// g (m, dq) and, for temporal attention, the scores' dscores (m, heads, K):
+//
+//   ds_d[h, j] = g_h . val_h[r] + dscores,   w = s * keep   (s: softmax)
+//   dlog[h, j] = s * (ds_d * keep - sum_j ds_d * keep * s), 0 at pads, * scale
+//   dq3_h = sum_j dlog key_h[r];  dWk = kv^T dkey, dkey[r] = dlog q3_h
+//   dWv = kv^T dval, dval[r] = w g_h;  dkv[r] = dkey Wk^T + dval Wv^T
+//
+// Replaces the _bwd_kernels of dyglib_tpu/ops/pallas/{temporal,gathered,
+// window}_attention.py. Those recompute key and val for every kv row and
+// contract dkey and dval (R, dq) with kv and W: at TGAT's layer 1, hop 1
+// (R = 240,000 rows of 444) about 258 G operations. Reassociated, the same
+// function never projects a kv row. With Wk_h, Wv_h the head-h columns:
+//
+//   qk[m, h] = Wk_h q3_h[m],  gv[m, h] = Wv_h g_h[m]          (kv_dim each)
+//   logit[h, j] = kv[r] . qk[m, h] * scale,  ds_d[h, j] = kv[r] . gv[m, h] + dscores
+//   Ak[m, h] = sum_j dlog[h, j] kv[r],  Av[m, h] = sum_j w[h, j] kv[r]
+//   dq3_h = Ak[m, h] Wk_h,  dWk[:, h] = sum_m Ak[m, h]^T q3_h[m],
+//   dWv[:, h] = sum_m Av[m, h]^T g_h[m],
+//   dkv[r] = sum_h dlog[h, j] qk[m, h] + w[h, j] gv[m, h]
+//
+// about 16 G operations at hop 1. Launches, in order, all on the caller's
+// stream:
+//   1. head_project_kernel: qk and gv (the shared f32 tile, tiled_gemm.cuh);
+//   2. attention_bwd_query_kernel: one block per query stages its K kv rows
+//      through the forward's own A loader (Phi, windows and the mask live
+//      there) and its qk, gv rows in shared memory, forms logits, softmax,
+//      ds_d, dlog, Ak and Av, and hands dlog, w, qk and gv to the kernel's
+//      KvGrad, which writes what that kernel returns of dkv: all of it for
+//      temporal attention, per-query sums of dtw and dtb through dPhi and
+//      -sin for the gathered and window kernels (their feature rows get no
+//      gradient);
+//   3. head_dq_kernel: dq3 (the tile);
+//   4. head_weight_grad_kernel + strided_sum, twice: dWk and dWv, summed
+//      over row chunks into scratch and then in a fixed order (the
+//      deterministic two-pass reduction of weight_grad.cuh, no atomics);
+//   5. KvGrad::finish: the gathered and window kernels' dtw, dtb, summed
+//      over queries in a fixed order.
+// Every sum has a fixed order: two runs give bit-identical gradients. f32
+// on CUDA cores throughout.
+#pragma once
+
+#include "attention_core.cuh"
+#include "weight_grad.cuh"
+
+namespace dyglib {
+
+constexpr int kBwdThreads = 128;
+constexpr int kBwdWarps = kBwdThreads / 32;
+
+struct AttentionBwdParams {
+  const float* __restrict__ q3;       // (m, dq)
+  const float* __restrict__ mask;     // (m, k)
+  const float* __restrict__ keep;     // (m, heads, k)
+  const float* __restrict__ wk;       // (kv_dim, dq) at wk[c * wk_sk + col * wk_sn]
+  int wk_sk;
+  int wk_sn;
+  const float* __restrict__ wv;
+  int wv_sk;
+  int wv_sn;
+  const float* __restrict__ dout;     // (m, dq)
+  const float* __restrict__ dscores;  // (m, heads, k), or null (zeros)
+  float* __restrict__ qk;             // scratch (m, heads, kv_dim), and gv, ak, av
+  float* __restrict__ gv;
+  float* __restrict__ ak;
+  float* __restrict__ av;
+  float* __restrict__ partial;        // scratch (ceil(m / chunk_rows), kv_dim, dq)
+  float* __restrict__ dq3;            // (m, dq)
+  float* __restrict__ dwk;            // (kv_dim, dq)
+  float* __restrict__ dwv;            // (kv_dim, dq)
+  int m;
+  int k;
+  int kv_dim;
+  int dq;
+  int heads;
+  float scale;
+  int chunk_rows;
+};
+
+// A(i, k) = p[k * ld + i]: the transpose of a row-major (rows, ld) block,
+// consecutive i consecutive addresses.
+struct TransposedLoader {
+  static constexpr bool k_fast = false;
+  const float* __restrict__ p;
+  int ld;
+
+  __device__ __forceinline__ float operator()(int i, int k) const {
+    return p[static_cast<size_t>(k) * ld + i];
+  }
+};
+
+// blockIdx.z = which * heads + h: qk (which 0: q3 with Wk) or gv (which 1:
+// dout with Wv), out[(r * heads + h) * kv_dim + c] = sum_d x[r, h hd + d] W[c, h hd + d].
+__global__ void __launch_bounds__(kThreads) head_project_kernel(AttentionBwdParams p) {
+  const int which = blockIdx.z / p.heads;
+  const int h = blockIdx.z - which * p.heads;
+  const int hd = p.dq / p.heads;
+  const float* x = which ? p.dout : p.q3;
+  const float* w = which ? p.wv : p.wk;
+  const int sk = which ? p.wv_sk : p.wk_sk;
+  const int sn = which ? p.wv_sn : p.wk_sn;
+  float* out = which ? p.gv : p.qk;
+  const int row0 = blockIdx.x * kBM;
+  const int col0 = blockIdx.y * kBN;
+  float acc[kTM][kTN];
+  // B(d, c) = W[c, h hd + d]: W's strides, swapped
+  gemm_tile<kBByStrides>(RowMajorLoader{x + h * hd, p.dq}, w + static_cast<size_t>(h) * hd * sn,
+                         sn, sk, p.m, p.kv_dim, 0, hd, row0, col0, acc);
+  const int ty = threadIdx.x / kThreadCols;
+  const int tx = threadIdx.x % kThreadCols;
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int r = row0 + ty + i * kThreadRows;
+    if (r >= p.m) continue;
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      const int c = col0 + tx + j * kThreadCols;
+      if (c < p.kv_dim) out[(static_cast<size_t>(r) * p.heads + h) * p.kv_dim + c] = acc[i][j];
+    }
+  }
+}
+
+// blockIdx.z = h: dq3[r, h hd + d] = sum_c ak[r, h, c] Wk[c, h hd + d].
+__global__ void __launch_bounds__(kThreads) head_dq_kernel(AttentionBwdParams p) {
+  const int h = blockIdx.z;
+  const int hd = p.dq / p.heads;
+  const int row0 = blockIdx.x * kBM;
+  const int col0 = blockIdx.y * kBN;
+  float acc[kTM][kTN];
+  gemm_tile<kBByStrides>(RowMajorLoader{p.ak + static_cast<size_t>(h) * p.kv_dim,
+                                        p.heads * p.kv_dim},
+                         p.wk + static_cast<size_t>(h) * hd * p.wk_sn, p.wk_sk, p.wk_sn, p.m, hd,
+                         0, p.kv_dim, row0, col0, acc);
+  const int ty = threadIdx.x / kThreadCols;
+  const int tx = threadIdx.x % kThreadCols;
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int r = row0 + ty + i * kThreadRows;
+    if (r >= p.m) continue;
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      const int d = col0 + tx + j * kThreadCols;
+      if (d < hd) p.dq3[static_cast<size_t>(r) * p.dq + h * hd + d] = acc[i][j];
+    }
+  }
+}
+
+// blockIdx.z = chunk * heads + h: partial[chunk, c, h hd + d] = sum over the
+// chunk's rows r of a[r, h, c] x[r, h hd + d] (a = ak with x = q3 for dWk,
+// av with dout for dWv).
+__global__ void __launch_bounds__(kThreads)
+    head_weight_grad_kernel(const float* __restrict__ a, const float* __restrict__ x,
+                            float* __restrict__ partial, int m, int kv_dim, int dq, int heads,
+                            int chunk_rows) {
+  const int chunk = blockIdx.z / heads;
+  const int h = blockIdx.z - chunk * heads;
+  const int hd = dq / heads;
+  const int r_begin = chunk * chunk_rows;
+  const int r_end = min(m, r_begin + chunk_rows);
+  const int row0 = blockIdx.x * kBM;
+  const int col0 = blockIdx.y * kBN;
+  float acc[kTM][kTN];
+  gemm_tile<kBRowMajor>(TransposedLoader{a + static_cast<size_t>(h) * kv_dim, heads * kv_dim},
+                        x + h * hd, dq, 1, kv_dim, hd, r_begin, r_end, row0, col0, acc);
+  float* out = partial + static_cast<size_t>(chunk) * kv_dim * dq;
+  const int ty = threadIdx.x / kThreadCols;
+  const int tx = threadIdx.x % kThreadCols;
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int c = row0 + ty + i * kThreadRows;
+    if (c >= kv_dim) continue;
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      const int d = col0 + tx + j * kThreadCols;
+      if (d < hd) out[static_cast<size_t>(c) * dq + h * hd + d] = acc[i][j];
+    }
+  }
+}
+
+// Shared memory of one query's block, in floats: kv rows (k, kv_dim), qk and
+// gv (heads, kv_dim each), then s, ds, w and dlog (heads, k each).
+__host__ __device__ inline size_t attention_bwd_smem_floats(int k, int kv_dim, int heads) {
+  return static_cast<size_t>(k) * kv_dim + 2 * static_cast<size_t>(heads) * kv_dim +
+         4 * static_cast<size_t>(heads) * k;
+}
+
+// What a KvGrad sees of one query m after step 2: the staged rows and the
+// per-(head, neighbor) dlog and w, all in shared memory.
+struct QueryGrads {
+  const float* kv;    // (k, kv_dim)
+  const float* qk;    // (heads, kv_dim)
+  const float* gv;    // (heads, kv_dim)
+  const float* dlog;  // (heads, k)
+  const float* w;     // (heads, k)
+  int m;
+  int k;
+  int kv_dim;
+  int heads;
+
+  // dkv[m * k + j, c] = sum_h dlog[h, j] qk[h, c] + w[h, j] gv[h, c]
+  __device__ __forceinline__ float dkv(int j, int c) const {
+    float s = 0.f;
+    for (int h = 0; h < heads; ++h)
+      s += dlog[h * k + j] * qk[h * kv_dim + c] + w[h * k + j] * gv[h * kv_dim + c];
+    return s;
+  }
+};
+
+template <class ALoader, class KvGrad>
+__global__ void __launch_bounds__(kBwdThreads)
+    attention_bwd_query_kernel(ALoader load_a, KvGrad kv_grad, AttentionBwdParams p) {
+  extern __shared__ float smem[];
+  const int m = blockIdx.x;
+  const int k = p.k, kv_dim = p.kv_dim, heads = p.heads;
+  float* kv_s = smem;                                      // (k, kv_dim)
+  float* qk_s = kv_s + static_cast<size_t>(k) * kv_dim;    // (heads, kv_dim)
+  float* gv_s = qk_s + static_cast<size_t>(heads) * kv_dim;
+  float* s_s = gv_s + static_cast<size_t>(heads) * kv_dim;  // (heads, k)
+  float* ds_s = s_s + heads * k;
+  float* w_s = ds_s + heads * k;
+  float* dlog_s = w_s + heads * k;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const size_t row0 = static_cast<size_t>(m) * k;
+  const size_t qrow = static_cast<size_t>(m) * heads * kv_dim;
+
+  // stage the query's kv rows (through the forward's loader) and qk, gv
+  for (int e = tid; e < k * kv_dim; e += kBwdThreads) {
+    const int j = e / kv_dim;
+    kv_s[e] = load_a(static_cast<int>(row0) + j, e - j * kv_dim);
+  }
+  for (int e = tid; e < heads * kv_dim; e += kBwdThreads) {
+    qk_s[e] = p.qk[qrow + e];
+    gv_s[e] = p.gv[qrow + e];
+  }
+  __syncthreads();
+
+  // logits and ds_d: one warp per (head, neighbor), lanes over columns,
+  // then a fixed butterfly
+  for (int e = warp; e < heads * k; e += kBwdWarps) {
+    const int h = e / k;
+    const float* kvr = kv_s + static_cast<size_t>(e - h * k) * kv_dim;
+    const float* qh = qk_s + static_cast<size_t>(h) * kv_dim;
+    const float* gh = gv_s + static_cast<size_t>(h) * kv_dim;
+    float lg = 0.f, dd = 0.f;
+    for (int c = lane; c < kv_dim; c += 32) {
+      lg = fmaf(kvr[c], qh[c], lg);
+      dd = fmaf(kvr[c], gh[c], dd);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      lg += __shfl_xor_sync(0xffffffffu, lg, off);
+      dd += __shfl_xor_sync(0xffffffffu, dd, off);
+    }
+    if (lane == 0) {
+      s_s[e] = lg;
+      ds_s[e] = dd;
+    }
+  }
+  __syncthreads();
+
+  // softmax, keep and dlog: one thread per head
+  for (int h = tid; h < heads; h += kBwdThreads) {
+    const float* mrow = p.mask + row0;
+    const float* krow = p.keep + (static_cast<size_t>(m) * heads + h) * k;
+    float* s = s_s + h * k;
+    float* ds = ds_s + h * k;
+    float mx = __int_as_float(0xff800000);  // -inf
+    for (int j = 0; j < k; ++j) {
+      s[j] = mrow[j] > 0.f ? s[j] * p.scale : kPadLogit;
+      mx = fmaxf(mx, s[j]);
+    }
+    float sum = 0.f;
+    for (int j = 0; j < k; ++j) {
+      s[j] = expf(s[j] - mx);
+      sum += s[j];
+    }
+    float total = 0.f;
+    for (int j = 0; j < k; ++j) {
+      s[j] /= sum;
+      float d = ds[j];
+      if (p.dscores != nullptr) d += p.dscores[(static_cast<size_t>(m) * heads + h) * k + j];
+      ds[j] = d * krow[j];
+      total += ds[j] * s[j];
+    }
+    for (int j = 0; j < k; ++j) {
+      w_s[h * k + j] = s[j] * krow[j];
+      dlog_s[h * k + j] = mrow[j] > 0.f ? s[j] * (ds[j] - total) * p.scale : 0.f;
+    }
+  }
+  __syncthreads();
+
+  // Ak, Av: one thread per (head, column), neighbors in order
+  for (int e = tid; e < heads * kv_dim; e += kBwdThreads) {
+    const int h = e / kv_dim;
+    const int c = e - h * kv_dim;
+    float a = 0.f, v = 0.f;
+    for (int j = 0; j < k; ++j) {
+      const float x = kv_s[static_cast<size_t>(j) * kv_dim + c];
+      a = fmaf(dlog_s[h * k + j], x, a);
+      v = fmaf(w_s[h * k + j], x, v);
+    }
+    p.ak[qrow + e] = a;
+    p.av[qrow + e] = v;
+  }
+
+  kv_grad(QueryGrads{kv_s, qk_s, gv_s, dlog_s, w_s, m, k, kv_dim, heads});
+}
+
+// Launch the whole backward for p.m > 0 queries (the wrapper checks shapes
+// and the shared-memory need: ops/_attention.py).
+template <class ALoader, class KvGrad>
+cudaError_t launch_attention_backward(const ALoader& load_a, const KvGrad& kv_grad,
+                                      const AttentionBwdParams& p, cudaStream_t stream) {
+  const int hd = p.dq / p.heads;
+  const unsigned row_tiles = static_cast<unsigned>((p.m + kBM - 1) / kBM);
+  // 1. qk, gv
+  head_project_kernel<<<dim3(row_tiles, (p.kv_dim + kBN - 1) / kBN, 2 * p.heads), kThreads, 0,
+                        stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // 2. per query
+  const size_t smem = sizeof(float) * attention_bwd_smem_floats(p.k, p.kv_dim, p.heads);
+  auto kernel = attention_bwd_query_kernel<ALoader, KvGrad>;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<p.m, kBwdThreads, smem, stream>>>(load_a, kv_grad, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // 3. dq3
+  head_dq_kernel<<<dim3(row_tiles, (hd + kBN - 1) / kBN, p.heads), kThreads, 0, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // 4. dWk, dWv: chunk partial sums, then a fixed-order sum (the second
+  // pass reads the scratch before the next first pass writes it: one stream)
+  const int chunks = (p.m + p.chunk_rows - 1) / p.chunk_rows;
+  const dim3 wgrid((p.kv_dim + kBM - 1) / kBM, (hd + kBN - 1) / kBN, chunks * p.heads);
+  const float* pairs[2][2] = {{p.ak, p.q3}, {p.av, p.dout}};
+  float* dws[2] = {p.dwk, p.dwv};
+  for (int i = 0; i < 2; ++i) {
+    head_weight_grad_kernel<<<wgrid, kThreads, 0, stream>>>(pairs[i][0], pairs[i][1], p.partial,
+                                                            p.m, p.kv_dim, p.dq, p.heads,
+                                                            p.chunk_rows);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    err = launch_strided_sum(p.partial, dws[i], chunks, p.kv_dim * p.dq, stream);
+    if (err != cudaSuccess) return err;
+  }
+  // 5. the KvGrad's own reduction
+  return kv_grad.finish(p.m, stream);
+}
+
+// KvGrad of temporal attention: all of dkv, split into the gradients of its
+// three parts, one thread per (neighbor, column).
+struct KvPartsGrad {
+  float* __restrict__ dnbr;   // (m * k, dn)
+  float* __restrict__ dedge;  // (m * k, de)
+  float* __restrict__ dphi;   // (m * k, dt)
+  int dn;
+  int de;
+  int dt;
+
+  __device__ void operator()(const QueryGrads& q) const {
+    for (int e = threadIdx.x; e < q.k * q.kv_dim; e += kBwdThreads) {
+      const int j = e / q.kv_dim;
+      int c = e - j * q.kv_dim;
+      const float v = q.dkv(j, c);
+      const size_t r = static_cast<size_t>(q.m) * q.k + j;
+      if (c < dn) {
+        dnbr[r * dn + c] = v;
+      } else if ((c -= dn) < de) {
+        dedge[r * de + c] = v;
+      } else {
+        dphi[r * dt + c - de] = v;
+      }
+    }
+  }
+
+  cudaError_t finish(int, cudaStream_t) const { return cudaSuccess; }
+};
+
+// AttentionBwdParams over the wrapper's scratch (4, m, heads, kv_dim): qk,
+// gv, ak, av in that order.
+inline AttentionBwdParams attention_bwd_params(
+    const float* q3, const float* mask, const float* keep, const float* wk, int wk_sk, int wk_sn,
+    const float* wv, int wv_sk, int wv_sn, const float* dout, const float* dscores,
+    float* scratch, float* partial, float* dq3, float* dwk, float* dwv, int m, int k, int kv_dim,
+    int dq, int heads, float scale, int chunk_rows) {
+  const size_t part = static_cast<size_t>(m) * heads * kv_dim;
+  return AttentionBwdParams{q3, mask, keep, wk, wk_sk, wk_sn, wv, wv_sk, wv_sn, dout, dscores,
+                            scratch, scratch + part, scratch + 2 * part, scratch + 3 * part,
+                            partial, dq3, dwk, dwv, m, k, kv_dim, dq, heads, scale, chunk_rows};
+}
+
+// KvGrad of the gathered and window kernels: dPhi = the last dt_dim columns
+// of dkv, c = dPhi * -sin(theta); per query, part_tw[m, f] = sum_j c * dt and
+// part_tb[m, f] = sum_j c (neighbors in order), then dtw, dtb = the sums over
+// queries (strided_sum, fixed order). theta as the forward's loader rounds
+// it (phi.cuh); sinf is the accurate function (dt reaches ~2.6e6).
+struct PhiParamGrad {
+  const float* __restrict__ dt;  // (m * k)
+  const float* __restrict__ tw;  // (dt_dim)
+  const float* __restrict__ tb;
+  float* __restrict__ part_tw;   // scratch (m, dt_dim)
+  float* __restrict__ part_tb;
+  float* __restrict__ dtw;       // (dt_dim)
+  float* __restrict__ dtb;
+  int dt_dim;
+
+  __device__ void operator()(const QueryGrads& q) const {
+    const int f0 = q.kv_dim - dt_dim;
+    for (int f = threadIdx.x; f < dt_dim; f += kBwdThreads) {
+      float s_tw = 0.f, s_tb = 0.f;
+      for (int j = 0; j < q.k; ++j) {
+        const float d = dt[static_cast<size_t>(q.m) * q.k + j];
+        const float c = q.dkv(j, f0 + f) * -sinf(theta_of(d, tw[f], tb[f]));
+        s_tb += c;
+        s_tw += c * d;
+      }
+      part_tw[static_cast<size_t>(q.m) * dt_dim + f] = s_tw;
+      part_tb[static_cast<size_t>(q.m) * dt_dim + f] = s_tb;
+    }
+  }
+
+  cudaError_t finish(int m, cudaStream_t stream) const {
+    const cudaError_t err = launch_strided_sum(part_tw, dtw, m, dt_dim, stream);
+    if (err != cudaSuccess) return err;
+    return launch_strided_sum(part_tb, dtb, m, dt_dim, stream);
+  }
+};
+
+}  // namespace dyglib

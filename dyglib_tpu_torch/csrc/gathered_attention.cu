@@ -8,7 +8,11 @@
 // A loader (phi.cuh rounding, accurate cosf), so neither the time features
 // nor the concatenation nor key and val reach device memory. No mask in
 // the loader: gathered pad rows are already the zero id-0 rows.
-#include "attention_core.cuh"
+//
+// Backward: replaces ::_bwd_kernel (attention_bwd.cuh, the same loader):
+// dq3, dWk, dWv, and dtw, dtb through the Phi columns; the feature slabs
+// get no gradient.
+#include "attention_bwd.cuh"
 
 namespace {
 
@@ -47,4 +51,23 @@ DYGLIB_API int gathered_attention_forward(const float* q3, const float* feat_n,
                                   out, nullptr, m,    k,  dn + de + dt_dim, dq,    heads, scale};
   return static_cast<int>(
       dyglib::launch_attention(GatheredLoader{feat_n, feat_e, dt, tw, tb, dn, de}, p, stream));
+}
+
+// As the forward, plus dout: (m, dq). Outputs: dq3 (m, dq); dwk, dwv
+// (dn + de + dt_dim, dq); dtw, dtb (dt_dim). Scratch: (4, m, heads, dn +
+// de + dt_dim), partial (ceil(m / chunk_rows), dn + de + dt_dim, dq),
+// part_tw and part_tb (m, dt_dim). All f32; m > 0.
+DYGLIB_API int gathered_attention_backward(
+    const float* q3, const float* feat_n, const float* feat_e, const float* dt, const float* tw,
+    const float* tb, const float* mask, const float* keep, const float* wk, int wk_sk, int wk_sn,
+    const float* wv, int wv_sk, int wv_sn, const float* dout, float* scratch, float* partial,
+    float* part_tw, float* part_tb, float* dq3, float* dwk, float* dwv, float* dtw, float* dtb,
+    int m, int k, int dn, int de, int dt_dim, int dq, int heads, float scale, int chunk_rows,
+    cudaStream_t stream) {
+  const dyglib::AttentionBwdParams p = dyglib::attention_bwd_params(
+      q3, mask, keep, wk, wk_sk, wk_sn, wv, wv_sk, wv_sn, dout, nullptr, scratch, partial, dq3,
+      dwk, dwv, m, k, dn + de + dt_dim, dq, heads, scale, chunk_rows);
+  return static_cast<int>(dyglib::launch_attention_backward(
+      GatheredLoader{feat_n, feat_e, dt, tw, tb, dn, de},
+      dyglib::PhiParamGrad{dt, tw, tb, part_tw, part_tb, dtw, dtb, dt_dim}, p, stream));
 }

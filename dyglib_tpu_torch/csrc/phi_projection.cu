@@ -4,6 +4,11 @@
 // time channel (time_channel.cu) at patch 1 with no mask and no bias: the
 // same A loader (phi.cuh, unmasked), so Phi is computed slice by slice in
 // shared memory and never reaches device memory.
+//
+// Backward: replaces ::_bwd_kernel. dw = Phi^T @ dout and, through dPhi =
+// dout @ w^T and -sin(theta), dtw and dtb: the time channel's backward at
+// patch 1 with no mask (phi.cuh launch_phi_backward, the same loader and
+// the deterministic two-pass sums of weight_grad.cuh). dt gets no gradient.
 #include "phi.cuh"
 
 namespace {
@@ -44,4 +49,18 @@ DYGLIB_API int phi_projection_forward(const float* dt, const float* tw, const fl
   phi_projection_kernel<<<grid, dyglib::kThreads, 0, stream>>>(
       PhiLoader{dt, nullptr, tw, tb, 1, dt_dim}, w, w_sk, w_sn, out, rows, dq);
   return static_cast<int>(cudaGetLastError());
+}
+
+// As the forward, plus dout: (rows, dq) f32. Outputs: dw_ext (dt_dim + 1,
+// dq) f32 (rows 0..dt_dim-1 = dw; the last, sum_r dout[r], is unused);
+// dtw, dtb (dt_dim) f32. Scratch: partial (ceil(rows / chunk_rows), dt_dim +
+// 1, dq), part_tw and part_tb (ceil(rows / 64), dt_dim), all f32.
+DYGLIB_API int phi_projection_backward(const float* dt, const float* tw, const float* tb,
+                                       const float* w, int w_sk, int w_sn, const float* dout,
+                                       float* dw_ext, float* dtw, float* dtb, float* partial,
+                                       float* part_tw, float* part_tb, int rows, int dt_dim,
+                                       int dq, int chunk_rows, cudaStream_t stream) {
+  return static_cast<int>(dyglib::launch_phi_backward(
+      PhiLoader{dt, nullptr, tw, tb, 1, dt_dim}, w, w_sk, w_sn, dout, dw_ext, dtw, dtb, partial,
+      part_tw, part_tb, rows, dq, chunk_rows, stream));
 }

@@ -7,7 +7,11 @@
 // JAX kernel concatenates the three parts in VMEM; here the A loader reads
 // each column range from its own tensor, so the concatenation never
 // exists anywhere.
-#include "attention_core.cuh"
+//
+// Backward: replaces ::_bwd_kernel (attention_bwd.cuh, the same loader):
+// dq3, the three parts' gradients dnbr, dedge, dphi, and dWk, dWv, from the
+// output's cotangent and the scores'.
+#include "attention_bwd.cuh"
 
 namespace {
 
@@ -43,4 +47,22 @@ DYGLIB_API int temporal_attention_forward(const float* q3, const float* nbr, con
                                   out, scores, m,    k,  dn + de + dt, dq,    heads, scale};
   return static_cast<int>(
       dyglib::launch_attention(KvLoader{nbr, edge, phi, dn, de, dt}, p, stream));
+}
+
+// As the forward, plus dout: (m, dq); dscores: (m, heads, k) or null.
+// Outputs: dq3 (m, dq); dnbr, dedge, dphi (m, k, dn / de / dt); dwk, dwv
+// (dn + de + dt, dq). Scratch: (4, m, heads, dn + de + dt) and partial
+// (ceil(m / chunk_rows), dn + de + dt, dq). All f32; m > 0.
+DYGLIB_API int temporal_attention_backward(
+    const float* q3, const float* nbr, const float* edge, const float* phi, const float* mask,
+    const float* keep, const float* wk, int wk_sk, int wk_sn, const float* wv, int wv_sk,
+    int wv_sn, const float* dout, const float* dscores, float* scratch, float* partial,
+    float* dq3, float* dnbr, float* dedge, float* dphi, float* dwk, float* dwv, int m, int k,
+    int dn, int de, int dt, int dq, int heads, float scale, int chunk_rows, cudaStream_t stream) {
+  const dyglib::AttentionBwdParams p = dyglib::attention_bwd_params(
+      q3, mask, keep, wk, wk_sk, wk_sn, wv, wv_sk, wv_sn, dout, dscores, scratch, partial, dq3,
+      dwk, dwv, m, k, dn + de + dt, dq, heads, scale, chunk_rows);
+  return static_cast<int>(dyglib::launch_attention_backward(
+      KvLoader{nbr, edge, phi, dn, de, dt}, dyglib::KvPartsGrad{dnbr, dedge, dphi, dn, de, dt}, p,
+      stream));
 }

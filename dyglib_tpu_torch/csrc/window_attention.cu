@@ -11,7 +11,11 @@
 // (phi.cuh rounding, accurate cosf). No aligned superset windows, keep
 // rescale or zero weight rows: those are Mosaic DMA aids. Every
 // starts[m] + j lies inside the table (the caller clamps the starts).
-#include "attention_core.cuh"
+//
+// Backward: replaces ::_bwd_kernel (attention_bwd.cuh, the same loader):
+// dq3, dWk, dWv, and dtw, dtb through the Phi columns; the table gets no
+// gradient.
+#include "attention_bwd.cuh"
 
 namespace {
 
@@ -53,4 +57,23 @@ DYGLIB_API int window_attention_forward(const float* q3, const float* table, con
                                   out, nullptr, m,    k,  width + dt_dim, dq,    heads, scale};
   return static_cast<int>(dyglib::launch_attention(
       WindowLoader{table, starts, mask, dt, tw, tb, k, width}, p, stream));
+}
+
+// As the forward, plus dout: (m, dq). Outputs: dq3 (m, dq); dwk, dwv
+// (width + dt_dim, dq); dtw, dtb (dt_dim). Scratch: (4, m, heads, width +
+// dt_dim), partial (ceil(m / chunk_rows), width + dt_dim, dq), part_tw and
+// part_tb (m, dt_dim). All f32 but starts; m > 0.
+DYGLIB_API int window_attention_backward(
+    const float* q3, const float* table, const int* starts, const float* dt, const float* tw,
+    const float* tb, const float* mask, const float* keep, const float* wk, int wk_sk, int wk_sn,
+    const float* wv, int wv_sk, int wv_sn, const float* dout, float* scratch, float* partial,
+    float* part_tw, float* part_tb, float* dq3, float* dwk, float* dwv, float* dtw, float* dtb,
+    int m, int k, int width, int dt_dim, int dq, int heads, float scale, int chunk_rows,
+    cudaStream_t stream) {
+  const dyglib::AttentionBwdParams p = dyglib::attention_bwd_params(
+      q3, mask, keep, wk, wk_sk, wk_sn, wv, wv_sk, wv_sn, dout, nullptr, scratch, partial, dq3,
+      dwk, dwv, m, k, width + dt_dim, dq, heads, scale, chunk_rows);
+  return static_cast<int>(dyglib::launch_attention_backward(
+      WindowLoader{table, starts, mask, dt, tw, tb, k, width},
+      dyglib::PhiParamGrad{dt, tw, tb, part_tw, part_tb, dtw, dtb, dt_dim}, p, stream));
 }

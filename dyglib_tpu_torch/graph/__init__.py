@@ -5,6 +5,7 @@ from .sampler import (
     fetch_entry_windows,
     sample_multi_hop,
     sample_recent,
+    sample_uniform,
     window_bounds,
 )
 
@@ -17,5 +18,6 @@ __all__ = [
     "fetch_entry_windows",
     "sample_multi_hop",
     "sample_recent",
+    "sample_uniform",
     "window_bounds",
 ]

@@ -1,20 +1,24 @@
 """Temporal neighbor sampling on the device.
 
-Counterpart of ``dyglib_tpu/graph/sampler.py`` for the ``recent``
-strategy: ``window_bounds`` (a batched, fixed-step binary search over each
-node's time-sorted CSR segment for the strictly-before (t' < t) history),
-``sample_recent``, ``sample_multi_hop`` and ``fetch_entry_windows``. Every
-operation is a fixed-shape batch of tensor ops. Semantics:
+Counterpart of ``dyglib_tpu/graph/sampler.py`` for the ``recent`` and
+``uniform`` strategies: ``window_bounds`` (a batched, fixed-step binary
+search over each node's time-sorted CSR segment for the strictly-before
+(t' < t) history), ``sample_recent``, ``sample_uniform``,
+``sample_multi_hop`` and ``fetch_entry_windows``. Every operation is a
+fixed-shape batch of tensor ops. Semantics:
 
   * neighbor visibility is strictly-before (t' < t);
   * ``recent`` returns the last K interactions RIGHT-ALIGNED, zero padding
     at the front;
+  * ``uniform`` draws K with replacement, uniformly over the window, and
+    sorts them by time (flat index); a row is all valid or all padded;
   * empty windows yield all-zero rows (id 0 = padding sentinel).
 
-The stochastic strategies (``uniform``, ``time_interval_aware``) come with
-the slices that need them; asking for one raises. The TPU's packed
-``csr.pack`` row gather is not ported: rows are gathered from the flat
-arrays.
+``uniform`` draws from a ``torch.Generator`` on the CSR's device where the
+JAX package takes a ``jax.random`` key: the two match in distribution, not
+in bits. ``time_interval_aware`` comes with CAWN; asking for it raises.
+The TPU's packed ``csr.pack`` row gather is not ported: rows are gathered
+from the flat arrays.
 """
 from __future__ import annotations
 
@@ -81,13 +85,40 @@ def _recent_indices(
     return idx, idx >= lo[..., None]
 
 
-def require_recent(strategy: str) -> None:
-    """Raise for a sample strategy other than ``recent``."""
-    if strategy != "recent":
+def _uniform_indices(
+    lo: torch.Tensor, hi: torch.Tensor, k: int, gen: torch.Generator
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """k draws with replacement, uniform over each window [lo, hi), sorted
+    (flat indices sort as their entries' times: a window is one node's
+    time-sorted run); rows are all valid or all padded."""
+    cnt = hi - lo
+    u = torch.rand((*lo.shape, k), generator=gen, device=lo.device, dtype=torch.float64)
+    span = cnt.clamp_min(1)[..., None]
+    r = torch.minimum((u * span).floor().to(torch.int32), span - 1)
+    idx = torch.sort(lo[..., None] + r, dim=-1).values
+    return idx, (cnt > 0)[..., None].expand(idx.shape)
+
+
+SAMPLE_STRATEGIES = ("recent", "uniform")
+
+
+def check_strategy(strategy: str) -> None:
+    """Raise for a sample strategy the port does not run."""
+    if strategy == "time_interval_aware":
         raise ValueError(
-            f"sample strategy {strategy!r} is not ported (only 'recent'; "
-            "ROADMAP.md Queue 1 lists the others)"
+            "sample strategy 'time_interval_aware' is not ported: it comes with CAWN "
+            "(ROADMAP.md Queue 1)"
         )
+    if strategy not in SAMPLE_STRATEGIES:
+        raise ValueError(f"unknown sample strategy {strategy!r}; one of {SAMPLE_STRATEGIES}")
+
+
+def _sampled_indices(lo, hi, k: int, strategy: str, gen: torch.Generator | None):
+    if strategy == "recent":
+        return _recent_indices(lo, hi, k)
+    if gen is None:
+        raise ValueError(f"the {strategy!r} strategy draws from a torch.Generator: pass gen")
+    return _uniform_indices(lo, hi, k, gen)
 
 
 def sample_recent(
@@ -98,6 +129,15 @@ def sample_recent(
     return _gather_rows(csr, *_recent_indices(lo, hi, k))[0]
 
 
+def sample_uniform(
+    csr: TemporalCSR, node_ids: torch.Tensor, times: torch.Tensor, k: int,
+    gen: torch.Generator,
+) -> NeighborBlock:
+    """k uniform draws with replacement, sorted by time."""
+    lo, hi = window_bounds(csr, node_ids, times)
+    return _gather_rows(csr, *_uniform_indices(lo, hi, k, gen))[0]
+
+
 def sample_multi_hop(
     csr: TemporalCSR,
     node_ids: torch.Tensor,
@@ -106,24 +146,27 @@ def sample_multi_hop(
     num_hops: int,
     strategy: str = "recent",
     return_windows: bool = False,
-) -> list[NeighborBlock] | tuple[list[NeighborBlock], list[torch.Tensor]]:
+    gen: torch.Generator | None = None,
+) -> list[NeighborBlock] | tuple[list[NeighborBlock], list[torch.Tensor] | None]:
     """Recursive fan-out: hop h has shape (B, k**h).
 
     Hop h+1 queries are the flattened ids/times of hop h; padded entries
     (id 0) get empty windows and stay padded. Hop h+1's window bounds come
-    from ``csr.nbr_hi``, one gather per row.
+    from ``csr.nbr_hi``, one gather per row. ``uniform`` draws every hop
+    from ``gen`` (on the CSR's device), hop after hop.
 
     ``return_windows``: also return each hop's flat window base
-    (start = hi - k, that hop's query shape): the sampled indices are
-    exactly start + j, the contiguous ranges ``fetch_entry_windows`` reads.
+    (start = hi - k, that hop's query shape): under ``recent`` the sampled
+    indices are exactly start + j, the contiguous ranges
+    ``fetch_entry_windows`` reads. None under ``uniform``.
     """
-    require_recent(strategy)
+    check_strategy(strategy)
     blocks: list[NeighborBlock] = []
     wins: list[torch.Tensor] = []
     b = node_ids.shape[0]
     lo, hi = window_bounds(csr, node_ids, times)
     for h in range(num_hops):
-        idx, valid = _recent_indices(lo, hi, k)
+        idx, valid = _sampled_indices(lo, hi, k, strategy, gen)
         wins.append(hi - k)
         blk, nhi = _gather_rows(csr, idx, valid)
         blocks.append(blk)
@@ -131,7 +174,9 @@ def sample_multi_hop(
             break
         lo = csr.offsets[blk.nbr.reshape(b, -1).long()]
         hi = torch.where(valid.reshape(b, -1), nhi.reshape(b, -1), lo)
-    return (blocks, wins) if return_windows else blocks
+    if return_windows:
+        return blocks, (wins if strategy == "recent" else None)
+    return blocks
 
 
 def fetch_entry_windows(csr: TemporalCSR, start: torch.Tensor, k: int) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """TGAT: temporal graph attention network, unrolled over sampled hops.
 
 Counterpart of ``dyglib_tpu/models/tgat.py`` (f32 compute, the ``recent``
-strategy). The multi-hop neighborhood is sampled once into fixed-shape hop
+and ``uniform`` strategies). The multi-hop neighborhood is sampled once into fixed-shape hop
 tensors (hop h: (B, K**h)) and the layers are evaluated bottom-up:
 
     feats^0[h] = raw_node_features[hop_ids[h]]
@@ -23,9 +23,12 @@ attention kernel; with ``use_phi_fusion``, the Phi projection kernel at
 every layer instead. ``use_kernels`` (the net's, set from the adapter's at
 ``build``) calls the kernels' wrappers, which launch them on CUDA tensors
 and take the plain versions on CPU tensors; ``use_kernels=False`` calls the
-plain versions on any device. ``sample`` launches no kernel. None of the
-four has a backward kernel yet: on the card their wrappers raise in grad
-mode, so TGAT evaluates there and trains only on the CPU.
+plain versions on any device. ``sample`` launches no kernel. Each kernel
+is a ``torch.autograd.Function`` whose backward launches its backward
+kernel, so TGAT trains on the card through the same kernels it evaluates
+with. The window kernel runs only under ``recent`` (a ``uniform`` draw is
+no contiguous window); ``uniform`` draws its neighbors from the
+``torch.Generator`` its caller passes to ``sample``.
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ import torch
 from torch import nn
 
 from ..graph.csr import TemporalCSR
-from ..graph.sampler import fetch_entry_windows, require_recent, sample_multi_hop
+from ..graph.sampler import check_strategy, fetch_entry_windows, sample_multi_hop
 from ..nn.modules import MergeLayer, TemporalMultiHeadAttention, TimeEncoder
 from .base import FeatureTables
 
@@ -202,8 +205,12 @@ class TGAT:
     use_kernels: bool = True
 
     def __post_init__(self):
-        require_recent(self.sample_strategy)
-        self._window_kernel = _resolve(self.use_window_attention, self.wants_entry_features)
+        check_strategy(self.sample_strategy)
+        # windows of feat_entry exist only under recent (JAX tgat.py:243-246)
+        self._window_kernel = (
+            _resolve(self.use_window_attention, self.wants_entry_features)
+            and self.sample_strategy == "recent"
+        )
         self._gathered_kernel = (
             _resolve(self.use_gathered_attention, True) and not self._window_kernel
         )
@@ -233,17 +240,22 @@ class TGAT:
             use_kernels=self.use_kernels,
         )
 
-    def sample(self, csr: TemporalCSR, ids: torch.Tensor, ts: torch.Tensor) -> TGATInputs:
-        """The hop tensors of queries (ids, ts); with ``csr.feat_entry`` the
-        hop features too, and with the window kernel each hop's windows."""
+    def sample(
+        self, csr: TemporalCSR, ids: torch.Tensor, ts: torch.Tensor,
+        gen: torch.Generator | None = None,
+    ) -> TGATInputs:
+        """The hop tensors of queries (ids, ts); under ``recent`` with
+        ``csr.feat_entry`` the hop features too, and with the window kernel
+        each hop's windows. ``uniform`` draws from ``gen`` (on the CSR's
+        device)."""
         k = self.num_neighbors
         b = ids.shape[0]
         ids, ts = ids.to(torch.int32), ts.to(torch.int32)
         blocks, wins = sample_multi_hop(
-            csr, ids, ts, k, self.num_layers, self.sample_strategy, return_windows=True
+            csr, ids, ts, k, self.num_layers, self.sample_strategy, return_windows=True, gen=gen
         )
         hop_node_feat = hop_edge_feat = hop_win_start = feat_table = None
-        fused = self._window_kernel and csr.feat_entry is not None
+        fused = self._window_kernel and csr.feat_entry is not None and wins is not None
         if fused:
             pad = csr.feat_entry_guard_pad
             if k > pad:
@@ -251,7 +263,7 @@ class TGAT:
             t_max = csr.feat_entry.shape[0] - k
             hop_win_start = tuple((w + pad).clamp(0, t_max).to(torch.int32) for w in wins)
             feat_table = csr.feat_entry
-        if csr.feat_entry is not None:
+        if csr.feat_entry is not None and wins is not None:
             dn = csr.feat_entry_node_dim
             pairs = list(zip(blocks, wins))
             if fused:

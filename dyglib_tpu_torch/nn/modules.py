@@ -118,10 +118,12 @@ class TemporalMultiHeadAttention(nn.Module):
         Wk[Df:], the second term by ``ops.phi_projection``;
       * ``use_pallas``: ``ops.temporal_attention`` on the three kv parts;
       * otherwise the plain path (concatenate, ``nn.Linear``s, attend).
-    The kernels read the projections' weights in place (``weight.t()``).
-    ``use_kernels=False`` calls each kernel's plain version instead. The
-    feature rows of the gathered and window branches are raw table rows
-    and get no gradient.
+    The kernels read the projections' weights in place (``weight.t()``)
+    and are autograd Functions whose backward launches their backward
+    kernels: q3, the weights, the time encoder and (fused branch) the kv
+    parts get gradients. ``use_kernels=False`` calls each kernel's plain
+    version instead. The feature rows of the gathered and window branches
+    are raw table rows: they get no gradient, on either path (detached).
 
     Dropout (train mode) draws from ``dropout_gen``: on the scores, as the
     kernels' pre-scaled ``keep`` mask, and on residual_fc's output.

@@ -1,5 +1,5 @@
-"""What the four TGAT attention kernels share: their plain math and their
-wrappers' checks.
+"""What the four TGAT attention kernels share: their plain math, forward and
+backward, and their wrappers' checks.
 
 Single-query temporal attention (``nn/modules.py::TemporalMultiHeadAttention``):
 one projected query row q3 (heads flattened) per query attends over its K
@@ -12,7 +12,22 @@ neighbor rows ``kv = [nbr || edge || Phi(dt)]``,
 
 The pad logit is -1e10, not -inf, so an all-padded row attends uniformly
 instead of giving NaN. The CUDA kernels (``csrc/attention_core.cuh``) keep
-key and val out of device memory.
+key and val out of device memory; their backward (``csrc/attention_bwd.cuh``)
+never forms them at all.
+
+The plain backward (``attend_backward``, ``project_backward``) is the math
+of the JAX ``_bwd_kernel``s (``dyglib_tpu/ops/pallas/temporal_attention.py``
+:120-157): with g the output's cotangent and s the softmax before keep,
+
+    ds_d = g_h . val_h[j] + dscores,   dval = (s * keep) g_h
+    ds = ds_d * keep,   dlog = s * (ds - sum_j ds * s), 0 at pads, * scale
+    dq3_h = sum_j dlog key_h[j],   dkey = dlog q3_h
+    dkv = dkey @ Wk^T + dval @ Wv^T,  dWk = kv^T dkey,  dWv = kv^T dval
+
+``abs_terms=True`` runs the same formulas on the operands' magnitudes, with
+the softmax's subtraction made an addition: each output entry is then the
+sum of the |terms| its sums add, the scale to which the card's checks hold
+a backward kernel's rounding (sums taken in another order).
 """
 from __future__ import annotations
 
@@ -25,6 +40,9 @@ NEG = -1e10  # pad logit
 MAX_NEIGHBORS = _build.TILE_ROWS
 # the kernels keep every head's logits of a block in shared memory
 MAX_HEADS = 64
+# the backward's per-query kernel stages its K kv rows and the query's
+# projected q3 and g per head in shared memory (csrc/attention_bwd.cuh)
+MAX_BWD_SHARED_BYTES = 227 * 1024
 
 
 def rounded(compute_dtype: torch.dtype, *xs: torch.Tensor) -> tuple[torch.Tensor, ...]:
@@ -41,28 +59,88 @@ def project_kv(kv, wk, wv, compute_dtype=torch.float32):
     return kv @ wk, kv @ wv
 
 
+def _softmax_scores(q3, key, mask, num_heads):
+    """Softmax over the K neighbors before keep, (M, H, K)."""
+    m, k, dq = key.shape
+    hd = dq // num_heads
+    logits = (q3.view(m, 1, num_heads, hd) * key.view(m, k, num_heads, hd)).sum(-1)
+    logits = torch.where(mask[..., None] > 0, logits * hd**-0.5, NEG)  # (M, K, H)
+    return torch.softmax(logits, dim=1).transpose(1, 2)
+
+
 def attend(q3, key, val, mask, keep, num_heads: int):
     """q3 (M, Dq); key, val (M, K, Dq); mask (M, K); keep (M, H, K) ->
     (out (M, Dq), scores (M, H, K) after the keep multiply)."""
     m, k, dq = key.shape
     hd = dq // num_heads
-    logits = (q3.view(m, 1, num_heads, hd) * key.view(m, k, num_heads, hd)).sum(-1)
-    logits = torch.where(mask[..., None] > 0, logits * hd**-0.5, NEG)  # (M, K, H)
-    scores = torch.softmax(logits, dim=1).transpose(1, 2) * keep  # (M, H, K)
+    scores = _softmax_scores(q3, key, mask, num_heads) * keep  # (M, H, K)
     out = torch.einsum("mhk,mkhd->mhd", scores, val.view(m, k, num_heads, hd))
     return out.reshape(m, dq), scores
 
 
-def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
-    """Raise where autograd would need a backward this kernel does not have.
+def attend_backward(q3, key, val, mask, keep, dout, dscores, num_heads: int, terms_of=None):
+    """The explicit backward of ``attend``: dout (M, Dq) and dscores (M, H, K)
+    (None: zeros) -> (dq3 (M, Dq), dkey (M, K, Dq), dval (M, K, Dq)).
 
-    The CUDA wrappers write their outputs through ctypes, so a result would
-    carry no ``grad_fn`` and its inputs would silently get no gradient."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name} has no backward kernel yet (TGAT training, ROADMAP.md slice 4): "
-            "call it under torch.no_grad() or torch.inference_mode(), or on CPU tensors"
-        )
+    ``terms_of=(key_abs, val_abs)``, the sums of |terms| of key and val
+    (``|kv| @ |W|``): the same outputs' sums of |terms| instead."""
+    m, k, dq = key.shape
+    hd = dq // num_heads
+    s = _softmax_scores(q3, key, mask, num_heads)  # (M, H, K)
+    if terms_of is not None:
+        q3, dout = q3.abs(), dout.abs()
+        key, val = terms_of
+        dscores = None if dscores is None else dscores.abs()
+    gh = dout.view(m, num_heads, hd)
+    ds = torch.einsum("mhd,mkhd->mhk", gh, val.view(m, k, num_heads, hd))
+    if dscores is not None:
+        ds = ds + dscores
+    ds = ds * keep
+    total = (ds * s).sum(-1, keepdim=True)
+    dlog = s * (ds - total if terms_of is None else ds + total)
+    dlog = torch.where(mask[:, None, :] > 0, dlog, 0.0) * hd**-0.5  # (M, H, K)
+    dq3 = torch.einsum("mhk,mkhd->mhd", dlog, key.view(m, k, num_heads, hd)).reshape(m, dq)
+    dkey = torch.einsum("mhk,mhd->mkhd", dlog, q3.view(m, num_heads, hd)).reshape(m, k, dq)
+    dval = torch.einsum("mhk,mhd->mkhd", s * keep, gh).reshape(m, k, dq)
+    return dq3, dkey, dval
+
+
+def attention_backward(q3, kv, mask, keep, wk, wv, dout, dscores, num_heads: int,
+                       kv_cols: slice = slice(None), compute_dtype=torch.float32,
+                       abs_terms: bool = False):
+    """The whole plain backward on the kv rows (M * K, Dkv) -> (dq3,
+    dkv[:, kv_cols], dWk, dWv); ``abs_terms``: their sums of |terms|."""
+    m, k = mask.shape
+    key, val = project_kv(kv, wk, wv, compute_dtype)
+    terms_of = None
+    if abs_terms:
+        terms_of = tuple(t.view(m, k, -1) for t in project_kv(kv.abs(), wk.abs(), wv.abs()))
+    dq3, dkey, dval = attend_backward(q3, key.view(m, k, -1), val.view(m, k, -1), mask, keep,
+                                      dout, dscores, num_heads, terms_of)
+    dkv, dwk, dwv = project_backward(kv, wk, wv, dkey.reshape(m * k, -1),
+                                     dval.reshape(m * k, -1), kv_cols, compute_dtype, abs_terms)
+    return dq3, dkv, dwk, dwv
+
+
+def project_backward(kv, wk, wv, dkey, dval, kv_cols: slice = slice(None),
+                     compute_dtype=torch.float32, abs_terms: bool = False):
+    """The projections' backward on the kv rows (R, Dkv) with dkey, dval
+    (R, Dq) -> (dkv[:, kv_cols], dWk, dWv), each product on
+    ``compute_dtype`` operands with f32 accumulation (the JAX kernels')."""
+    kv, wk, wv, dkey, dval = rounded(compute_dtype, kv, wk, wv, dkey, dval)
+    if abs_terms:
+        kv, wk, wv, dkey, dval = kv.abs(), wk.abs(), wv.abs(), dkey.abs(), dval.abs()
+    dkv = dkey @ wk[kv_cols].t() + dval @ wv[kv_cols].t()
+    return dkv, kv.t() @ dkey, kv.t() @ dval
+
+
+def time_param_grads(dphi, dt, tw, tb, abs_terms: bool = False):
+    """(dtw, dtb) of Phi = cos(dt * tw + tb) from dPhi (R, Dt) and dt (R,)."""
+    msin = -torch.sin(dt[:, None] * tw + tb)
+    if abs_terms:
+        dphi, msin, dt = dphi.abs(), msin.abs(), dt.abs()
+    common = dphi * msin
+    return (common * dt[:, None]).sum(0), common.sum(0)
 
 
 def check_attention(q3, mask, keep, wk, wv, kv_dim: int, num_heads: int):
@@ -78,8 +156,11 @@ def check_attention(q3, mask, keep, wk, wv, kv_dim: int, num_heads: int):
     _build.require(q3, "q3", f32, (m, dq), dev)
     _build.require(mask, "mask", f32, (m, k), dev)
     _build.require(keep, "keep", f32, (m, num_heads, k), dev)
-    if m * k >= 2**31:
-        raise ValueError(f"{m * k} kv rows; the kernels index with int32")
+    if m * k >= 2**31 or m * num_heads * kv_dim >= 2**31:
+        raise ValueError(
+            f"{m * k} kv rows, {m * num_heads * kv_dim} backward scratch entries; the kernels "
+            "index with int32"
+        )
     wk_s = _build.require_weight(wk, "wk", f32, (kv_dim, dq), dev)
     wv_s = _build.require_weight(wv, "wv", f32, (kv_dim, dq), dev)
     return m, k, dq, wk_s, wv_s
@@ -87,3 +168,20 @@ def check_attention(q3, mask, keep, wk, wv, kv_dim: int, num_heads: int):
 
 def head_scale(dq: int, num_heads: int) -> float:
     return (dq // num_heads) ** -0.5
+
+
+def backward_scratch(m: int, k: int, kv_dim: int, dq: int, num_heads: int, device):
+    """The backward kernels' scratch: qk, gv, ak, av (4, M, H, Dkv) and the
+    weight gradients' per-chunk partial sums (chunks, Dkv, Dq); returns
+    (scratch, partial, chunk_rows). Raises if a query's kv rows do not fit
+    one block's shared memory."""
+    smem = 4 * (k * kv_dim + 2 * num_heads * kv_dim + 4 * num_heads * k)
+    if smem > MAX_BWD_SHARED_BYTES:
+        raise ValueError(
+            f"{k} kv rows of {kv_dim} and {num_heads} heads need {smem} bytes of shared "
+            f"memory in the backward kernel; it takes at most {MAX_BWD_SHARED_BYTES}"
+        )
+    # the weight-gradient grid's z runs over (chunk, head): at most 65535
+    chunk = max(_build.weight_grad_chunk_rows(m, kv_dim, dq), -(-m * num_heads // 65535))
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=device)
+    return new(4, m, num_heads, kv_dim), new(max(1, -(-m // chunk)), kv_dim, dq), chunk

@@ -15,6 +15,12 @@ Protocol (the JAX package's):
     sequences are the src rows'); the loss is the masked mean BCE over
     positives and negatives, on logits;
   * training samples histories from train_csr, evaluation from full_csr;
+  * a backbone with a stochastic sample strategy (TGAT's ``uniform``) draws
+    from the trainer's ``sample_gen`` in training (seeded by
+    ``init_params``) and, in each ``evaluate``, from a generator seeded
+    afresh from 12345 + ``eval_key_salt`` (val / new-node val / test /
+    new-node test: 0 / 1 / 2 / 3), as the JAX package seeds its key: two
+    sweeps give the same probabilities. Draws differ from JAX's bits;
   * the eval samplers' seeded streams are reset before every sweep; under
     the random strategy the sampler's neg_src draw is made and discarded:
     the negative edge is (src, neg_dst), embedded as a triple too;
@@ -113,8 +119,8 @@ def make_optimizer(cfg: TrainConfig, params) -> torch.optim.Optimizer:
 
 class LinkPredictionTrainer:
     """Owns the feature tables, the CSRs, the negative samplers, the
-    backbone + MergeLayer head, the optimizer and the dropout generator for
-    one dataset on one device."""
+    backbone + MergeLayer head, the optimizer and the dropout and sampling
+    generators for one dataset on one device."""
 
     def __init__(
         self,
@@ -169,11 +175,16 @@ class LinkPredictionTrainer:
         self.head: MergeLayer | None = None
         self.optimizer: torch.optim.Optimizer | None = None
         self.dropout_gen: torch.Generator | None = None
+        # training's neighbor draws, for a backbone whose strategy is
+        # stochastic (None otherwise: recent sampling draws nothing)
+        self.sample_gen: torch.Generator | None = None
+        self._stochastic = getattr(backbone, "sample_strategy", "recent") != "recent"
 
     # ----------------------------------------------------------- parameters
     def init_params(self, seed: int) -> None:
         """Build the backbone and head with parameters drawn from ``seed``,
-        a fresh optimizer over them, and the dropout generator seeded from
+        a fresh optimizer over them, and the dropout generator (and, for a
+        stochastic sample strategy, the sampling generator) seeded from
         ``seed`` on the trainer's device."""
         gen = torch.Generator().manual_seed(seed)
         nd = self.tables.node_dim
@@ -185,6 +196,8 @@ class LinkPredictionTrainer:
             self.cfg, list(self.model.parameters()) + list(self.head.parameters())
         )
         self.dropout_gen = torch.Generator(device=self.device).manual_seed(seed)
+        if self._stochastic:
+            self.sample_gen = torch.Generator(device=self.device).manual_seed(seed)
 
     def load_params(self, params: dict) -> None:
         """Load ``{"backbone": state_dict, "head": state_dict}`` (see
@@ -201,9 +214,12 @@ class LinkPredictionTrainer:
         return {"backbone": self.model.state_dict(), "head": self.head.state_dict()}
 
     # -------------------------------------------------------------- forward
-    def _sample(self, csr: TemporalCSR, src, dst, neg_dst, ts, bucket):
-        """The triple [src || dst || neg_dst] (neg_src = src)."""
+    def _sample(self, csr: TemporalCSR, src, dst, neg_dst, ts, bucket, gen=None):
+        """The triple [src || dst || neg_dst] (neg_src = src); ``gen`` draws
+        the neighbors of a stochastic sample strategy."""
         ids, tsx = torch.cat([src, dst, neg_dst]), ts.repeat(3)
+        if self._stochastic:
+            return self.backbone.sample(csr, ids, tsx, gen=gen)
         if bucket is None:
             return self.backbone.sample(csr, ids, tsx)
         return self.backbone.sample(csr, ids, tsx, seq_len=bucket)
@@ -238,7 +254,7 @@ class LinkPredictionTrainer:
         self.model.train()
         self.head.train()
         with record_function("train/sample"):
-            inputs = self._sample(self.train_csr, src, dst, neg_dst, ts, bucket)
+            inputs = self._sample(self.train_csr, src, dst, neg_dst, ts, bucket, self.sample_gen)
         with record_function("train/forward"):
             embs = self._embed(inputs, self.dropout_gen)
             loss, (pos_logit, neg_logit) = self._head_loss(embs, valid)
@@ -251,14 +267,15 @@ class LinkPredictionTrainer:
         return loss.detach(), probs
 
     @torch.inference_mode()
-    def eval_step(self, csr: TemporalCSR, arrays, bucket: int | None = None):
+    def eval_step(self, csr: TemporalCSR, arrays, bucket: int | None = None, gen=None):
         """One batch under the random-negative protocol (neg_src = src) ->
-        (masked mean BCE loss, (pos_probs, neg_probs))."""
+        (masked mean BCE loss, (pos_probs, neg_probs)); ``gen`` draws a
+        stochastic strategy's neighbors."""
         src, dst, _neg_src, neg_dst, ts, _eid, valid = arrays
         self.model.eval()
         self.head.eval()
         with record_function("eval/sample"):
-            inputs = self._sample(csr, src, dst, neg_dst, ts, bucket)
+            inputs = self._sample(csr, src, dst, neg_dst, ts, bucket, gen)
         with record_function("eval/forward"):
             embs = self._embed(inputs)
         with record_function("eval/head"):
@@ -341,8 +358,10 @@ class LinkPredictionTrainer:
             metrics.append(self._batch_metrics(host, b))
         return losses, metrics
 
-    def evaluate(self, stream: EdgeStream, neg_sampler: NegativeEdgeSampler):
-        """One sweep over a split.
+    def evaluate(self, stream: EdgeStream, neg_sampler: NegativeEdgeSampler,
+                 eval_key_salt: int = 0):
+        """One sweep over a split; a stochastic sample strategy draws from a
+        generator seeded from 12345 + ``eval_key_salt``.
 
         Returns (losses, metrics, probs): per batch, the loss, the AP/AUC
         dict and the host (pos_probs, neg_probs) arrays (padded rows
@@ -353,6 +372,9 @@ class LinkPredictionTrainer:
         if stream.num_interactions == 0:
             return [], [], []
         neg_sampler.reset_random_state()
+        gen = None
+        if self._stochastic:
+            gen = torch.Generator(device=self.device).manual_seed(12345 + eval_key_salt)
         losses, metrics, probs = [], [], []
         for b in chronological_batches(stream, self.cfg.batch_size):
             with record_function("eval/staging"):
@@ -363,7 +385,7 @@ class LinkPredictionTrainer:
                 ns, nd = self._pad_negs(b.src[:n], b), self._pad_negs(neg_dst, b)
                 bucket = self._pick_bucket(self.full_csr, b, ns, nd)
                 arrays = self._batch_arrays(b, ns, nd)
-            loss, (pos, neg) = self.eval_step(self.full_csr, arrays, bucket)
+            loss, (pos, neg) = self.eval_step(self.full_csr, arrays, bucket, gen)
             with record_function("eval/metrics"):  # the copy-back waits for the device
                 host = (pos.cpu().numpy(), neg.cpu().numpy())
                 losses.append(float(loss))
@@ -397,8 +419,8 @@ class LinkPredictionTrainer:
         for epoch in range(self.cfg.num_epochs):
             t0 = time.time()
             tr_losses, tr_metrics = self.train_epoch()
-            _, val_metrics, _ = self.evaluate(d.val, self.val_neg)
-            _, nn_val_metrics, _ = self.evaluate(d.new_node_val, self.nn_val_neg)
+            _, val_metrics, _ = self.evaluate(d.val, self.val_neg, 0)
+            _, nn_val_metrics, _ = self.evaluate(d.new_node_val, self.nn_val_neg, 1)
             mv = self.mean_metrics(val_metrics)
             epoch_mean_losses.append(float(np.mean(tr_losses)))
             dt = time.time() - t0
@@ -410,7 +432,7 @@ class LinkPredictionTrainer:
                 f"({dt:.1f}s)"
             )
             if (epoch + 1) % self.cfg.test_interval_epochs == 0:
-                _, test_metrics, _ = self.evaluate(d.test, self.test_neg)
+                _, test_metrics, _ = self.evaluate(d.test, self.test_neg, 2)
                 log(f"  test {self.mean_metrics(test_metrics)}")
             if early.step(mv, self.state_dicts()):
                 log(f"early stop at epoch {epoch + 1}")
@@ -424,8 +446,8 @@ class LinkPredictionTrainer:
             ("test metrics", d.test, self.test_neg),
             ("new node test metrics", d.new_node_test, self.nn_test_neg),
         )
-        for key, stream, sampler in sweeps:
-            results[key] = self.mean_metrics(self.evaluate(stream, sampler)[1])
+        for salt, (key, stream, sampler) in enumerate(sweeps):
+            results[key] = self.mean_metrics(self.evaluate(stream, sampler, salt)[1])
         results["params"] = self.state_dicts()
         results["state"] = None
         return results

@@ -7,10 +7,9 @@
 Same setting as chip_smoke.py (synthetic wikipedia-scale stream, seed 1;
 random weights, seed 0; B = 200). DyGFormer: the wikipedia (maxlen 32,
 patch 1) and CanParl (maxlen 2048, patch 64) configurations, kernel path.
-TGAT (evaluation only: its kernels have no backward yet): the published
-widths (K = 20, 2 layers, 2 heads, Dt = 100), the default kernel path
-(gathered attention at layer 1, fused attention at layer 2) and the plain
-path. For each configuration it traces, with torch.profiler, one
+TGAT: the published widths (K = 20, 2 layers, 2 heads, Dt = 100), the
+default kernel path (gathered attention at layer 1, fused attention at
+layer 2; in training their backward kernels too) and the plain path. For each configuration it traces, with torch.profiler, one
 ``evaluate`` sweep over the first val batches (``--mode eval``, random val
 negatives) or one ``train_epoch`` over the last train batches (``--mode
 train``, dropout 0.1; wikipedia on the gather path, CanParl with the entry
@@ -164,8 +163,6 @@ def main() -> int:
     parser.add_argument("--mode", choices=("eval", "train"), default="eval")
     parser.add_argument("--batches", type=int, default=10)
     args = parser.parse_args()
-    if args.model == "tgat" and args.mode == "train":
-        parser.error("TGAT's kernels have no backward yet: --model tgat takes --mode eval")
     if not torch.cuda.is_available():
         print("profile_torch_eval: needs a CUDA card", file=sys.stderr)
         return 1

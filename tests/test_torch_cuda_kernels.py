@@ -268,42 +268,96 @@ def test_window_fetch_kernel_equals_plain(dev, seed, m, seq_len, dn, de):
     assert not node[0, 1:].any() and torch.equal(node[1, seq_len - 1], args[0][int(starts[1]) + seq_len - 2, :dn])
 
 
-def test_every_parameter_gets_a_gradient_through_the_kernels(dev):
-    """One backward on the card through the kernels: every parameter of
-    DyGFormerNet and MergeLayer has a finite gradient, equal to the plain
-    path's within the gradient tolerance of the layers above."""
+def _tgat_case(dev, config, sample_strategy="recent"):
+    """TGAT at small widths on the card, in one of its kernel configurations:
+    (tgat, tables, csr, ids, ts) with ids and ts the first val edges'
+    endpoints."""
+    from dyglib_tpu_torch.data import synthetic_link_prediction_data
+    from dyglib_tpu_torch.graph import build_temporal_csr
+    from dyglib_tpu_torch.models import TGAT, FeatureTables
+
+    kw = {
+        "default": {}, "entry_table": {}, "window": dict(wants_entry_features=True),
+        "phi_fusion": dict(use_gathered_attention=False, use_phi_fusion=True),
+    }[config]
+    data = synthetic_link_prediction_data(num_src=60, num_dst=30, num_edges=1500, seed=3)
+    feats = (data.node_raw_features[:, :12].copy(), data.edge_raw_features[:, :12].copy())
+    table = dict(feat_entry_of=feats) if config in ("entry_table", "window") else {}
+    csr = build_temporal_csr(data.full, num_nodes=data.num_nodes, device=dev, **table)
+    tables = FeatureTables(*(torch.from_numpy(f).to(dev) for f in feats))
+    tgat = TGAT(num_neighbors=5, time_feat_dim=10, sample_strategy=sample_strategy, **kw)
+    ids = torch.from_numpy(np.concatenate([data.val.src[:20], data.val.dst[:20]]).astype(np.int32))
+    ts = torch.from_numpy(data.val.ts[:20].astype(np.int32)).repeat(2)
+    return tgat, tables, csr, ids.to(dev), ts.to(dev)
+
+
+# the kernels each TGAT configuration launches in one forward and backward
+TGAT_LAUNCHES = {
+    "default": {"gathered_attention": 2, "temporal_attention": 1},
+    "entry_table": {"gathered_attention": 2, "temporal_attention": 1},
+    "window": {"window_attention": 2, "temporal_attention": 1},
+    "phi_fusion": {"phi_projection": 6},
+}
+
+
+@pytest.mark.parametrize("model", ["dygformer", *(f"tgat_{c}" for c in TGAT_LAUNCHES)])
+def test_every_parameter_gets_a_gradient_through_the_kernels(dev, model):
+    """One backward on the card through the kernels: every parameter of the
+    net (DyGFormerNet, or TGATNet in each kernel configuration) and of
+    MergeLayer has a finite gradient, equal to the plain path's within the
+    gradient tolerance of the layers above; the kernel path launches every
+    forward kernel's backward kernel, the plain path none."""
     from dyglib_tpu_torch.models import DyGFormer, DyGFormerInputs, FeatureTables
     from dyglib_tpu_torch.nn import MergeLayer
 
     rng = np.random.RandomState(0)
-    m, lp, n_nodes, n_edges, feat = 3 * 8, 16, 50, 200, 12
-    seq_ids = rng.randint(1, n_nodes, (m, lp)).astype(np.int32)
-    seq_ids[:, 10:] = 0
-    inputs = DyGFormerInputs(
-        *_on(dev, seq_ids, np.where(seq_ids > 0, rng.randint(1, n_edges, (m, lp)), 0).astype(np.int32),
-             rng.randint(0, 1000, (m, lp)).astype(np.int32), np.full(m, 2000, np.int32))
-    )
-    node = rng.randn(n_nodes, feat).astype(np.float32)
-    edge = rng.randn(n_edges, feat).astype(np.float32)
-    node[0] = edge[0] = 0.0
-    tables = FeatureTables(*_on(dev, node, edge))
+    if model == "dygformer":
+        m, lp, n_nodes, n_edges, feat = 3 * 8, 16, 50, 200, 12
+        seq_ids = rng.randint(1, n_nodes, (m, lp)).astype(np.int32)
+        seq_ids[:, 10:] = 0
+        inputs = DyGFormerInputs(
+            *_on(dev, seq_ids,
+                 np.where(seq_ids > 0, rng.randint(1, n_edges, (m, lp)), 0).astype(np.int32),
+                 rng.randint(0, 1000, (m, lp)).astype(np.int32), np.full(m, 2000, np.int32))
+        )
+        node = rng.randn(n_nodes, feat).astype(np.float32)
+        edge = rng.randn(n_edges, feat).astype(np.float32)
+        node[0] = edge[0] = 0.0
+        tables = FeatureTables(*_on(dev, node, edge))
+        expected = {"time_channel_bwd", "patch_projection_bwd"}
+    else:
+        config = model[len("tgat_"):]
+        tgat, tables, csr, ids, ts = _tgat_case(dev, config)
+        inputs = tgat.sample(csr, ids, ts)
+        feat = 12
+        expected = {f"{k}_bwd": v for k, v in TGAT_LAUNCHES[config].items()}
     grads = {}
     for use_kernels in (True, False):
         gen = torch.Generator().manual_seed(0)
-        net = DyGFormer(max_input_sequence_length=lp, patch_size=4, channel_embedding_dim=8,
-                        time_feat_dim=8, dropout=0.0, use_kernels=use_kernels).build(feat, feat, gen)
+        if model == "dygformer":
+            net = DyGFormer(max_input_sequence_length=lp, patch_size=4, channel_embedding_dim=8,
+                            time_feat_dim=8, dropout=0.0,
+                            use_kernels=use_kernels).build(feat, feat, gen)
+            forward = lambda: net(tables, inputs, triple=True)
+        else:
+            net = tgat.build(feat, feat, gen)
+            net.use_kernels = use_kernels
+            forward = lambda: net(tables, inputs)
         head = MergeLayer(2 * feat, feat, 1, gen)
-        net, head = net.to(dev), head.to(dev)
+        net, head = net.to(dev).eval(), head.to(dev)
         before = ops.launch_counts()
-        emb = net(tables, inputs, triple=True)
-        s, d, ns, nd = emb.split(8)
+        emb = forward()
+        s, d, ns, nd = emb.split(emb.shape[0] // 4) if model == "dygformer" else (
+            *emb.split(emb.shape[0] // 2), *emb.flip(0).split(emb.shape[0] // 2))
         (head(s, d).sum() - head(ns, nd).sum()).backward()
         after = ops.launch_counts()
-        launched = {k for k in after if after[k] > before[k]}
-        if use_kernels:
-            assert {"time_channel_bwd", "patch_projection_bwd"} <= launched
-        else:
+        launched = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+        if not use_kernels:
             assert not launched
+        elif model == "dygformer":
+            assert expected <= set(launched)
+        else:
+            assert {k: v for k, v in launched.items() if k.endswith("_bwd")} == expected
         grads[use_kernels] = {
             k: p.grad for mod in (net, head) for k, p in mod.named_parameters(prefix=mod._get_name())
         }
@@ -313,11 +367,13 @@ def test_every_parameter_gets_a_gradient_through_the_kernels(dev):
         torch.testing.assert_close(g, ref, atol=1e-4 * (1 + float(ref.abs().max())), rtol=0, msg=k)
 
 
-# ---- TGAT's attention kernels (forward only; no backward kernel yet)
+# ---- TGAT's attention kernels, forward and backward
 #
-# Tolerance: ATOL. An output is a softmax-weighted sum of val rows, each a
-# sum of Dkv <= 444 products of O(1) values; the kernel takes the sums in
-# another order than cuBLAS. The all-padded row (row 0) attends uniformly.
+# Tolerance: ATOL for the forwards. An output is a softmax-weighted sum of
+# val rows, each a sum of Dkv <= 444 products of O(1) values; the kernel
+# takes the sums in another order than cuBLAS. The all-padded row (row 0)
+# attends uniformly. The backwards: GRAD_RTOL of each entry's sum of |terms|
+# (the plain backward's ``abs_terms``), and a second run bitwise equal.
 
 # (seed, M, K, dn, de, Dt, Dq, heads)
 ATTN_CASES = [
@@ -419,17 +475,87 @@ def test_phi_projection_kernel_matches_plain(dev, seed, r, dt_dim, dq, layout):
     torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
 
 
-def test_attention_wrappers_refuse_grad_mode_and_what_they_do_not_take(dev):
+def _backward_checked(kernel_bwd, plain_bwd, args, names):
+    """The backward kernel launched twice (bitwise equal runs) against its
+    plain version within GRAD_RTOL of the sums of |terms|."""
+    before = kernel_bwd.launches
+    got = kernel_bwd(*args)
+    again = kernel_bwd(*args)
+    assert kernel_bwd.launches == before + 2
+    want = plain_bwd(*args)
+    terms = plain_bwd(*args, abs_terms=True)
+    torch.cuda.synchronize()
+    for a, b, name in zip(got, again, names):
+        assert torch.equal(a, b), f"{name}: two runs differ"
+        assert torch.isfinite(a).all(), name
+    _assert_grads_close(got, want, terms, names)
+
+
+@pytest.mark.parametrize("seed,m,k,dn,de,dt_dim,dq,heads", ATTN_CASES)
+def test_temporal_attention_backward_kernel_matches_plain(dev, seed, m, k, dn, de, dt_dim, dq,
+                                                          heads):
+    t = _attention_case(dev, seed, m, k, dn, de, dt_dim, dq, heads)
+    rng = np.random.RandomState(seed + 50)
+    dout = torch.from_numpy(rng.randn(m, dq).astype(np.float32)).to(dev)
+    # the scores' cotangent: none (zeros) in one case, as JAX's is
+    dscores = None if seed == 2 else torch.from_numpy(
+        rng.randn(m, heads, k).astype(np.float32)).to(dev)
+    args = (t["q3"], t["nbr"], t["edge"], t["phi"], t["mask"], t["keep"], t["wk"], t["wv"],
+            dout, dscores, heads)
+    _backward_checked(ops.temporal_attention_backward, ops.temporal_attention_backward_plain,
+                      args, ("dq3", "dnbr", "dedge", "dphi", "dwk", "dwv"))
+
+
+@pytest.mark.parametrize("layout", ["rows", "linear"])
+@pytest.mark.parametrize("seed,m,k,dn,de,dt_dim,dq,heads", ATTN_CASES)
+def test_gathered_attention_backward_kernel_matches_plain(dev, seed, m, k, dn, de, dt_dim, dq,
+                                                          heads, layout):
+    t = _attention_case(dev, seed, m, k, dn, de, dt_dim, dq, heads, layout)
+    dout = torch.from_numpy(np.random.RandomState(seed + 50).randn(m, dq).astype(np.float32))
+    args = (t["q3"], t["nbr"].reshape(m * k, dn), t["edge"].reshape(m * k, de), t["dt"],
+            t["mask"], t["keep"], (t["tw"], t["tb"]), (t["wk"], t["wv"]), dout.to(dev), heads)
+    _backward_checked(ops.gathered_attention_backward, ops.gathered_attention_backward_plain,
+                      args, ("dq3", "dtw", "dtb", "dwk", "dwv"))
+
+
+@pytest.mark.parametrize("seed,m,k,dn,de,dt_dim,dq,heads", ATTN_CASES)
+def test_window_attention_backward_kernel_matches_plain(dev, seed, m, k, dn, de, dt_dim, dq,
+                                                        heads):
+    t = _attention_case(dev, seed, m, k, dn, de, dt_dim, dq, heads)
+    dout = torch.from_numpy(np.random.RandomState(seed + 50).randn(m, dq).astype(np.float32))
+    args = (t["q3"], t["starts"], t["dt"], t["mask"], t["keep"], t["table"], t["tw"], t["tb"],
+            (t["wk"], t["wv"]), dout.to(dev), heads)
+    _backward_checked(ops.window_attention_backward, ops.window_attention_backward_plain,
+                      args, ("dq3", "dtw", "dtb", "dwk", "dwv"))
+
+
+@pytest.mark.parametrize("layout", ["rows", "linear_slice"])
+@pytest.mark.parametrize("seed,r,dt_dim,dq", PHI_CASES)
+def test_phi_projection_backward_kernel_matches_plain(dev, seed, r, dt_dim, dq, layout):
+    rng = np.random.RandomState(seed)
+    dt = torch.from_numpy(np.floor(rng.rand(r) * 2.6e6).astype(np.float32)).to(dev)
+    tw = torch.from_numpy((1.0 / 10 ** np.linspace(0, 9, dt_dim)).astype(np.float32)).to(dev)
+    tb = torch.from_numpy((rng.randn(dt_dim) * 0.1).astype(np.float32)).to(dev)
+    if layout == "rows":
+        w = torch.from_numpy((rng.randn(dt_dim, dq) * dt_dim**-0.5).astype(np.float32)).to(dev)
+    else:
+        weight = torch.from_numpy(rng.randn(dq, 24 + dt_dim).astype(np.float32)).to(dev)
+        w = weight.t()[24:]
+    dout = torch.from_numpy(rng.randn(r, dq).astype(np.float32)).to(dev)
+    _backward_checked(ops.phi_projection_backward, ops.phi_projection_backward_plain,
+                      (dt, tw, tb, w, dout), ("dtw", "dtb", "dw"))
+
+
+def test_attention_wrappers_run_in_grad_mode_and_refuse_what_they_do_not_take(dev):
     """A CUDA call of any of the four wrappers with an input that requires
-    grad raises (the outputs would carry no grad_fn, silently); under
-    no_grad the same call launches. Shapes the kernels do not take raise
-    before any launch."""
+    grad returns an output with a grad_fn, and its backward launches the
+    backward kernel once. Shapes, dtypes and devices the kernels do not
+    take raise before any launch."""
     m, k, heads = 4, 5, 2
     t = _attention_case(dev, 9, m, k, 8, 8, 6, 14, heads)
-    wk = t["wk"].detach().clone().requires_grad_(True)
     calls = {
         "temporal_attention": lambda w: ops.temporal_attention(
-            t["q3"], t["nbr"], t["edge"], t["phi"], t["mask"], t["keep"], w, t["wv"], heads),
+            t["q3"], t["nbr"], t["edge"], t["phi"], t["mask"], t["keep"], w, t["wv"], heads)[0],
         "gathered_attention": lambda w: ops.gathered_attention(
             t["q3"], t["nbr"].reshape(m * k, -1), t["edge"].reshape(m * k, -1), t["dt"],
             t["mask"], t["keep"], (t["tw"], t["tb"]), (w, t["wv"]), heads),
@@ -439,13 +565,15 @@ def test_attention_wrappers_refuse_grad_mode_and_what_they_do_not_take(dev):
         "phi_projection": lambda w: ops.phi_projection(t["dt"], t["tw"], t["tb"], w[-6:]),
     }
     for name, call in calls.items():
+        wk = t["wk"].detach().clone().requires_grad_(True)
         before = ops.launch_counts()
-        with pytest.raises(RuntimeError, match="no backward kernel"):
-            call(wk)
-        assert ops.launch_counts() == before, name
-        with torch.no_grad():
-            call(wk)
-        assert ops.launch_counts()[name] == before[name] + 1, name
+        out = call(wk)
+        assert out.grad_fn is not None, name
+        out.square().sum().backward()
+        after = ops.launch_counts()
+        assert {k_: after[k_] - before[k_] for k_ in after if after[k_] != before[k_]} == {
+            name: 1, f"{name}_bwd": 1}, name
+        assert wk.grad is not None and torch.isfinite(wk.grad).all() and wk.grad.abs().sum() > 0
     before = ops.launch_counts()
     big_k = _attention_case(dev, 10, 2, 65, 4, 4, 4, 8, 2)
     with pytest.raises(ValueError, match="neighbors"):
@@ -457,36 +585,27 @@ def test_attention_wrappers_refuse_grad_mode_and_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="dtype"):
         ops.window_attention(t["q3"], t["starts"].long(), t["dt"], t["mask"], t["keep"],
                              t["table"], t["tw"], t["tb"], (t["wk"], t["wv"]), heads)
+    with pytest.raises(ValueError, match="on cpu"):
+        ops.gathered_attention_backward(
+            t["q3"], t["nbr"].reshape(m * k, -1), t["edge"].reshape(m * k, -1), t["dt"],
+            t["mask"], t["keep"], (t["tw"], t["tb"]), (t["wk"], t["wv"]),
+            torch.zeros((m, 14)), heads)
+    with pytest.raises(ValueError, match="shape"):
+        ops.temporal_attention_backward(
+            t["q3"], t["nbr"], t["edge"], t["phi"], t["mask"], t["keep"], t["wk"], t["wv"],
+            torch.zeros((m, 14), device=dev), torch.zeros((m, heads, k + 1), device=dev), heads)
     assert ops.launch_counts() == before
 
 
-@pytest.mark.parametrize("config", ["default", "entry_table", "window", "phi_fusion"])
+@pytest.mark.parametrize("config", list(TGAT_LAUNCHES))
 def test_tgat_configurations_run_their_kernels(dev, config):
     """TGATNet on the card, small widths: each configuration launches its
     kernels (and only those) on inputs as TGAT.sample makes them, and its
     embeddings equal the plain versions' within the kernels' tolerance."""
-    from dyglib_tpu_torch.data import synthetic_link_prediction_data
-    from dyglib_tpu_torch.graph import build_temporal_csr
-    from dyglib_tpu_torch.models import TGAT, FeatureTables
-
-    kw, kernels = {
-        "default": ({}, {"gathered_attention": 2, "temporal_attention": 1}),
-        "entry_table": ({}, {"gathered_attention": 2, "temporal_attention": 1}),
-        "window": (dict(wants_entry_features=True), {"window_attention": 2,
-                                                     "temporal_attention": 1}),
-        "phi_fusion": (dict(use_gathered_attention=False, use_phi_fusion=True),
-                       {"phi_projection": 6}),
-    }[config]
-    data = synthetic_link_prediction_data(num_src=60, num_dst=30, num_edges=1500, seed=3)
-    feats = (data.node_raw_features[:, :12].copy(), data.edge_raw_features[:, :12].copy())
-    table = dict(feat_entry_of=feats) if config in ("entry_table", "window") else {}
-    csr = build_temporal_csr(data.full, num_nodes=data.num_nodes, device=dev, **table)
-    tables = FeatureTables(*(torch.from_numpy(f).to(dev) for f in feats))
-    tgat = TGAT(num_neighbors=5, time_feat_dim=10, **kw)
+    tgat, tables, csr, ids, ts = _tgat_case(dev, config)
+    kernels = TGAT_LAUNCHES[config]
     net = tgat.build(12, 12, torch.Generator().manual_seed(0)).to(dev).eval()
-    ids = torch.from_numpy(np.concatenate([data.val.src[:20], data.val.dst[:20]]).astype(np.int32))
-    ts = torch.from_numpy(data.val.ts[:20].astype(np.int32)).repeat(2)
-    inputs = tgat.sample(csr, ids.to(dev), ts.to(dev))
+    inputs = tgat.sample(csr, ids, ts)
     with torch.inference_mode():
         before = ops.launch_counts()
         emb = net(tables, inputs)
@@ -496,3 +615,24 @@ def test_tgat_configurations_run_their_kernels(dev, config):
     torch.cuda.synchronize()
     assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == kernels
     torch.testing.assert_close(emb, ref, atol=ATOL, rtol=0)
+
+
+def test_uniform_sampling_on_the_card_is_seeded(dev):
+    """TGAT under uniform on the card: the same generator seed gives the
+    same draws, every draw inside its window, rows all valid or all
+    padded; training through the default kernels launches their backward."""
+    tgat, tables, csr, ids, ts = _tgat_case(dev, "default", sample_strategy="uniform")
+    draw = lambda seed: tgat.sample(csr, ids, ts, gen=torch.Generator(device=dev).manual_seed(seed))
+    a, b, c = draw(1), draw(1), draw(2)
+    for x, y in zip(a.hop_ids, b.hop_ids):
+        assert torch.equal(x, y)
+    assert any(not torch.equal(x, y) for x, y in zip(a.hop_ids[1:], c.hop_ids[1:]))
+    for mask in a.hop_mask:
+        rows = mask.reshape(-1, 5)
+        assert torch.equal(rows.all(-1), rows.any(-1))
+    net = tgat.build(12, 12, torch.Generator().manual_seed(0)).to(dev)
+    before = ops.launch_counts()
+    net(tables, a, dropout_gen=torch.Generator(device=dev).manual_seed(0)).square().sum().backward()
+    after = ops.launch_counts()
+    assert after["gathered_attention_bwd"] - before["gathered_attention_bwd"] == 2
+    assert after["temporal_attention_bwd"] - before["temporal_attention_bwd"] == 1

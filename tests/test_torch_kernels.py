@@ -161,7 +161,9 @@ def test_launch_counters_reset():
     assert ops.launch_counts() == {
         "time_channel": 0, "time_channel_bwd": 0, "cooccurrence": 0, "patch_projection": 0,
         "patch_projection_bwd": 0, "window_fetch": 0, "temporal_attention": 0,
-        "gathered_attention": 0, "window_attention": 0, "phi_projection": 0,
+        "temporal_attention_bwd": 0, "gathered_attention": 0, "gathered_attention_bwd": 0,
+        "window_attention": 0, "window_attention_bwd": 0, "phi_projection": 0,
+        "phi_projection_bwd": 0,
     }
 
 
