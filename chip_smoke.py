@@ -27,9 +27,10 @@ and prints no result):
      where one exists, one PyTorch library call computing the same
      function (for TGAT's attention kernels only a part of it, the K/V
      products); compute each bound from bytes and operations (for TGAT's
-     attention kernels, the operations the function needs, reassociated:
-     no kv row projected); the same for TGAT's four backward kernels at
-     its training shapes (gradients within GRAD_RTOL of their sums of
+     attention kernels, the operations the function needs, reassociated
+     as the kernels compute it: no kv row projected; their forwards
+     launched twice, bitwise equal); the same for TGAT's four backward
+     kernels at its training shapes (gradients within GRAD_RTOL of their sums of
      |terms|, a second launch bitwise equal to the first; library
      yardsticks partial: the two weight-gradient products);
   4. TGAT evaluation on the first val batches, one set of weights in four
@@ -483,7 +484,8 @@ def check_tgat_kernels(data, dev) -> dict:
     at layer 1, hop 1 (M = 12,000, 240,000 kv rows; window attention reads
     the stream's feat_entry), the Phi projection at R = 240,000. Inputs are
     the sampled batch's (features, time deltas, masks, windows) and the
-    seed-0 weights. The library yardstick is partial: the plain path's two
+    seed-0 weights. Each attention forward launched twice must give bitwise
+    equal outputs. The library yardstick is partial: the plain path's two
     K/V torch.mm's on the materialized kv (for the Phi projection, torch.mm
     on a precomputed Phi), timed alone."""
     import torch
@@ -518,27 +520,32 @@ def check_tgat_kernels(data, dev) -> dict:
             f"plain {entry['plain_ms']:.4f} ms  library (partial: {what}) "
             f"{entry['library_ms']:.4f} ms")
 
-    def compare(kernel, got, want):
+    def compare(kernel, fn, plain, repeat=False):
+        """Hold the kernel's outputs to the plain version's; with repeat, a
+        second launch must be bitwise equal to the first."""
+        def outputs(f):
+            out = f()
+            return out if isinstance(out, tuple) else (out,)
+
+        got = outputs(fn)
+        again = outputs(fn) if repeat else got
+        want = outputs(plain)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{kernel}@tgat: two launches differ")
         err = max((g - w).abs().max().item() for g, w in zip(got, want))
         if not (all(g.shape == w.shape for g, w in zip(got, want)) and err <= KERNEL_ATOL):
             raise AssertionError(f"{kernel}@tgat: max abs err {err} > {KERNEL_ATOL}")
         return err
 
     with torch.inference_mode():
-        # the operations the function needs (reassociated, as the backward
-        # kernels compute it; no kv row projected): qk = Wk_h q3_h and out_h
-        # = Av_h Wv_h (2 dq kv_dim each a query), the logits and Av = sum_j w
+        # the operations the function needs, which the kernels compute
+        # (reassociated: no kv row projected): qk = Wk_h q3_h and out_h =
+        # Av_h Wv_h (2 dq kv_dim each a query), the logits and Av = sum_j w
         # kv_j (2 kv_dim each per (query, head, neighbor)), ~6 for the mask,
-        # softmax and keep. The kernels project every kv row instead: that
-        # count (direct) is logged beside it.
+        # softmax and keep
         fwd_ops = lambda m: 4 * m * dq * kv_dim + 4 * m * heads * k * kv_dim + 6 * m * heads * k
-        direct_ops = lambda m: 4 * m * k * kv_dim * dq + 4 * m * k * dq + 6 * m * heads * k
         small = lambda m: 4 * (2 * m * dq + 2 * m * k + m * heads * k + 2 * kv_dim * dq)
-
-        def log_direct(kernel, m, nbytes, extra_ops=0):
-            b_ms, _ = bound_ms(nbytes, direct_ops(m) + extra_ops)
-            log(f"  {kernel:<20} bound of the direct projection (every kv row): {b_ms:.4f} ms")
 
         # ---- temporal attention, layer 2 (M = 600): kv = [layer-1
         # embeddings || edge rows || Phi(dt)]
@@ -548,14 +555,13 @@ def check_tgat_kernels(data, dev) -> dict:
         edge = tables.edge[inputs.hop_eids[0].reshape(m, k).long()]
         phi = net.time_encoder(dt)
         args = (q3, nbr, edge, phi, mask, keep, wk, wv, heads)
-        err = compare("temporal_attention", ops.temporal_attention(*args),
-                      ops.temporal_attention_plain(*args))
+        err = compare("temporal_attention", lambda: ops.temporal_attention(*args),
+                      lambda: ops.temporal_attention_plain(*args), repeat=True)
         kv = torch.cat([nbr, edge, phi], dim=-1).reshape(m * k, kv_dim)
-        nbytes = small(m) + 4 * m * k * kv_dim
         record("temporal_attention", f"M{m} K{k} Dkv{kv_dim} Dq{dq}", err,
                lambda: ops.temporal_attention(*args), lambda: ops.temporal_attention_plain(*args),
-               lambda: (torch.mm(kv, wk), torch.mm(kv, wv)), nbytes, fwd_ops(m), 50)
-        log_direct("temporal_attention", m, nbytes)
+               lambda: (torch.mm(kv, wk), torch.mm(kv, wv)), small(m) + 4 * m * k * kv_dim,
+               fwd_ops(m), 50)
         del nbr, edge, phi, kv, args
 
         # ---- gathered and window attention, layer 1, hop 1 (M = 12,000)
@@ -564,8 +570,8 @@ def check_tgat_kernels(data, dev) -> dict:
         feat_n = tables.node[inputs.hop_ids[2].reshape(-1).long()]
         feat_e = tables.edge[inputs.hop_eids[1].reshape(-1).long()]
         args = (q3, feat_n, feat_e, dt, mask, keep, (tw, tb), (wk, wv), heads)
-        err = compare("gathered_attention", [ops.gathered_attention(*args)],
-                      [ops.gathered_attention_plain(*args)])
+        err = compare("gathered_attention", lambda: ops.gathered_attention(*args),
+                      lambda: ops.gathered_attention_plain(*args), repeat=True)
         kv = torch.cat([feat_n, feat_e, torch.cos(dt.reshape(-1, 1) * tw + tb)], dim=-1)
         lib = lambda: (torch.mm(kv, wk), torch.mm(kv, wv))
         theta_ops = 2 * m * k * DT_DIM  # Phi's argument; the cosines uncounted
@@ -573,12 +579,11 @@ def check_tgat_kernels(data, dev) -> dict:
         record("gathered_attention", f"M{m} K{k} Dkv{kv_dim} Dq{dq}", err,
                lambda: ops.gathered_attention(*args), lambda: ops.gathered_attention_plain(*args),
                lib, nbytes, fwd_ops(m) + theta_ops, 5)
-        log_direct("gathered_attention", m, nbytes, theta_ops)
 
         starts = inputs.hop_win_start[1].reshape(-1)
         args = (q3, starts, dt, mask, keep, csr.feat_entry, tw, tb, (wk, wv), heads)
-        err = compare("window_attention", [ops.window_attention(*args)],
-                      [ops.window_attention_plain(*args)])
+        err = compare("window_attention", lambda: ops.window_attention(*args),
+                      lambda: ops.window_attention_plain(*args), repeat=True)
         # the table rows this run needs: the valid window rows (the others
         # are multiplied by a zero mask)
         n_valid = int(mask.sum())
@@ -586,15 +591,14 @@ def check_tgat_kernels(data, dev) -> dict:
         record("window_attention", f"M{m} K{k} W{2 * FEAT} valid rows {n_valid}", err,
                lambda: ops.window_attention(*args), lambda: ops.window_attention_plain(*args),
                lib, nbytes, fwd_ops(m) + theta_ops + m * k * 2 * FEAT, 5)
-        log_direct("window_attention", m, nbytes, theta_ops + m * k * 2 * FEAT)
         del feat_n, feat_e, kv, args
 
         # ---- Phi projection, R = 240,000 (hop 1's deltas), Wk's Phi rows
         dt_flat, w_phi = dt.reshape(-1), wk[2 * FEAT:]
         r = dt_flat.shape[0]
         args = (dt_flat, tw, tb, w_phi)
-        err = compare("phi_projection", [ops.phi_projection(*args)],
-                      [ops.phi_projection_plain(*args)])
+        err = compare("phi_projection", lambda: ops.phi_projection(*args),
+                      lambda: ops.phi_projection_plain(*args))
         phi = torch.cos(dt_flat[:, None] * tw + tb)
         record("phi_projection", f"R{r} Dt{DT_DIM} Dq{dq}", err,
                lambda: ops.phi_projection(*args), lambda: ops.phi_projection_plain(*args),
@@ -976,13 +980,14 @@ def tgat_trainers(data, dev, dropout=0.0, **extra):
     return trainers, params
 
 
-def tgat_lockstep(tr, params, batches, dropout: float, name: str) -> tuple[float, float]:
+def tgat_lockstep(tr, params, batches, dropout: float, name: str) -> tuple[float, float, str]:
     """TGAT's train steps in lockstep: at every step both paths' loss and
     gradients from the same parameters (the kernel path's trajectory), the
     dropout generator reseeded the same way for both, then the kernel
-    path's optimizer step. Returns the largest loss difference and the
+    path's optimizer step. Returns the largest loss difference, the
     largest gradient error as a share of its tensor's largest entry (the
-    time encoder's frequencies left to phase 3's sum-of-|terms| check)."""
+    time encoder's frequencies left to phase 3's sum-of-|terms| check) and
+    the name of the tensor where it fell."""
     import torch
 
     tr.backbone.dropout = dropout
@@ -993,7 +998,7 @@ def tgat_lockstep(tr, params, batches, dropout: float, name: str) -> tuple[float
     named = [*(("backbone." + k, p) for k, p in tr.model.named_parameters()),
              *(("head." + k, p) for k, p in tr.head.named_parameters())]
     weights = [p for _, p in named]
-    loss_diff, grad_err = 0.0, 0.0
+    loss_diff, grad_err, worst = 0.0, 0.0, ""
     for step, (arrays, bucket) in enumerate(batches):
         src, dst, _, neg_dst, ts, _, valid = arrays
         out = {}
@@ -1011,7 +1016,9 @@ def tgat_lockstep(tr, params, batches, dropout: float, name: str) -> tuple[float
             if pname == "backbone.time_encoder.w":
                 continue
             scale = max(float(gp.abs().max()), 1e-3 * top)  # zero-in-theory tensors
-            grad_err = max(grad_err, float((gk - gp).abs().max()) / scale)
+            err = float((gk - gp).abs().max()) / scale
+            if err > grad_err:
+                grad_err, worst = err, pname
         for p, g in zip(weights, out[True][1]):
             p.grad = g
         tr.optimizer.step()
@@ -1020,8 +1027,8 @@ def tgat_lockstep(tr, params, batches, dropout: float, name: str) -> tuple[float
     if not (loss_diff <= LOSS_ATOL and grad_err <= GRAD_STEP_RTOL):
         raise AssertionError(f"TGAT {name} training in lockstep (dropout {dropout}): losses "
                              f"differ by {loss_diff}, gradients by {grad_err} of their largest "
-                             "entries")
-    return loss_diff, grad_err
+                             f"entries ({worst})")
+    return loss_diff, grad_err, worst
 
 
 def run_tgat_training(data, dev) -> dict:

@@ -23,16 +23,18 @@
 //
 // about 16 G operations at hop 1. Launches, in order, all on the caller's
 // stream:
-//   1. head_project_kernel: qk and gv (the shared f32 tile, tiled_gemm.cuh);
+//   1. head_project_kernel: qk and gv (the shared f32 tile, tiled_gemm.cuh;
+//      both per-head products live in attention_core.cuh, shared with the
+//      forward);
 //   2. attention_bwd_query_kernel: one block per query stages its K kv rows
-//      through the forward's own A loader (Phi, windows and the mask live
-//      there) and its qk, gv rows in shared memory, forms logits, softmax,
-//      ds_d, dlog, Ak and Av, and hands dlog, w, qk and gv to the kernel's
-//      KvGrad, which writes what that kernel returns of dkv: all of it for
-//      temporal attention, per-query sums of dtw and dtb through dPhi and
-//      -sin for the gathered and window kernels (their feature rows get no
-//      gradient);
-//   3. head_dq_kernel: dq3 (the tile);
+//      through the kernel's loader, element by element (Phi, windows and
+//      the mask live there), and its qk, gv rows in shared memory, forms
+//      logits, softmax, ds_d, dlog, Ak and Av, and hands dlog, w, qk and gv
+//      to the kernel's KvGrad, which writes what that kernel returns of
+//      dkv: all of it for temporal attention, per-query sums of dtw and dtb
+//      through dPhi and -sin for the gathered and window kernels (their
+//      feature rows get no gradient);
+//   3. head_combine_kernel: dq3 = Ak Wk_h (the tile);
 //   4. head_weight_grad_kernel + strided_sum, twice: dWk and dWv, summed
 //      over row chunks into scratch and then in a fixed order (the
 //      deterministic two-pass reduction of weight_grad.cuh, no atomics);
@@ -90,62 +92,6 @@ struct TransposedLoader {
     return p[static_cast<size_t>(k) * ld + i];
   }
 };
-
-// blockIdx.z = which * heads + h: qk (which 0: q3 with Wk) or gv (which 1:
-// dout with Wv), out[(r * heads + h) * kv_dim + c] = sum_d x[r, h hd + d] W[c, h hd + d].
-__global__ void __launch_bounds__(kThreads) head_project_kernel(AttentionBwdParams p) {
-  const int which = blockIdx.z / p.heads;
-  const int h = blockIdx.z - which * p.heads;
-  const int hd = p.dq / p.heads;
-  const float* x = which ? p.dout : p.q3;
-  const float* w = which ? p.wv : p.wk;
-  const int sk = which ? p.wv_sk : p.wk_sk;
-  const int sn = which ? p.wv_sn : p.wk_sn;
-  float* out = which ? p.gv : p.qk;
-  const int row0 = blockIdx.x * kBM;
-  const int col0 = blockIdx.y * kBN;
-  float acc[kTM][kTN];
-  // B(d, c) = W[c, h hd + d]: W's strides, swapped
-  gemm_tile<kBByStrides>(RowMajorLoader{x + h * hd, p.dq}, w + static_cast<size_t>(h) * hd * sn,
-                         sn, sk, p.m, p.kv_dim, 0, hd, row0, col0, acc);
-  const int ty = threadIdx.x / kThreadCols;
-  const int tx = threadIdx.x % kThreadCols;
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int r = row0 + ty + i * kThreadRows;
-    if (r >= p.m) continue;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int c = col0 + tx + j * kThreadCols;
-      if (c < p.kv_dim) out[(static_cast<size_t>(r) * p.heads + h) * p.kv_dim + c] = acc[i][j];
-    }
-  }
-}
-
-// blockIdx.z = h: dq3[r, h hd + d] = sum_c ak[r, h, c] Wk[c, h hd + d].
-__global__ void __launch_bounds__(kThreads) head_dq_kernel(AttentionBwdParams p) {
-  const int h = blockIdx.z;
-  const int hd = p.dq / p.heads;
-  const int row0 = blockIdx.x * kBM;
-  const int col0 = blockIdx.y * kBN;
-  float acc[kTM][kTN];
-  gemm_tile<kBByStrides>(RowMajorLoader{p.ak + static_cast<size_t>(h) * p.kv_dim,
-                                        p.heads * p.kv_dim},
-                         p.wk + static_cast<size_t>(h) * hd * p.wk_sn, p.wk_sk, p.wk_sn, p.m, hd,
-                         0, p.kv_dim, row0, col0, acc);
-  const int ty = threadIdx.x / kThreadCols;
-  const int tx = threadIdx.x % kThreadCols;
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int r = row0 + ty + i * kThreadRows;
-    if (r >= p.m) continue;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int d = col0 + tx + j * kThreadCols;
-      if (d < hd) p.dq3[static_cast<size_t>(r) * p.dq + h * hd + d] = acc[i][j];
-    }
-  }
-}
 
 // blockIdx.z = chunk * heads + h: partial[chunk, c, h hd + d] = sum over the
 // chunk's rows r of a[r, h, c] x[r, h hd + d] (a = ak with x = q3 for dWk,
@@ -227,7 +173,7 @@ __global__ void __launch_bounds__(kBwdThreads)
   const size_t row0 = static_cast<size_t>(m) * k;
   const size_t qrow = static_cast<size_t>(m) * heads * kv_dim;
 
-  // stage the query's kv rows (through the forward's loader) and qk, gv
+  // stage the query's kv rows (through the kernel's loader) and qk, gv
   for (int e = tid; e < k * kv_dim; e += kBwdThreads) {
     const int j = e / kv_dim;
     kv_s[e] = load_a(static_cast<int>(row0) + j, e - j * kv_dim);
@@ -319,7 +265,9 @@ cudaError_t launch_attention_backward(const ALoader& load_a, const KvGrad& kv_gr
   const unsigned row_tiles = static_cast<unsigned>((p.m + kBM - 1) / kBM);
   // 1. qk, gv
   head_project_kernel<<<dim3(row_tiles, (p.kv_dim + kBN - 1) / kBN, 2 * p.heads), kThreads, 0,
-                        stream>>>(p);
+                        stream>>>(HeadOperand{p.q3, p.wk, p.wk_sk, p.wk_sn, p.qk},
+                                  HeadOperand{p.dout, p.wv, p.wv_sk, p.wv_sn, p.gv}, p.m, p.kv_dim,
+                                  p.dq, p.heads);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // 2. per query
@@ -334,7 +282,8 @@ cudaError_t launch_attention_backward(const ALoader& load_a, const KvGrad& kv_gr
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // 3. dq3
-  head_dq_kernel<<<dim3(row_tiles, (hd + kBN - 1) / kBN, p.heads), kThreads, 0, stream>>>(p);
+  head_combine_kernel<<<dim3(row_tiles, (hd + kBN - 1) / kBN, p.heads), kThreads, 0, stream>>>(
+      HeadOperand{p.ak, p.wk, p.wk_sk, p.wk_sn, p.dq3}, p.m, p.kv_dim, p.dq, p.heads);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // 4. dWk, dWv: chunk partial sums, then a fixed-order sum (the second

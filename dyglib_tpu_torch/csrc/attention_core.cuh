@@ -1,45 +1,181 @@
-// Single-query temporal attention over K neighbors, for a block of
-// queries; the core of TGAT's attention kernels (temporal_attention.cu,
-// gathered_attention.cu, window_attention.cu). For query m with projected
-// query q3[m] (heads flattened, dq = heads * hd) and kv rows
-// r = m * K + j (j < K), given by the kernel's A loader:
-//   key = kv @ Wk, val = kv @ Wv                           (dq wide)
+// Single-query temporal attention over K neighbors, forward; the core of
+// TGAT's attention kernels (temporal_attention.cu, gathered_attention.cu,
+// window_attention.cu). For query m with projected query q3[m] (heads
+// flattened, dq = heads * hd) and kv rows r = m * K + j (j < K), staged by
+// the kernel's loader:
+//   key = kv @ Wk, val = kv @ Wv                            (dq wide)
 //   logit[h, j] = (q3_h[m] . key_h[r]) * scale, or -1e10 where mask[r] == 0
 //   w[h, j] = softmax_j(logit[h]) * keep[m, h, j]           (-> scores)
 //   out[m, h * hd + d] = sum_j w[h, j] * val[r, h * hd + d]
 //
-// A block of kThreads owns floor(kBM / K) queries: kv rows row0 .. row0 +
-// nq * K of one kBM-row tile (60 of 64 at K = 20). Key and val are produced
-// 64 columns at a time by the shared tile (tiled_gemm.cuh), which stages
-// the kv slice through the loader and the weight slice through its
-// strides, and are consumed at once from shared memory:
-//   1. each key column tile is multiplied by q3 and summed per (row, head)
-//      into `logits` (one thread per row, in column order);
-//   2. one thread per (query, head) turns its K logits into weights (mask,
-//      max, exp, sum, divide, keep) and writes the scores;
-//   3. each val column tile is weighted and summed over the query's K rows
-//      (one thread per (query, column), in row order) into out.
-// Neither key nor val reaches device memory; every sum has a fixed order,
-// so two runs give identical outputs. The pad logit is -1e10, not -inf:
-// an all-padded row attends uniformly, as the plain version does.
+// Replaces the _fwd_kernels of dyglib_tpu/ops/pallas/{temporal,gathered,
+// window}_attention.py. Those project every kv row into key and val: at
+// TGAT's layer 1, hop 1 (240,000 kv rows of 444, Dq = 272) 116 G
+// operations. Reassociated, as attention_bwd.cuh computes the backward, the
+// same function never projects a kv row. With Wk_h, Wv_h the head-h columns:
+//
+//   qk[m, h] = Wk_h q3_h[m]                                  (kv_dim)
+//   logit[h, j] = kv[r] . qk[m, h] * scale
+//   Av[m, h] = sum_j w[h, j] kv[r],   out_h[m] = Av[m, h] Wv_h
+//
+// about 6.7 G operations at hop 1, where the ~330 MB of kv rows read are
+// the bound. Three launches, in order, on the caller's stream:
+//   1. head_project_kernel: qk (the shared f32 tile, tiled_gemm.cuh);
+//   2. attention_query_kernel: one block per query stages its K kv rows
+//      once, through the loader's stage() (16-byte loads where the widths
+//      allow, each Phi cosine computed once, the window mask applied in
+//      shared memory), and its qk rows; then the logits (one warp per
+//      (head, neighbor), lanes over columns, a fixed butterfly), mask,
+//      softmax and keep (one thread per head; the scores where asked), and
+//      Av (one thread per (head, column), neighbors in order);
+//   3. head_combine_kernel: out = Av Wv_h (the tile).
+// Every sum has a fixed order and there are no atomics: two runs give
+// bit-identical outputs. f32 on CUDA cores. The pad logit is -1e10, not
+// -inf: an all-padded row attends uniformly, as the plain version does.
+//
+// The two per-head products serve the backward too (attention_bwd.cuh).
 #pragma once
+
+#include <cstdint>
 
 #include "phi.cuh"
 
 namespace dyglib {
 
 constexpr float kPadLogit = -1e10f;
+constexpr int kQueryThreads = 256;
+constexpr int kQueryWarps = kQueryThreads / 32;
+
+// One per-head product over the queries: x, W (kv_dim, dq) at
+// w[c * sk + col * sn], into out.
+struct HeadOperand {
+  const float* __restrict__ x;
+  const float* __restrict__ w;
+  int sk;
+  int sn;
+  float* __restrict__ out;
+};
+
+// blockIdx.z = which * heads + h, over a (which 0) and b (which 1); a grid
+// of heads z-blocks computes a alone. x (m, dq) ->
+// out[(r * heads + h) * kv_dim + c] = sum_d x[r, h hd + d] W[c, h hd + d].
+__global__ void __launch_bounds__(kThreads)
+    head_project_kernel(HeadOperand a, HeadOperand b, int m, int kv_dim, int dq, int heads) {
+  const int which = blockIdx.z / heads;
+  const int h = blockIdx.z - which * heads;
+  const HeadOperand p = which ? b : a;
+  const int hd = dq / heads;
+  const int row0 = blockIdx.x * kBM;
+  const int col0 = blockIdx.y * kBN;
+  float acc[kTM][kTN];
+  // B(d, c) = W[c, h hd + d]: W's strides, swapped
+  gemm_tile<kBByStrides>(RowMajorLoader{p.x + h * hd, dq}, p.w + static_cast<size_t>(h) * hd * p.sn,
+                         p.sn, p.sk, m, kv_dim, 0, hd, row0, col0, acc);
+  const int ty = threadIdx.x / kThreadCols;
+  const int tx = threadIdx.x % kThreadCols;
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int r = row0 + ty + i * kThreadRows;
+    if (r >= m) continue;
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      const int c = col0 + tx + j * kThreadCols;
+      if (c < kv_dim) p.out[(static_cast<size_t>(r) * heads + h) * kv_dim + c] = acc[i][j];
+    }
+  }
+}
+
+// blockIdx.z = h: x (m, heads, kv_dim) ->
+// out[r, h hd + d] = sum_c x[r, h, c] W[c, h hd + d], out (m, dq).
+__global__ void __launch_bounds__(kThreads)
+    head_combine_kernel(HeadOperand p, int m, int kv_dim, int dq, int heads) {
+  const int h = blockIdx.z;
+  const int hd = dq / heads;
+  const int row0 = blockIdx.x * kBM;
+  const int col0 = blockIdx.y * kBN;
+  float acc[kTM][kTN];
+  gemm_tile<kBByStrides>(RowMajorLoader{p.x + static_cast<size_t>(h) * kv_dim, heads * kv_dim},
+                         p.w + static_cast<size_t>(h) * hd * p.sn, p.sk, p.sn, m, hd, 0, kv_dim,
+                         row0, col0, acc);
+  const int ty = threadIdx.x / kThreadCols;
+  const int tx = threadIdx.x % kThreadCols;
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int r = row0 + ty + i * kThreadRows;
+    if (r >= m) continue;
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      const int d = col0 + tx + j * kThreadCols;
+      if (d < hd) p.out[static_cast<size_t>(r) * dq + h * hd + d] = acc[i][j];
+    }
+  }
+}
+
+// Stage a contiguous global block of rows x w floats into shared memory at
+// row stride ld, by all the block's threads. With `scale`, row j is
+// multiplied by scale[j], and a row whose scale is 0 is not read (it stages
+// as zeros). 16-byte loads and stores where the widths and both addresses
+// allow them, else one float at a time.
+__device__ __forceinline__ void stage_rows(float* dst, int ld, const float* __restrict__ src,
+                                           int rows, int w,
+                                           const float* __restrict__ scale = nullptr) {
+  const bool vec = w % 4 == 0 && ld % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) & 15) == 0;
+  if (vec) {
+    const int w4 = w / 4;
+    const float4* src4 = reinterpret_cast<const float4*>(src);
+#pragma unroll 4
+    for (int e = threadIdx.x; e < rows * w4; e += blockDim.x) {
+      const int j = e / w4;
+      const float s = scale != nullptr ? __ldg(scale + j) : 1.f;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (s != 0.f) {
+        v = __ldg(src4 + e);
+        if (scale != nullptr) {
+          v.x *= s;
+          v.y *= s;
+          v.z *= s;
+          v.w *= s;
+        }
+      }
+      *reinterpret_cast<float4*>(dst + j * ld + 4 * (e - j * w4)) = v;
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * w; e += blockDim.x) {
+      const int j = e / w;
+      const float s = scale != nullptr ? __ldg(scale + j) : 1.f;
+      float v = 0.f;
+      if (s != 0.f) v = scale != nullptr ? __ldg(src + e) * s : __ldg(src + e);
+      dst[j * ld + e - j * w] = v;
+    }
+  }
+}
+
+// The Phi columns of `rows` kv rows into shared memory at row stride ld:
+// dst[j * ld + f] = cos(theta(dt[j], tw[f], tb[f])), each cosine once
+// (phi.cuh rounding, accurate cosf).
+__device__ __forceinline__ void stage_phi(float* dst, int ld, const float* __restrict__ dt,
+                                          const float* __restrict__ tw,
+                                          const float* __restrict__ tb, int rows, int dt_dim) {
+  for (int e = threadIdx.x; e < rows * dt_dim; e += blockDim.x) {
+    const int j = e / dt_dim;
+    const int f = e - j * dt_dim;
+    dst[j * ld + f] = cosf(theta_of(__ldg(dt + j), __ldg(tw + f), __ldg(tb + f)));
+  }
+}
 
 struct AttentionParams {
   const float* __restrict__ q3;    // (m, dq)
   const float* __restrict__ mask;  // (m, k) f32, 1 = real neighbor
   const float* __restrict__ keep;  // (m, heads, k) f32 dropout keep, pre-scaled
-  const float* __restrict__ wk;    // (kv_dim, dq) at wk[kk * wk_sk + c * wk_sn]
+  const float* __restrict__ wk;    // (kv_dim, dq) at wk[c * wk_sk + col * wk_sn]
   int wk_sk;
   int wk_sn;
-  const float* __restrict__ wv;    // (kv_dim, dq) at wv[kk * wv_sk + c * wv_sn]
+  const float* __restrict__ wv;    // (kv_dim, dq) at wv[c * wv_sk + col * wv_sn]
   int wv_sk;
   int wv_sn;
+  float* __restrict__ qk;          // scratch (m, heads, kv_dim), and av
+  float* __restrict__ av;
   float* __restrict__ out;         // (m, dq)
   float* __restrict__ scores;      // (m, heads, k), or null
   int m;
@@ -50,112 +186,120 @@ struct AttentionParams {
   float scale;                     // (dq / heads) ** -0.5
 };
 
-// Dynamic shared memory: kBM * heads floats (the block's logits, then its
-// attention weights).
-template <class ALoader>
-__global__ void __launch_bounds__(kThreads)
-    attention_kernel(ALoader load_a, AttentionParams p) {
-  extern __shared__ float logits[];  // [row * heads + h]
-  __shared__ float buf[kBM][kBN + 1];
-  const int group = kBM / p.k;
-  const int q0 = blockIdx.x * group;
-  const int nq = min(group, p.m - q0);
-  const int row0 = q0 * p.k;
-  const int nrows = nq * p.k;
-  const int hd = p.dq / p.heads;
+// AttentionParams over the wrapper's scratch (2, m, heads, kv_dim): qk, av.
+inline AttentionParams attention_params(const float* q3, const float* mask, const float* keep,
+                                        const float* wk, int wk_sk, int wk_sn, const float* wv,
+                                        int wv_sk, int wv_sn, float* scratch, float* out,
+                                        float* scores, int m, int k, int kv_dim, int dq,
+                                        int heads, float scale) {
+  const size_t part = static_cast<size_t>(m) * heads * kv_dim;
+  return AttentionParams{q3,  mask,   keep, wk, wk_sk,  wk_sn, wv,    wv_sk, wv_sn, scratch,
+                         scratch + part, out, scores, m, k, kv_dim, dq, heads, scale};
+}
+
+// Shared memory of one query's forward block, in floats: kv rows (k,
+// kv_dim), qk (heads, kv_dim), then the logits, turned into weights in
+// place (heads, k).
+__host__ __device__ inline size_t attention_fwd_smem_floats(int k, int kv_dim, int heads) {
+  return static_cast<size_t>(k) * kv_dim + static_cast<size_t>(heads) * kv_dim +
+         static_cast<size_t>(heads) * k;
+}
+
+// Loader::stage(kv, m, k, kv_dim) writes query m's k kv rows, row-major
+// (k, kv_dim), into shared memory with every thread of the block.
+template <class Loader>
+__global__ void __launch_bounds__(kQueryThreads)
+    attention_query_kernel(Loader loader, AttentionParams p) {
+  extern __shared__ float4 fwd_smem[];  // 16-byte aligned for the vector stores
+  const int m = blockIdx.x;
+  const int k = p.k, kv_dim = p.kv_dim, heads = p.heads;
+  float* kv_s = reinterpret_cast<float*>(fwd_smem);               // (k, kv_dim)
+  float* qk_s = kv_s + static_cast<size_t>(k) * kv_dim;           // (heads, kv_dim)
+  float* w_s = qk_s + static_cast<size_t>(heads) * kv_dim;        // (heads, k)
   const int tid = threadIdx.x;
-  const int ty = tid / kThreadCols;
-  const int tx = tid % kThreadCols;
-  for (int e = tid; e < kBM * p.heads; e += kThreads) logits[e] = 0.f;
-  float acc[kTM][kTN];
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const size_t qrow = static_cast<size_t>(m) * heads * kv_dim;
 
-  // 1. key tiles -> logits (rows past nrows stage as zeros)
-  for (int col0 = 0; col0 < p.dq; col0 += kBN) {
-    gemm_tile<kBByStrides>(load_a, p.wk, p.wk_sk, p.wk_sn, row0 + nrows, p.dq, 0, p.kv_dim,
-                           row0, col0, acc);
+  loader.stage(kv_s, m, k, kv_dim);
+  stage_rows(qk_s, kv_dim, p.qk + qrow, heads, kv_dim);
+  __syncthreads();
+
+  // logits: one warp per (head, neighbor), lanes over columns, then a
+  // fixed butterfly
+  for (int e = warp; e < heads * k; e += kQueryWarps) {
+    const int h = e / k;
+    const float* kvr = kv_s + static_cast<size_t>(e - h * k) * kv_dim;
+    const float* qh = qk_s + static_cast<size_t>(h) * kv_dim;
+    float lg = 0.f;
+    for (int c = lane; c < kv_dim; c += 32) lg = fmaf(kvr[c], qh[c], lg);
 #pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const int lr = ty + i * kThreadRows;
-      const float* q = p.q3 + static_cast<size_t>(q0 + min(lr, nrows - 1) / p.k) * p.dq;
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        const int c = col0 + tx + j * kThreadCols;
-        buf[lr][tx + j * kThreadCols] = (lr < nrows && c < p.dq) ? acc[i][j] * __ldg(q + c) : 0.f;
-      }
-    }
-    __syncthreads();
-    if (tid < nrows) {
-      const int cols = min(kBN, p.dq - col0);
-      for (int cl = 0; cl < cols; ++cl) logits[tid * p.heads + (col0 + cl) / hd] += buf[tid][cl];
-    }
-    __syncthreads();
+    for (int off = 16; off > 0; off >>= 1) lg += __shfl_xor_sync(0xffffffffu, lg, off);
+    if (lane == 0) w_s[e] = lg;
   }
+  __syncthreads();
 
-  // 2. logits -> attention weights, per (query, head)
-  for (int e = tid; e < nq * p.heads; e += kThreads) {
-    const int g = e / p.heads;
-    const int h = e - g * p.heads;
-    const size_t qm = static_cast<size_t>(q0 + g);
-    const float* mrow = p.mask + qm * p.k;
-    const float* krow = p.keep + (qm * p.heads + h) * p.k;
-    float* lrow = logits + g * p.k * p.heads + h;  // element j at j * heads
+  // mask, softmax and keep: one thread per head
+  for (int h = tid; h < heads; h += kQueryThreads) {
+    const float* mrow = p.mask + static_cast<size_t>(m) * k;
+    const size_t srow = (static_cast<size_t>(m) * heads + h) * k;
+    float* s = w_s + h * k;
     float mx = __int_as_float(0xff800000);  // -inf
-    for (int j = 0; j < p.k; ++j) {
-      const float l = mrow[j] > 0.f ? lrow[j * p.heads] * p.scale : kPadLogit;
-      lrow[j * p.heads] = l;
-      mx = fmaxf(mx, l);
+    for (int j = 0; j < k; ++j) {
+      s[j] = mrow[j] > 0.f ? s[j] * p.scale : kPadLogit;
+      mx = fmaxf(mx, s[j]);
     }
     float sum = 0.f;
-    for (int j = 0; j < p.k; ++j) {
-      const float ex = expf(lrow[j * p.heads] - mx);
-      lrow[j * p.heads] = ex;
-      sum += ex;
+    for (int j = 0; j < k; ++j) {
+      s[j] = expf(s[j] - mx);
+      sum += s[j];
     }
-    for (int j = 0; j < p.k; ++j) {
-      const float w = lrow[j * p.heads] / sum * krow[j];
-      lrow[j * p.heads] = w;
-      if (p.scores != nullptr) p.scores[(qm * p.heads + h) * p.k + j] = w;
+    for (int j = 0; j < k; ++j) {
+      s[j] = s[j] / sum * p.keep[srow + j];
+      if (p.scores != nullptr) p.scores[srow + j] = s[j];
     }
   }
   __syncthreads();
 
-  // 3. val tiles, weighted -> out
-  for (int col0 = 0; col0 < p.dq; col0 += kBN) {
-    gemm_tile<kBByStrides>(load_a, p.wv, p.wv_sk, p.wv_sn, row0 + nrows, p.dq, 0, p.kv_dim,
-                           row0, col0, acc);
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const int lr = ty + i * kThreadRows;
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        const int c = col0 + tx + j * kThreadCols;
-        buf[lr][tx + j * kThreadCols] =
-            (lr < nrows && c < p.dq) ? acc[i][j] * logits[lr * p.heads + c / hd] : 0.f;
-      }
-    }
-    __syncthreads();
-    const int cols = min(kBN, p.dq - col0);
-    for (int e = tid; e < nq * kBN; e += kThreads) {
-      const int g = e / kBN;
-      const int cl = e - g * kBN;
-      if (cl >= cols) continue;
-      float s = 0.f;
-      for (int j = 0; j < p.k; ++j) s += buf[g * p.k + j][cl];
-      p.out[static_cast<size_t>(q0 + g) * p.dq + col0 + cl] = s;
-    }
-    __syncthreads();
+  // Av: one thread per (head, column), neighbors in order
+  for (int e = tid; e < heads * kv_dim; e += kQueryThreads) {
+    const int h = e / kv_dim;
+    const int c = e - h * kv_dim;
+    const float* wh = w_s + h * k;
+    float v = 0.f;
+    for (int j = 0; j < k; ++j) v = fmaf(wh[j], kv_s[static_cast<size_t>(j) * kv_dim + c], v);
+    p.av[qrow + e] = v;
   }
 }
 
-// Launch over all p.m queries; 1 <= k <= kBM and dq % heads == 0 are the
-// caller's to check (ops/_attention.py).
-template <class ALoader>
-cudaError_t launch_attention(const ALoader& load_a, const AttentionParams& p,
-                             cudaStream_t stream) {
+// Launch the whole forward over p.m queries (the wrapper checks shapes and
+// the shared-memory need: ops/_attention.py).
+template <class Loader>
+cudaError_t launch_attention_forward(const Loader& loader, const AttentionParams& p,
+                                     cudaStream_t stream) {
   if (p.m == 0 || p.dq == 0) return cudaSuccess;
-  const int group = kBM / p.k;
-  const unsigned blocks = static_cast<unsigned>((p.m + group - 1) / group);
-  attention_kernel<ALoader><<<blocks, kThreads, sizeof(float) * kBM * p.heads, stream>>>(load_a, p);
+  const int hd = p.dq / p.heads;
+  const unsigned row_tiles = static_cast<unsigned>((p.m + kBM - 1) / kBM);
+  // 1. qk
+  head_project_kernel<<<dim3(row_tiles, (p.kv_dim + kBN - 1) / kBN, p.heads), kThreads, 0,
+                        stream>>>(HeadOperand{p.q3, p.wk, p.wk_sk, p.wk_sn, p.qk}, HeadOperand{},
+                                  p.m, p.kv_dim, p.dq, p.heads);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // 2. per query: weights, scores, Av
+  const size_t smem = sizeof(float) * attention_fwd_smem_floats(p.k, p.kv_dim, p.heads);
+  auto kernel = attention_query_kernel<Loader>;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<p.m, kQueryThreads, smem, stream>>>(loader, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // 3. out
+  head_combine_kernel<<<dim3(row_tiles, (hd + kBN - 1) / kBN, p.heads), kThreads, 0, stream>>>(
+      HeadOperand{p.av, p.wv, p.wv_sk, p.wv_sn, p.out}, p.m, p.kv_dim, p.dq, p.heads);
   return cudaGetLastError();
 }
 

@@ -1,13 +1,15 @@
 // TGAT's post-gather fused attention at layer 1:
 //   kv[r] = [feat_n[r] || feat_e[r] || cos(dt[r] * tw + tb)]   r = m * K + j
-// then key, val, masked softmax, keep and weighted sum in shared memory
-// (attention_core.cuh); writes out (m, dq).
+// then masked softmax, keep and weighted sum, reassociated so that no kv
+// row is projected (attention_core.cuh); writes out (m, dq).
 //
 // Replaces dyglib_tpu/ops/pallas/gathered_attention.py::_fwd_kernel. The
-// gathered node and edge rows arrive as two slabs; Phi is computed in the
-// A loader (phi.cuh rounding, accurate cosf), so neither the time features
-// nor the concatenation nor key and val reach device memory. No mask in
-// the loader: gathered pad rows are already the zero id-0 rows.
+// gathered node and edge rows arrive as two slabs, and a query's K rows are
+// contiguous in each (K * 688 bytes at 172 columns): the loader stages
+// them with 16-byte loads and computes Phi in shared memory, each cosine
+// once (phi.cuh rounding, accurate cosf), so neither the time features nor
+// the concatenation nor key and val reach device memory. No mask in the
+// loader: gathered pad rows are already the zero id-0 rows.
 //
 // Backward: replaces ::_bwd_kernel (attention_bwd.cuh, the same loader):
 // dq3, dWk, dWv, and dtw, dtb through the Phi columns; the feature slabs
@@ -17,7 +19,6 @@
 namespace {
 
 struct GatheredLoader {
-  static constexpr bool k_fast = true;
   const float* __restrict__ feat_n;  // (rows, dn)
   const float* __restrict__ feat_e;  // (rows, de)
   const float* __restrict__ dt;      // (rows)
@@ -33,24 +34,33 @@ struct GatheredLoader {
     c -= de;
     return cosf(dyglib::theta_of(dt[r], tw[c], tb[c]));
   }
+
+  // query m's k rows into kv (k, kv_dim) in shared memory
+  __device__ __forceinline__ void stage(float* kv, int m, int k, int kv_dim) const {
+    const size_t r0 = static_cast<size_t>(m) * k;
+    dyglib::stage_rows(kv, kv_dim, feat_n + r0 * dn, k, dn);
+    dyglib::stage_rows(kv + dn, kv_dim, feat_e + r0 * de, k, de);
+    dyglib::stage_phi(kv + dn + de, kv_dim, dt + r0, tw, tb, k, kv_dim - dn - de);
+  }
 };
 
 }  // namespace
 
 // q3: (m, dq); feat_n, feat_e: (m * k, dn / de); dt, mask: (m, k); tw, tb:
 // (dt_dim); keep: (m, heads, k); wk, wv: (dn + de + dt_dim, dq) by element
-// strides; out: (m, dq). All f32.
+// strides; scratch: (2, m, heads, dn + de + dt_dim); out: (m, dq). All f32.
 DYGLIB_API int gathered_attention_forward(const float* q3, const float* feat_n,
                                           const float* feat_e, const float* dt, const float* tw,
                                           const float* tb, const float* mask, const float* keep,
                                           const float* wk, int wk_sk, int wk_sn, const float* wv,
-                                          int wv_sk, int wv_sn, float* out, int m, int k, int dn,
-                                          int de, int dt_dim, int dq, int heads, float scale,
-                                          cudaStream_t stream) {
-  const dyglib::AttentionParams p{q3,  mask,    keep, wk, wk_sk,            wk_sn, wv,    wv_sk, wv_sn,
-                                  out, nullptr, m,    k,  dn + de + dt_dim, dq,    heads, scale};
-  return static_cast<int>(
-      dyglib::launch_attention(GatheredLoader{feat_n, feat_e, dt, tw, tb, dn, de}, p, stream));
+                                          int wv_sk, int wv_sn, float* scratch, float* out, int m,
+                                          int k, int dn, int de, int dt_dim, int dq, int heads,
+                                          float scale, cudaStream_t stream) {
+  const dyglib::AttentionParams p =
+      dyglib::attention_params(q3, mask, keep, wk, wk_sk, wk_sn, wv, wv_sk, wv_sn, scratch, out,
+                               nullptr, m, k, dn + de + dt_dim, dq, heads, scale);
+  return static_cast<int>(dyglib::launch_attention_forward(
+      GatheredLoader{feat_n, feat_e, dt, tw, tb, dn, de}, p, stream));
 }
 
 // As the forward, plus dout: (m, dq). Outputs: dq3 (m, dq); dwk, dwv

@@ -1,12 +1,14 @@
 // TGAT's fused single-query temporal attention over precomputed kv parts:
 //   kv[r] = [nbr[r] || edge[r] || phi[r]]   for kv rows r = m * K + j
-// then key, val, masked softmax, keep and weighted sum in shared memory
-// (attention_core.cuh); writes out (m, dq) and the scores (m, heads, K).
+// then masked softmax, keep and weighted sum, reassociated so that no kv
+// row is projected (attention_core.cuh); writes out (m, dq) and the scores
+// (m, heads, K).
 //
 // Replaces dyglib_tpu/ops/pallas/temporal_attention.py::_fwd_kernel. The
-// JAX kernel concatenates the three parts in VMEM; here the A loader reads
-// each column range from its own tensor, so the concatenation never
-// exists anywhere.
+// JAX kernel concatenates the three parts in VMEM; here the loader stages
+// each column range of a query's K rows from its own tensor (three
+// contiguous blocks, 16-byte loads where the widths allow), so the
+// concatenation never exists in device memory.
 //
 // Backward: replaces ::_bwd_kernel (attention_bwd.cuh, the same loader):
 // dq3, the three parts' gradients dnbr, dedge, dphi, and dWk, dWv, from the
@@ -16,7 +18,6 @@
 namespace {
 
 struct KvLoader {
-  static constexpr bool k_fast = true;
   const float* __restrict__ nbr;   // (rows, dn)
   const float* __restrict__ edge;  // (rows, de)
   const float* __restrict__ phi;   // (rows, dt)
@@ -30,23 +31,32 @@ struct KvLoader {
     if (c < de) return edge[static_cast<size_t>(r) * de + c];
     return phi[static_cast<size_t>(r) * dt + c - de];
   }
+
+  // query m's k rows into kv (k, dn + de + dt) in shared memory
+  __device__ __forceinline__ void stage(float* kv, int m, int k, int kv_dim) const {
+    const size_t r0 = static_cast<size_t>(m) * k;
+    dyglib::stage_rows(kv, kv_dim, nbr + r0 * dn, k, dn);
+    dyglib::stage_rows(kv + dn, kv_dim, edge + r0 * de, k, de);
+    dyglib::stage_rows(kv + dn + de, kv_dim, phi + r0 * dt, k, dt);
+  }
 };
 
 }  // namespace
 
 // q3: (m, dq); nbr, edge, phi: (m, k, dn / de / dt); mask: (m, k); keep:
-// (m, heads, k); wk, wv: (dn + de + dt, dq) by element strides; out: (m,
-// dq); scores: (m, heads, k). All f32.
+// (m, heads, k); wk, wv: (dn + de + dt, dq) by element strides; scratch:
+// (2, m, heads, dn + de + dt); out: (m, dq); scores: (m, heads, k). All f32.
 DYGLIB_API int temporal_attention_forward(const float* q3, const float* nbr, const float* edge,
                                           const float* phi, const float* mask, const float* keep,
                                           const float* wk, int wk_sk, int wk_sn, const float* wv,
-                                          int wv_sk, int wv_sn, float* out, float* scores, int m,
-                                          int k, int dn, int de, int dt, int dq, int heads,
-                                          float scale, cudaStream_t stream) {
-  const dyglib::AttentionParams p{q3,  mask,   keep, wk, wk_sk,        wk_sn, wv,    wv_sk, wv_sn,
-                                  out, scores, m,    k,  dn + de + dt, dq,    heads, scale};
+                                          int wv_sk, int wv_sn, float* scratch, float* out,
+                                          float* scores, int m, int k, int dn, int de, int dt,
+                                          int dq, int heads, float scale, cudaStream_t stream) {
+  const dyglib::AttentionParams p =
+      dyglib::attention_params(q3, mask, keep, wk, wk_sk, wk_sn, wv, wv_sk, wv_sn, scratch, out,
+                               scores, m, k, dn + de + dt, dq, heads, scale);
   return static_cast<int>(
-      dyglib::launch_attention(KvLoader{nbr, edge, phi, dn, de, dt}, p, stream));
+      dyglib::launch_attention_forward(KvLoader{nbr, edge, phi, dn, de, dt}, p, stream));
 }
 
 // As the forward, plus dout: (m, dq); dscores: (m, heads, k) or null.

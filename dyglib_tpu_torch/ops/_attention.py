@@ -11,9 +11,11 @@ neighbor rows ``kv = [nbr || edge || Phi(dt)]``,
     out_h = sum_j score[h, j] * val_h[j]
 
 The pad logit is -1e10, not -inf, so an all-padded row attends uniformly
-instead of giving NaN. The CUDA kernels (``csrc/attention_core.cuh``) keep
-key and val out of device memory; their backward (``csrc/attention_bwd.cuh``)
-never forms them at all.
+instead of giving NaN. The CUDA kernels never form key or val: the forward
+(``csrc/attention_core.cuh``) takes the logits against qk = Wk_h q3_h and
+out_h = (sum_j w kv_j) Wv_h, and the backward (``csrc/attention_bwd.cuh``)
+is reassociated the same way. Each stages one query's K kv rows in one
+block's shared memory, which is all that bounds K.
 
 The plain backward (``attend_backward``, ``project_backward``) is the math
 of the JAX ``_bwd_kernel``s (``dyglib_tpu/ops/pallas/temporal_attention.py``
@@ -36,13 +38,10 @@ import torch
 from . import _build
 
 NEG = -1e10  # pad logit
-# queries per kernel block are TILE_ROWS // K, so K may not exceed one tile
-MAX_NEIGHBORS = _build.TILE_ROWS
-# the kernels keep every head's logits of a block in shared memory
-MAX_HEADS = 64
-# the backward's per-query kernel stages its K kv rows and the query's
-# projected q3 and g per head in shared memory (csrc/attention_bwd.cuh)
-MAX_BWD_SHARED_BYTES = 227 * 1024
+# shared memory one block may use on the H100: a query's block stages its K
+# kv rows and its per-head rows there (csrc/attention_core.cuh,
+# csrc/attention_bwd.cuh)
+MAX_SHARED_BYTES = 227 * 1024
 
 
 def rounded(compute_dtype: torch.dtype, *xs: torch.Tensor) -> tuple[torch.Tensor, ...]:
@@ -148,10 +147,11 @@ def check_attention(q3, mask, keep, wk, wv, kv_dim: int, num_heads: int):
     (wk_sk, wk_sn), (wv_sk, wv_sn))."""
     m, dq = q3.shape
     k = mask.shape[-1]
-    if not 1 <= k <= MAX_NEIGHBORS:
-        raise ValueError(f"{k} neighbors per query; the kernels take 1 to {MAX_NEIGHBORS}")
-    if not 1 <= num_heads <= MAX_HEADS or dq % num_heads:
-        raise ValueError(f"query width {dq} does not split into {num_heads} heads (at most {MAX_HEADS})")
+    if k < 1:
+        raise ValueError(f"{k} neighbors per query; the kernels take at least 1")
+    if num_heads < 1 or dq % num_heads:
+        raise ValueError(f"query width {dq} does not split into {num_heads} heads")
+    check_shared_memory(k, kv_dim, num_heads, backward=False)
     f32, dev = torch.float32, q3.device
     _build.require(q3, "q3", f32, (m, dq), dev)
     _build.require(mask, "mask", f32, (m, k), dev)
@@ -166,8 +166,27 @@ def check_attention(q3, mask, keep, wk, wv, kv_dim: int, num_heads: int):
     return m, k, dq, wk_s, wv_s
 
 
+def check_shared_memory(k: int, kv_dim: int, num_heads: int, backward: bool) -> None:
+    """Raise unless one query's block fits the shared memory of a block:
+    its K kv rows, and per head the query's qk (the backward: qk and gv)
+    and its K logits (the backward: four such rows)."""
+    per_head = 2 * kv_dim + 4 * k if backward else kv_dim + k
+    smem = 4 * (k * kv_dim + num_heads * per_head)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"{k} kv rows of {kv_dim} and {num_heads} heads need {smem} bytes of shared "
+            f"memory in the {'backward' if backward else 'forward'} kernel; a block takes at "
+            f"most {MAX_SHARED_BYTES}"
+        )
+
+
 def head_scale(dq: int, num_heads: int) -> float:
     return (dq // num_heads) ** -0.5
+
+
+def forward_scratch(m: int, kv_dim: int, num_heads: int, device) -> torch.Tensor:
+    """The forward kernels' scratch: qk and Av, (2, M, H, Dkv)."""
+    return torch.empty((2, m, num_heads, kv_dim), dtype=torch.float32, device=device)
 
 
 def backward_scratch(m: int, k: int, kv_dim: int, dq: int, num_heads: int, device):
@@ -175,12 +194,7 @@ def backward_scratch(m: int, k: int, kv_dim: int, dq: int, num_heads: int, devic
     weight gradients' per-chunk partial sums (chunks, Dkv, Dq); returns
     (scratch, partial, chunk_rows). Raises if a query's kv rows do not fit
     one block's shared memory."""
-    smem = 4 * (k * kv_dim + 2 * num_heads * kv_dim + 4 * num_heads * k)
-    if smem > MAX_BWD_SHARED_BYTES:
-        raise ValueError(
-            f"{k} kv rows of {kv_dim} and {num_heads} heads need {smem} bytes of shared "
-            f"memory in the backward kernel; it takes at most {MAX_BWD_SHARED_BYTES}"
-        )
+    check_shared_memory(k, kv_dim, num_heads, backward=True)
     # the weight-gradient grid's z runs over (chunk, head): at most 65535
     chunk = max(_build.weight_grad_chunk_rows(m, kv_dim, dq), -(-m * num_heads // 65535))
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=device)

@@ -7,12 +7,16 @@ Replaces ``dyglib_tpu/ops/pallas/gathered_attention.py::gathered_attention``:
 its forward ``_fwd_kernel`` and its backward ``_bwd_kernel``. TGAT runs it
 at layer 1, whose kv rows are raw feature rows gathered from the tables
 (pad rows are the zero id-0 rows, so nothing is masked here). The node and
-edge rows arrive as two slabs and Phi(dt) is computed in the tile's A
-loader: neither the (M * K, Dt) time features, the (M * K, 444)
-concatenation nor key and val reach device memory
-(``csrc/attention_core.cuh``). Phi's argument is rounded as PyTorch's
-separate multiply and add round it, and the cosine is the accurate
-``cosf``: dt reaches ~2.6e6 on the wikipedia-scale stream.
+edge rows arrive as two slabs, in which a query's K rows are contiguous.
+The forward (``csrc/attention_core.cuh``) never projects a kv row: qk =
+Wk_h q3_h per query and head on the shared f32 tile; one block per query
+stages its K rows once (16-byte loads) and computes Phi(dt) beside them in
+shared memory, each cosine once, then the logits kv . qk, the softmax and
+Av = sum_j w kv_j; out_h = Av Wv_h on the tile. Neither the (M * K, Dt)
+time features, the (M * K, 444) concatenation nor key and val exist
+anywhere. Phi's argument is rounded as PyTorch's separate multiply and add
+round it, and the cosine is the accurate ``cosf``: dt reaches ~2.6e6 on
+the wikipedia-scale stream.
 
 ``gathered_attention`` is a ``torch.autograd.Function``: on CUDA tensors
 its forward and backward launch the two kernels, on CPU tensors they run
@@ -29,16 +33,15 @@ Bounds on one H100 at the TGAT batch (B = 200 triple, K = 20, Dn = De =
 bytes against 3.35 TB/s, at hop 1 (M = 12,000, 240,000 kv rows):
   * forward: the function needs 6.7 G operations (logits against qk =
     Wk_h q3_h, out_h = (sum_j w kv_j) Wv_h) -> 0.099 ms; 330 MB of
-    feature rows read -> 0.099 ms. The kernel projects every kv row
-    instead (the direct projection: 116 G operations, 1.73 ms).
+    feature rows read -> 0.099 ms. The kernels compute exactly that; the
+    (2, M, H, Dkv) scratch of qk and Av adds ~170 MB of traffic.
   * backward: 16.4 G operations -> 0.245 ms; 330 MB read -> 0.099 ms.
     Bound by operations.
 At hop 0 (M = 600) each is 1/20 of that.
 
-What the simple design leaves on the table: the forward stages its kv
-tile, cosines included, once per 64-column tile of key and of val (10
-times at Dq = 272) and projects every row; f32 FMAs on CUDA cores where
-tensor cores would lift the bound 7-15x; the accurate cosf's and sinf's
+What the simple design leaves on the table: f32 FMAs on CUDA cores where
+tensor cores would lift the bound 7-15x; qk and Av pass through device
+memory between the three forward launches; the accurate cosf's and sinf's
 slow path above |theta| ~ 1e5.
 """
 from __future__ import annotations
@@ -49,7 +52,7 @@ from . import _attention, _build
 
 _NAME = "gathered_attention"
 _ARGTYPES = (
-    [_build.P] * 9 + [_build.I] * 2 + [_build.P] + [_build.I] * 2 + [_build.P]
+    [_build.P] * 9 + [_build.I] * 2 + [_build.P] + [_build.I] * 2 + [_build.P] * 2
     + [_build.I] * 7 + [_build.F, _build.P]
 )
 _BWD_ARGTYPES = (
@@ -125,13 +128,15 @@ def _forward_kernel(q3, feat_n, feat_e, dt, mask, keep, tw, tb, wk, wv, num_head
         q3, feat_n, feat_e, dt, mask, keep, tw, tb, wk, wv, num_heads
     )
     dev = q3.device
+    scratch = _attention.forward_scratch(m, dn + de + dt_dim, num_heads, dev)
     out = torch.empty((m, dq), dtype=torch.float32, device=dev)
     lib = _build.load(_NAME, "gathered_attention_forward", _ARGTYPES)
     rc = lib.gathered_attention_forward(
         q3.data_ptr(), feat_n.data_ptr(), feat_e.data_ptr(), dt.data_ptr(), tw.data_ptr(),
         tb.data_ptr(), mask.data_ptr(), keep.data_ptr(), wk.data_ptr(), wk_sk, wk_sn,
-        wv.data_ptr(), wv_sk, wv_sn, out.data_ptr(), m, k, dn, de, dt_dim, dq, num_heads,
-        _attention.head_scale(dq, num_heads), torch.cuda.current_stream(dev).cuda_stream,
+        wv.data_ptr(), wv_sk, wv_sn, scratch.data_ptr(), out.data_ptr(), m, k, dn, de, dt_dim,
+        dq, num_heads, _attention.head_scale(dq, num_heads),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, _NAME)
     gathered_attention.launches += 1

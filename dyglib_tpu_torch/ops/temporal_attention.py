@@ -13,33 +13,33 @@ explicit plain backward below. Gradients flow to q3, nbr, edge, phi, wk and
 wv, from the output and from the scores (a missing cotangent counts as
 zeros, as JAX's does); mask and keep are data.
 
-Forward: one block takes TILE_ROWS // K queries (3 at K = 20, 60 of 64
-rows): the (rows, Dq) key and val tiles come from the shared f32 tile of
-``csrc/tiled_gemm.cuh``, with an A loader that reads the three column
-ranges of kv from their own tensors (the concatenation never exists), and
-are consumed in shared memory. Neither reaches device memory.
+Forward (``csrc/attention_core.cuh``): never projects a kv row. Per query
+and head, qk = Wk_h q3_h (the shared f32 tile of ``csrc/tiled_gemm.cuh``);
+one block per query stages its K kv rows once (the three parts, each a
+contiguous block, with 16-byte loads where the widths allow; the
+concatenation never exists) and forms the logits kv . qk, the softmax, the
+scores and Av = sum_j w kv_j; out_h = Av Wv_h (the tile again).
 
-Backward (``csrc/attention_bwd.cuh``): never projects a kv row. Per query
-and head it forms qk = Wk_h q3_h and gv = Wv_h g_h, gets logits and ds_d as
-kv . qk and kv . gv, and dq3, dWk, dWv from Ak = sum_j dlog kv_j and Av =
-sum_j w kv_j; dkv = sum_h dlog qk + w gv gives dnbr, dedge, dphi.
-Deterministic (two-pass row sums, no atomics).
+Backward (``csrc/attention_bwd.cuh``): never projects a kv row either. Per
+query and head it forms qk = Wk_h q3_h and gv = Wv_h g_h, gets logits and
+ds_d as kv . qk and kv . gv, and dq3, dWk, dWv from Ak = sum_j dlog kv_j and
+Av = sum_j w kv_j; dkv = sum_h dlog qk + w gv gives dnbr, dedge, dphi.
+Both directions are deterministic (fixed-order sums, no atomics). A query's
+block holds its K rows in shared memory: that alone bounds K
+(``_attention.check_shared_memory``).
 
 Bounds on one H100 at the TGAT batch (B = 200 triple, M = 600, K = 20,
 Dn = De = 172, Dt = 100, Dq = 272, H = 2), f32 on CUDA cores against
 67 T/s, bytes against 3.35 TB/s:
-  * forward: the function needs the logits against qk = Wk_h q3_h and
-    out_h = (sum_j w kv_j) Wv_h: 0.33 G operations -> 0.005 ms; 21.3 MB
-    of kv read -> 6.4 us. The kernel projects every kv row instead (the
-    direct projection: 5.8 G operations, 0.087 ms).
-  * backward (reassociated, as the kernel computes it): 0.85 G operations
-    -> 0.013 ms; 21.3 MB of kv read and 21.3 MB of dkv written -> 0.013 ms.
+  * forward: the logits against qk = Wk_h q3_h and out_h = (sum_j w kv_j)
+    Wv_h: 0.33 G operations -> 0.005 ms; 21.3 MB of kv read -> 6.4 us.
+  * backward: 0.85 G operations -> 0.013 ms; 21.3 MB of kv read and
+    21.3 MB of dkv written -> 0.013 ms.
 
-What the simple design leaves on the table: the forward stages its kv tile
-once per 64-column tile of key and of val (10 times at Dq = 272) and
-projects every row; f32 FMAs on CUDA cores where TF32 or bf16 tensor cores
-would lift the bound 7-15x; the backward's one block per query stages
-its K rows once but launches seven kernels.
+What the simple design leaves on the table: f32 FMAs on CUDA cores where
+TF32 or bf16 tensor cores would lift the bound 7-15x; three launches for
+the forward and seven for the backward, of small grids at M = 600; the
+(2, M, H, Dkv) scratch of qk and Av goes through device memory.
 """
 from __future__ import annotations
 
@@ -49,7 +49,7 @@ from . import _attention, _build
 
 _NAME = "temporal_attention"
 _ARGTYPES = (
-    [_build.P] * 7 + [_build.I] * 2 + [_build.P] + [_build.I] * 2 + [_build.P] * 2
+    [_build.P] * 7 + [_build.I] * 2 + [_build.P] + [_build.I] * 2 + [_build.P] * 3
     + [_build.I] * 7 + [_build.F, _build.P]
 )
 _BWD_ARGTYPES = (
@@ -113,13 +113,14 @@ def _forward_kernel(q3, nbr, edge, phi, mask, keep, wk, wv, num_heads):
         q3, nbr, edge, phi, mask, keep, wk, wv, num_heads
     )
     f32, dev = torch.float32, q3.device
+    scratch = _attention.forward_scratch(m, dn + de + dt, num_heads, dev)
     out = torch.empty((m, dq), dtype=f32, device=dev)
     scores = torch.empty((m, num_heads, k), dtype=f32, device=dev)
     lib = _build.load(_NAME, "temporal_attention_forward", _ARGTYPES)
     rc = lib.temporal_attention_forward(
         q3.data_ptr(), nbr.data_ptr(), edge.data_ptr(), phi.data_ptr(), mask.data_ptr(),
         keep.data_ptr(), wk.data_ptr(), wk_sk, wk_sn, wv.data_ptr(), wv_sk, wv_sn,
-        out.data_ptr(), scores.data_ptr(), m, k, dn, de, dt, dq, num_heads,
+        scratch.data_ptr(), out.data_ptr(), scores.data_ptr(), m, k, dn, de, dt, dq, num_heads,
         _attention.head_scale(dq, num_heads), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, _NAME)

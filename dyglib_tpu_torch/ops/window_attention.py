@@ -7,15 +7,18 @@ Replaces ``dyglib_tpu/ops/pallas/window_attention.py::window_attention``:
 its forward ``_fwd_kernel`` (``_core``) and its backward ``_bwd_kernel``.
 Under the ``recent`` strategy a query's K neighbors are one contiguous run
 of CSR entries, so their [node || edge] rows are K consecutive rows of
-``csr.feat_entry`` (packed row-major, Dn + De columns). The tile's A loader
-reads exactly those rows, times the mask (invalid rows become the zero rows
-the gather path reads), and computes Phi(dt) with the rounding and accurate
-cosine of ``csrc/time_channel.cu``: the gathered features, the time
-features and key and val never reach device memory
-(``csrc/attention_core.cuh``). None of the JAX kernel's Mosaic aids is
-needed: no 8-row-aligned superset windows (``_expand_to_aligned``), no keep
-rescale, no zero weight rows for a 128-lane table (``_pad_weight_rows``,
-and so no ``_strip_weight_rows`` on the gradients).
+``csr.feat_entry`` (packed row-major, Dn + De columns): one contiguous
+block. The forward (``csrc/attention_core.cuh``, as in
+``ops/gathered_attention.py``) stages exactly those rows once per query with
+16-byte loads, times the mask in shared memory (a masked row is not read:
+it becomes the zero row the gather path reads), and computes Phi(dt) beside
+them, each cosine once, with the rounding and accurate cosine of
+``csrc/phi.cuh``; it never projects a kv row, and the gathered features,
+the time features and key and val exist nowhere. None of the JAX kernel's
+Mosaic aids is needed: no 8-row-aligned superset windows
+(``_expand_to_aligned``), no keep rescale, no zero weight rows for a
+128-lane table (``_pad_weight_rows``, and so no ``_strip_weight_rows`` on
+the gradients).
 
 Callers keep every window inside the table: starts in [0, T - K]
 (``TGAT.sample`` clamps the guard-offset starts as the JAX package does).
@@ -29,12 +32,11 @@ JAX ``_wa_bwd``. The backward is ``ops/gathered_attention.py``'s
 
 Bounds on one H100 at the TGAT batch, layer 1, hop 1 (M = 12,000, K = 20,
 a 344-wide table, Dt = 100, Dq = 272), f32 on CUDA cores: as the gathered
-kernel's, forward 6.7 G operations -> 0.099 ms (the direct projection:
-116 G, 1.73 ms), backward 16.4 G -> 0.245 ms; the valid window rows read
-(at most 330 MB) -> 0.099 ms.
+kernel's, forward 6.7 G operations -> 0.099 ms, backward 16.4 G -> 0.245
+ms; the valid window rows read (at most 330 MB) -> 0.099 ms.
 
 What the simple design leaves on the table: as ``ops/gathered_attention.py``
-(kv staged once per 64-column tile of key and of val; CUDA-core f32).
+(CUDA-core f32; qk and Av through device memory between launches).
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ from . import _attention, _build
 
 _NAME = "window_attention"
 _ARGTYPES = (
-    [_build.P] * 9 + [_build.I] * 2 + [_build.P] + [_build.I] * 2 + [_build.P]
+    [_build.P] * 9 + [_build.I] * 2 + [_build.P] + [_build.I] * 2 + [_build.P] * 2
     + [_build.I] * 6 + [_build.F, _build.P]
 )
 _BWD_ARGTYPES = (
@@ -125,13 +127,15 @@ def _forward_kernel(q3, starts, dt, mask, keep, table, tw, tb, wk, wv, num_heads
         q3, starts, dt, mask, keep, table, tw, tb, wk, wv, num_heads
     )
     dev = q3.device
+    scratch = _attention.forward_scratch(m, width + dt_dim, num_heads, dev)
     out = torch.empty((m, dq), dtype=torch.float32, device=dev)
     lib = _build.load(_NAME, "window_attention_forward", _ARGTYPES)
     rc = lib.window_attention_forward(
         q3.data_ptr(), table.data_ptr(), starts.data_ptr(), dt.data_ptr(), tw.data_ptr(),
         tb.data_ptr(), mask.data_ptr(), keep.data_ptr(), wk.data_ptr(), wk_sk, wk_sn,
-        wv.data_ptr(), wv_sk, wv_sn, out.data_ptr(), m, k, width, dt_dim, dq, num_heads,
-        _attention.head_scale(dq, num_heads), torch.cuda.current_stream(dev).cuda_stream,
+        wv.data_ptr(), wv_sk, wv_sn, scratch.data_ptr(), out.data_ptr(), m, k, width, dt_dim,
+        dq, num_heads, _attention.head_scale(dq, num_heads),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, _NAME)
     window_attention.launches += 1

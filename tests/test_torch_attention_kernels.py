@@ -7,7 +7,9 @@ hold the plain versions to the JAX functions: the ``*_reference`` oracles
 of the gathered, window and Phi kernels, and ``temporal_attention`` (which
 has no oracle) in Pallas interpret mode at M <= 8. The CUDA kernels are
 held to the plain versions on the card (tests/test_torch_cuda_kernels.py,
-chip_smoke.py).
+chip_smoke.py). The attention forwards' CUDA math, reassociated so that no
+kv row is projected (csrc/attention_core.cuh), is written out here in torch
+and held to the JAX f32 path of each of the three kernels.
 
 Tolerances:
   * bf16 mode (projection operands rounded to bf16, f32 accumulation, the
@@ -181,6 +183,81 @@ def test_window_attention_equals_gathered_on_the_same_rows():
     )
     torch.testing.assert_close(ops.window_attention_plain(*_window_args(t)), gathered,
                                atol=1e-6, rtol=0)
+
+
+# ---- the reassociated forward of kernels 5-7, as the CUDA kernels compute it
+def _reassociated_forward(q3, kv, mask, keep, wk, wv):
+    """qk = Wk_h q3_h, logits kv . qk, w = softmax * keep, Av = sum_j w kv_j,
+    out_h = Av Wv_h; kv (M * K, Dkv) -> (out (M, Dq), scores (M, H, K))."""
+    m, k = mask.shape
+    dq = q3.shape[-1]
+    hd = dq // H
+    kv = kv.reshape(m, k, -1)
+    qk = torch.einsum("mhd,chd->mhc", q3.view(m, H, hd), wk.reshape(-1, H, hd))
+    logits = torch.einsum("mkc,mhc->mhk", kv, qk) * hd**-0.5
+    w = torch.softmax(torch.where(mask[:, None, :] > 0, logits, -1e10), dim=-1) * keep
+    av = torch.einsum("mhk,mkc->mhc", w, kv)
+    out = torch.einsum("mhc,chd->mhd", av, wv.reshape(-1, H, hd)).reshape(m, dq)
+    return out, w
+
+
+def _kv_rows(kernel, c, lib):
+    """The kv rows (M * K, Dkv) kernel 5, 6 or 7 attends over, built with
+    ``lib`` (torch or jax.numpy) from the case's arrays."""
+    m, k = c["mask"].shape
+    phi = lib.cos(c["dt"][..., None] * c["tw"] + c["tb"])
+    if kernel == "temporal":
+        parts = [c["nbr"], c["edge"], c["phi"]]
+    elif kernel == "gathered":
+        parts = [c["nbr"], c["edge"], phi]
+    else:
+        rows = np.asarray(c["starts"], dtype=np.int64)[:, None] + np.arange(k)
+        parts = [c["table"][rows] * c["mask"][..., None], phi]
+    return lib.concatenate(parts, -1).reshape(m * k, -1)
+
+
+# (seed, M, K): an all-padded query (row 3) in each; M = 70 is not a
+# multiple of the 64-row tiles of the per-head products; K = 1; K = 20
+REASSOCIATED_CASES = [(0, 9, 5), (1, 70, 5), (2, 6, 1), (3, 5, 20)]
+
+
+@pytest.mark.parametrize("seed,m,k", REASSOCIATED_CASES)
+@pytest.mark.parametrize("kernel", ["temporal", "gathered", "window"])
+def test_reassociated_forward_matches_jax_f32(kernel, seed, m, k):
+    c = _case(seed, m, k=k)
+    c["keep"][1, 0, :] = 0.0  # one head of one query dropped entirely
+    t, j = _t(c), _j(c)
+    kv = _kv_rows(kernel, t, torch)
+    out, scores = _reassociated_forward(t["q3"], kv, t["mask"], t["keep"], t["wk"], t["wv"])
+    ref_out, ref_scores = _jax_attend_f32(j["q3"], _kv_rows(kernel, j, jnp), j["mask"], j["keep"],
+                                          j["wk"], j["wv"])
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), atol=1e-5)
+    if kernel == "temporal":  # kernel 5 returns the scores
+        np.testing.assert_allclose(scores.numpy(), np.asarray(ref_scores), atol=1e-5)
+    if m > 3:  # all padded: uniform attention over the kept positions, finite
+        np.testing.assert_allclose(scores[3].numpy(), c["keep"][3] / k, atol=1e-7)
+    assert not scores[1, 0].any() and torch.isfinite(out).all()
+
+
+def test_attention_checks_refuse_k_only_by_shared_memory():
+    """The wrappers' check takes any K whose rows fit one block's shared
+    memory (K = 96 here), and names that limit when they do not, for the
+    forward and the backward."""
+    from dyglib_tpu_torch.ops import _attention
+
+    def operands(m, k, dq=16):
+        return (torch.zeros(m, dq), torch.ones(m, k), torch.ones(m, H, k))
+
+    q3, mask, keep = operands(3, 96)
+    wk = torch.zeros(34, 16)
+    assert _attention.check_attention(q3, mask, keep, wk, wk, 34, H)[:3] == (3, 96, 16)
+    _attention.backward_scratch(3, 96, 34, 16, H, "cpu")
+    q3, mask, keep = operands(2, 600)
+    wk = torch.zeros(100, 16)  # 600 rows of 100 floats: 240,000 bytes
+    with pytest.raises(ValueError, match="shared memory in the forward kernel"):
+        _attention.check_attention(q3, mask, keep, wk, wk, 100, H)
+    with pytest.raises(ValueError, match="shared memory in the backward kernel"):
+        _attention.backward_scratch(2, 560, 100, 16, H, "cpu")
 
 
 # ---- kernel 8: Phi projection

@@ -371,17 +371,20 @@ def test_every_parameter_gets_a_gradient_through_the_kernels(dev, model):
 #
 # Tolerance: ATOL for the forwards. An output is a softmax-weighted sum of
 # val rows, each a sum of Dkv <= 444 products of O(1) values; the kernel
-# takes the sums in another order than cuBLAS. The all-padded row (row 0)
-# attends uniformly. The backwards: GRAD_RTOL of each entry's sum of |terms|
-# (the plain backward's ``abs_terms``), and a second run bitwise equal.
+# reassociates it (logits against qk = Wk_h q3_h, out_h = Av Wv_h) and takes
+# the sums in another order than cuBLAS. The all-padded row (row 0) attends
+# uniformly. A second launch is bitwise equal to the first. The backwards:
+# GRAD_RTOL of each entry's sum of |terms| (the plain backward's
+# ``abs_terms``), and a second run bitwise equal.
 
 # (seed, M, K, dn, de, Dt, Dq, heads)
 ATTN_CASES = [
-    (0, 2, 20, 172, 172, 100, 272, 2),  # fewer queries than one block holds (3)
-    (1, 700, 20, 172, 172, 100, 272, 2),  # published widths, many blocks, ragged last
-    (2, 37, 7, 12, 5, 9, 30, 3),  # ragged widths, 9 queries a block
-    (3, 5, 64, 8, 8, 8, 16, 4),  # K = 64: one query a block
-    (4, 70, 1, 12, 12, 10, 22, 2),  # K = 1: 64 queries a block
+    (0, 2, 20, 172, 172, 100, 272, 2),  # fewer queries than one 64-row product tile
+    (1, 700, 20, 172, 172, 100, 272, 2),  # published widths (16-byte staging), ragged tile
+    (2, 37, 7, 12, 5, 9, 30, 3),  # ragged widths: rows staged a float at a time
+    (3, 5, 64, 8, 8, 8, 16, 4),  # K = 64, four heads
+    (4, 70, 1, 12, 12, 10, 22, 2),  # K = 1
+    (5, 9, 96, 12, 12, 8, 22, 2),  # K = 96: more kv rows a query than one 64-row tile
 ]
 
 
@@ -412,11 +415,23 @@ def _launched_once(fn, *args):
     return out
 
 
+def _forward_twice(fn, *args):
+    """The kernel's outputs, launched once each time, twice: bitwise equal."""
+    out = _launched_once(fn, *args)
+    again = _launched_once(fn, *args)
+    torch.cuda.synchronize()
+    for a, b in zip(*((out, again) if isinstance(out, tuple) else ((out,), (again,)))):
+        assert torch.equal(a, b), "two launches differ"
+    return out
+
+
+@pytest.mark.parametrize("layout", ["rows", "linear"])
 @pytest.mark.parametrize("seed,m,k,dn,de,dt_dim,dq,heads", ATTN_CASES)
-def test_temporal_attention_kernel_matches_plain(dev, seed, m, k, dn, de, dt_dim, dq, heads):
-    t = _attention_case(dev, seed, m, k, dn, de, dt_dim, dq, heads)
+def test_temporal_attention_kernel_matches_plain(dev, seed, m, k, dn, de, dt_dim, dq, heads,
+                                                 layout):
+    t = _attention_case(dev, seed, m, k, dn, de, dt_dim, dq, heads, layout)
     args = (t["q3"], t["nbr"], t["edge"], t["phi"], t["mask"], t["keep"], t["wk"], t["wv"], heads)
-    out, scores = _launched_once(ops.temporal_attention, *args)
+    out, scores = _forward_twice(ops.temporal_attention, *args)
     ref_out, ref_scores = ops.temporal_attention_plain(*args)
     torch.cuda.synchronize()
     assert out.shape == (m, dq) and scores.shape == (m, heads, k)
@@ -432,19 +447,21 @@ def test_gathered_attention_kernel_matches_plain(dev, seed, m, k, dn, de, dt_dim
     t = _attention_case(dev, seed, m, k, dn, de, dt_dim, dq, heads, layout)
     args = (t["q3"], t["nbr"].reshape(m * k, dn), t["edge"].reshape(m * k, de), t["dt"],
             t["mask"], t["keep"], (t["tw"], t["tb"]), (t["wk"], t["wv"]), heads)
-    out = _launched_once(ops.gathered_attention, *args)
+    out = _forward_twice(ops.gathered_attention, *args)
     ref = ops.gathered_attention_plain(*args)
     torch.cuda.synchronize()
     assert out.shape == (m, dq) and torch.isfinite(out).all()
     torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("layout", ["rows", "linear"])
 @pytest.mark.parametrize("seed,m,k,dn,de,dt_dim,dq,heads", ATTN_CASES)
-def test_window_attention_kernel_matches_plain(dev, seed, m, k, dn, de, dt_dim, dq, heads):
-    t = _attention_case(dev, seed, m, k, dn, de, dt_dim, dq, heads)
+def test_window_attention_kernel_matches_plain(dev, seed, m, k, dn, de, dt_dim, dq, heads,
+                                               layout):
+    t = _attention_case(dev, seed, m, k, dn, de, dt_dim, dq, heads, layout)
     args = (t["q3"], t["starts"], t["dt"], t["mask"], t["keep"], t["table"], t["tw"], t["tb"],
             (t["wk"], t["wv"]), heads)
-    out = _launched_once(ops.window_attention, *args)
+    out = _forward_twice(ops.window_attention, *args)
     ref = ops.window_attention_plain(*args)
     torch.cuda.synchronize()
     assert out.shape == (m, dq) and torch.isfinite(out).all()
@@ -575,8 +592,8 @@ def test_attention_wrappers_run_in_grad_mode_and_refuse_what_they_do_not_take(de
             name: 1, f"{name}_bwd": 1}, name
         assert wk.grad is not None and torch.isfinite(wk.grad).all() and wk.grad.abs().sum() > 0
     before = ops.launch_counts()
-    big_k = _attention_case(dev, 10, 2, 65, 4, 4, 4, 8, 2)
-    with pytest.raises(ValueError, match="neighbors"):
+    big_k = _attention_case(dev, 10, 2, 600, 32, 32, 36, 8, 2)  # 600 rows of 100: 240 KB
+    with pytest.raises(ValueError, match="shared memory"):
         ops.temporal_attention(big_k["q3"], big_k["nbr"], big_k["edge"], big_k["phi"],
                                big_k["mask"], big_k["keep"], big_k["wk"], big_k["wv"], 2)
     with pytest.raises(ValueError, match="heads"):
