@@ -26,7 +26,10 @@ and prints no result):
      (stated tolerances) and time the kernel, the plain version and,
      where one exists, one PyTorch library call computing the same
      function (for TGAT's attention kernels only a part of it, the K/V
-     products); compute each bound from bytes and operations (for TGAT's
+     products); the patch projection's forward and backward launched
+     twice, bitwise equal; compute each bound from bytes and operations
+     (the patch projection's: three TF32 passes at the tensor cores'
+     peak, below its bytes; every other kernel's at the f32 peak; for TGAT's
      attention kernels, the operations the function needs, reassociated
      as the kernels compute it: no kv row projected; their forwards
      launched twice, bitwise equal); the same for TGAT's four backward
@@ -94,9 +97,15 @@ import time
 
 REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# published H100 SXM peaks (float32 and int32 on CUDA cores; HBM3)
+# published H100 SXM peaks (float32 and int32 on CUDA cores; TF32 on the
+# tensor cores, dense; HBM3)
 PEAK_F32_OPS = 67e12
+PEAK_TF32_OPS = 495e12
 PEAK_BYTES = 3.35e12
+# the patch projection's kernels multiply on the tensor cores in three TF32
+# passes (split operands, f32 accuracy): their operations are 3x the
+# product's, at the TF32 peak
+SPLIT_TF32_PASSES = 3
 # kernel vs plain version, f32: the two differ only in the order of their
 # f32 sums (K <= 11008 products of O(1) values), ~1e-6 in practice
 KERNEL_ATOL = 1e-4
@@ -155,8 +164,7 @@ TGAT_CONFIGS = {
     "default": ({}, True, {"gathered_attention": 2, "temporal_attention": 1}),
     "window": (dict(wants_entry_features=True), True,
                {"window_attention": 2, "temporal_attention": 1}),
-    "phi_fusion": (dict(use_gathered_attention=False, use_phi_fusion=True), True,
-                   {"phi_projection": 6}),
+    "phi_fusion": (dict(use_phi_fusion=True), True, {"phi_projection": 6}),
 }
 # the configuration whose sweep counts each TGAT kernel's main-path launches
 # (forward kernels: its evaluation sweep; backward kernels: its training
@@ -200,8 +208,8 @@ def cuda_ms(fn, iters: int, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32_OPS * 1e3
+def bound_ms(nbytes: float, ops: float, ops_peak: float = PEAK_F32_OPS) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / ops_peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -217,11 +225,11 @@ def check_kernels(dev) -> dict:
     m = 3 * B  # triple: [src || dst || neg_dst]
     results = {}
 
-    def record(key, part, err, ms, plain, lib, nbytes, nops):
+    def record(key, part, err, ms, plain, lib, nbytes, nops, ops_peak=PEAK_F32_OPS):
         entry = results.setdefault(key, {"parts": []})
         entry["parts"].append(
             dict(part=part, max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                 bytes=nbytes, ops=nops)
+                 bytes=nbytes, ops=nops, ops_peak=ops_peak)
         )
         log(f"  {key[0]:<16} {key[1]:<9} {part:<26} err {err:.3g}  kernel {ms:.4f} ms  "
             f"plain {plain:.4f} ms  library {lib if lib is None else round(lib, 4)} ms")
@@ -268,21 +276,25 @@ def check_kernels(dev) -> dict:
         w = ((torch.rand((CED, k), device=dev, generator=gen) * 2 - 1) * k**-0.5).t()
         bias = (torch.rand(CED, device=dev, generator=gen) * 2 - 1) * k**-0.5
         out = ops.patch_projection(x, w, bias, patch)
+        again = ops.patch_projection(x, w, bias, patch)
         ref = ops.patch_projection_plain(x, w, bias, patch)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         if not (out.shape == ref.shape == (m, lp // patch, CED)) or not err <= KERNEL_ATOL:
             raise AssertionError(f"patch_projection@{config}: max abs err {err} > {KERNEL_ATOL}")
+        if not torch.equal(out, again):
+            raise AssertionError(f"patch_projection@{config}: a second launch differs")
         x2 = x.view(rows, k)
+        # split TF32 on the tensor cores: three passes of the product
         record(
             ("patch_projection", config), f"M{m} Lp{lp} D{FEAT} patch{patch}", err,
             cuda_ms(lambda: ops.patch_projection(x, w, bias, patch), iters),
             cuda_ms(lambda: ops.patch_projection_plain(x, w, bias, patch), iters),
             cuda_ms(lambda: torch.addmm(bias, x2, w), iters),
             4 * (m * lp * FEAT + k * CED + CED + rows * CED),
-            2 * rows * k * CED,
+            SPLIT_TF32_PASSES * 2 * rows * k * CED, PEAK_TF32_OPS,
         )
-        del x, x2, out, ref
+        del x, x2, out, again, ref
 
         # ---- co-occurrence: one self launch (src once + the 2B right
         # rows = 3B rows, q = k) and one cross launch (4B rows, k = partner)
@@ -338,9 +350,10 @@ def check_training_kernels(dev) -> dict:
     m = 3 * B
     results = {}
 
-    def record(key, part, err, rel, ms, plain, lib, nbytes, nops):
+    def record(key, part, err, rel, ms, plain, lib, nbytes, nops, ops_peak=PEAK_F32_OPS):
         results[key] = {"parts": [dict(part=part, max_abs_err=err, ms=ms, plain_ms=plain,
-                                       library_ms=lib, bytes=nbytes, ops=nops)]}
+                                       library_ms=lib, bytes=nbytes, ops=nops,
+                                       ops_peak=ops_peak)]}
         log(f"  {key[0]:<20} {key[1]:<9} {part:<26} err {err:.3g} ({rel:.3g} of sum|terms|)  "
             f"kernel {ms:.4f} ms  plain {plain:.4f} ms  "
             f"library {lib if lib is None else round(lib, 4)} ms")
@@ -396,6 +409,7 @@ def check_training_kernels(dev) -> dict:
         k = patch * FEAT
         dout = 1e-3 * torch.randn((m, lp // patch, CED), device=dev, generator=gen)
         got = ops.patch_projection_backward(x, dout, patch)
+        again = ops.patch_projection_backward(x, dout, patch)
         want = ops.patch_projection_backward_plain(x, dout, patch)
         x2, g2 = x.view(rows, k), dout.view(rows, CED)
         terms = (x2.abs().t() @ g2.abs(), g2.abs().sum(0))
@@ -404,14 +418,16 @@ def check_training_kernels(dev) -> dict:
         if not rel <= GRAD_RTOL:
             raise AssertionError(
                 f"patch_projection_bwd@{config}: error {rel} of sum|terms| > {GRAD_RTOL}")
-        del got, want, terms
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"patch_projection_bwd@{config}: a second launch differs")
+        del got, again, want, terms
         record(
             ("patch_projection_bwd", config), f"M{m} Lp{lp} D{FEAT} patch{patch}", err, rel,
             cuda_ms(lambda: ops.patch_projection_backward(x, dout, patch), iters),
             cuda_ms(lambda: ops.patch_projection_backward_plain(x, dout, patch), iters),
             cuda_ms(lambda: torch.mm(x2.t(), g2), iters),
             4 * (m * lp * FEAT + rows * CED + (k + 1) * CED),
-            2 * rows * (k + 1) * CED,
+            SPLIT_TF32_PASSES * 2 * rows * (k + 1) * CED, PEAK_TF32_OPS,
         )
         del x, x2, g2, dout
         torch.cuda.empty_cache()
@@ -1467,7 +1483,8 @@ def main() -> int:
         parts = entry["parts"]
         nbytes = sum(p["bytes"] for p in parts)
         nops = sum(p["ops"] for p in parts)
-        b_ms, b_by = bound_ms(nbytes, nops)
+        ops_peak = parts[0].get("ops_peak", PEAK_F32_OPS)
+        b_ms, b_by = bound_ms(nbytes, nops, ops_peak)
         libs = [p["library_ms"] for p in parts]
         rows.append({
             "name": f"{kernel}@{config}",
@@ -1485,6 +1502,12 @@ def main() -> int:
             # in the backward the two weight-gradient products
             "library_partial": kernel.removesuffix("_bwd") in TGAT_KERNEL_CONFIG,
         })
+        if ops_peak == PEAK_TF32_OPS:
+            cuda_core_ms = nops / SPLIT_TF32_PASSES / PEAK_F32_OPS * 1e3
+            rows[-1]["bound_note"] = (
+                f"tensor cores, {SPLIT_TF32_PASSES} TF32 passes: {nops / 1e9:.1f} G operations, "
+                f"{nops / PEAK_TF32_OPS * 1e3:.4f} ms at 495 T/s, under the bytes; on the f32 "
+                f"CUDA cores the same product would be bound at {cuda_core_ms:.4f} ms")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -184,11 +184,14 @@ class TGAT:
     dropout: float = 0.1
     time_feat_dim: int = 100
     sample_strategy: str = "recent"
-    # The kernel flags take the JAX package's names and precedence. "auto"
-    # resolves to the fused attention kernel at the upper layers and the
-    # gathered (or, with the entry table, the window) attention kernel at
-    # layer 1: the JAX package resolves the first two off on TPU timings,
-    # which do not carry over to the card (ROADMAP.md Queue 3).
+    # The kernel flags take the JAX package's names and precedence (window,
+    # then gathered, then Phi fusion at layer 1). "auto" resolves to the
+    # fused attention kernel at the upper layers and the gathered (or, with
+    # the entry table, the window) attention kernel at layer 1: the JAX
+    # package resolves the first two off on TPU timings, which do not carry
+    # over to the card (ROADMAP.md). The gathered kernel's "auto" yields to
+    # an explicit use_phi_fusion=True, so that flag means what it means in
+    # the JAX package.
     use_fused_attention: bool | str = "auto"
     # on with "auto" whenever the trainer builds csr.feat_entry
     use_window_attention: bool | str = "auto"
@@ -212,7 +215,8 @@ class TGAT:
             and self.sample_strategy == "recent"
         )
         self._gathered_kernel = (
-            _resolve(self.use_gathered_attention, True) and not self._window_kernel
+            _resolve(self.use_gathered_attention, not _resolve(self.use_phi_fusion, False))
+            and not self._window_kernel
         )
         self._phi_fusion = (
             _resolve(self.use_phi_fusion, False)

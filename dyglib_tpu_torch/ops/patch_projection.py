@@ -13,35 +13,115 @@ they run the plain versions below. x gets no gradient, as in the JAX
 package: it holds rows of the feature tables, which are never trained.
 
 Bounds on one H100 (M = 600 rows of the B = 200 triple, D = 172,
-ced = 50), each input read once and each output written once, operations
-against the 67 T/s float32 CUDA-core peak, bytes against 3.35 TB/s:
-  * forward, CanParl (Lp = 2048, patch 64): 21.1 G operations -> 0.32 ms;
-    851 MB -> 0.25 ms. wikipedia (Lp = 32, patch 1): 0.33 G -> 4.9 us;
-    17 MB -> 5.1 us.
-  * backward, CanParl: 21.1 G operations (plus the dbias row) -> 0.32 ms;
-    849 MB -> 0.25 ms. wikipedia: ~5 us.
+ced = 50), each input read once and each output written once, bytes
+against 3.35 TB/s:
+  * forward, CanParl (Lp = 2048, patch 64): 851 MB -> 0.254 ms. Its 21.1 G
+    operations take 0.315 ms at the 67 T/s f32 CUDA-core peak, so a
+    CUDA-core kernel could not reach the memory floor; the kernel's three
+    TF32 passes, 63 G operations, take 0.128 ms at the 495 T/s tensor-core
+    peak, so the bound is the bytes. wikipedia (Lp = 32, patch 1): 17 MB ->
+    5.1 us.
+  * backward, CanParl: 849 MB -> 0.254 ms (CUDA cores 0.32 ms, tensor cores
+    0.13). wikipedia: ~5 us.
 
-The backward sums dW over all 19,200 patch rows. Blocks cannot carry that
-sum across a grid as the Pallas kernel does, so it is a deterministic
-two-pass reduction (``csrc/weight_grad.cuh``): partial sums per row chunk
-into scratch this wrapper allocates, then a fixed-order sum; two runs give
-identical gradients.
+What bounds the kernels, and what the design does about it
+(``csrc/patch_gemm.cuh``): x is streamed once through a 4-stage cp.async
+ring (16-byte copies where its row stride and address allow, else 4
+bytes), multiplied on the tensor cores (mma.sync m16n8k8) in split TF32:
+each operand v = hi + lo, both TF32, and lo*hi + hi*lo + hi*hi summed in
+f32, which keeps f32 accuracy (one TF32 pass misses the port's 1e-4
+agreement at K = 11,008; ``tests/test_torch_patch_projection.py`` shows
+both). ced = 50 is padded to 56 with zeros in shared memory only. The
+reduction is split so that the grid fills the card: the forward splits K
+(``forward_plan``, which also picks blocks of 128 or 64 rows), the
+backward its rows (``backward_chunk_rows``), into partial sums that this
+wrapper allocates and a second pass adds in a fixed order, so two runs
+give identical bits.
 
-What the simple design leaves on the table: f32 FMAs on CUDA cores where
-TF32 or bf16 tensor cores (wgmma) would make it purely bytes-bound; x
-could be gathered straight from the feature tables inside the kernel
-instead of from a gathered (M, Lp, D) copy; the 64-wide column tile wastes
-14 of 64 lanes at ced = 50.
+Left on the table: x could be gathered straight from the feature tables
+inside the kernel instead of from a gathered (M, Lp, D) copy; a
+warp-specialised TMA + wgmma pipeline would spend fewer instructions per
+byte than mma.sync with fragments loaded one register at a time.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from . import _build
 
 _NAME = "patch_projection"
-_ARGTYPES = [_build.P] * 2 + [_build.I] * 2 + [_build.P] * 2 + [_build.I] * 3 + [_build.P]
-_BWD_ARGTYPES = [_build.P] * 4 + [_build.I] * 4 + [_build.P]
+_ARGTYPES = [_build.P] * 2 + [_build.I] * 2 + [_build.P] * 3 + [_build.I] * 7 + [_build.P]
+_BWD_ARGTYPES = [_build.P] * 4 + [_build.I] * 6 + [_build.P]
+# csrc/patch_gemm.cuh: the mma rows a block may own (4 or 2 warps of 32;
+# x rows in the forward, K entries in the backward, which takes 128 only:
+# at the wikipedia shapes 64 measured faster in the forward and slower in
+# the backward, scripts/time_patch_projection.py), its columns (ced padded
+# to n8 fragments), the depth of one pipeline stage (K in the forward, rows
+# in the backward), the stages of the ring
+TILE_MS, BWD_TILE_MS, TILE_N, TILE_K, STAGES = (128, 64), (128,), 56, 32, 4
+_GRID_Z_LIMIT = 65535
+
+
+def copy_floats(t: torch.Tensor, row_stride: int) -> int:
+    """Floats per cp.async copy of ``t``'s rows (row stride in elements):
+    4, 2 or 1, the widest whose byte size divides both the row stride and
+    the address (16-byte copies need a 16-byte aligned pointer and
+    ``row_stride % 4 == 0``)."""
+    for v in (4, 2, 1):
+        if row_stride % v == 0 and t.data_ptr() % (4 * v) == 0:
+            return v
+    raise ValueError("the kernel reads f32 rows: the tensor is not 4-byte aligned")
+
+
+@functools.lru_cache(maxsize=256)
+def _best_plan(out_rows: int, cols: int, depth: int, partial_floats: int, sms: int,
+               tile_ms: tuple[int, ...] = TILE_MS) -> tuple[int, int]:
+    """(block rows of ``tile_ms``, stages per split) for a product of
+    ``out_rows`` x ``cols`` outputs reduced over ``depth`` stages: the plan
+    that least loads the busiest SM.
+
+    A unit is one block's share of one split: ``per`` stages plus the
+    ring's fill of STAGES - 1, each staging (rows + TILE_N) x TILE_K
+    floats; an SM runs ceil(units / sms) of them. With more than one split,
+    every split writes ``partial_floats`` partial sums that the second
+    pass reads back, spread over the card. Ties go to larger blocks, then
+    to fewer splits.
+    """
+    best = None
+    for tile_m in tile_ms:
+        out_tiles = -(-out_rows // tile_m) * -(-cols // TILE_N)
+        for splits in range(1, min(depth, _GRID_Z_LIMIT) + 1):
+            per = -(-depth // splits)
+            if -(-depth // per) != splits:  # the same split as a smaller count
+                continue
+            units_per_sm = -(-(out_tiles * splits) // sms)
+            cost = units_per_sm * (per + STAGES - 1) * (tile_m + TILE_N) * TILE_K * 4
+            if splits > 1:
+                cost += 8 * partial_floats * splits / sms
+            if best is None or cost < best[0]:
+                best = (cost, tile_m, per)
+    return best[1], best[2]
+
+
+def forward_plan(rows: int, k: int, ced: int, sms: int) -> tuple[int, int]:
+    """(rows per block, K per split) of the forward; K per split is a
+    multiple of TILE_K and the forward runs ceil(k / it) splits."""
+    tile_m, per = _best_plan(max(rows, 1), ced, max(1, -(-k // TILE_K)), rows * ced, sms)
+    return tile_m, per * TILE_K
+
+
+def backward_chunk_rows(rows: int, k: int, ced: int, sms: int) -> int:
+    """Rows per partial sum of the backward (blocks of 128 K entries), a
+    multiple of TILE_K; it runs ceil(rows / them) chunks."""
+    _, per = _best_plan(k + 1, ced, max(1, -(-rows // TILE_K)), (k + 1) * ced, sms, BWD_TILE_MS)
+    return per * TILE_K
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _flat(x: torch.Tensor, patch: int, compute_dtype: torch.dtype) -> torch.Tensor:
@@ -67,7 +147,7 @@ def patch_projection_plain(
     xf = _flat(x, patch, compute_dtype)
     if compute_dtype != torch.float32:
         w = w.to(compute_dtype).float()
-    return (xf @ w + bias).reshape(m, lp // patch, -1)
+    return (xf @ w + bias).reshape(m, lp // patch, w.shape[-1])
 
 
 def patch_projection_backward_plain(
@@ -101,12 +181,20 @@ def _forward_kernel(x, w, bias, patch):
     w_sk, w_sn = _check(x, w, bias, patch)
     m, lp, d = x.shape
     ced = w.shape[-1]
-    rows = m * (lp // patch)
+    rows, k = m * (lp // patch), patch * d
     out = torch.empty((rows, ced), dtype=torch.float32, device=x.device)
+    tile_m, k_chunk = forward_plan(rows, k, ced, _sm_count(x.device))
+    splits = -(-k // k_chunk)
+    partial = (torch.empty((splits, rows, ced), dtype=torch.float32, device=x.device)
+               if splits > 1 else None)
+    # W: K-major (nn.Linear's weight.t()) is copied in rows of K, a
+    # row-major W float by float, transposed (w_vec 0)
+    w_vec = copy_floats(w, w_sn) if w_sk == 1 else 0
     lib = _build.load(_NAME, "patch_projection_forward", _ARGTYPES)
     rc = lib.patch_projection_forward(
-        x.data_ptr(), w.data_ptr(), w_sk, w_sn, bias.data_ptr(), out.data_ptr(), rows,
-        patch * d, ced, torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), w.data_ptr(), w_sk, w_sn, bias.data_ptr(), out.data_ptr(),
+        None if partial is None else partial.data_ptr(), rows, k, ced, tile_m, k_chunk,
+        copy_floats(x, k), w_vec, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, rc, _NAME)
     patch_projection.launches += 1
@@ -133,13 +221,17 @@ def patch_projection_backward(
     f32, dev = torch.float32, x.device
     _build.require(x, "x", f32, (m, lp, d), dev)
     _build.require(dout, "dout", f32, (m, lp // patch, ced), dev)
-    chunk = _build.weight_grad_chunk_rows(rows, k, ced)
+    if (k + 1) * ced >= 2**31:
+        raise ValueError(f"dW has {(k + 1) * ced} elements; the kernels index with int32")
+    chunk = backward_chunk_rows(rows, k, ced, _sm_count(dev))
+    chunks = -(-rows // chunk)
     dw_ext = torch.empty((k + 1, ced), dtype=f32, device=dev)
-    partial = torch.empty((max(1, -(-rows // chunk)), k + 1, ced), dtype=f32, device=dev)
+    partial = torch.empty((chunks, k + 1, ced), dtype=f32, device=dev) if chunks > 1 else None
     lib = _build.load(_NAME, "patch_projection_backward", _BWD_ARGTYPES)
     rc = lib.patch_projection_backward(
-        x.data_ptr(), dout.data_ptr(), dw_ext.data_ptr(), partial.data_ptr(), rows, k, ced,
-        chunk, torch.cuda.current_stream(dev).cuda_stream,
+        x.data_ptr(), dout.data_ptr(), dw_ext.data_ptr(),
+        None if partial is None else partial.data_ptr(), rows, k, ced, chunk,
+        copy_floats(x, k), copy_floats(dout, ced), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, f"{_NAME} backward")
     patch_projection_backward.launches += 1

@@ -7,8 +7,9 @@ GPU machine, which has no JAX (so ``tests/conftest.py`` cannot load):
 
 chip_smoke.py holds each kernel to its plain version at the main path's
 shapes; these cases cover the edges those shapes miss: row counts that are
-not a multiple of the 64-row tile, ced above one 64-column tile, K not a
-multiple of the 16-deep slice, keys longer than one 2048-id shared-memory
+not a multiple of the row tile (none at all, one), ced above one column
+tile, K not a multiple of the slice, x that allows only 4- or 8-byte
+copies, inputs of magnitude 1e4 (the split-TF32 low parts), keys longer than one 2048-id shared-memory
 chunk, more queries than one 256-thread block, both weight layouts the
 GEMM kernels read (row-major (K, ced) and nn.Linear's (ced, K) transposed),
 and the wrappers' refusals.
@@ -73,31 +74,59 @@ def test_time_channel_kernel_matches_plain(dev, seed, m, l, patch, dt_dim, ced, 
     torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
 
 
-# (seed, M, Lp, D, patch, ced)
+# (seed, M, Lp, D, patch, ced, input scale, offset): offset 1 reads x as
+# big[1:] of an (M + 1, Lp, D) tensor, contiguous but, where Lp * D is odd,
+# only 4-byte aligned
 PATCH_CASES = [
-    (0, 5, 12, 7, 3, 9),  # K = 21: a ragged last K slice
-    (1, 70, 32, 172, 1, 50),  # two row tiles, the second ragged
-    (2, 11, 64, 17, 64, 100),  # K = 1088, ced 100: two column tiles
+    (0, 5, 12, 7, 3, 9, 1.0, 0),  # K = 21: a ragged last K slice
+    (1, 70, 32, 172, 1, 50, 1.0, 0),  # K = 172, 16-byte copies
+    (2, 11, 64, 17, 64, 100, 1.0, 0),  # K = 1088, ced 100: two column tiles
+    (3, 4, 8, 3, 1, 1, 1.0, 0),  # ced 1, K = 3
+    (4, 33, 16, 7, 2, 7, 1.0, 0),  # ced 7, K = 14: 8-byte copies
+    (5, 40, 16, 43, 4, 56, 1.0, 0),  # ced 56: one full column tile; a ragged row tile
+    (6, 130, 4, 172, 1, 57, 1.0, 0),  # ced 57: a second column tile of one column
+    (7, 3, 128, 17, 64, 130, 1.0, 0),  # ced 130: three column tiles
+    (8, 9, 15, 7, 3, 50, 1.0, 1),  # K = 21 from a 4-byte-aligned x: 4-byte copies
+    (9, 0, 8, 5, 2, 50, 1.0, 0),  # no rows
+    (10, 1, 64, 172, 64, 50, 1.0, 0),  # one row at K = 11008: many K splits
+    (11, 200, 64, 172, 64, 50, 1e4, 0),  # inputs ~1e4: the split's low part
+    (12, 600, 128, 172, 64, 50, 1.0, 0),  # 128-row blocks, K split in 13
+    (13, 1200, 32, 172, 1, 50, 1.0, 0),  # 128-row blocks, K not split
 ]
 
 
+def _patch_input(rng, m, lp, d, offset, scale):
+    """x's storage: (M + offset, Lp, D), x = big[offset:]."""
+    big = (scale * rng.randn(m + offset, lp, d)).astype(np.float32)
+    big[:, lp // 2 :] = 0.0  # zero pad rows, as the gathered sentinel rows are
+    return big
+
+
 @pytest.mark.parametrize("layout", ["rows", "linear"])
-@pytest.mark.parametrize("seed,m,lp,d,patch,ced", PATCH_CASES)
-def test_patch_projection_kernel_matches_plain(dev, seed, m, lp, d, patch, ced, layout):
+@pytest.mark.parametrize("seed,m,lp,d,patch,ced,scale,offset", PATCH_CASES)
+def test_patch_projection_kernel_matches_plain(
+    dev, seed, m, lp, d, patch, ced, scale, offset, layout
+):
+    """Within ATOL of the plain f32 version (ATOL x scale for inputs scaled
+    up: the same share of the outputs' size), and a second launch
+    bitwise equal to the first."""
     rng = np.random.RandomState(seed)
-    x = rng.randn(m, lp, d).astype(np.float32)
-    x[:, lp // 2 :] = 0.0  # zero pad rows, as the gathered sentinel rows are
+    big = _patch_input(rng, m, lp, d, offset, scale)
     w = (rng.randn(patch * d, ced) * (patch * d) ** -0.5).astype(np.float32)
     bias = rng.randn(ced).astype(np.float32)
-    x, w, bias = _on(dev, x, w, bias)
+    big, w, bias = _on(dev, big, w, bias)
+    x = big[offset:]
+    assert x.is_contiguous()
     args = (x, _layout(w, layout), bias, patch)
     before = ops.patch_projection.launches
     out = ops.patch_projection(*args)
-    assert ops.patch_projection.launches == before + 1
+    again = ops.patch_projection(*args)
+    assert ops.patch_projection.launches == before + 2
     ref = ops.patch_projection_plain(*args)
     torch.cuda.synchronize()
     assert out.shape == ref.shape == (m, lp // patch, ced)
-    torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out, ref, atol=ATOL * scale, rtol=0)
 
 
 # (seed, R, Lq, Lk, id range)
@@ -214,22 +243,33 @@ def test_time_channel_backward_kernel_matches_plain(
     _assert_grads_close(got, want, _abs_terms_time(*args), ("dtw", "dtb", "dW", "dbias"))
 
 
-# (seed, M, Lp, D, patch, ced)
+# (seed, M, Lp, D, patch, ced, input scale, offset), as PATCH_CASES
 PATCH_BWD_CASES = [
-    (0, 5, 12, 7, 3, 9),  # K = 21, ragged
-    (1, 70, 32, 172, 1, 50),  # patch 1
-    (2, 11, 64, 17, 64, 100),  # K = 1088, two column tiles
-    (3, 600, 128, 172, 64, 50),  # the CanParl K = 11008, many row chunks
+    (0, 5, 12, 7, 3, 9, 1.0, 0),  # K = 21, ragged
+    (1, 70, 32, 172, 1, 50, 1.0, 0),  # patch 1
+    (2, 11, 64, 17, 64, 100, 1.0, 0),  # K = 1088, two column tiles
+    (3, 600, 128, 172, 64, 50, 1.0, 0),  # the CanParl K = 11008, several row chunks
+    (4, 4, 8, 3, 1, 1, 1.0, 0),  # ced 1
+    (5, 33, 16, 7, 2, 7, 1.0, 0),  # ced 7
+    (6, 40, 16, 43, 4, 56, 1.0, 0),  # ced 56
+    (7, 130, 4, 172, 1, 57, 1.0, 0),  # ced 57
+    (8, 3, 128, 17, 64, 130, 1.0, 0),  # ced 130
+    (9, 9, 15, 7, 3, 50, 1.0, 1),  # K = 21 from a 4-byte-aligned x
+    (10, 0, 8, 5, 2, 50, 1.0, 0),  # no rows: zero gradients
+    (11, 1, 64, 172, 64, 50, 1.0, 0),  # one row
+    (12, 200, 64, 172, 64, 50, 1e4, 0),  # inputs ~1e4
 ]
 
 
-@pytest.mark.parametrize("seed,m,lp,d,patch,ced", PATCH_BWD_CASES)
-def test_patch_projection_backward_kernel_matches_plain(dev, seed, m, lp, d, patch, ced):
+@pytest.mark.parametrize("seed,m,lp,d,patch,ced,scale,offset", PATCH_BWD_CASES)
+def test_patch_projection_backward_kernel_matches_plain(
+    dev, seed, m, lp, d, patch, ced, scale, offset
+):
     rng = np.random.RandomState(seed)
-    x = rng.randn(m, lp, d).astype(np.float32)
-    x[:, lp // 2 :] = 0.0
+    big = _patch_input(rng, m, lp, d, offset, scale)
     dout = rng.randn(m, lp // patch, ced).astype(np.float32)
-    x, dout = _on(dev, x, dout)
+    big, dout = _on(dev, big, dout)
+    x = big[offset:]
     before = ops.patch_projection_backward.launches
     got = ops.patch_projection_backward(x, dout, patch)
     again = ops.patch_projection_backward(x, dout, patch)
@@ -239,7 +279,7 @@ def test_patch_projection_backward_kernel_matches_plain(dev, seed, m, lp, d, pat
     for a, b in zip(got, again):
         assert torch.equal(a, b)
     g = dout.reshape(-1, ced).abs()
-    terms = (x.reshape(g.shape[0], -1).abs().t() @ g, g.sum(0))
+    terms = (x.reshape(g.shape[0], patch * d).abs().t() @ g, g.sum(0))
     _assert_grads_close(got, want, terms, ("dW", "dbias"))
 
 

@@ -81,6 +81,8 @@ CONFIGS = {
     "default_entry_table": ({}, True),
     "window": (dict(wants_entry_features=True), True),
     "phi_fusion": (dict(use_gathered_attention=False, use_phi_fusion=True), False),
+    # the flag alone, the other layer-1 flags at "auto"
+    "phi_fusion_explicit": (dict(use_phi_fusion=True), False),
 }
 # the kernels each configuration's net calls (their plain versions on the CPU)
 CONFIG_KERNELS = {
@@ -89,6 +91,7 @@ CONFIG_KERNELS = {
     "default_entry_table": {"gathered_attention", "temporal_attention"},
     "window": {"window_attention", "temporal_attention"},
     "phi_fusion": {"phi_projection"},
+    "phi_fusion_explicit": {"phi_projection"},
 }
 JAX_PLAIN = dict(
     compute_dtype="float32", use_fused_attention=False, use_window_attention=False,
@@ -187,6 +190,26 @@ def test_sample_strategies_other_than_recent_raise(small, strategy):
                          gen=torch.Generator().manual_seed(0))
     assert [x.shape for x in inputs.hop_ids] == [(B,), (B, K), (B, K * K)]
     assert inputs.hop_win_start is None and inputs.hop_node_feat is None
+
+
+@pytest.mark.parametrize("kw", [
+    dict(use_phi_fusion=True),
+    dict(use_phi_fusion=True, sample_strategy="uniform"),
+    dict(use_phi_fusion=True, wants_entry_features=True),
+    dict(use_gathered_attention=True),
+    dict(use_gathered_attention=True, use_phi_fusion=True),
+    dict(use_window_attention=True, use_gathered_attention=True),
+    dict(use_window_attention=True, use_phi_fusion=True),
+    dict(use_window_attention=True, use_gathered_attention=True, use_phi_fusion=True),
+], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def test_explicit_layer1_flags_resolve_as_jax(kw):
+    """An explicit True for one layer-1 kernel beats the port's own "auto"
+    (which turns the gathered kernel on), and two explicit Trues follow
+    JAX's precedence: window, then gathered, then Phi fusion."""
+    ours = TGAT(num_neighbors=K, num_layers=L, time_feat_dim=DT, **kw)
+    jax_tgat = JaxTGAT(num_neighbors=K, num_layers=L, time_feat_dim=DT, **kw)
+    flags = ("_window_kernel", "_gathered_kernel", "_phi_fusion")
+    assert [getattr(ours, f) for f in flags] == [getattr(jax_tgat, f) for f in flags]
 
 
 @pytest.mark.parametrize("config", ["default", "window"])
