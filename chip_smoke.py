@@ -26,10 +26,12 @@ and prints no result):
      (stated tolerances) and time the kernel, the plain version and,
      where one exists, one PyTorch library call computing the same
      function (for TGAT's attention kernels only a part of it, the K/V
-     products); the patch projection's forward and backward launched
-     twice, bitwise equal; compute each bound from bytes and operations
-     (the patch projection's: three TF32 passes at the tensor cores'
-     peak, below its bytes; every other kernel's at the f32 peak; for TGAT's
+     products); the patch projection's forward and backward and the time
+     channel's forward launched twice, bitwise equal; compute each bound
+     from bytes and operations (the patch projection's and the time
+     channel forward's: three TF32 passes at the tensor cores' peak, and
+     for the time channel its cosines at the SFU's rate; every other
+     kernel's at the f32 peak; for TGAT's
      attention kernels, the operations the function needs, reassociated
      as the kernels compute it: no kv row projected; their forwards
      launched twice, bitwise equal); the same for TGAT's four backward
@@ -61,7 +63,10 @@ and prints no result):
      counters before each sweep and read them after (every kernel of the
      path launched on the kernel path, none on the plain path), require
      finite gradients for every parameter, per-step losses and final
-     parameters that agree; then the kernel path with the other feature
+     parameters that agree; the two paths in lockstep (losses within
+     LOSS_ATOL, gradients within GRAD_STEP_RTOL; the link head's ReLU
+     inputs whose sign differs between them counted); then the kernel path
+     with the other feature
      fetch (entry fetch at wikipedia, gather at CanParl) in turns with the
      first, for their step times;
   5t. TGAT training over the last train batches, one set of seed-0
@@ -102,9 +107,11 @@ REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_F32_OPS = 67e12
 PEAK_TF32_OPS = 495e12
 PEAK_BYTES = 3.35e12
-# the patch projection's kernels multiply on the tensor cores in three TF32
-# passes (split operands, f32 accuracy): their operations are 3x the
-# product's, at the TF32 peak
+# the SFU's cosines: 16 a clock on each of 132 SMs at the 1.98 GHz boost
+PEAK_SFU_OPS = 16 * 132 * 1.98e9
+# the patch projection's kernels and the time channel's forward multiply on
+# the tensor cores in three TF32 passes (split operands, f32 accuracy):
+# their operations are 3x the product's, at the TF32 peak
 SPLIT_TF32_PASSES = 3
 # kernel vs plain version, f32: the two differ only in the order of their
 # f32 sums (K <= 11008 products of O(1) values), ~1e-6 in practice
@@ -225,11 +232,11 @@ def check_kernels(dev) -> dict:
     m = 3 * B  # triple: [src || dst || neg_dst]
     results = {}
 
-    def record(key, part, err, ms, plain, lib, nbytes, nops, ops_peak=PEAK_F32_OPS):
+    def record(key, part, err, ms, plain, lib, nbytes, nops, ops_peak=PEAK_F32_OPS, sfu=0):
         entry = results.setdefault(key, {"parts": []})
         entry["parts"].append(
             dict(part=part, max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                 bytes=nbytes, ops=nops, ops_peak=ops_peak)
+                 bytes=nbytes, ops=nops, ops_peak=ops_peak, sfu_ops=sfu)
         )
         log(f"  {key[0]:<16} {key[1]:<9} {part:<26} err {err:.3g}  kernel {ms:.4f} ms  "
             f"plain {plain:.4f} ms  library {lib if lib is None else round(lib, 4)} ms")
@@ -249,25 +256,31 @@ def check_kernels(dev) -> dict:
         bias = (torch.rand(CED, device=dev, generator=gen) * 2 - 1) * k**-0.5
         args = (dt, valid, tw, tb, w, bias, patch)
         out = ops.time_channel_projection(*args)
+        again = ops.time_channel_projection(*args)
         ref = ops.time_channel_projection_plain(*args)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         if not (out.shape == ref.shape == (m, lp // patch, CED)) or not err <= KERNEL_ATOL:
             raise AssertionError(f"time_channel@{config}: max abs err {err} > {KERNEL_ATOL}")
+        if not torch.equal(out, again):
+            raise AssertionError(f"time_channel@{config}: a second launch differs")
+        n_valid = int(valid.sum())
 
         def library_time_channel():
             phi = torch.where(valid[..., None], torch.cos(dt[..., None] * tw + tb), 0.0)
             return torch.addmm(bias, phi.view(rows, k), w)
 
+        # split TF32 on the tensor cores: three passes of the product; one
+        # cosine per valid (position, feature), at the SFU's rate
         record(
             ("time_channel", config), f"M{m} L{lp} patch{patch}", err,
             cuda_ms(lambda: ops.time_channel_projection(*args), iters),
             cuda_ms(lambda: ops.time_channel_projection_plain(*args), iters),
             cuda_ms(library_time_channel, iters),
             4 * m * lp + m * lp + 4 * (2 * DT_DIM + k * CED + CED + rows * CED),
-            2 * rows * k * CED + 3 * m * lp * DT_DIM,
+            SPLIT_TF32_PASSES * 2 * rows * k * CED, PEAK_TF32_OPS, sfu=n_valid * DT_DIM,
         )
-        del dt, valid, out, ref
+        del dt, valid, out, again, ref
 
         # ---- patch projection: gathered 172-wide feature rows, pads zero
         x = torch.randn((m, lp, FEAT), device=dev, generator=gen)
@@ -1153,11 +1166,15 @@ def run_tgat_uniform(data, dev, n_steps: int = 3, n_batches: int = 5) -> dict:
     return result
 
 
-def lockstep(tr, backbone, batches, fetch, config) -> tuple[float, float]:
+def lockstep(tr, backbone, batches, fetch, config) -> tuple[float, float, int]:
     """At every step, both paths' loss and gradients from the same
     parameters (the kernel path's trajectory), then the kernel path's
-    optimizer step. Returns the largest loss difference and the largest
-    gradient error as a share of its tensor's largest entry."""
+    optimizer step. Returns the largest loss difference, the largest
+    gradient error as a share of its tensor's largest entry, and how many
+    of the link head's ReLU inputs (``head.fc1``'s outputs) took another
+    sign on the two paths: each such input moves its pair's whole share
+    of the head's gradients, so a rounding-level difference there shows
+    as a gradient error far above rounding."""
     import torch
 
     tr.init_params(0)
@@ -1165,29 +1182,42 @@ def lockstep(tr, backbone, batches, fetch, config) -> tuple[float, float]:
     named = [*(("backbone." + k, p) for k, p in tr.model.named_parameters()),
              *(("head." + k, p) for k, p in tr.head.named_parameters())]
     params = [p for _, p in named]
-    loss_diff, grad_err = 0.0, 0.0
-    for arrays, bucket in batches:
-        src, dst, _, neg_dst, ts, _, valid = arrays
-        out = {}
-        for use_kernels in (True, False):
-            tr.model.use_kernels = use_kernels
-            inputs = tr._sample(tr.train_csr, src, dst, neg_dst, ts, bucket)
-            loss, _ = tr._head_loss(tr.model.train()(tr.tables, inputs, triple=True), valid)
-            out[use_kernels] = (float(loss.detach()), torch.autograd.grad(loss, params))
-        loss_diff = max(loss_diff, abs(out[True][0] - out[False][0]))
-        top = max(float(g.abs().max()) for g in out[False][1])
-        for (name, _), gk, gp in zip(named, out[True][1], out[False][1]):
-            if name == "backbone.time_encoder.w":
-                continue
-            scale = max(float(gp.abs().max()), 1e-3 * top)  # zero-in-theory tensors
-            grad_err = max(grad_err, float((gk - gp).abs().max()) / scale)
-        for p, g in zip(params, out[True][1]):
-            p.grad = g
-        tr.optimizer.step()
+    acts: dict[bool, list] = {}
+    path = [True]
+    hook = tr.head.fc1.register_forward_hook(
+        lambda mod, inp, out: acts[path[0]].append(out.detach()))
+    loss_diff, grad_err, worst, flips = 0.0, 0.0, "", 0
+    try:
+        for step, (arrays, bucket) in enumerate(batches):
+            src, dst, _, neg_dst, ts, _, valid = arrays
+            out = {}
+            for use_kernels in (True, False):
+                path[0] = use_kernels
+                acts[use_kernels] = []
+                tr.model.use_kernels = use_kernels
+                inputs = tr._sample(tr.train_csr, src, dst, neg_dst, ts, bucket)
+                loss, _ = tr._head_loss(tr.model.train()(tr.tables, inputs, triple=True), valid)
+                out[use_kernels] = (float(loss.detach()), torch.autograd.grad(loss, params))
+            loss_diff = max(loss_diff, abs(out[True][0] - out[False][0]))
+            flips += int(((torch.cat(acts[True]) > 0) != (torch.cat(acts[False]) > 0)).sum())
+            top = max(float(g.abs().max()) for g in out[False][1])
+            for (name, _), gk, gp in zip(named, out[True][1], out[False][1]):
+                if name == "backbone.time_encoder.w":
+                    continue
+                scale = max(float(gp.abs().max()), 1e-3 * top)  # zero-in-theory tensors
+                err = float((gk - gp).abs().max()) / scale
+                if err > grad_err:
+                    grad_err, worst = err, f"{name} at step {step}"
+            for p, g in zip(params, out[True][1]):
+                p.grad = g
+            tr.optimizer.step()
+    finally:
+        hook.remove()
     if not (loss_diff <= LOSS_ATOL and grad_err <= GRAD_STEP_RTOL):
         raise AssertionError(f"{config} training in lockstep: losses differ by {loss_diff}, "
-                             f"gradients by {grad_err} of their largest entries")
-    return loss_diff, grad_err
+                             f"gradients by {grad_err} of their largest entries ({worst}); "
+                             f"{flips} head ReLU inputs changed sign")
+    return loss_diff, grad_err, flips
 
 
 def run_training(data, config, maxlen, patch, n_steps, dev) -> dict:
@@ -1276,7 +1306,8 @@ def run_training(data, config, maxlen, patch, n_steps, dev) -> dict:
     if not param_diff <= param_atol:
         raise AssertionError(
             f"{config} training: kernel vs plain parameters differ by {param_diff} > {param_atol}")
-    step_loss_diff, step_grad_err = lockstep(tr, backbone, batches, fetch_main, config)
+    step_loss_diff, step_grad_err, step_flips = lockstep(tr, backbone, batches, fetch_main,
+                                                         config)
 
     # the other feature fetch, kernels on, in turns with the main one
     other_ms, main_ms, other_launches = [], [], None
@@ -1299,6 +1330,7 @@ def run_training(data, config, maxlen, patch, n_steps, dev) -> dict:
         entry_fetch_ms_per_step=fetch_ms, gather_ms_per_step=gather_ms,
         losses=k_losses, max_loss_drift_vs_plain=loss_diff, max_param_diff_vs_plain=param_diff,
         lockstep_max_loss_diff=step_loss_diff, lockstep_max_grad_err=step_grad_err,
+        lockstep_relu_sign_changes=step_flips,
     )
     log(f"  {json.dumps(result)}")
     return result
@@ -1484,7 +1516,10 @@ def main() -> int:
         nbytes = sum(p["bytes"] for p in parts)
         nops = sum(p["ops"] for p in parts)
         ops_peak = parts[0].get("ops_peak", PEAK_F32_OPS)
+        sfu = sum(p.get("sfu_ops", 0) for p in parts)
         b_ms, b_by = bound_ms(nbytes, nops, ops_peak)
+        if sfu / PEAK_SFU_OPS * 1e3 > b_ms:
+            b_ms, b_by = sfu / PEAK_SFU_OPS * 1e3, "operations"
         libs = [p["library_ms"] for p in parts]
         rows.append({
             "name": f"{kernel}@{config}",
@@ -1506,8 +1541,12 @@ def main() -> int:
             cuda_core_ms = nops / SPLIT_TF32_PASSES / PEAK_F32_OPS * 1e3
             rows[-1]["bound_note"] = (
                 f"tensor cores, {SPLIT_TF32_PASSES} TF32 passes: {nops / 1e9:.1f} G operations, "
-                f"{nops / PEAK_TF32_OPS * 1e3:.4f} ms at 495 T/s, under the bytes; on the f32 "
-                f"CUDA cores the same product would be bound at {cuda_core_ms:.4f} ms")
+                f"{nops / PEAK_TF32_OPS * 1e3:.4f} ms at 495 T/s; bytes "
+                f"{nbytes / PEAK_BYTES * 1e3:.4f} ms"
+                + (f"; {sfu / 1e6:.1f} M cosines, {sfu / PEAK_SFU_OPS * 1e3:.4f} ms at the SFU's "
+                   "16 a clock per SM" if sfu else "")
+                + f"; on the f32 CUDA cores the same product would be bound at "
+                f"{cuda_core_ms:.4f} ms")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -43,7 +43,7 @@
 //   * Waves: 19,200 rows are 150 tiles of 128 rows, 1.14 waves on 132 SMs.
 //     The reduction is split instead (split-K in the forward, row chunks in
 //     the backward), by the count the wrapper picks
-//     (ops/patch_projection.py::_best_plan): the one that least loads the
+//     (ops/_plan.py::best_plan): the one that least loads the
 //     busiest SM, counting each unit's pipeline fill and the partial sums'
 //     traffic. Two blocks of 106 KB fit an SM (three of 69 KB at 64
 //     rows). Partial sums go to the wrapper's scratch and a second pass

@@ -1,11 +1,10 @@
 // One output tile of  out = A @ B  in float32 on CUDA cores.
 //
 // A is never read from a tensor by this code: a loader functor yields
-// A(i, k), so the same tile serves a plain row-major operand
-// (patch_projection: A is x viewed as (rows, patch * D)), an operand
-// computed on the fly (time_channel: A(r, k) = cos(dt * tw + tb) * valid,
-// which never exists in device memory), and the transposed features of
-// the weight gradients (weight_grad.cuh). Each A loader declares a
+// A(i, k), so the same tile serves a plain row-major operand (the
+// attention kernels' rows), an operand computed on the fly (phi_projection:
+// A(r, k) = cos(dt * tw + tb), which never exists in device memory), and
+// the transposed features of the weight gradients (weight_grad.cuh). Each A loader declares a
 // compile-time `k_fast`: true when consecutive k are consecutive
 // addresses (then consecutive threads stage consecutive k of one row),
 // false when consecutive i are; either way a warp's reads are coalesced.
@@ -112,32 +111,6 @@ __device__ __forceinline__ void gemm_tile(const ALoader& load_a, const float* __
         for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
     __syncthreads();
-  }
-}
-
-// out (rows, n) row-major = A @ B + bias over k in [0, k_total), for the
-// tile at (blockIdx.x, blockIdx.y); the bias is added once at the end.
-template <class ALoader>
-__device__ __forceinline__ void gemm_bias_tile(const ALoader& load_a,
-                                               const float* __restrict__ w, int w_sk, int w_sn,
-                                               const float* __restrict__ bias,
-                                               float* __restrict__ out,
-                                               int rows, int k_total, int n) {
-  float acc[kTM][kTN];
-  const int row0 = blockIdx.x * kBM;
-  const int col0 = blockIdx.y * kBN;
-  gemm_tile<kBByStrides>(load_a, w, w_sk, w_sn, rows, n, 0, k_total, row0, col0, acc);
-  const int ty = threadIdx.x / kThreadCols;
-  const int tx = threadIdx.x % kThreadCols;
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int r = row0 + ty + i * kThreadRows;
-    if (r >= rows) continue;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int c = col0 + tx + j * kThreadCols;
-      if (c < n) out[static_cast<size_t>(r) * n + c] = acc[i][j] + bias[c];
-    }
   }
 }
 

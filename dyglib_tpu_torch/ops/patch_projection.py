@@ -45,11 +45,10 @@ byte than mma.sync with fragments loaded one register at a time.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from . import _build
+from ._plan import STAGES, TILE_K, TILE_N, best_plan, sm_count
 
 _NAME = "patch_projection"
 _ARGTYPES = [_build.P] * 2 + [_build.I] * 2 + [_build.P] * 3 + [_build.I] * 7 + [_build.P]
@@ -57,11 +56,9 @@ _BWD_ARGTYPES = [_build.P] * 4 + [_build.I] * 6 + [_build.P]
 # csrc/patch_gemm.cuh: the mma rows a block may own (4 or 2 warps of 32;
 # x rows in the forward, K entries in the backward, which takes 128 only:
 # at the wikipedia shapes 64 measured faster in the forward and slower in
-# the backward, scripts/time_patch_projection.py), its columns (ced padded
-# to n8 fragments), the depth of one pipeline stage (K in the forward, rows
-# in the backward), the stages of the ring
-TILE_MS, BWD_TILE_MS, TILE_N, TILE_K, STAGES = (128, 64), (128,), 56, 32, 4
-_GRID_Z_LIMIT = 65535
+# the backward, scripts/time_patch_projection.py); a stage is TILE_K deep
+# (K in the forward, rows in the backward)
+TILE_MS, BWD_TILE_MS = (128, 64), (128,)
 
 
 def copy_floats(t: torch.Tensor, row_stride: int) -> int:
@@ -75,53 +72,19 @@ def copy_floats(t: torch.Tensor, row_stride: int) -> int:
     raise ValueError("the kernel reads f32 rows: the tensor is not 4-byte aligned")
 
 
-@functools.lru_cache(maxsize=256)
-def _best_plan(out_rows: int, cols: int, depth: int, partial_floats: int, sms: int,
-               tile_ms: tuple[int, ...] = TILE_MS) -> tuple[int, int]:
-    """(block rows of ``tile_ms``, stages per split) for a product of
-    ``out_rows`` x ``cols`` outputs reduced over ``depth`` stages: the plan
-    that least loads the busiest SM.
-
-    A unit is one block's share of one split: ``per`` stages plus the
-    ring's fill of STAGES - 1, each staging (rows + TILE_N) x TILE_K
-    floats; an SM runs ceil(units / sms) of them. With more than one split,
-    every split writes ``partial_floats`` partial sums that the second
-    pass reads back, spread over the card. Ties go to larger blocks, then
-    to fewer splits.
-    """
-    best = None
-    for tile_m in tile_ms:
-        out_tiles = -(-out_rows // tile_m) * -(-cols // TILE_N)
-        for splits in range(1, min(depth, _GRID_Z_LIMIT) + 1):
-            per = -(-depth // splits)
-            if -(-depth // per) != splits:  # the same split as a smaller count
-                continue
-            units_per_sm = -(-(out_tiles * splits) // sms)
-            cost = units_per_sm * (per + STAGES - 1) * (tile_m + TILE_N) * TILE_K * 4
-            if splits > 1:
-                cost += 8 * partial_floats * splits / sms
-            if best is None or cost < best[0]:
-                best = (cost, tile_m, per)
-    return best[1], best[2]
-
-
 def forward_plan(rows: int, k: int, ced: int, sms: int) -> tuple[int, int]:
     """(rows per block, K per split) of the forward; K per split is a
     multiple of TILE_K and the forward runs ceil(k / it) splits."""
-    tile_m, per = _best_plan(max(rows, 1), ced, max(1, -(-k // TILE_K)), rows * ced, sms)
+    tile_m, per = best_plan(max(rows, 1), ced, max(1, -(-k // TILE_K)), rows * ced, sms,
+                            TILE_MS)
     return tile_m, per * TILE_K
 
 
 def backward_chunk_rows(rows: int, k: int, ced: int, sms: int) -> int:
     """Rows per partial sum of the backward (blocks of 128 K entries), a
     multiple of TILE_K; it runs ceil(rows / them) chunks."""
-    _, per = _best_plan(k + 1, ced, max(1, -(-rows // TILE_K)), (k + 1) * ced, sms, BWD_TILE_MS)
+    _, per = best_plan(k + 1, ced, max(1, -(-rows // TILE_K)), (k + 1) * ced, sms, BWD_TILE_MS)
     return per * TILE_K
-
-
-@functools.lru_cache(maxsize=16)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _flat(x: torch.Tensor, patch: int, compute_dtype: torch.dtype) -> torch.Tensor:
@@ -183,7 +146,7 @@ def _forward_kernel(x, w, bias, patch):
     ced = w.shape[-1]
     rows, k = m * (lp // patch), patch * d
     out = torch.empty((rows, ced), dtype=torch.float32, device=x.device)
-    tile_m, k_chunk = forward_plan(rows, k, ced, _sm_count(x.device))
+    tile_m, k_chunk = forward_plan(rows, k, ced, sm_count(x.device))
     splits = -(-k // k_chunk)
     partial = (torch.empty((splits, rows, ced), dtype=torch.float32, device=x.device)
                if splits > 1 else None)
@@ -223,7 +186,7 @@ def patch_projection_backward(
     _build.require(dout, "dout", f32, (m, lp // patch, ced), dev)
     if (k + 1) * ced >= 2**31:
         raise ValueError(f"dW has {(k + 1) * ced} elements; the kernels index with int32")
-    chunk = backward_chunk_rows(rows, k, ced, _sm_count(dev))
+    chunk = backward_chunk_rows(rows, k, ced, sm_count(dev))
     chunks = -(-rows // chunk)
     dw_ext = torch.empty((k + 1, ced), dtype=f32, device=dev)
     partial = torch.empty((chunks, k + 1, ced), dtype=f32, device=dev) if chunks > 1 else None

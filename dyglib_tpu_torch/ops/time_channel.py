@@ -13,35 +13,61 @@ they run the plain versions below. Gradients flow to tw, tb, w and bias;
 dt and valid are data.
 
 Bounds on one H100 (M = 600 rows of the B = 200 triple, Dt = 100,
-ced = 50), each input read once and each output written once, operations
-(matmul multiply-adds as two, plus the argument's multiply and add and the
-mask's multiply, the cosines and sines uncounted) against the 67 T/s
-float32 CUDA-core peak and bytes against 3.35 TB/s:
-  * forward, CanParl (L = 2048, patch 64): 12.7 G operations -> 0.19 ms;
-    11.3 MB -> 3.4 us. wikipedia (L = 32, patch 1): 0.20 G -> 3.0 us.
+ced = 50), each input read once and each output written once, bytes
+against 3.35 TB/s:
+  * forward, CanParl (L = 2048, patch 64): 11.3 MB -> 3.4 us. Its product,
+    19,200 x 6400 x 50, is 12.3 G operations, 0.184 ms on the f32 CUDA
+    cores (67 T/s); the kernel runs it on the tensor cores in three TF32
+    passes, 36.9 G operations, 0.0745 ms at 495 T/s. Its 98 M cosines
+    (the valid positions) take 0.023 ms at the SFU's 16 a clock per SM.
+    Bound by the tensor-core operations. wikipedia (L = 32, patch 1):
+    19,200 x 100 x 50, 0.6 G operations on the tensor cores, 1.2 us.
   * backward, CanParl: two (19200 x 6400 x 50) products, 24.6 G
-    operations -> 0.37 ms; 13 MB -> 4 us. wikipedia: 0.39 G -> 6 us.
-Bound by operations, and at wikipedia in practice by launch latency.
+    operations -> 0.37 ms on the CUDA cores; 13 MB -> 4 us. wikipedia:
+    0.39 G -> 6 us.
+
+The forward (``csrc/time_channel.cu``): the product on the tensor cores
+(mma.sync) in split TF32, as the patch projection's
+(``csrc/patch_gemm.cuh``): every operand v = hi + lo, three passes, f32
+sums, which keeps f32 accuracy (one TF32 pass misses the port's 1e-4
+agreement at K = 6400; ``tests/test_torch_time_channel_forward.py`` shows
+both). Phi is computed in registers, each thread the elements its A
+fragment holds, one patch slot at a time with Dt padded to a multiple of
+8 (DT_STEP), and never reaches shared or device memory; W streams through
+shared memory. The cosine (``csrc/cos_reduced.cuh``) is cosf's, so Phi
+is the plain version's bit for bit, without cosf's slow path (a
+Payne-Hanek reduction above |theta| = 105615, which the streams' large dt
+reach): there it reduces the argument by pi/2 in double. K is split where
+that fills the card (``forward_plan``), into partial sums added in a fixed
+order: two runs give identical bits. What it leaves on the table: at
+CanParl the mma.sync products alone take ~0.35 ms and the cosines ~0.19
+more (PERF.md), 7x the bound; wgmma with Phi staged through shared memory,
+or fewer registers for more warps an SM, are the next steps.
 
 The backward sums dW, dtw and dtb over every patch row; blocks cannot
 carry a sum across a grid as the Pallas kernel does, so both are
 deterministic two-pass reductions (``csrc/weight_grad.cuh``) into scratch
-this wrapper allocates: two runs give identical gradients.
-
-What the simple design leaves on the table: f32 FMAs on CUDA cores (TF32
-or bf16 tensor cores would lift the bound ~7-15x); the accurate cosf and
-sinf take their slow path above |theta| ~ 1e5, which the streams reach;
-the backward computes Phi once in the dW pass and sin(theta) again in the
-dPhi pass; the 64-wide column tile wastes 14 of 64 lanes at ced = 50.
+this wrapper allocates: two runs give identical gradients. What it leaves
+on the table: f32 FMAs on CUDA cores through the tiled GEMM
+(``csrc/tiled_gemm.cuh``); the accurate cosf and sinf take their slow
+path above |theta| ~ 1e5; it computes Phi once in the dW pass and
+sin(theta) again in the dPhi pass; the 64-wide column tile wastes 14 of
+64 lanes at ced = 50.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
+from ._plan import STAGES, TILE_K, TILE_N, best_plan, sm_count
 
 _NAME = "time_channel"
-_ARGTYPES = [_build.P] * 5 + [_build.I] * 2 + [_build.P] * 2 + [_build.I] * 4 + [_build.P]
+_ARGTYPES = [_build.P] * 5 + [_build.I] * 2 + [_build.P] * 3 + [_build.I] * 6 + [_build.P]
+# csrc/time_channel.cu: rows of a forward block, and the mma k-step to
+# which each patch slot's Dt features are padded
+TILE_M, DT_STEP = 128, 8
+# shared memory one block may take on an H100
+_SMEM_LIMIT = 232_448
 _BWD_ARGTYPES = [_build.P] * 5 + [_build.I] * 2 + [_build.P] * 7 + [_build.I] * 5 + [_build.P]
 
 
@@ -72,7 +98,7 @@ def time_channel_projection_plain(
     x = phi.reshape(m * p, patch * tw.shape[-1])
     if compute_dtype != torch.float32:
         x, w = x.to(compute_dtype).float(), w.to(compute_dtype).float()
-    return (x @ w + bias).reshape(m, p, -1)
+    return (x @ w + bias).reshape(m, p, w.shape[-1])
 
 
 def time_channel_backward_plain(
@@ -124,18 +150,48 @@ def _check(dt, valid, tw, tb, w, patch):
     return _build.require_weight(w, "w", f32, (patch * dt_dim, ced), dev)
 
 
+def padded_dt(dt_dim: int) -> int:
+    """A patch slot's features in the forward kernel: Dt rounded up to a
+    multiple of the mma k-step, so that no k-step straddles two slots."""
+    return -(-dt_dim // DT_STEP) * DT_STEP
+
+
+def forward_plan(rows: int, patch: int, dt_dim: int, ced: int, sms: int) -> int:
+    """Padded K (patch * padded_dt(dt_dim)) per split of the forward, a
+    multiple of TILE_K; the forward runs ceil(padded K / it) splits. The
+    split that least loads the busiest SM, by the patch projection's cost
+    model (``ops/_plan.py::best_plan``, 128-row blocks): a
+    block's stages plus the ring's fill, and the partial sums' traffic."""
+    depth = max(1, -(-patch * padded_dt(dt_dim) // TILE_K))
+    _, per = best_plan(max(rows, 1), ced, depth, rows * ced, sms, (TILE_M,))
+    return per * TILE_K
+
+
+def forward_smem_bytes(dt_dim: int) -> int:
+    """Dynamic shared memory of a forward block: the ring of W stages
+    (TILE_N columns x TILE_K + 4 floats) and tw, tb padded."""
+    return 4 * (STAGES * TILE_N * (TILE_K + 4) + 2 * padded_dt(dt_dim))
+
+
 def _forward_kernel(dt, valid, tw, tb, w, bias, patch):
     w_sk, w_sn = _check(dt, valid, tw, tb, w, patch)
     m, l = dt.shape
     dt_dim, ced, dev = tw.shape[0], w.shape[-1], dt.device
     _build.require(bias, "bias", torch.float32, (ced,), dev)
+    if forward_smem_bytes(dt_dim) > _SMEM_LIMIT:
+        raise ValueError(f"Dt = {dt_dim}: tw and tb do not fit one block's shared memory")
     rows = m * (l // patch)
     out = torch.empty((rows, ced), dtype=torch.float32, device=dev)
+    dt_pad = padded_dt(dt_dim)
+    k_chunk = forward_plan(rows, patch, dt_dim, ced, sm_count(dev))
+    splits = -(-patch * dt_pad // k_chunk)
+    partial = (torch.empty((splits, rows, ced), dtype=torch.float32, device=dev)
+               if splits > 1 and rows > 0 else None)
     lib = _build.load(_NAME, "time_channel_forward", _ARGTYPES)
     rc = lib.time_channel_forward(
         dt.data_ptr(), valid.data_ptr(), tw.data_ptr(), tb.data_ptr(), w.data_ptr(), w_sk,
-        w_sn, bias.data_ptr(), out.data_ptr(), rows, patch, dt_dim, ced,
-        torch.cuda.current_stream(dev).cuda_stream,
+        w_sn, bias.data_ptr(), out.data_ptr(), None if partial is None else partial.data_ptr(),
+        rows, patch, dt_dim, dt_pad, ced, k_chunk, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, _NAME)
     time_channel_projection.launches += 1

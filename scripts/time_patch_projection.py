@@ -112,7 +112,7 @@ def main() -> int:
         tiles = {}
         try:
             for tile_m in (*pp.TILE_MS, *pp.TILE_MS[::-1]):
-                k_chunk = pp.TILE_K * pp._best_plan(
+                k_chunk = pp.TILE_K * pp.best_plan(
                     rows, CED, -(-k // pp.TILE_K), rows * CED,
                     torch.cuda.get_device_properties(dev).multi_processor_count, (tile_m,))[1]
                 pp.forward_plan = lambda *a, t=tile_m, c=k_chunk: (t, c)

@@ -9,14 +9,20 @@ chip_smoke.py holds each kernel to its plain version at the main path's
 shapes; these cases cover the edges those shapes miss: row counts that are
 not a multiple of the row tile (none at all, one), ced above one column
 tile, K not a multiple of the slice, x that allows only 4- or 8-byte
-copies, inputs of magnitude 1e4 (the split-TF32 low parts), keys longer than one 2048-id shared-memory
-chunk, more queries than one 256-thread block, both weight layouts the
+copies, inputs of magnitude 1e4 (the split-TF32 low parts), keys longer
+than one 2048-key hash table, rows on both sides of the co-occurrence
+count's all-pairs switch and at the edges of its table sizes, any int32
+id, more queries than one 256-thread
+block, the time channel's Dt padding (1, 6, 100, 101), ced 1 to 130,
+all-masked rows and dt from 0 to 1e8, both weight layouts the
 GEMM kernels read (row-major (K, ced) and nn.Linear's (ced, K) transposed),
 and the wrappers' refusals.
 
 Tolerances: time_channel and patch_projection atol 1e-4 (both sides are
-f32; they differ only in the order of the f32 sums, K <= 1100 products of
-O(1) values); cooccurrence counts are integers and must match exactly.
+f32; they differ only in the order of the f32 sums, K <= 11,008 products
+of O(1) values, and the time channel's cosine by up to 2 ulp); their
+second launches bitwise equal to the first; cooccurrence counts are
+integers and must match exactly.
 """
 import numpy as np
 import pytest
@@ -53,25 +59,70 @@ def _layout(w: torch.Tensor, layout: str) -> torch.Tensor:
     return w if layout == "rows" else w.t().contiguous().t()
 
 
-@pytest.mark.parametrize("layout", ["rows", "linear"])
-@pytest.mark.parametrize("seed,m,l,patch,dt_dim,ced,scale", TIME_CASES)
-def test_time_channel_kernel_matches_plain(dev, seed, m, l, patch, dt_dim, ced, scale, layout):
+# the forward's edges (csrc/time_channel.cu): ced 1, 7, 50, 57 and 130 (one
+# to three 56-column tiles); Dt 1, 6, 100 and 101 (padded to 8, 8, 104 and
+# 104); patch 1, 8 and 64 at L = 2048 with a few rows (K split in many);
+# no rows and one row; dt 0 everywhere and dt up to 1e8 (theta past cosf's
+# fast range, the reduced cosine's); negative tb. (seed, M, L, patch, Dt,
+# ced, dt scale, tb shift, masked rows)
+TIME_EDGE_CASES = [
+    (10, 5, 2048, 64, 100, 50, 1e6, 0.0, 0),  # CanParl's widths, 5 rows: K split
+    (11, 3, 2048, 8, 100, 57, 1e8, 0.0, 0),  # a second column tile of one column
+    (12, 4, 2048, 1, 6, 7, 1e6, 0.0, 0),  # 8192 rows of K = 6
+    (13, 9, 64, 8, 101, 130, 1e8, -3.0, 0),  # Dt 101, three column tiles, tb < 0
+    (14, 40, 32, 1, 1, 1, 1e6, 0.0, 0),  # Dt 1, ced 1
+    (15, 70, 32, 1, 100, 50, 0.0, 0.0, 0),  # dt 0: theta = tb
+    (16, 12, 128, 64, 100, 50, 1e6, 0.0, 12),  # every row masked: the bias
+    (17, 20, 64, 8, 100, 50, 1e6, 0.0, 7),  # some rows masked
+    (18, 0, 64, 8, 100, 50, 1e6, 0.0, 0),  # no rows
+    (19, 1, 32, 1, 100, 50, 1e6, 0.0, 0),  # one row
+    (20, 1, 2048, 64, 100, 50, 1e8, 0.0, 0),  # one row at K = 6400
+]
+
+
+def _time_inputs(dev, seed, m, l, patch, dt_dim, ced, scale, tb_shift=0.0, masked_rows=0):
     rng = np.random.RandomState(seed)
     dt = np.floor(rng.rand(m, l) * scale).astype(np.float32)
     valid = rng.rand(m, l) > 0.3
+    valid[:masked_rows] = False
     tw = (1.0 / 10 ** np.linspace(0, 9, dt_dim)).astype(np.float32)
-    tb = (rng.randn(dt_dim) * 0.1).astype(np.float32)
+    tb = (rng.randn(dt_dim) * 0.1 + tb_shift).astype(np.float32)
     w = (rng.randn(patch * dt_dim, ced) * (patch * dt_dim) ** -0.5).astype(np.float32)
     bias = rng.randn(ced).astype(np.float32)
-    dt, valid, tw, tb, w, bias = _on(dev, dt, valid, tw, tb, w, bias)
-    args = (dt, valid, tw, tb, _layout(w, layout), bias, patch)
+    return _on(dev, dt, valid, tw, tb, w, bias)
+
+
+def _check_time_channel(args, m, l, patch, ced):
+    """Within ATOL of the plain version, and a second launch bitwise equal
+    to the first."""
     before = ops.time_channel_projection.launches
     out = ops.time_channel_projection(*args)
-    assert ops.time_channel_projection.launches == before + 1
+    again = ops.time_channel_projection(*args)
+    assert ops.time_channel_projection.launches == before + 2
     ref = ops.time_channel_projection_plain(*args)
     torch.cuda.synchronize()
     assert out.shape == ref.shape == (m, l // patch, ced)
+    assert torch.equal(out, again)
     torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("layout", ["rows", "linear"])
+@pytest.mark.parametrize("seed,m,l,patch,dt_dim,ced,scale", TIME_CASES)
+def test_time_channel_kernel_matches_plain(dev, seed, m, l, patch, dt_dim, ced, scale, layout):
+    dt, valid, tw, tb, w, bias = _time_inputs(dev, seed, m, l, patch, dt_dim, ced, scale)
+    _check_time_channel((dt, valid, tw, tb, _layout(w, layout), bias, patch), m, l, patch, ced)
+
+
+@pytest.mark.parametrize("layout", ["rows", "linear"])
+@pytest.mark.parametrize("seed,m,l,patch,dt_dim,ced,scale,tb_shift,masked", TIME_EDGE_CASES)
+def test_time_channel_kernel_edges(dev, seed, m, l, patch, dt_dim, ced, scale, tb_shift,
+                                   masked, layout):
+    dt, valid, tw, tb, w, bias = _time_inputs(dev, seed, m, l, patch, dt_dim, ced, scale,
+                                              tb_shift, masked)
+    _check_time_channel((dt, valid, tw, tb, _layout(w, layout), bias, patch), m, l, patch, ced)
+    if masked:
+        out = ops.time_channel_projection(dt, valid, tw, tb, _layout(w, layout), bias, patch)
+        assert torch.equal(out[:masked], bias.expand(masked, l // patch, ced))
 
 
 # (seed, M, Lp, D, patch, ced, input scale, offset): offset 1 reads x as
@@ -136,6 +187,67 @@ CO_CASES = [
     (2, 5, 2048, 2048, 300),  # the main path's self counts, one full chunk
     (3, 4, 33, 4097, 7),  # Lk one past two chunks
 ]
+INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
+CO_SWITCH = ops.cooccurrence.ALL_PAIRS_MAX_LK
+# the count's edges (csrc/cooccurrence.cu): (seed, R, Lq, Lk, kind), kind
+# "one" (one id over the row), "distinct" (no id twice), "extremes"
+# (INT32_MIN, INT32_MAX, 0 and negatives) or "pads" (ids 1-49, the second
+# half of the row 0); Lk at the edges of the table's sizes (64 keys fill
+# 128 slots, 65 take 256), of one table (2048 keys) and on both sides of
+# the all-pairs switch (ALL_PAIRS_MAX_LK)
+CO_EDGE_CASES = [
+    (20, 3, 2048, 2048, "one"),
+    (21, 3, 2048, 2048, "distinct"),
+    (22, 5, 300, 700, "extremes"),
+    (23, 7, 40, 1, "pads"),
+    (24, 2, 2047, 2047, "pads"),
+    (25, 2, 2049, 2049, "distinct"),
+    (26, 2, 100, 20_000, "pads"),
+    (27, 2, 100, 20_000, "one"),
+    (28, 0, 16, 16, "pads"),
+    (29, 1, 2048, 2048, "pads"),
+    (30, 9, 64, 64, "extremes"),
+    (31, 9, 65, 65, "extremes"),
+    (32, 9, 200, 64, "pads"),
+    (33, 9, 10, 65, "one"),
+    (34, 600, 32, 32, "pads"),  # wikipedia's self launch
+    (35, 9, CO_SWITCH, CO_SWITCH, "extremes"),
+    (36, 9, CO_SWITCH + 1, CO_SWITCH + 1, "pads"),
+    (37, 9, 40, CO_SWITCH + 1, "one"),
+]
+
+
+def _co_ids(rng, r, length, kind):
+    if kind == "one":
+        return np.full((r, length), INT32_MIN + 3, np.int32)
+    if kind == "distinct":
+        return np.stack([rng.permutation(length) for _ in range(r)]).reshape(r, length).astype(
+            np.int32) * 1009 - 7
+    if kind == "extremes":
+        pool = np.array([INT32_MIN, INT32_MAX, 0, -1, 1, INT32_MIN + 1, INT32_MAX - 1], np.int32)
+        return rng.choice(pool, size=(r, length)).astype(np.int32)
+    ids = rng.randint(1, 50, size=(r, length)).astype(np.int32)
+    ids[:, length // 2 :] = 0
+    return ids
+
+
+@pytest.mark.parametrize("seed,r,lq,lk,kind", CO_EDGE_CASES)
+def test_cooccurrence_kernel_edges(dev, seed, r, lq, lk, kind):
+    """Exactly the plain version's counts, for the self launch (q = k,
+    where Lq = Lk) and a cross launch (other ids of the same kind)."""
+    rng = np.random.RandomState(seed)
+    k = _co_ids(rng, r, lk, kind)
+    q = _co_ids(rng, r, lq, kind)
+    pairs = [(q, k)] + ([(k, k)] if lq == lk else [])
+    for qa, ka in pairs:
+        qd, kd = _on(dev, qa, ka)
+        before = ops.cooccurrence_counts.launches
+        out = ops.cooccurrence_counts(qd, kd)
+        assert ops.cooccurrence_counts.launches == before + 1
+        ref = ops.cooccurrence_counts_plain(qd, kd)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.float32 and out.shape == (r, lq)
+        np.testing.assert_array_equal(out.cpu().numpy(), ref.cpu().numpy())
 
 
 @pytest.mark.parametrize("seed,r,lq,lk,ids", CO_CASES)
@@ -151,6 +263,62 @@ def test_cooccurrence_kernel_matches_plain(dev, seed, r, lq, lk, ids):
     assert out.dtype == torch.float32 and out.shape == (r, lq)
     ref = ops.cooccurrence_counts_plain(qd, kd)
     np.testing.assert_array_equal(out.cpu().numpy(), ref.cpu().numpy())
+
+
+_COSINE_PROBE = r"""
+#include "cos_reduced.cuh"
+// y[i] = the kernel's cosine of x[i]: per element by the path its size
+// allows (mode 0), or four arguments a thread through the warp-wide
+// choice of cos_reduced<4> (mode 1; n a multiple of 4 * 32)
+extern "C" __global__ void cosine(const float* x, float* y, int n, int mode) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (mode == 0) {
+    if (i >= n) return;
+    const float v = x[i];
+    y[i] = fabsf(v) < dyglib::kSmallLimit   ? dyglib::cos_small(v)
+           : fabsf(v) < dyglib::kReducedLimit ? dyglib::cos_large(v)
+                                              : cosf(v);
+    return;
+  }
+  if (4 * (i - threadIdx.x % 32) >= n) return;  // whole warps only
+  dyglib::cos_reduced<4>(x + 4 * i, y + 4 * i);
+}
+extern "C" int run(const float* x, float* y, int n, int mode) {
+  const int threads = mode == 0 ? n : n / 4;
+  cosine<<<(threads + 255) / 256, 256>>>(x, y, n, mode);
+  return static_cast<int>(cudaDeviceSynchronize());
+}
+"""
+
+
+def test_reduced_cosine_is_torch_cos_bit_for_bit(dev, tmp_path):
+    """csrc/cos_reduced.cuh against torch.cos on the card (the library's
+    cosf, the plain version's cosine): equal in every bit, on each path
+    and through the warp-wide choice, for |x| from 0 to 1e9 (both sides
+    of cosf's fast range at 105615), and at inf and nan."""
+    import ctypes
+    import subprocess
+
+    from dyglib_tpu_torch.ops import _build
+
+    src, lib_path = tmp_path / "cosine.cu", tmp_path / "libcosine.so"
+    src.write_text(_COSINE_PROBE)
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR), "-o",
+                    str(lib_path), str(src)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.run.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    parts = [torch.empty(1 << 20, device=dev).uniform_(lo, hi, generator=gen)
+             for lo, hi in ((0, 1), (1, 1e3), (1e3, 105615), (105000, 106000), (105615, 1e6),
+                            (1e6, 1e9))]
+    x = torch.cat(parts + [-p for p in parts])
+    x[:4] = torch.tensor([float("inf"), float("-inf"), float("nan"), 105615.0])
+    want = torch.cos(x)
+    for mode in (0, 1):
+        y = torch.empty_like(x)
+        assert lib.run(x.data_ptr(), y.data_ptr(), x.numel(), mode) == 0
+        assert torch.equal(y[4:], want[4:])
+        assert torch.isnan(y[:3]).all() and y[3] == want[3]
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

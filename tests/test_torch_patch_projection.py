@@ -33,6 +33,7 @@ from dyglib_tpu_torch import ops
 
 # the module (``ops.patch_projection`` is the wrapper function)
 pp = importlib.import_module("dyglib_tpu_torch.ops.patch_projection")
+plan = importlib.import_module("dyglib_tpu_torch.ops._plan")
 
 KERNEL_ATOL = 1e-4
 H100_SMS = 132
@@ -237,7 +238,7 @@ def test_plans_fill_the_card_at_canparl():
 @pytest.mark.parametrize("out_rows,depth", [(19200, 344), (11009, 600), (173, 600), (19200, 6),
                                             (1, 1)])
 def test_best_plan_beats_every_other_plan_by_its_cost(out_rows, depth, tile_ms):
-    """_best_plan returns the block rows and stages per split whose cost
+    """best_plan returns the block rows and stages per split whose cost
     (the busiest SM's staged bytes with the ring's fill, and the partial
     sums' traffic) is least."""
     partial, cols = out_rows * 50, 50
@@ -248,7 +249,7 @@ def test_best_plan_beats_every_other_plan_by_its_cost(out_rows, depth, tile_ms):
         c = -(-units // H100_SMS) * (per + pp.STAGES - 1) * (tile_m + pp.TILE_N) * pp.TILE_K * 4
         return c + (8 * partial * splits / H100_SMS if splits > 1 else 0)
 
-    tile_m, best = pp._best_plan(out_rows, cols, depth, partial, H100_SMS, tile_ms)
+    tile_m, best = plan.best_plan(out_rows, cols, depth, partial, H100_SMS, tile_ms)
     assert tile_m in tile_ms and 1 <= best <= depth
     assert all(cost(tile_m, best) <= cost(t, per) for t in tile_ms
                for per in range(1, depth + 1))
