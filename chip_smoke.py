@@ -26,12 +26,12 @@ and prints no result):
      (stated tolerances) and time the kernel, the plain version and,
      where one exists, one PyTorch library call computing the same
      function (for TGAT's attention kernels only a part of it, the K/V
-     products); the patch projection's forward and backward and the time
-     channel's forward launched twice, bitwise equal; compute each bound
+     products); the patch projection's and the time channel's forward
+     and backward launched twice, bitwise equal; compute each bound
      from bytes and operations (the patch projection's and the time
-     channel forward's: three TF32 passes at the tensor cores' peak, and
-     for the time channel its cosines at the SFU's rate; every other
-     kernel's at the f32 peak; for TGAT's
+     channel's: three TF32 passes at the tensor cores' peak, and for the
+     time channel its cosines (and the backward's sines) at the SFU's
+     rate; every other kernel's at the f32 peak; for TGAT's
      attention kernels, the operations the function needs, reassociated
      as the kernels compute it: no kv row projected; their forwards
      launched twice, bitwise equal); the same for TGAT's four backward
@@ -78,7 +78,11 @@ and prints no result):
      per train step; then each kernel configuration in lockstep with its
      plain versions (losses within LOSS_ATOL, gradients within
      GRAD_STEP_RTOL of each tensor's largest entry but the time encoder's
-     frequencies, which phase 3 holds to their sums of |terms|), and one
+     frequencies, which phase 3 holds to their sums of |terms|; the merge
+     layers' and the link head's ReLU inputs whose sign differs between
+     the two paths counted, each required within FLIP_ATOL of zero, and
+     the plain path given the kernel path's value there with an identity
+     gradient, so both take the same branch: kernel_side), and one
      lockstep step at dropout 0.1 (the same dropout_gen seed for both
      paths: the keep masks go through the backward kernels);
   5u. TGAT with the uniform strategy (default kernels): a few train steps
@@ -143,6 +147,10 @@ GRAD_RTOL = 3e-5
 # PERF.md); the parameters stay within the ~lr-a-step bound.
 LOSS_ATOL = 1e-4
 GRAD_STEP_RTOL = 1e-3
+# TGAT's lockstep: a ReLU input that takes another sign on the two paths
+# must lie this close to zero on both (the forwards differ by ~3e-7 at
+# most, PERF.md); the plain path then takes the kernel path's value there
+FLIP_ATOL = 1e-5
 LOSS_DRIFT_ATOL = 0.05
 TRAIN_LR = 1e-4
 # end-metric floors of the fixture fits (tests/test_remaining_models.py,
@@ -363,10 +371,10 @@ def check_training_kernels(dev) -> dict:
     m = 3 * B
     results = {}
 
-    def record(key, part, err, rel, ms, plain, lib, nbytes, nops, ops_peak=PEAK_F32_OPS):
+    def record(key, part, err, rel, ms, plain, lib, nbytes, nops, ops_peak=PEAK_F32_OPS, sfu=0):
         results[key] = {"parts": [dict(part=part, max_abs_err=err, ms=ms, plain_ms=plain,
                                        library_ms=lib, bytes=nbytes, ops=nops,
-                                       ops_peak=ops_peak)]}
+                                       ops_peak=ops_peak, sfu_ops=sfu)]}
         log(f"  {key[0]:<20} {key[1]:<9} {part:<26} err {err:.3g} ({rel:.3g} of sum|terms|)  "
             f"kernel {ms:.4f} ms  plain {plain:.4f} ms  "
             f"library {lib if lib is None else round(lib, 4)} ms")
@@ -385,6 +393,7 @@ def check_training_kernels(dev) -> dict:
         dout = 1e-3 * torch.randn((m, lp // patch, CED), device=dev, generator=gen)
         args = (dt, valid, tw, tb, w, dout, patch)
         got = ops.time_channel_backward(*args)
+        again = ops.time_channel_backward(*args)
         want = ops.time_channel_backward_plain(*args)
         # the same sums over |operands|: each entry's sum of |terms|
         theta = dt[..., None] * tw + tb
@@ -400,8 +409,13 @@ def check_training_kernels(dev) -> dict:
         err, rel = grad_errors(got, want, terms)
         if not rel <= GRAD_RTOL:
             raise AssertionError(f"time_channel_bwd@{config}: error {rel} of sum|terms| > {GRAD_RTOL}")
-        del theta, mask, phi_abs, common, got, want
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"time_channel_bwd@{config}: a second launch differs")
+        del theta, mask, phi_abs, common, got, again, want
         n_valid = int(valid.sum())
+        # split TF32 on the tensor cores: three passes of the dW and dPhi
+        # products; a cosine and a sine per valid (position, feature), at
+        # the SFU's rate
         record(
             ("time_channel_bwd", config), f"M{m} L{lp} patch{patch}", err, rel,
             cuda_ms(lambda: ops.time_channel_backward(*args), iters),
@@ -409,9 +423,7 @@ def check_training_kernels(dev) -> dict:
             None,
             4 * m * lp + m * lp + 4 * (2 * DT_DIM + k * CED + rows * CED)
             + 4 * (k * CED + CED + 2 * DT_DIM),
-            # dW and dPhi products, plus per valid (entry, feature): theta
-            # (2), the mask (1), -sin * dPhi (1), dtb add (1), dtw mul-add (2)
-            4 * rows * k * CED + 7 * n_valid * DT_DIM,
+            SPLIT_TF32_PASSES * 4 * rows * k * CED, PEAK_TF32_OPS, sfu=2 * n_valid * DT_DIM,
         )
         del dt, valid, dout, args
         torch.cuda.empty_cache()
@@ -1009,14 +1021,45 @@ def tgat_trainers(data, dev, dropout=0.0, **extra):
     return trainers, params
 
 
-def tgat_lockstep(tr, params, batches, dropout: float, name: str) -> tuple[float, float, str]:
+def kernel_side(out, k):
+    """The plain path's ReLU inputs ``out`` with every entry whose sign
+    differs from the kernel path's ``k`` replaced by k's value, the
+    gradient with respect to ``out`` still the identity
+    (``k + (out - out.detach())``, exactly k's value): both paths then take
+    the same branch of the ReLU and pass the same cotangent back. Returns (the inputs, or None
+    where nothing changed sign; how many changed sign; the largest |input|
+    among them on either path)."""
+    import torch
+
+    flipped = (out > 0) != (k > 0)
+    n = int(flipped.sum())
+    if n == 0:
+        return None, 0, 0.0
+    worst = max(float(out.detach()[flipped].abs().max()), float(k[flipped].abs().max()))
+    return torch.where(flipped, k + (out - out.detach()), out), n, worst
+
+
+def tgat_lockstep(tr, params, batches, dropout: float, align: bool = True) -> dict:
     """TGAT's train steps in lockstep: at every step both paths' loss and
     gradients from the same parameters (the kernel path's trajectory), the
     dropout generator reseeded the same way for both, then the kernel
-    path's optimizer step. Returns the largest loss difference, the
-    largest gradient error as a share of its tensor's largest entry (the
-    time encoder's frequencies left to phase 3's sum-of-|terms| check) and
-    the name of the tensor where it fell."""
+    path's optimizer step. Returns the largest loss difference
+    (``loss_diff``), the largest gradient error as a share of its tensor's
+    largest entry (``grad_err``; the time encoder's frequencies left to
+    phase 3's sum-of-|terms| check), the tensor where it fell (``worst``),
+    and for each ReLU of the network (the merge layers' and the link
+    head's ``fc1`` outputs) how many inputs took another sign on the two
+    paths, with the largest |input| among them
+    (``largest_flipped_input``).
+
+    Such an input lies within rounding of zero (the kernels sum in another
+    order than cuBLAS), and its two subgradients are both right; but it
+    moves its row's whole share of the later layers' gradients, so the two
+    paths' gradients would differ far above rounding through no fault of a
+    kernel (ROADMAP Queue 3, item 3). With ``align`` the plain path takes
+    the kernel path's value there (``kernel_side``): the gradients
+    compared are those of the same branch. check_tgat_lockstep requires
+    each such input within FLIP_ATOL of zero."""
     import torch
 
     tr.backbone.dropout = dropout
@@ -1027,37 +1070,92 @@ def tgat_lockstep(tr, params, batches, dropout: float, name: str) -> tuple[float
     named = [*(("backbone." + k, p) for k, p in tr.model.named_parameters()),
              *(("head." + k, p) for k, p in tr.head.named_parameters())]
     weights = [p for _, p in named]
+    relus = {f"merge_{l}.fc1": getattr(tr.model, f"merge_{l}").fc1
+             for l in range(tr.backbone.num_layers)}
+    relus["head.fc1"] = tr.head.fc1
+    kernel_acts = {r: [] for r in relus}  # the kernel pass's ReLU inputs, call by call
+    calls = {r: 0 for r in relus}
+    path = [True]
+    flips = {r: 0 for r in relus}
+    flip_max = [0.0]
+
+    def hook(r):
+        def on_output(mod, inputs, out):
+            if path[0]:
+                kernel_acts[r].append(out.detach())
+                return None
+            aligned, n, worst = kernel_side(out, kernel_acts[r][calls[r]])
+            calls[r] += 1
+            flips[r] += n
+            flip_max[0] = max(flip_max[0], worst)
+            return aligned if align else None
+        return on_output
+
+    hooks = [mod.register_forward_hook(hook(r)) for r, mod in relus.items()]
     loss_diff, grad_err, worst = 0.0, 0.0, ""
-    for step, (arrays, bucket) in enumerate(batches):
-        src, dst, _, neg_dst, ts, _, valid = arrays
-        out = {}
-        for use_kernels in (True, False):
-            tr.model.use_kernels = use_kernels
-            tr.dropout_gen.manual_seed(1000 + step)
-            inputs = tr._sample(tr.train_csr, src, dst, neg_dst, ts, bucket)
-            loss, _ = tr._head_loss(tr._embed(inputs, tr.dropout_gen), valid)
-            out[use_kernels] = (float(loss.detach()), torch.autograd.grad(loss, weights))
-        loss_diff = max(loss_diff, abs(out[True][0] - out[False][0]))
-        top = max(float(g.abs().max()) for g in out[False][1])
-        for (pname, _), gk, gp in zip(named, out[True][1], out[False][1]):
-            if not torch.isfinite(gk).all():
-                raise AssertionError(f"TGAT {name} lockstep: {pname}'s gradient is not finite")
-            if pname == "backbone.time_encoder.w":
-                continue
-            scale = max(float(gp.abs().max()), 1e-3 * top)  # zero-in-theory tensors
-            err = float((gk - gp).abs().max()) / scale
-            if err > grad_err:
-                grad_err, worst = err, pname
-        for p, g in zip(weights, out[True][1]):
-            p.grad = g
-        tr.optimizer.step()
+    try:
+        for step, (arrays, bucket) in enumerate(batches):
+            src, dst, _, neg_dst, ts, _, valid = arrays
+            out = {}
+            for use_kernels in (True, False):
+                path[0] = use_kernels
+                if use_kernels:
+                    for r in relus:
+                        kernel_acts[r], calls[r] = [], 0
+                tr.model.use_kernels = use_kernels
+                tr.dropout_gen.manual_seed(1000 + step)
+                inputs = tr._sample(tr.train_csr, src, dst, neg_dst, ts, bucket)
+                loss, _ = tr._head_loss(tr._embed(inputs, tr.dropout_gen), valid)
+                out[use_kernels] = (float(loss.detach()), torch.autograd.grad(loss, weights))
+            loss_diff = max(loss_diff, abs(out[True][0] - out[False][0]))
+            top = max(float(g.abs().max()) for g in out[False][1])
+            for (pname, _), gk, gp in zip(named, out[True][1], out[False][1]):
+                if not torch.isfinite(gk).all():
+                    raise AssertionError(f"TGAT lockstep: {pname}'s gradient is not finite")
+                if pname == "backbone.time_encoder.w":
+                    continue
+                scale = max(float(gp.abs().max()), 1e-3 * top)  # zero-in-theory tensors
+                err = float((gk - gp).abs().max()) / scale
+                if err > grad_err:
+                    grad_err, worst = err, f"{pname} at step {step}"
+            for p, g in zip(weights, out[True][1]):
+                p.grad = g
+            tr.optimizer.step()
+    finally:
+        for h in hooks:
+            h.remove()
     tr.model.use_kernels = True
     tr.backbone.dropout = 0.0
-    if not (loss_diff <= LOSS_ATOL and grad_err <= GRAD_STEP_RTOL):
+    return dict(loss_diff=loss_diff, grad_err=grad_err, worst=worst, flips=flips,
+                largest_flipped_input=flip_max[0])
+
+
+def check_tgat_lockstep(stats: dict, name: str, dropout: float) -> dict:
+    """Raise unless a lockstep (tgat_lockstep) held: losses within
+    LOSS_ATOL, gradients within GRAD_STEP_RTOL, and every ReLU input that
+    changed sign within FLIP_ATOL of zero (else the forwards differ by more
+    than rounding). Returns the stats."""
+    if stats["largest_flipped_input"] > FLIP_ATOL:
+        raise AssertionError(f"TGAT {name} lockstep: a ReLU input "
+                             f"{stats['largest_flipped_input']} from zero changed sign between "
+                             f"the paths (limit {FLIP_ATOL}; {stats['flips']})")
+    if not (stats["loss_diff"] <= LOSS_ATOL and stats["grad_err"] <= GRAD_STEP_RTOL):
         raise AssertionError(f"TGAT {name} training in lockstep (dropout {dropout}): losses "
-                             f"differ by {loss_diff}, gradients by {grad_err} of their largest "
-                             f"entries ({worst})")
-    return loss_diff, grad_err, worst
+                             f"differ by {stats['loss_diff']}, gradients by "
+                             f"{stats['grad_err']} of their largest entries ({stats['worst']}); "
+                             f"ReLU inputs that changed sign: {stats['flips']}")
+    return stats
+
+
+def tgat_train_batches(data, tr) -> list:
+    """The last TGAT_TRAIN_STEPS train batches, negatives from a seeded
+    sampler set on ``tr``: [(arrays, bucket)]."""
+    from dyglib_tpu_torch.graph import NegativeEdgeSampler
+
+    tr.train_neg = NegativeEdgeSampler(data.train.src, data.train.dst, seed=13)
+    n = data.train.num_interactions
+    stream = data.train.slice(n - TGAT_TRAIN_STEPS * B, n)
+    return [(arrays, bucket) for _, arrays, bucket in tr.train_batches(stream)]
 
 
 def run_tgat_training(data, dev) -> dict:
@@ -1066,15 +1164,9 @@ def run_tgat_training(data, dev) -> dict:
     import torch
 
     from dyglib_tpu_torch import ops
-    from dyglib_tpu_torch.graph import NegativeEdgeSampler
 
     trainers, params = tgat_trainers(data, dev)
-    # the last train batches, negatives from a seeded sampler
-    first = trainers["plain"]
-    first.train_neg = NegativeEdgeSampler(data.train.src, data.train.dst, seed=13)
-    n = data.train.num_interactions
-    stream = data.train.slice(n - TGAT_TRAIN_STEPS * B, n)
-    batches = [(arrays, bucket) for _, arrays, bucket in first.train_batches(stream)]
+    batches = tgat_train_batches(data, trainers["plain"])
 
     def sweep(name, steps=batches):
         """The steps from the seed-0 weights; returns launch counts, ms per
@@ -1115,9 +1207,12 @@ def run_tgat_training(data, dev) -> dict:
         diffs = [abs(a - b) for a, b in zip(losses, losses_of["plain"])]
         if not (diffs[0] <= LOSS_ATOL and max(diffs) <= LOSS_DRIFT_ATOL):
             raise AssertionError(f"TGAT {name} vs plain training: losses differ by {diffs}")
-    steps = {name: tgat_lockstep(trainers[name], params, batches, 0.0, name)
+    steps = {name: check_tgat_lockstep(tgat_lockstep(trainers[name], params, batches, 0.0),
+                                       name, 0.0)
              for name in TGAT_CONFIGS if TGAT_CONFIGS[name][1]}
-    dropped = {name: tgat_lockstep(trainers[name], params, batches[-1:], TGAT_DROPOUT, name)
+    dropped = {name: check_tgat_lockstep(
+                   tgat_lockstep(trainers[name], params, batches[-1:], TGAT_DROPOUT), name,
+                   TGAT_DROPOUT)
                for name in TGAT_CONFIGS if TGAT_CONFIGS[name][1]}
     result = dict(
         steps=len(batches), launches=launches, ms_per_step=ms, losses=losses_of,
@@ -1533,6 +1628,9 @@ def main() -> int:
             "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": None if None in libs else sum(libs),
+            # each part's own times (TGAT's backwards: hop 0 and hop 1)
+            "parts": [{k: p[k] for k in ("part", "ms", "plain_ms", "library_ms")}
+                      for p in parts],
             # TGAT's yardsticks time only the K/V products (or Phi @ W), and
             # in the backward the two weight-gradient products
             "library_partial": kernel.removesuffix("_bwd") in TGAT_KERNEL_CONFIG,
@@ -1543,8 +1641,8 @@ def main() -> int:
                 f"tensor cores, {SPLIT_TF32_PASSES} TF32 passes: {nops / 1e9:.1f} G operations, "
                 f"{nops / PEAK_TF32_OPS * 1e3:.4f} ms at 495 T/s; bytes "
                 f"{nbytes / PEAK_BYTES * 1e3:.4f} ms"
-                + (f"; {sfu / 1e6:.1f} M cosines, {sfu / PEAK_SFU_OPS * 1e3:.4f} ms at the SFU's "
-                   "16 a clock per SM" if sfu else "")
+                + (f"; {sfu / 1e6:.1f} M cosines (and sines), {sfu / PEAK_SFU_OPS * 1e3:.4f} ms "
+                   "at the SFU's 16 a clock per SM" if sfu else "")
                 + f"; on the f32 CUDA cores the same product would be bound at "
                 f"{cuda_core_ms:.4f} ms")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -26,30 +26,47 @@
 //   1. head_project_kernel: qk and gv (the shared f32 tile, tiled_gemm.cuh;
 //      both per-head products live in attention_core.cuh, shared with the
 //      forward);
-//   2. attention_bwd_query_kernel: one block per query stages its K kv rows
-//      through the kernel's loader, element by element (Phi, windows and
-//      the mask live there), and its qk, gv rows in shared memory, forms
-//      logits, softmax, ds_d, dlog, Ak and Av, and hands dlog, w, qk and gv
-//      to the kernel's KvGrad, which writes what that kernel returns of
-//      dkv: all of it for temporal attention, per-query sums of dtw and dtb
-//      through dPhi and -sin for the gathered and window kernels (their
-//      feature rows get no gradient);
+//   2. attention_bwd_query_kernel: one block of 256 threads per query
+//      stages its K kv rows and its qk, gv rows once, all by asynchronous
+//      copies in flight together (16 bytes each where the widths allow),
+//      and computes Phi's cosines (cos_reduced.cuh), and for the gathered
+//      and window kernels -sin of the same arguments from the same
+//      reduction, into shared memory while they land; forms logits and ds_d (one warp per (head, neighbor), a fixed
+//      butterfly), the softmax and its backward (one warp per head, lanes
+//      over neighbors, fixed butterflies for the max, the sum and the
+//      total), Ak and Av; then hands dlog, w, qk, gv and the sines to the
+//      kernel's KvGrad, which writes what that kernel returns of dkv: all
+//      of it for temporal attention; for the gathered and window kernels
+//      c = dkv * -sin(theta) on the Phi columns, by every thread into
+//      shared memory, then per-query sums of c and c * dt (their feature
+//      rows get no gradient);
 //   3. head_combine_kernel: dq3 = Ak Wk_h (the tile);
 //   4. head_weight_grad_kernel + strided_sum, twice: dWk and dWv, summed
 //      over row chunks into scratch and then in a fixed order (the
 //      deterministic two-pass reduction of weight_grad.cuh, no atomics);
 //   5. KvGrad::finish: the gathered and window kernels' dtw, dtb, summed
-//      over queries in a fixed order.
+//      over queries in a fixed order (strided_sum: a block a feature).
 // Every sum has a fixed order: two runs give bit-identical gradients. f32
 // on CUDA cores throughout.
+//
+// What bounds the query kernel: at TGAT's layer 1, hop 1 (12,000 queries
+// of 20 rows of 444) it reads ~330 MB of kv rows and ~170 MB of qk, gv, ak
+// and av, a bytes floor of ~0.15 ms; its ~5 G operations are not the
+// limit, and cutting its instructions (16-byte shared loads, no integer
+// divides) moved nothing on an H100. Staging every row by asynchronous
+// copies in flight together, with Phi and the sines computed meanwhile,
+// took the gathered kernel's from 0.50 to 0.45 ms; one-warp-per-head
+// softmax and sines from the cosine's reduction took it from 1.18 to 0.50
+// (PERF.md, scripts/time_tgat_kernels.py).
 #pragma once
 
 #include "attention_core.cuh"
+#include "patch_gemm.cuh"
 #include "weight_grad.cuh"
 
 namespace dyglib {
 
-constexpr int kBwdThreads = 128;
+constexpr int kBwdThreads = kQueryThreads;  // 256, as the forward
 constexpr int kBwdWarps = kBwdThreads / 32;
 
 struct AttentionBwdParams {
@@ -126,20 +143,25 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Shared memory of one query's block, in floats: kv rows (k, kv_dim), qk and
-// gv (heads, kv_dim each), then s, ds, w and dlog (heads, k each).
-__host__ __device__ inline size_t attention_bwd_smem_floats(int k, int kv_dim, int heads) {
+// gv (heads, kv_dim each), then s, ds, w and dlog (heads, k each), then the
+// Phi columns' -sin (k, sin_cols; sin_cols = 0 where the KvGrad needs none).
+// ops/_attention.py::check_shared_memory mirrors it.
+__host__ __device__ inline size_t attention_bwd_smem_floats(int k, int kv_dim, int heads,
+                                                             int sin_cols) {
   return static_cast<size_t>(k) * kv_dim + 2 * static_cast<size_t>(heads) * kv_dim +
-         4 * static_cast<size_t>(heads) * k;
+         4 * static_cast<size_t>(heads) * k + static_cast<size_t>(k) * sin_cols;
 }
 
-// What a KvGrad sees of one query m after step 2: the staged rows and the
-// per-(head, neighbor) dlog and w, all in shared memory.
+// What a KvGrad sees of one query m after step 2: the staged rows, the
+// per-(head, neighbor) dlog and w and the Phi columns' -sin, all in shared
+// memory.
 struct QueryGrads {
   const float* kv;    // (k, kv_dim)
   const float* qk;    // (heads, kv_dim)
   const float* gv;    // (heads, kv_dim)
   const float* dlog;  // (heads, k)
   const float* w;     // (heads, k)
+  float* msin;        // (k, sin_cols), the KvGrad's to overwrite
   int m;
   int k;
   int kv_dim;
@@ -154,35 +176,51 @@ struct QueryGrads {
   }
 };
 
+// The same value in every lane of the warp, combined by a fixed butterfly.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// ALoader stages as attention_query_kernel's Loader does
+// (attention_core.cuh), here with msin: the Phi columns' -sin.
 template <class ALoader, class KvGrad>
 __global__ void __launch_bounds__(kBwdThreads)
     attention_bwd_query_kernel(ALoader load_a, KvGrad kv_grad, AttentionBwdParams p) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 bwd_smem[];  // 16-byte aligned for the vector stores
   const int m = blockIdx.x;
   const int k = p.k, kv_dim = p.kv_dim, heads = p.heads;
-  float* kv_s = smem;                                      // (k, kv_dim)
+  float* kv_s = reinterpret_cast<float*>(bwd_smem);        // (k, kv_dim)
   float* qk_s = kv_s + static_cast<size_t>(k) * kv_dim;    // (heads, kv_dim)
   float* gv_s = qk_s + static_cast<size_t>(heads) * kv_dim;
   float* s_s = gv_s + static_cast<size_t>(heads) * kv_dim;  // (heads, k)
   float* ds_s = s_s + heads * k;
   float* w_s = ds_s + heads * k;
   float* dlog_s = w_s + heads * k;
+  float* msin_s = dlog_s + heads * k;                      // (k, sin_cols)
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
   const size_t row0 = static_cast<size_t>(m) * k;
   const size_t qrow = static_cast<size_t>(m) * heads * kv_dim;
 
-  // stage the query's kv rows (through the kernel's loader) and qk, gv
-  for (int e = tid; e < k * kv_dim; e += kBwdThreads) {
-    const int j = e / kv_dim;
-    kv_s[e] = load_a(static_cast<int>(row0) + j, e - j * kv_dim);
-  }
-  for (int e = tid; e < heads * kv_dim; e += kBwdThreads) {
-    qk_s[e] = p.qk[qrow + e];
-    gv_s[e] = p.gv[qrow + e];
-  }
+  // stage the query's kv rows, qk and gv: every copy in flight at once,
+  // Phi (and its sines) computed while they land
+  copy_rows_async(qk_s, kv_dim, p.qk + qrow, heads, kv_dim);
+  copy_rows_async(gv_s, kv_dim, p.gv + qrow, heads, kv_dim);
+  load_a.copy_rows(kv_s, m, k, kv_dim);
+  patch_gemm::commit_copies();
+  load_a.compute(kv_s, m, k, kv_dim, kv_grad.sin_cols() > 0 ? msin_s : nullptr);
+  patch_gemm::wait_copies<0>();
   __syncthreads();
+  if (load_a.rescale(kv_s, m, k, kv_dim)) __syncthreads();
 
   // logits and ds_d: one warp per (head, neighbor), lanes over columns,
   // then a fixed butterfly
@@ -196,11 +234,8 @@ __global__ void __launch_bounds__(kBwdThreads)
       lg = fmaf(kvr[c], qh[c], lg);
       dd = fmaf(kvr[c], gh[c], dd);
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      lg += __shfl_xor_sync(0xffffffffu, lg, off);
-      dd += __shfl_xor_sync(0xffffffffu, dd, off);
-    }
+    lg = warp_sum(lg);
+    dd = warp_sum(dd);
     if (lane == 0) {
       s_s[e] = lg;
       ds_s[e] = dd;
@@ -208,32 +243,36 @@ __global__ void __launch_bounds__(kBwdThreads)
   }
   __syncthreads();
 
-  // softmax, keep and dlog: one thread per head
-  for (int h = tid; h < heads; h += kBwdThreads) {
-    const float* mrow = p.mask + row0;
-    const float* krow = p.keep + (static_cast<size_t>(m) * heads + h) * k;
+  // softmax, keep and dlog: one warp per head, each lane its neighbors j =
+  // lane, lane + 32, ...; the max, the sum and the total by fixed butterflies
+  const float* mrow = p.mask + row0;
+  for (int h = warp; h < heads; h += kBwdWarps) {
+    const size_t hrow = (static_cast<size_t>(m) * heads + h) * k;
     float* s = s_s + h * k;
     float* ds = ds_s + h * k;
     float mx = __int_as_float(0xff800000);  // -inf
-    for (int j = 0; j < k; ++j) {
+    for (int j = lane; j < k; j += 32) {
       s[j] = mrow[j] > 0.f ? s[j] * p.scale : kPadLogit;
       mx = fmaxf(mx, s[j]);
     }
+    mx = warp_max(mx);
     float sum = 0.f;
-    for (int j = 0; j < k; ++j) {
+    for (int j = lane; j < k; j += 32) {
       s[j] = expf(s[j] - mx);
       sum += s[j];
     }
+    sum = warp_sum(sum);
     float total = 0.f;
-    for (int j = 0; j < k; ++j) {
+    for (int j = lane; j < k; j += 32) {
       s[j] /= sum;
       float d = ds[j];
-      if (p.dscores != nullptr) d += p.dscores[(static_cast<size_t>(m) * heads + h) * k + j];
-      ds[j] = d * krow[j];
+      if (p.dscores != nullptr) d += p.dscores[hrow + j];
+      ds[j] = d * p.keep[hrow + j];
       total += ds[j] * s[j];
     }
-    for (int j = 0; j < k; ++j) {
-      w_s[h * k + j] = s[j] * krow[j];
+    total = warp_sum(total);
+    for (int j = lane; j < k; j += 32) {
+      w_s[h * k + j] = s[j] * p.keep[hrow + j];
       dlog_s[h * k + j] = mrow[j] > 0.f ? s[j] * (ds[j] - total) * p.scale : 0.f;
     }
   }
@@ -253,7 +292,7 @@ __global__ void __launch_bounds__(kBwdThreads)
     p.av[qrow + e] = v;
   }
 
-  kv_grad(QueryGrads{kv_s, qk_s, gv_s, dlog_s, w_s, m, k, kv_dim, heads});
+  kv_grad(QueryGrads{kv_s, qk_s, gv_s, dlog_s, w_s, msin_s, m, k, kv_dim, heads});
 }
 
 // Launch the whole backward for p.m > 0 queries (the wrapper checks shapes
@@ -271,7 +310,8 @@ cudaError_t launch_attention_backward(const ALoader& load_a, const KvGrad& kv_gr
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // 2. per query
-  const size_t smem = sizeof(float) * attention_bwd_smem_floats(p.k, p.kv_dim, p.heads);
+  const size_t smem =
+      sizeof(float) * attention_bwd_smem_floats(p.k, p.kv_dim, p.heads, kv_grad.sin_cols());
   auto kernel = attention_bwd_query_kernel<ALoader, KvGrad>;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -315,6 +355,8 @@ struct KvPartsGrad {
   int de;
   int dt;
 
+  __host__ __device__ int sin_cols() const { return 0; }
+
   __device__ void operator()(const QueryGrads& q) const {
     for (int e = threadIdx.x; e < q.k * q.kv_dim; e += kBwdThreads) {
       const int j = e / q.kv_dim;
@@ -348,39 +390,43 @@ inline AttentionBwdParams attention_bwd_params(
 }
 
 // KvGrad of the gathered and window kernels: dPhi = the last dt_dim columns
-// of dkv, c = dPhi * -sin(theta); per query, part_tw[m, f] = sum_j c * dt and
-// part_tb[m, f] = sum_j c (neighbors in order), then dtw, dtb = the sums over
-// queries (strided_sum, fixed order). theta as the forward's loader rounds
-// it (phi.cuh); sinf is the accurate function (dt reaches ~2.6e6).
+// of dkv, c = dPhi * -sin(theta), the sines staged by the loader beside Phi
+// (cos_reduced.cuh, the forward's rounding of theta); every thread forms c
+// in place of the sines, then per query and feature part[m, 0, f] = sum_j c
+// * dt and part[m, 1, f] = sum_j c (neighbors in order); dtw, dtb = the
+// sums over queries (weight_grad.cuh's strided_sum, one launch for both,
+// at these shapes one block a column, fixed order).
 struct PhiParamGrad {
   const float* __restrict__ dt;  // (m * k)
-  const float* __restrict__ tw;  // (dt_dim)
-  const float* __restrict__ tb;
-  float* __restrict__ part_tw;   // scratch (m, dt_dim)
-  float* __restrict__ part_tb;
-  float* __restrict__ dtw;       // (dt_dim)
-  float* __restrict__ dtb;
+  float* __restrict__ part;      // scratch (m, 2, dt_dim)
+  float* __restrict__ dt_grads;  // (2, dt_dim): dtw, dtb
   int dt_dim;
+
+  __host__ __device__ int sin_cols() const { return dt_dim; }
 
   __device__ void operator()(const QueryGrads& q) const {
     const int f0 = q.kv_dim - dt_dim;
+    for (int e = threadIdx.x; e < q.k * dt_dim; e += kBwdThreads) {
+      const int j = e / dt_dim;
+      q.msin[e] *= q.dkv(j, f0 + e - j * dt_dim);
+    }
+    __syncthreads();
+    const float* dtq = dt + static_cast<size_t>(q.m) * q.k;
     for (int f = threadIdx.x; f < dt_dim; f += kBwdThreads) {
       float s_tw = 0.f, s_tb = 0.f;
       for (int j = 0; j < q.k; ++j) {
-        const float d = dt[static_cast<size_t>(q.m) * q.k + j];
-        const float c = q.dkv(j, f0 + f) * -sinf(theta_of(d, tw[f], tb[f]));
+        const float c = q.msin[j * dt_dim + f];
         s_tb += c;
-        s_tw += c * d;
+        s_tw += c * dtq[j];
       }
-      part_tw[static_cast<size_t>(q.m) * dt_dim + f] = s_tw;
-      part_tb[static_cast<size_t>(q.m) * dt_dim + f] = s_tb;
+      float* row = part + static_cast<size_t>(q.m) * 2 * dt_dim;
+      row[f] = s_tw;
+      row[dt_dim + f] = s_tb;
     }
   }
 
   cudaError_t finish(int m, cudaStream_t stream) const {
-    const cudaError_t err = launch_strided_sum(part_tw, dtw, m, dt_dim, stream);
-    if (err != cudaSuccess) return err;
-    return launch_strided_sum(part_tb, dtb, m, dt_dim, stream);
+    return launch_strided_sum(part, dt_grads, m, 2 * dt_dim, stream);
   }
 };
 

@@ -22,9 +22,10 @@
 // the bound. Three launches, in order, on the caller's stream:
 //   1. head_project_kernel: qk (the shared f32 tile, tiled_gemm.cuh);
 //   2. attention_query_kernel: one block per query stages its K kv rows
-//      once, through the loader's stage() (16-byte loads where the widths
-//      allow, each Phi cosine computed once, the window mask applied in
-//      shared memory), and its qk rows; then the logits (one warp per
+//      once, through the loader (asynchronous copies all in flight
+//      together, 16 bytes each where the widths allow; each Phi cosine
+//      computed once while they land; the window mask applied in shared
+//      memory), and its qk rows; then the logits (one warp per
 //      (head, neighbor), lanes over columns, a fixed butterfly), mask,
 //      softmax and keep (one thread per head; the scores where asked), and
 //      Av (one thread per (head, column), neighbors in order);
@@ -38,6 +39,8 @@
 
 #include <cstdint>
 
+#include "cos_reduced.cuh"
+#include "patch_gemm.cuh"
 #include "phi.cuh"
 
 namespace dyglib {
@@ -111,56 +114,82 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Stage a contiguous global block of rows x w floats into shared memory at
-// row stride ld, by all the block's threads. With `scale`, row j is
-// multiplied by scale[j], and a row whose scale is 0 is not read (it stages
-// as zeros). 16-byte loads and stores where the widths and both addresses
-// allow them, else one float at a time.
-__device__ __forceinline__ void stage_rows(float* dst, int ld, const float* __restrict__ src,
-                                           int rows, int w,
-                                           const float* __restrict__ scale = nullptr) {
+// dst[j * ld + c] = src[j * w + c] for rows x w floats, by asynchronous
+// copies of all the block's threads (16 bytes where the widths and both
+// addresses allow, else 4); with `scale`, a row whose scale is 0 is not
+// read and lands as zeros (rescale_rows applies other scales). The caller
+// commits and waits.
+__device__ __forceinline__ void copy_rows_async(float* dst, int ld, const float* __restrict__ src,
+                                                int rows, int w,
+                                                const float* __restrict__ scale = nullptr) {
   const bool vec = w % 4 == 0 && ld % 4 == 0 &&
                    ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) & 15) == 0;
   if (vec) {
     const int w4 = w / 4;
-    const float4* src4 = reinterpret_cast<const float4*>(src);
-#pragma unroll 4
     for (int e = threadIdx.x; e < rows * w4; e += blockDim.x) {
       const int j = e / w4;
-      const float s = scale != nullptr ? __ldg(scale + j) : 1.f;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (s != 0.f) {
-        v = __ldg(src4 + e);
-        if (scale != nullptr) {
-          v.x *= s;
-          v.y *= s;
-          v.z *= s;
-          v.w *= s;
-        }
-      }
-      *reinterpret_cast<float4*>(dst + j * ld + 4 * (e - j * w4)) = v;
+      const bool in = scale == nullptr || __ldg(scale + j) != 0.f;
+      patch_gemm::copy_async<16>(dst + j * ld + 4 * (e - j * w4), in ? src + 4 * e : src,
+                                 in ? 16 : 0);
     }
   } else {
     for (int e = threadIdx.x; e < rows * w; e += blockDim.x) {
       const int j = e / w;
-      const float s = scale != nullptr ? __ldg(scale + j) : 1.f;
-      float v = 0.f;
-      if (s != 0.f) v = scale != nullptr ? __ldg(src + e) * s : __ldg(src + e);
-      dst[j * ld + e - j * w] = v;
+      const bool in = scale == nullptr || __ldg(scale + j) != 0.f;
+      patch_gemm::copy_async<4>(dst + j * ld + e - j * w, in ? src + e : src, in ? 4 : 0);
     }
   }
 }
 
+// After copy_rows_async with `scale` and a barrier: rows whose scale is
+// neither 0 nor 1 multiplied by it (one warp a row; a row of scale 1 is
+// itself, one of scale 0 landed as zeros). The caller synchronizes after
+// it.
+__device__ __forceinline__ void rescale_rows(float* dst, int ld, int rows, int w,
+                                             const float* __restrict__ scale) {
+  for (int j = threadIdx.x / 32; j < rows; j += blockDim.x / 32) {
+    const float s = __ldg(scale + j);
+    if (s == 0.f || s == 1.f) continue;
+    for (int c = threadIdx.x % 32; c < w; c += 32) dst[j * ld + c] *= s;
+  }
+}
+
 // The Phi columns of `rows` kv rows into shared memory at row stride ld:
-// dst[j * ld + f] = cos(theta(dt[j], tw[f], tb[f])), each cosine once
-// (phi.cuh rounding, accurate cosf).
+// dst[j * ld + f] = cos(theta(dt[j], tw[f], tb[f])), each cosine once, by
+// cos_reduced.cuh (cosf's bits without its slow path: dt reaches ~2.6e6).
+// With msin (the backward), also msin[j * dt_dim + f] = -sin(theta) from
+// the same reduction. A warp takes kPhiPer arguments a lane at a time and
+// one path for them all, so every loop trip is warp-uniform.
+constexpr int kPhiPer = 4;
+
 __device__ __forceinline__ void stage_phi(float* dst, int ld, const float* __restrict__ dt,
                                           const float* __restrict__ tw,
-                                          const float* __restrict__ tb, int rows, int dt_dim) {
-  for (int e = threadIdx.x; e < rows * dt_dim; e += blockDim.x) {
-    const int j = e / dt_dim;
-    const int f = e - j * dt_dim;
-    dst[j * ld + f] = cosf(theta_of(__ldg(dt + j), __ldg(tw + f), __ldg(tb + f)));
+                                          const float* __restrict__ tb, int rows, int dt_dim,
+                                          float* msin = nullptr) {
+  const int n = rows * dt_dim;
+  const int lane = threadIdx.x % 32;
+  for (int base = (threadIdx.x - lane) * kPhiPer; base < n; base += blockDim.x * kPhiPer) {
+    float x[kPhiPer], c[kPhiPer], s[kPhiPer];
+    int e = base + lane;
+    int j = e / dt_dim, f = e - j * dt_dim;
+    int js[kPhiPer], fs[kPhiPer];
+#pragma unroll
+    for (int i = 0; i < kPhiPer; ++i) {
+      js[i] = j, fs[i] = f;
+      x[i] = e < n ? theta_of(__ldg(dt + j), __ldg(tw + f), __ldg(tb + f)) : 0.f;
+      e += 32, f += 32;
+      while (f >= dt_dim) f -= dt_dim, ++j;
+    }
+    if (msin != nullptr)
+      sincos_reduced<kPhiPer>(x, c, s);
+    else
+      cos_reduced<kPhiPer>(x, c);
+#pragma unroll
+    for (int i = 0; i < kPhiPer; ++i) {
+      if (base + lane + 32 * i >= n) continue;
+      dst[js[i] * ld + fs[i]] = c[i];
+      if (msin != nullptr) msin[js[i] * dt_dim + fs[i]] = s[i];
+    }
   }
 }
 
@@ -205,8 +234,14 @@ __host__ __device__ inline size_t attention_fwd_smem_floats(int k, int kv_dim, i
          static_cast<size_t>(heads) * k;
 }
 
-// Loader::stage(kv, m, k, kv_dim) writes query m's k kv rows, row-major
-// (k, kv_dim), into shared memory with every thread of the block.
+// A Loader stages query m's k kv rows, row-major (k, kv_dim), into shared
+// memory with every thread of the block, in three steps:
+// copy_rows(kv, m, k, kv_dim) issues copy_rows_async of the rows it reads
+// from memory; compute(kv, m, k, kv_dim, msin) computes the columns it
+// computes (Phi, and with msin non-null its sines: the backward) while
+// they land; rescale(kv, m, k, kv_dim), after the barrier, scales rows
+// and returns whether it wrote anything. The forward and the backward
+// (attention_bwd.cuh) stage alike.
 template <class Loader>
 __global__ void __launch_bounds__(kQueryThreads)
     attention_query_kernel(Loader loader, AttentionParams p) {
@@ -221,9 +256,15 @@ __global__ void __launch_bounds__(kQueryThreads)
   const int warp = tid / 32;
   const size_t qrow = static_cast<size_t>(m) * heads * kv_dim;
 
-  loader.stage(kv_s, m, k, kv_dim);
-  stage_rows(qk_s, kv_dim, p.qk + qrow, heads, kv_dim);
+  // stage the query's kv rows and qk: every copy in flight at once, Phi
+  // computed while they land
+  copy_rows_async(qk_s, kv_dim, p.qk + qrow, heads, kv_dim);
+  loader.copy_rows(kv_s, m, k, kv_dim);
+  patch_gemm::commit_copies();
+  loader.compute(kv_s, m, k, kv_dim, nullptr);
+  patch_gemm::wait_copies<0>();
   __syncthreads();
+  if (loader.rescale(kv_s, m, k, kv_dim)) __syncthreads();
 
   // logits: one warp per (head, neighbor), lanes over columns, then a
   // fixed butterfly

@@ -7,9 +7,9 @@
 // 1e6 and more, where one rounding more or less moves theta by up to
 // ulp(1e6) = 0.06 rad, and where the fast __cosf is wrong.
 //
-// The backward of  out = Phi @ W (+ bias), shared by the time channel
-// (time_channel.cu, masked, with a bias) and the Phi projection
-// (phi_projection.cu, unmasked, patch 1, no bias): launch_phi_backward.
+// The backward of  out = Phi @ W (+ bias) on the f32 tile:
+// launch_phi_backward, the Phi projection's (phi_projection.cu, patch 1,
+// no bias). The time channel has kernels of its own (time_channel.cu).
 #pragma once
 
 #include "weight_grad.cuh"
@@ -21,17 +21,13 @@ __device__ __forceinline__ float theta_of(float dt, float tw, float tb) {
 }
 
 // A(r, k) = Phi(r, j, f) for k = j * dt_dim + f, the patch-flattened time
-// features of patch rows r = (m, p) of dt / valid (M, L), L = P * patch:
+// features of patch rows r = (m, p) of dt (M, L), L = P * patch:
 //   Phi(r, j, f) = cos(theta(dt[r * patch + j], f))
-// zeroed where valid[r * patch + j] is false when kMasked (the time
-// channel), unmasked otherwise (phi_projection, patch 1; valid unused).
-// Staged k-fast: a warp reads one (r, j) slot's dt and valid as a
-// broadcast and consecutive tw / tb.
-template <bool kMasked>
-struct PhiLoaderT {
+// (phi_projection: patch 1). Staged k-fast: a warp reads one (r, j) slot's
+// dt as a broadcast and consecutive tw / tb.
+struct PhiLoader {
   static constexpr bool k_fast = true;
   const float* __restrict__ dt;
-  const bool* __restrict__ valid;
   const float* __restrict__ tw;
   const float* __restrict__ tb;
   int patch;
@@ -41,20 +37,17 @@ struct PhiLoaderT {
     const int j = k / dt_dim;
     const int f = k - j * dt_dim;
     const size_t idx = static_cast<size_t>(r) * patch + j;
-    const float theta = theta_of(dt[idx], tw[f], tb[f]);
-    if constexpr (kMasked) return valid[idx] ? cosf(theta) : 0.f;
-    return cosf(theta);
+    return cosf(theta_of(dt[idx], tw[f], tb[f]));
   }
 };
 
 // dPhi tile (rows row0.., columns col0.. of K) = dout @ W^T, then per
-// column the block's sums of c = -dPhi * sin(theta) (where valid) and c * dt
+// column the block's sums of c = -dPhi * sin(theta) and c * dt
 // into part_tw / part_tb (n_row_tiles, K) at row blockIdx.x. W^T(c, kc) =
 // W(kc, c) is read through the forward's strides, swapped. sinf is the
 // accurate function, for the reason cosf is.
-template <bool kMasked>
 __global__ void __launch_bounds__(kThreads)
-    phi_param_grad_kernel(PhiLoaderT<kMasked> phi, const float* __restrict__ dout,
+    phi_param_grad_kernel(PhiLoader phi, const float* __restrict__ dout,
                           const float* __restrict__ w, int w_sk, int w_sn,
                           float* __restrict__ part_tw, float* __restrict__ part_tb, int rows,
                           int ced) {
@@ -80,11 +73,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = 0; i < kTM; ++i) {
         const int r = row0 + ty + i * kThreadRows;
         if (r >= rows) continue;
-        const size_t idx = static_cast<size_t>(r) * phi.patch + slot;
-        if constexpr (kMasked) {
-          if (!phi.valid[idx]) continue;
-        }
-        const float d = phi.dt[idx];
+        const float d = phi.dt[static_cast<size_t>(r) * phi.patch + slot];
         const float c = acc[i][j] * -sinf(theta_of(d, phi.tw[f], phi.tb[f]));
         s_tb += c;
         s_tw += c * d;
@@ -113,8 +102,7 @@ __global__ void __launch_bounds__(kThreads)
 // recomputed by the loader, never saved) and dtw, dtb (dt_dim). Scratch:
 // partial (ceil(rows / chunk_rows), K + 1, ced), part_tw and part_tb
 // (ceil(rows / 64), K). Deterministic: both sums are two-pass.
-template <bool kMasked>
-cudaError_t launch_phi_backward(const PhiLoaderT<kMasked>& phi, const float* w, int w_sk,
+inline cudaError_t launch_phi_backward(const PhiLoader& phi, const float* w, int w_sk,
                                 int w_sn, const float* dout, float* dw_ext, float* dtw, float* dtb,
                                 float* partial, float* part_tw, float* part_tb, int rows, int ced,
                                 int chunk_rows, cudaStream_t stream) {
@@ -130,7 +118,7 @@ cudaError_t launch_phi_backward(const PhiLoaderT<kMasked>& phi, const float* w, 
   }
   const int row_tiles = (rows + kBM - 1) / kBM;
   const dim3 grid(row_tiles, (k_total + kBN - 1) / kBN);
-  phi_param_grad_kernel<kMasked><<<grid, kThreads, 0, stream>>>(phi, dout, w, w_sk, w_sn, part_tw,
+  phi_param_grad_kernel<<<grid, kThreads, 0, stream>>>(phi, dout, w, w_sk, w_sn, part_tw,
                                                                 part_tb, rows, ced);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;

@@ -1,19 +1,19 @@
 // TGAT's fused time-feature projection:
 //   out[r, :] = sum_f cos(dt[r] * tw[f] + tb[f]) * w[f, :]
-// Replaces dyglib_tpu/ops/pallas/phi_projection.py::_fwd_kernel. It is the
-// time channel (time_channel.cu) at patch 1 with no mask and no bias: the
-// same A loader (phi.cuh, unmasked), so Phi is computed slice by slice in
-// shared memory and never reaches device memory.
+// Replaces dyglib_tpu/ops/pallas/phi_projection.py::_fwd_kernel. The time
+// channel's product at patch 1 with no mask and no bias, on the f32 tile:
+// phi.cuh's A loader computes Phi slice by slice in shared memory, so it
+// never reaches device memory.
 //
 // Backward: replaces ::_bwd_kernel. dw = Phi^T @ dout and, through dPhi =
-// dout @ w^T and -sin(theta), dtw and dtb: the time channel's backward at
-// patch 1 with no mask (phi.cuh launch_phi_backward, the same loader and
-// the deterministic two-pass sums of weight_grad.cuh). dt gets no gradient.
+// dout @ w^T and -sin(theta), dtw and dtb (phi.cuh launch_phi_backward,
+// the same loader and the deterministic two-pass sums of weight_grad.cuh).
+// dt gets no gradient.
 #include "phi.cuh"
 
 namespace {
 
-using PhiLoader = dyglib::PhiLoaderT<false>;
+using dyglib::PhiLoader;
 
 __global__ void __launch_bounds__(dyglib::kThreads)
     phi_projection_kernel(PhiLoader phi, const float* __restrict__ w, int w_sk, int w_sn,
@@ -47,7 +47,7 @@ DYGLIB_API int phi_projection_forward(const float* dt, const float* tw, const fl
   if (rows == 0 || dq == 0) return 0;
   const dim3 grid((rows + dyglib::kBM - 1) / dyglib::kBM, (dq + dyglib::kBN - 1) / dyglib::kBN);
   phi_projection_kernel<<<grid, dyglib::kThreads, 0, stream>>>(
-      PhiLoader{dt, nullptr, tw, tb, 1, dt_dim}, w, w_sk, w_sn, out, rows, dq);
+      PhiLoader{dt, tw, tb, 1, dt_dim}, w, w_sk, w_sn, out, rows, dq);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -61,6 +61,6 @@ DYGLIB_API int phi_projection_backward(const float* dt, const float* tw, const f
                                        float* part_tw, float* part_tb, int rows, int dt_dim,
                                        int dq, int chunk_rows, cudaStream_t stream) {
   return static_cast<int>(dyglib::launch_phi_backward(
-      PhiLoader{dt, nullptr, tw, tb, 1, dt_dim}, w, w_sk, w_sn, dout, dw_ext, dtw, dtb, partial,
+      PhiLoader{dt, tw, tb, 1, dt_dim}, w, w_sk, w_sn, dout, dw_ext, dtw, dtb, partial,
       part_tw, part_tb, rows, dq, chunk_rows, stream));
 }

@@ -7,8 +7,8 @@
 // Replaces dyglib_tpu/ops/pallas/temporal_attention.py::_fwd_kernel. The
 // JAX kernel concatenates the three parts in VMEM; here the loader stages
 // each column range of a query's K rows from its own tensor (three
-// contiguous blocks, 16-byte loads where the widths allow), so the
-// concatenation never exists in device memory.
+// contiguous blocks, 16-byte asynchronous copies where the widths allow),
+// so the concatenation never exists in device memory.
 //
 // Backward: replaces ::_bwd_kernel (attention_bwd.cuh, the same loader):
 // dq3, the three parts' gradients dnbr, dedge, dphi, and dWk, dWv, from the
@@ -25,20 +25,19 @@ struct KvLoader {
   int de;
   int dt;
 
-  __device__ __forceinline__ float operator()(int r, int c) const {
-    if (c < dn) return nbr[static_cast<size_t>(r) * dn + c];
-    c -= dn;
-    if (c < de) return edge[static_cast<size_t>(r) * de + c];
-    return phi[static_cast<size_t>(r) * dt + c - de];
+  // query m's k rows into kv (k, dn + de + dt) in shared memory
+  // (attention_core.cuh): all three parts by asynchronous copies; Phi is an
+  // input here, so nothing is computed
+  __device__ __forceinline__ void copy_rows(float* kv, int m, int k, int kv_dim) const {
+    const size_t r0 = static_cast<size_t>(m) * k;
+    dyglib::copy_rows_async(kv, kv_dim, nbr + r0 * dn, k, dn);
+    dyglib::copy_rows_async(kv + dn, kv_dim, edge + r0 * de, k, de);
+    dyglib::copy_rows_async(kv + dn + de, kv_dim, phi + r0 * dt, k, dt);
   }
 
-  // query m's k rows into kv (k, dn + de + dt) in shared memory
-  __device__ __forceinline__ void stage(float* kv, int m, int k, int kv_dim) const {
-    const size_t r0 = static_cast<size_t>(m) * k;
-    dyglib::stage_rows(kv, kv_dim, nbr + r0 * dn, k, dn);
-    dyglib::stage_rows(kv + dn, kv_dim, edge + r0 * de, k, de);
-    dyglib::stage_rows(kv + dn + de, kv_dim, phi + r0 * dt, k, dt);
-  }
+  __device__ __forceinline__ void compute(float*, int, int, int, float*) const {}
+
+  __device__ __forceinline__ bool rescale(float*, int, int, int) const { return false; }
 };
 
 }  // namespace

@@ -65,24 +65,35 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// out[c] = sum over s < count of in[s * cols + c]. Lane y of a column
+// adds s = y, y + kLanes, ... in order; the lanes are then combined by a
+// fixed tree. Two layouts, chosen by launch_strided_sum from (count, cols)
+// alone, so the order is fixed by the shape: deterministic.
+//   * kSumCols columns a block, kSumLanes lanes each: coalesced, for the
+//     wide outputs of a weight gradient's chunk partials;
+//   * one column a block, kColumnLanes lanes: for many rows of few columns
+//     (a parameter's per-query or per-tile partial sums), where
+//     ceil(cols / kSumCols) blocks would leave most of the card idle.
 constexpr int kSumCols = 32;
 constexpr int kSumLanes = 32;
+constexpr int kColumnLanes = 256;
+// fewer blocks of kSumCols columns than this (one an H100 SM) and more rows
+// than kSumLanes: one block a column
+constexpr int kSumFillBlocks = 132;
 
-// out[c] = sum over s < count of in[s * cols + c]. Lane y of a block adds
-// s = y, y + 32, ... in order; the 32 lanes are then combined by a fixed
-// tree. The order depends only on (count, cols): deterministic.
-__global__ void __launch_bounds__(kSumCols * kSumLanes)
+template <int kCols, int kLanes>
+__global__ void __launch_bounds__(kCols * kLanes)
     strided_sum_kernel(const float* __restrict__ in, float* __restrict__ out, int count,
                        int cols) {
-  __shared__ float part[kSumLanes][kSumCols + 1];
-  const int c = blockIdx.x * kSumCols + threadIdx.x;
+  __shared__ float part[kLanes][kCols + 1];
+  const int c = blockIdx.x * kCols + threadIdx.x;
   float s = 0.f;
   if (c < cols)
-    for (int i = threadIdx.y; i < count; i += kSumLanes) s += in[static_cast<size_t>(i) * cols + c];
+    for (int i = threadIdx.y; i < count; i += kLanes) s += in[static_cast<size_t>(i) * cols + c];
   part[threadIdx.y][threadIdx.x] = s;
   __syncthreads();
 #pragma unroll
-  for (int h = kSumLanes / 2; h > 0; h >>= 1) {
+  for (int h = kLanes / 2; h > 0; h >>= 1) {
     if (threadIdx.y < h) part[threadIdx.y][threadIdx.x] += part[threadIdx.y + h][threadIdx.x];
     __syncthreads();
   }
@@ -91,8 +102,13 @@ __global__ void __launch_bounds__(kSumCols * kSumLanes)
 
 inline cudaError_t launch_strided_sum(const float* in, float* out, int count, int cols,
                                       cudaStream_t stream) {
-  const dim3 grid((cols + kSumCols - 1) / kSumCols);
-  strided_sum_kernel<<<grid, dim3(kSumCols, kSumLanes), 0, stream>>>(in, out, count, cols);
+  const int blocks = (cols + kSumCols - 1) / kSumCols;
+  if (blocks < kSumFillBlocks && count > kSumLanes)
+    strided_sum_kernel<1, kColumnLanes>
+        <<<cols, dim3(1, kColumnLanes), 0, stream>>>(in, out, count, cols);
+  else
+    strided_sum_kernel<kSumCols, kSumLanes>
+        <<<blocks, dim3(kSumCols, kSumLanes), 0, stream>>>(in, out, count, cols);
   return cudaGetLastError();
 }
 

@@ -166,12 +166,15 @@ def check_attention(q3, mask, keep, wk, wv, kv_dim: int, num_heads: int):
     return m, k, dq, wk_s, wv_s
 
 
-def check_shared_memory(k: int, kv_dim: int, num_heads: int, backward: bool) -> None:
+def check_shared_memory(k: int, kv_dim: int, num_heads: int, backward: bool,
+                        sin_cols: int = 0) -> None:
     """Raise unless one query's block fits the shared memory of a block:
     its K kv rows, and per head the query's qk (the backward: qk and gv)
-    and its K logits (the backward: four such rows)."""
+    and its K logits (the backward: four such rows); the backward of the
+    gathered and window kernels also holds -sin of its K x ``sin_cols``
+    Phi arguments (``csrc/attention_bwd.cuh::attention_bwd_smem_floats``)."""
     per_head = 2 * kv_dim + 4 * k if backward else kv_dim + k
-    smem = 4 * (k * kv_dim + num_heads * per_head)
+    smem = 4 * (k * kv_dim + num_heads * per_head + (k * sin_cols if backward else 0))
     if smem > MAX_SHARED_BYTES:
         raise ValueError(
             f"{k} kv rows of {kv_dim} and {num_heads} heads need {smem} bytes of shared "
@@ -189,12 +192,13 @@ def forward_scratch(m: int, kv_dim: int, num_heads: int, device) -> torch.Tensor
     return torch.empty((2, m, num_heads, kv_dim), dtype=torch.float32, device=device)
 
 
-def backward_scratch(m: int, k: int, kv_dim: int, dq: int, num_heads: int, device):
+def backward_scratch(m: int, k: int, kv_dim: int, dq: int, num_heads: int, device,
+                     sin_cols: int = 0):
     """The backward kernels' scratch: qk, gv, ak, av (4, M, H, Dkv) and the
     weight gradients' per-chunk partial sums (chunks, Dkv, Dq); returns
-    (scratch, partial, chunk_rows). Raises if a query's kv rows do not fit
-    one block's shared memory."""
-    check_shared_memory(k, kv_dim, num_heads, backward=True)
+    (scratch, partial, chunk_rows). Raises if a query's kv rows (and its
+    ``sin_cols`` Phi columns' sines) do not fit one block's shared memory."""
+    check_shared_memory(k, kv_dim, num_heads, backward=True, sin_cols=sin_cols)
     # the weight-gradient grid's z runs over (chunk, head): at most 65535
     chunk = max(_build.weight_grad_chunk_rows(m, kv_dim, dq), -(-m * num_heads // 65535))
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=device)

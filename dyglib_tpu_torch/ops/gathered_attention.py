@@ -15,8 +15,9 @@ shared memory, each cosine once, then the logits kv . qk, the softmax and
 Av = sum_j w kv_j; out_h = Av Wv_h on the tile. Neither the (M * K, Dt)
 time features, the (M * K, 444) concatenation nor key and val exist
 anywhere. Phi's argument is rounded as PyTorch's separate multiply and add
-round it, and the cosine is the accurate ``cosf``: dt reaches ~2.6e6 on
-the wikipedia-scale stream.
+round it, and the cosine is ``csrc/cos_reduced.cuh``'s, cosf's bits without
+its Payne-Hanek slow path: dt reaches ~2.6e6 on the wikipedia-scale
+stream, where theta passes 105615.
 
 ``gathered_attention`` is a ``torch.autograd.Function``: on CUDA tensors
 its forward and backward launch the two kernels, on CPU tensors they run
@@ -24,8 +25,10 @@ the plain forward and the explicit plain backward below. Gradients flow to
 q3, the time encoder's tw and tb, wk and wv; the feature slabs, dt, mask
 and keep get none, as in the JAX ``_ga_bwd``. The backward
 (``csrc/attention_bwd.cuh``) stages each query's K rows through the
-forward's loader once and never projects a kv row; dtw and dtb come from
-the Phi columns of dkv and -sin(theta), summed per query, then over
+forward's loader once, with -sin(theta) from the cosine's own reduction
+beside Phi, and never projects a kv row; one block of 256 threads a
+query, the softmax's backward one warp a head; dtw and dtb come from the
+Phi columns of dkv times the staged sines, summed per query, then over
 queries in a fixed order (deterministic).
 
 Bounds on one H100 at the TGAT batch (B = 200 triple, K = 20, Dn = De =
@@ -39,10 +42,9 @@ bytes against 3.35 TB/s, at hop 1 (M = 12,000, 240,000 kv rows):
     Bound by operations.
 At hop 0 (M = 600) each is 1/20 of that.
 
-What the simple design leaves on the table: f32 FMAs on CUDA cores where
-tensor cores would lift the bound 7-15x; qk and Av pass through device
-memory between the three forward launches; the accurate cosf's and sinf's
-slow path above |theta| ~ 1e5.
+What the design leaves on the table: the per-head products (qk, gv, dq3,
+dWk, dWv) are f32 FMAs on CUDA cores where tensor cores would lift their
+bound 7-15x; qk and Av pass through device memory between the launches.
 """
 from __future__ import annotations
 
@@ -56,7 +58,7 @@ _ARGTYPES = (
     + [_build.I] * 7 + [_build.F, _build.P]
 )
 _BWD_ARGTYPES = (
-    [_build.P] * 9 + [_build.I] * 2 + [_build.P] + [_build.I] * 2 + [_build.P] * 10
+    [_build.P] * 9 + [_build.I] * 2 + [_build.P] + [_build.I] * 2 + [_build.P] * 8
     + [_build.I] * 7 + [_build.F, _build.I, _build.P]
 )
 
@@ -163,22 +165,23 @@ def gathered_attention_backward(q3, feat_n, feat_e, dt, mask, keep, time_wb, wkv
         return (torch.empty((0, dq), dtype=f32, device=dev), torch.zeros_like(tw),
                 torch.zeros_like(tb), torch.zeros_like(wk), torch.zeros_like(wv))
     kv_dim = dn + de + dt_dim
-    scratch, partial, chunk = _attention.backward_scratch(m, k, kv_dim, dq, num_heads, dev)
+    scratch, partial, chunk = _attention.backward_scratch(m, k, kv_dim, dq, num_heads, dev,
+                                                              dt_dim)
     new = lambda *shape: torch.empty(shape, dtype=f32, device=dev)
-    part_tw, part_tb = new(m, dt_dim), new(m, dt_dim)
-    dq3, dwk, dwv, dtw, dtb = new(m, dq), new(kv_dim, dq), new(kv_dim, dq), new(dt_dim), new(dt_dim)
+    part = new(m, 2, dt_dim)  # per query: dtw's and dtb's sums
+    dq3, dwk, dwv, dt_grads = new(m, dq), new(kv_dim, dq), new(kv_dim, dq), new(2, dt_dim)
     lib = _build.load(_NAME, "gathered_attention_backward", _BWD_ARGTYPES)
     rc = lib.gathered_attention_backward(
         q3.data_ptr(), feat_n.data_ptr(), feat_e.data_ptr(), dt.data_ptr(), tw.data_ptr(),
         tb.data_ptr(), mask.data_ptr(), keep.data_ptr(), wk.data_ptr(), wk_sk, wk_sn,
         wv.data_ptr(), wv_sk, wv_sn, dout.data_ptr(), scratch.data_ptr(), partial.data_ptr(),
-        part_tw.data_ptr(), part_tb.data_ptr(), dq3.data_ptr(), dwk.data_ptr(), dwv.data_ptr(),
-        dtw.data_ptr(), dtb.data_ptr(), m, k, dn, de, dt_dim, dq, num_heads,
+        part.data_ptr(), dq3.data_ptr(), dwk.data_ptr(), dwv.data_ptr(), dt_grads.data_ptr(),
+        m, k, dn, de, dt_dim, dq, num_heads,
         _attention.head_scale(dq, num_heads), chunk, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, f"{_NAME} backward")
     gathered_attention_backward.launches += 1
-    return dq3, dtw, dtb, dwk, dwv
+    return dq3, dt_grads[0], dt_grads[1], dwk, dwv
 
 
 class _GatheredAttention(torch.autograd.Function):

@@ -23,8 +23,10 @@ against 3.35 TB/s:
     Bound by the tensor-core operations. wikipedia (L = 32, patch 1):
     19,200 x 100 x 50, 0.6 G operations on the tensor cores, 1.2 us.
   * backward, CanParl: two (19200 x 6400 x 50) products, 24.6 G
-    operations -> 0.37 ms on the CUDA cores; 13 MB -> 4 us. wikipedia:
-    0.39 G -> 6 us.
+    operations, 0.37 ms on the CUDA cores; in three TF32 passes 73.7 G,
+    0.149 ms at 495 T/s; its 98 M (cosine, sine) pairs 0.047 ms at the
+    SFU's rate; 13 MB -> 4 us. Bound by the tensor-core operations.
+    wikipedia: 1.2 G tensor operations -> 2.3 us.
 
 The forward (``csrc/time_channel.cu``): the product on the tensor cores
 (mma.sync) in split TF32, as the patch projection's
@@ -44,15 +46,19 @@ CanParl the mma.sync products alone take ~0.35 ms and the cosines ~0.19
 more (PERF.md), 7x the bound; wgmma with Phi staged through shared memory,
 or fewer registers for more warps an SM, are the next steps.
 
-The backward sums dW, dtw and dtb over every patch row; blocks cannot
-carry a sum across a grid as the Pallas kernel does, so both are
-deterministic two-pass reductions (``csrc/weight_grad.cuh``) into scratch
-this wrapper allocates: two runs give identical gradients. What it leaves
-on the table: f32 FMAs on CUDA cores through the tiled GEMM
-(``csrc/tiled_gemm.cuh``); the accurate cosf and sinf take their slow
-path above |theta| ~ 1e5; it computes Phi once in the dW pass and
-sin(theta) again in the dPhi pass; the 64-wide column tile wastes 14 of
-64 lanes at ced = 50.
+The backward (``csrc/time_channel.cu``) is one kernel for both of its
+products, dW_ext = [Phi | 1]^T dout and dPhi = dout W^T, in the same split
+TF32: a block owns 128 padded K entries and reduces over a chunk of rows
+(``backward_chunk_rows``), each thread's (row, entry) pairs the same in
+its dW operand and its dPhi accumulator, so that one reduced argument
+gives Phi and -sin(theta) (``csrc/cos_reduced.cuh``: cosf's and -sinf's
+values, no slow path); dPhi never leaves registers, its epilogue sums c =
+dPhi * -sin and c * dt per entry. Blocks cannot carry a sum across a grid
+as the Pallas kernel does, so the row chunks' partial sums go to scratch
+this wrapper allocates and second passes add them in a fixed order: two
+runs give identical gradients. What it leaves on the table: mma.sync with
+fragments loaded register by register (wgmma is the next step), and the
+trigonometry on the FMA pipes.
 """
 from __future__ import annotations
 
@@ -60,15 +66,17 @@ import torch
 
 from . import _build
 from ._plan import STAGES, TILE_K, TILE_N, best_plan, sm_count
+from .patch_projection import copy_floats
 
 _NAME = "time_channel"
 _ARGTYPES = [_build.P] * 5 + [_build.I] * 2 + [_build.P] * 3 + [_build.I] * 6 + [_build.P]
-# csrc/time_channel.cu: rows of a forward block, and the mma k-step to
-# which each patch slot's Dt features are padded
-TILE_M, DT_STEP = 128, 8
+# csrc/time_channel.cu: rows of a forward block, padded K entries of a
+# backward block, and the mma k-step to which each patch slot's Dt
+# features are padded
+TILE_M, BWD_ENTRIES, DT_STEP = 128, 128, 8
 # shared memory one block may take on an H100
 _SMEM_LIMIT = 232_448
-_BWD_ARGTYPES = [_build.P] * 5 + [_build.I] * 2 + [_build.P] * 7 + [_build.I] * 5 + [_build.P]
+_BWD_ARGTYPES = [_build.P] * 5 + [_build.I] * 2 + [_build.P] * 5 + [_build.I] * 7 + [_build.P]
 
 
 def _theta(dt, tw, tb):
@@ -198,6 +206,20 @@ def _forward_kernel(dt, valid, tw, tb, w, bias, patch):
     return out.view(m, l // patch, ced)
 
 
+def backward_chunk_rows(rows: int, patch: int, dt_dim: int, ced: int, sms: int) -> int:
+    """Rows per partial sum of the backward, a multiple of TILE_K; it runs
+    ceil(rows / them) chunks. Its blocks own BWD_ENTRIES of the padded K
+    entries (patch * padded_dt(dt_dim)) and TILE_N columns; the chunk
+    count is the one that least loads the busiest SM by
+    ``ops/_plan.py::best_plan``, the partial sums of dW, dtw and dtb
+    counted."""
+    k = patch * dt_dim
+    depth = max(1, -(-rows // TILE_K))
+    _, per = best_plan(patch * padded_dt(dt_dim), ced, depth, (k + 1) * ced + 2 * k, sms,
+                       (BWD_ENTRIES,))
+    return per * TILE_K
+
+
 def time_channel_backward(
     dt: torch.Tensor,
     valid: torch.Tensor,
@@ -219,25 +241,30 @@ def time_channel_backward(
     w_sk, w_sn = _check(dt, valid, tw, tb, w, patch)
     m, l = dt.shape
     dt_dim, ced = tw.shape[0], w.shape[-1]
+    if dt_dim < 1:
+        raise ValueError("time_channel_backward: the kernel takes at least one time feature")
     rows, k = m * (l // patch), patch * dt_dim
     f32, dev = torch.float32, dt.device
     _build.require(dout, "dout", f32, (m, l // patch, ced), dev)
-    chunk = _build.weight_grad_chunk_rows(rows, k, ced)
-    row_tiles = max(1, -(-rows // _build.TILE_ROWS))
+    if (k + 1) * ced >= 2**31:
+        raise ValueError(f"dW has {(k + 1) * ced} elements; the kernels index with int32")
+    chunk = backward_chunk_rows(rows, patch, dt_dim, ced, sm_count(dev))
+    chunks, col_tiles = max(1, -(-rows // chunk)), max(1, -(-ced // TILE_N))
     new = lambda *shape: torch.empty(shape, dtype=f32, device=dev)
-    dw_ext, dtw, dtb = new(k + 1, ced), new(dt_dim), new(dt_dim)
-    partial = new(max(1, -(-rows // chunk)), k + 1, ced)
-    part_tw, part_tb = new(row_tiles, k), new(row_tiles, k)
+    dw_ext, dt_grads = new(k + 1, ced), new(2, dt_dim)
+    partial = new(chunks, k + 1, ced) if chunks > 1 else None
+    part = new(chunks * col_tiles * patch, 2, dt_dim)  # dtw's and dtb's sums
     lib = _build.load(_NAME, "time_channel_backward", _BWD_ARGTYPES)
     rc = lib.time_channel_backward(
         dt.data_ptr(), valid.data_ptr(), tw.data_ptr(), tb.data_ptr(), w.data_ptr(), w_sk,
-        w_sn, dout.data_ptr(), dw_ext.data_ptr(), dtw.data_ptr(), dtb.data_ptr(),
-        partial.data_ptr(), part_tw.data_ptr(), part_tb.data_ptr(), rows, patch, dt_dim, ced,
-        chunk, torch.cuda.current_stream(dev).cuda_stream,
+        w_sn, dout.data_ptr(), dw_ext.data_ptr(), dt_grads.data_ptr(),
+        None if partial is None else partial.data_ptr(), part.data_ptr(), rows, patch, dt_dim,
+        padded_dt(dt_dim), ced, chunk, copy_floats(dout, ced),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, f"{_NAME} backward")
     time_channel_backward.launches += 1
-    return dtw, dtb, dw_ext[:k], dw_ext[k]
+    return dt_grads[0], dt_grads[1], dw_ext[:k], dw_ext[k]
 
 
 class _TimeChannel(torch.autograd.Function):

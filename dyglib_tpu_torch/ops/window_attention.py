@@ -12,8 +12,9 @@ block. The forward (``csrc/attention_core.cuh``, as in
 ``ops/gathered_attention.py``) stages exactly those rows once per query with
 16-byte loads, times the mask in shared memory (a masked row is not read:
 it becomes the zero row the gather path reads), and computes Phi(dt) beside
-them, each cosine once, with the rounding and accurate cosine of
-``csrc/phi.cuh``; it never projects a kv row, and the gathered features,
+them, each cosine once, with the rounding of ``csrc/phi.cuh`` and the
+cosine of ``csrc/cos_reduced.cuh`` (cosf's bits without its slow path); it
+never projects a kv row, and the gathered features,
 the time features and key and val exist nowhere. None of the JAX kernel's
 Mosaic aids is needed: no 8-row-aligned superset windows
 (``_expand_to_aligned``), no keep rescale, no zero weight rows for a
@@ -35,8 +36,9 @@ a 344-wide table, Dt = 100, Dq = 272), f32 on CUDA cores: as the gathered
 kernel's, forward 6.7 G operations -> 0.099 ms, backward 16.4 G -> 0.245
 ms; the valid window rows read (at most 330 MB) -> 0.099 ms.
 
-What the simple design leaves on the table: as ``ops/gathered_attention.py``
-(CUDA-core f32; qk and Av through device memory between launches).
+What the design leaves on the table: as ``ops/gathered_attention.py``
+(CUDA-core f32 per-head products; qk and Av through device memory between
+launches).
 """
 from __future__ import annotations
 
@@ -50,7 +52,7 @@ _ARGTYPES = (
     + [_build.I] * 6 + [_build.F, _build.P]
 )
 _BWD_ARGTYPES = (
-    [_build.P] * 9 + [_build.I] * 2 + [_build.P] + [_build.I] * 2 + [_build.P] * 10
+    [_build.P] * 9 + [_build.I] * 2 + [_build.P] + [_build.I] * 2 + [_build.P] * 8
     + [_build.I] * 6 + [_build.F, _build.I, _build.P]
 )
 
@@ -162,22 +164,23 @@ def window_attention_backward(q3, starts, dt, mask, keep, table, tw, tb, wkv, do
         return (torch.empty((0, dq), dtype=f32, device=dev), torch.zeros_like(tw),
                 torch.zeros_like(tb), torch.zeros_like(wk), torch.zeros_like(wv))
     kv_dim = width + dt_dim
-    scratch, partial, chunk = _attention.backward_scratch(m, k, kv_dim, dq, num_heads, dev)
+    scratch, partial, chunk = _attention.backward_scratch(m, k, kv_dim, dq, num_heads, dev,
+                                                              dt_dim)
     new = lambda *shape: torch.empty(shape, dtype=f32, device=dev)
-    part_tw, part_tb = new(m, dt_dim), new(m, dt_dim)
-    dq3, dwk, dwv, dtw, dtb = new(m, dq), new(kv_dim, dq), new(kv_dim, dq), new(dt_dim), new(dt_dim)
+    part = new(m, 2, dt_dim)  # per query: dtw's and dtb's sums
+    dq3, dwk, dwv, dt_grads = new(m, dq), new(kv_dim, dq), new(kv_dim, dq), new(2, dt_dim)
     lib = _build.load(_NAME, "window_attention_backward", _BWD_ARGTYPES)
     rc = lib.window_attention_backward(
         q3.data_ptr(), table.data_ptr(), starts.data_ptr(), dt.data_ptr(), tw.data_ptr(),
         tb.data_ptr(), mask.data_ptr(), keep.data_ptr(), wk.data_ptr(), wk_sk, wk_sn,
         wv.data_ptr(), wv_sk, wv_sn, dout.data_ptr(), scratch.data_ptr(), partial.data_ptr(),
-        part_tw.data_ptr(), part_tb.data_ptr(), dq3.data_ptr(), dwk.data_ptr(), dwv.data_ptr(),
-        dtw.data_ptr(), dtb.data_ptr(), m, k, width, dt_dim, dq, num_heads,
+        part.data_ptr(), dq3.data_ptr(), dwk.data_ptr(), dwv.data_ptr(), dt_grads.data_ptr(),
+        m, k, width, dt_dim, dq, num_heads,
         _attention.head_scale(dq, num_heads), chunk, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, f"{_NAME} backward")
     window_attention_backward.launches += 1
-    return dq3, dtw, dtb, dwk, dwv
+    return dq3, dt_grads[0], dt_grads[1], dwk, dwv
 
 
 class _WindowAttention(torch.autograd.Function):

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time DyGFormer's time-channel forward, co-occurrence and window-fetch
-kernels on one card, by CUDA-graph replay (device time).
+"""Time DyGFormer's time-channel forward and backward, co-occurrence and
+window-fetch kernels on one card, by CUDA-graph replay (device time).
 
     python3 scripts/time_dygformer_kernels.py [--repo DIR] [--rounds N]
 
@@ -19,6 +19,11 @@ a seeded generator, identical in every tree:
     argument reduction. The difference between the two is what the slow
     path costs. And the kernel with every position masked (no cosine
     taken where the kernel skips masked positions): the product alone.
+  * time_channel_bwd: ``time_channel_backward`` (dout ~ 1e-3 N(0, 1)); its
+    partial library yardstick, the two products alone on a precomputed
+    Phi, ``torch.mm(Phi^T, dout)`` and ``torch.mm(dout, W^T)`` (no sines,
+    no sums over rows of dtw and dtb, Phi's cosines not timed); and the
+    kernel with every position masked (the dbias product alone).
   * cooccurrence: the self launch (600 rows, q = k) and the cross launch
     (800 rows), half of each row pads (id 0).
   * window_fetch: ``fetch_sequence_features`` against ``index_select`` of
@@ -119,6 +124,10 @@ def calls_for(config, lp, patch, dev, ops, spectrum):
     from dyglib_tpu_torch.ops.window_fetch import window_rows
 
     idx = window_rows(tgts, starts, counts, lp).view(-1)
+    # drawn last, so that every earlier input is what it was before
+    dout = 1e-3 * torch.randn((m, lp // patch, CED), device=dev, generator=gen)
+    phi = torch.where(valid[..., None], torch.cos(dt[..., None] * tw + tb), 0.0).view(rows, k)
+    g2 = dout.view(rows, CED)
     return {
         "time_channel": lambda: ops.time_channel_projection(dt, valid, tw, tb, w, bias, patch),
         "time_channel_library": library_time_channel,
@@ -126,6 +135,10 @@ def calls_for(config, lp, patch, dev, ops, spectrum):
             dt, valid, small_tw, tb, w, bias, patch),
         "time_channel_none_valid": lambda: ops.time_channel_projection(
             dt, none_valid, tw, tb, w, bias, patch),
+        "time_channel_bwd": lambda: ops.time_channel_backward(dt, valid, tw, tb, w, dout, patch),
+        "time_channel_bwd_library_partial": lambda: (torch.mm(phi.t(), g2), torch.mm(g2, w.t())),
+        "time_channel_bwd_none_valid": lambda: ops.time_channel_backward(
+            dt, none_valid, tw, tb, w, dout, patch),
         "cooccurrence_self": lambda: ops.cooccurrence_counts(q_self, q_self),
         "cooccurrence_cross": lambda: ops.cooccurrence_counts(ids, partner),
         "window_fetch": lambda: ops.fetch_sequence_features(table, tgts, starts, counts, lp,
@@ -200,7 +213,7 @@ def main() -> int:
                 entry[name].append(graph_ms(calls[name]))
         results[config] = entry
         for name, times in entry.items():
-            print(f"{config:<10} {name:<26} device {['%.5f' % t for t in times]} ms", flush=True)
+            print(f"{config:<10} {name:<34} device {['%.5f' % t for t in times]} ms", flush=True)
         del calls
         torch.cuda.empty_cache()
     co = importlib.import_module("dyglib_tpu_torch.ops.cooccurrence")

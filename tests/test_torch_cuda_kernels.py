@@ -16,7 +16,11 @@ id, more queries than one 256-thread
 block, the time channel's Dt padding (1, 6, 100, 101), ced 1 to 130,
 all-masked rows and dt from 0 to 1e8, both weight layouts the
 GEMM kernels read (row-major (K, ced) and nn.Linear's (ced, K) transposed),
-and the wrappers' refusals.
+and the wrappers' refusals; the time channel's backward with every
+position masked, theta past 2^40 and Dt 1 to 128; the attention
+backwards at K 1, 33 and 96, with every query masked, and with one head
+and four; the reduced cosine and sine bit for bit against torch.cos and
+torch.sin.
 
 Tolerances: time_channel and patch_projection atol 1e-4 (both sides are
 f32; they differ only in the order of the f32 sums, K <= 11,008 products
@@ -321,6 +325,72 @@ def test_reduced_cosine_is_torch_cos_bit_for_bit(dev, tmp_path):
         assert torch.isnan(y[:3]).all() and y[3] == want[3]
 
 
+_SINE_PROBE = r"""
+#include "cos_reduced.cuh"
+// c[i], s[i] = cos(x[i]), -sin(x[i]) as the backward kernels take them:
+// per element by the path its size allows (mode 0), or four arguments a
+// thread through the warp-wide choice of sincos_reduced<4> (mode 1; n a
+// multiple of 4 * 32)
+extern "C" __global__ void sine(const float* x, float* c, float* s, int n, int mode) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (mode == 0) {
+    if (i >= n) return;
+    const float v = x[i];
+    if (fabsf(v) < dyglib::kSmallLimit) {
+      dyglib::sincos_small(v, c[i], s[i]);
+    } else if (fabsf(v) < dyglib::kReducedLimit) {
+      dyglib::sincos_large(v, c[i], s[i]);
+    } else {
+      float sv;
+      sincosf(v, &sv, c + i);
+      s[i] = -sv;
+    }
+    return;
+  }
+  if (4 * (i - threadIdx.x % 32) >= n) return;  // whole warps only
+  dyglib::sincos_reduced<4>(x + 4 * i, c + 4 * i, s + 4 * i);
+}
+extern "C" int run(const float* x, float* c, float* s, int n, int mode) {
+  const int threads = mode == 0 ? n : n / 4;
+  sine<<<(threads + 255) / 256, 256>>>(x, c, s, n, mode);
+  return static_cast<int>(cudaDeviceSynchronize());
+}
+"""
+
+
+def test_reduced_sine_is_torch_sin_bit_for_bit(dev, tmp_path):
+    """csrc/cos_reduced.cuh's sincos against torch.sin and torch.cos on the
+    card (the library's sinf and cosf, the plain backward's): -(-sin) and
+    cos equal in every bit, on each path and through the warp-wide choice,
+    for |x| from 0 to 1e9 (both sides of the fast range at 105615) and
+    past 2^40, and nan at inf and nan. The sine is the cosine's kernel one
+    quadrant lower, as the library builds sinf."""
+    import ctypes
+    import subprocess
+
+    from dyglib_tpu_torch.ops import _build
+
+    src, lib_path = tmp_path / "sine.cu", tmp_path / "libsine.so"
+    src.write_text(_SINE_PROBE)
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR), "-o",
+                    str(lib_path), str(src)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.run.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int]
+    gen = torch.Generator(device=dev).manual_seed(6)
+    parts = [torch.empty(1 << 20, device=dev).uniform_(lo, hi, generator=gen)
+             for lo, hi in ((0, 1), (1, 1e3), (1e3, 105615), (105000, 106000), (105615, 1e6),
+                            (1e6, 1e9), (1e12, 1e13))]
+    x = torch.cat(parts + [-p for p in parts])
+    x[:4] = torch.tensor([float("inf"), float("-inf"), float("nan"), 105615.0])
+    want_sin, want_cos = torch.sin(x), torch.cos(x)
+    for mode in (0, 1):
+        c, ms = torch.empty_like(x), torch.empty_like(x)
+        assert lib.run(x.data_ptr(), c.data_ptr(), ms.data_ptr(), x.numel(), mode) == 0
+        assert torch.equal(-ms[4:], want_sin[4:])
+        assert torch.equal(c[4:], want_cos[4:])
+        assert torch.isnan(ms[:3]).all() and torch.isnan(c[:3]).all()
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     """Wrong dtype, non-contiguous or mismatched operands raise before any
     launch; nothing falls back to the plain version."""
@@ -409,6 +479,52 @@ def test_time_channel_backward_kernel_matches_plain(
     for a, b in zip(got, again):  # the two-pass reduction is deterministic
         assert torch.equal(a, b)
     _assert_grads_close(got, want, _abs_terms_time(*args), ("dtw", "dtb", "dW", "dbias"))
+
+
+# the backward's edges (csrc/time_channel.cu): every position masked (dbias
+# alone), rows that fill no 32-row stage or 128-entry tile evenly, theta
+# past cosf's fast range (dt 1e6) and past 2^40 (dt 1e13: the library's
+# sincosf), Dt 8 and 128 (no padding) and 1, 6, 101 (padded), ced 1, 7
+# (4-byte dout copies), 57 and 130 (column tiles), no rows and one row.
+# (seed, M, L, patch, Dt, ced, dt scale, tb shift, masked rows)
+TIME_BWD_EDGE_CASES = [
+    (30, 12, 2048, 64, 100, 50, 1e6, 0.0, 12),  # every position masked
+    (31, 7, 2048, 64, 100, 50, 1e6, 0.0, 3),  # 224 rows, some masked
+    (32, 33, 32, 1, 100, 50, 1e6, 0.0, 0),  # 1056 rows, patch 1
+    (33, 5, 256, 8, 100, 50, 1e13, 0.0, 0),  # theta past 2^40
+    (34, 9, 64, 8, 8, 7, 1e6, 0.0, 0),  # Dt 8, ced 7
+    (35, 6, 64, 2, 128, 57, 1e6, -3.0, 0),  # Dt 128, two column tiles, tb < 0
+    (36, 40, 32, 1, 1, 1, 1e6, 0.0, 0),  # Dt 1, ced 1
+    (37, 11, 64, 8, 101, 130, 1e8, 0.0, 2),  # Dt 101, three column tiles
+    (38, 0, 64, 8, 100, 50, 1e6, 0.0, 0),  # no rows: zero gradients
+    (39, 1, 2048, 64, 100, 50, 1e6, 0.0, 0),  # one row at K = 6400
+    (40, 3, 24, 4, 6, 9, 1e2, 0.0, 0),  # ragged everything, Dt 6
+]
+
+
+@pytest.mark.parametrize("seed,m,l,patch,dt_dim,ced,scale,tb_shift,masked",
+                         TIME_BWD_EDGE_CASES)
+def test_time_channel_backward_kernel_edges(dev, seed, m, l, patch, dt_dim, ced, scale,
+                                            tb_shift, masked):
+    """Within GRAD_RTOL of the plain backward's sums of |terms|, a second
+    launch bitwise equal to the first."""
+    dt, valid, tw, tb, w, _ = _time_inputs(dev, seed, m, l, patch, dt_dim, ced, scale,
+                                           tb_shift, masked)
+    dout = torch.from_numpy(
+        np.random.RandomState(seed + 1).randn(m, l // patch, ced).astype(np.float32)).to(dev)
+    args = (dt, valid, tw, tb, _layout(w, "linear"), dout, patch)
+    before = ops.time_channel_backward.launches
+    got = ops.time_channel_backward(*args)
+    again = ops.time_channel_backward(*args)
+    assert ops.time_channel_backward.launches == before + 2
+    want = ops.time_channel_backward_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+        assert torch.isfinite(a).all()
+    _assert_grads_close(got, want, _abs_terms_time(*args), ("dtw", "dtb", "dW", "dbias"))
+    if masked >= m:
+        assert not got[0].any() and not got[1].any() and not got[2].any()
 
 
 # (seed, M, Lp, D, patch, ced, input scale, offset), as PATCH_CASES
@@ -752,6 +868,51 @@ def test_window_attention_backward_kernel_matches_plain(dev, seed, m, k, dn, de,
             (t["wk"], t["wv"]), dout.to(dev), heads)
     _backward_checked(ops.window_attention_backward, ops.window_attention_backward_plain,
                       args, ("dq3", "dtw", "dtb", "dwk", "dwv"))
+
+
+# the backward query kernel's edges (csrc/attention_bwd.cuh): K 1, 33 (a
+# second pass of the softmax warp's lanes) and 96 at the published widths
+# (the largest K whose rows and sines fit one block), every query masked, a
+# mask of 0.5 on some rows (the window kernel scales its rows by the mask),
+# one head and four. (seed, M, K, dn, de, Dt, Dq, heads, mask)
+ATTN_BWD_EDGE_CASES = [
+    (20, 40, 1, 172, 172, 100, 272, 2, "random"),
+    (21, 30, 33, 172, 172, 100, 272, 2, "random"),
+    (22, 12, 96, 172, 172, 100, 272, 2, "random"),
+    (23, 25, 20, 172, 172, 100, 272, 2, "none"),
+    (24, 50, 20, 172, 172, 100, 272, 1, "random"),
+    (25, 50, 33, 172, 172, 100, 272, 4, "random"),
+    (26, 30, 20, 172, 172, 100, 272, 2, "halves"),
+]
+
+
+@pytest.mark.parametrize("kernel", ["temporal", "gathered", "window"])
+@pytest.mark.parametrize("seed,m,k,dn,de,dt_dim,dq,heads,mask", ATTN_BWD_EDGE_CASES)
+def test_attention_backward_kernels_at_edges(dev, kernel, seed, m, k, dn, de, dt_dim, dq, heads,
+                                             mask):
+    t = _attention_case(dev, seed, m, k, dn, de, dt_dim, dq, heads)
+    if mask == "none":
+        t["mask"].zero_()
+    elif mask == "halves":
+        t["mask"][::2] *= 0.5
+    dout = torch.from_numpy(np.random.RandomState(seed + 50).randn(m, dq).astype(np.float32))
+    dout = dout.to(dev)
+    grads = ("dq3", "dtw", "dtb", "dwk", "dwv")
+    if kernel == "temporal":
+        args = (t["q3"], t["nbr"], t["edge"], t["phi"], t["mask"], t["keep"], t["wk"], t["wv"],
+                dout, None, heads)
+        _backward_checked(ops.temporal_attention_backward, ops.temporal_attention_backward_plain,
+                          args, ("dq3", "dnbr", "dedge", "dphi", "dwk", "dwv"))
+    elif kernel == "gathered":
+        args = (t["q3"], t["nbr"].reshape(m * k, dn), t["edge"].reshape(m * k, de), t["dt"],
+                t["mask"], t["keep"], (t["tw"], t["tb"]), (t["wk"], t["wv"]), dout, heads)
+        _backward_checked(ops.gathered_attention_backward,
+                          ops.gathered_attention_backward_plain, args, grads)
+    else:
+        args = (t["q3"], t["starts"], t["dt"], t["mask"], t["keep"], t["table"], t["tw"],
+                t["tb"], (t["wk"], t["wv"]), dout, heads)
+        _backward_checked(ops.window_attention_backward, ops.window_attention_backward_plain,
+                          args, grads)
 
 
 @pytest.mark.parametrize("layout", ["rows", "linear_slice"])
