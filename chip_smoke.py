@@ -28,10 +28,12 @@ and prints no result):
      function (for TGAT's attention kernels only a part of it, the K/V
      products); the patch projection's and the time channel's forward
      and backward launched twice, bitwise equal; compute each bound
-     from bytes and operations (the patch projection's and the time
-     channel's: three TF32 passes at the tensor cores' peak, and for the
-     time channel its cosines (and the backward's sines) at the SFU's
-     rate; every other kernel's at the f32 peak; for TGAT's
+     from bytes and operations (the patch projection's, the time
+     channel's and the Phi projection's: three TF32 passes at the tensor
+     cores' peak, and for the time channel and the Phi projection their
+     cosines (and the backwards' sines) at the SFU's rate, the Phi
+     projection at R = 12,000 and 240,000, its two launches bitwise
+     equal; every other kernel's at the f32 peak; for TGAT's
      attention kernels, the operations the function needs, reassociated
      as the kernels compute it: no kv row projected; their forwards
      launched twice, bitwise equal); the same for TGAT's four backward
@@ -113,9 +115,10 @@ PEAK_TF32_OPS = 495e12
 PEAK_BYTES = 3.35e12
 # the SFU's cosines: 16 a clock on each of 132 SMs at the 1.98 GHz boost
 PEAK_SFU_OPS = 16 * 132 * 1.98e9
-# the patch projection's kernels and the time channel's forward multiply on
-# the tensor cores in three TF32 passes (split operands, f32 accuracy):
-# their operations are 3x the product's, at the TF32 peak
+# the patch projection's, the time channel's and the Phi projection's
+# kernels multiply on the tensor cores in three TF32 passes (split
+# operands, f32 accuracy): their operations are 3x the product's, at the
+# TF32 peak
 SPLIT_TF32_PASSES = 3
 # kernel vs plain version, f32: the two differ only in the order of their
 # f32 sums (K <= 11008 products of O(1) values), ~1e-6 in practice
@@ -523,10 +526,10 @@ def check_tgat_kernels(data, dev) -> dict:
     evaluation gives them (the B = 200 triple: M0 = 600 queries, K = 20):
     temporal attention at layer 2 (M = 600), gathered and window attention
     at layer 1, hop 1 (M = 12,000, 240,000 kv rows; window attention reads
-    the stream's feat_entry), the Phi projection at R = 240,000. Inputs are
-    the sampled batch's (features, time deltas, masks, windows) and the
-    seed-0 weights. Each attention forward launched twice must give bitwise
-    equal outputs. The library yardstick is partial: the plain path's two
+    the stream's feat_entry), the Phi projection at R = 12,000 and
+    240,000. Inputs are the sampled batch's (features, time deltas, masks,
+    windows) and the seed-0 weights. Each attention forward and the Phi
+    projection launched twice must give bitwise equal outputs. The library yardstick is partial: the plain path's two
     K/V torch.mm's on the materialized kv (for the Phi projection, torch.mm
     on a precomputed Phi), timed alone."""
     import torch
@@ -551,15 +554,17 @@ def check_tgat_kernels(data, dev) -> dict:
         mask = inputs.hop_mask[h].reshape(m, k).float()
         return q3.contiguous(), dt, mask, torch.ones((m, heads, k), device=dev)
 
-    def record(kernel, part, err, fn, plain, lib, nbytes, nops, iters):
+    def record(kernel, part, err, fn, plain, lib, nbytes, nops, iters, ops_peak=PEAK_F32_OPS,
+               sfu=0):
         entry = dict(part=part, max_abs_err=err, ms=cuda_ms(fn, iters, 3),
                      plain_ms=cuda_ms(plain, iters, 3), library_ms=cuda_ms(lib, iters, 3),
-                     bytes=nbytes, ops=nops)
-        results[(kernel, "tgat")] = {"parts": [entry]}
+                     bytes=nbytes, ops=nops, ops_peak=ops_peak, sfu_ops=sfu)
+        results.setdefault((kernel, "tgat"), {"parts": []})["parts"].append(entry)
         what = "Phi @ W mm" if kernel == "phi_projection" else "K/V mm's"
+        b_ms, b_by = bound_ms(nbytes, nops, ops_peak)
         log(f"  {kernel:<20} {part:<26} err {err:.3g}  kernel {entry['ms']:.4f} ms  "
             f"plain {entry['plain_ms']:.4f} ms  library (partial: {what}) "
-            f"{entry['library_ms']:.4f} ms")
+            f"{entry['library_ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
 
     def compare(kernel, fn, plain, repeat=False):
         """Hold the kernel's outputs to the plain version's; with repeat, a
@@ -634,17 +639,22 @@ def check_tgat_kernels(data, dev) -> dict:
                lib, nbytes, fwd_ops(m) + theta_ops + m * k * 2 * FEAT, 5)
         del feat_n, feat_e, kv, args
 
-        # ---- Phi projection, R = 240,000 (hop 1's deltas), Wk's Phi rows
-        dt_flat, w_phi = dt.reshape(-1), wk[2 * FEAT:]
-        r = dt_flat.shape[0]
-        args = (dt_flat, tw, tb, w_phi)
-        err = compare("phi_projection", lambda: ops.phi_projection(*args),
-                      lambda: ops.phi_projection_plain(*args))
-        phi = torch.cos(dt_flat[:, None] * tw + tb)
-        record("phi_projection", f"R{r} Dt{DT_DIM} Dq{dq}", err,
-               lambda: ops.phi_projection(*args), lambda: ops.phi_projection_plain(*args),
-               lambda: torch.mm(phi, w_phi), 4 * (r + 2 * DT_DIM + DT_DIM * dq + r * dq),
-               2 * r * DT_DIM * dq + 2 * r * DT_DIM, 10)
+        # ---- Phi projection, R = 12,000 and 240,000 (hop 0's and hop 1's
+        # deltas), Wk's Phi rows; its products on the tensor cores in three
+        # TF32 passes, its cosines at the SFU's rate
+        for h in (0, 1):
+            dt_flat, w_phi = hop(h)[1].reshape(-1), wk[2 * FEAT:]
+            r = dt_flat.shape[0]
+            args = (dt_flat, tw, tb, w_phi)
+            err = compare("phi_projection", lambda: ops.phi_projection(*args),
+                          lambda: ops.phi_projection_plain(*args), repeat=True)
+            phi = torch.cos(dt_flat[:, None] * tw + tb)
+            record("phi_projection", f"R{r} Dt{DT_DIM} Dq{dq}", err,
+                   lambda: ops.phi_projection(*args), lambda: ops.phi_projection_plain(*args),
+                   lambda: torch.mm(phi, w_phi), 4 * (r + 2 * DT_DIM + DT_DIM * dq + r * dq),
+                   SPLIT_TF32_PASSES * 2 * r * DT_DIM * dq, 10 if h else 50,
+                   ops_peak=PEAK_TF32_OPS, sfu=r * DT_DIM)
+            del phi, args
     del net, tables, csr, inputs
     torch.cuda.empty_cache()
     return results
@@ -655,9 +665,9 @@ def check_tgat_backward_kernels(data, dev) -> dict:
     gives them (the B = 200 triple, K = 20, dropout keep masks at p = 0.1):
     temporal attention at layer 2 (M = 600), gathered and window attention
     at layer 1 on hop 0 (M = 600) and hop 1 (M = 12,000, 240,000 kv rows),
-    the Phi projection at R = 240,000. Each against its plain backward
-    (every gradient within GRAD_RTOL of its sum of |terms|), a second launch
-    bitwise equal to the first. The library yardstick is partial: the two
+    the Phi projection at R = 12,000 and 240,000. Each against its plain
+    backward (every gradient within GRAD_RTOL of its sum of |terms|), a
+    second launch bitwise equal to the first. The library yardstick is partial: the two
     weight-gradient torch.mm's on the materialized kv and dkey / dval (for
     the Phi projection, Phi^T @ dout and dout @ w^T on a precomputed Phi),
     timed alone; the port never calls them. Bounds count the operations
@@ -690,7 +700,8 @@ def check_tgat_backward_kernels(data, dev) -> dict:
         dout = 1e-3 * torch.randn((m, dq), device=dev, generator=gen)
         return q3.detach().contiguous(), dt, mask, keep, dout
 
-    def check(kernel, part, bwd, plain, args, lib, nbytes, nops, iters):
+    def check(kernel, part, bwd, plain, args, lib, nbytes, nops, iters, ops_peak=PEAK_F32_OPS,
+              sfu=0):
         """Hold the backward kernel to its plain backward, time the three."""
         got = bwd(*args)
         again = bwd(*args)
@@ -707,11 +718,13 @@ def check_tgat_backward_kernels(data, dev) -> dict:
         del got, again, want, terms
         entry = dict(part=part, max_abs_err=err, ms=cuda_ms(lambda: bwd(*args), iters, 3),
                      plain_ms=cuda_ms(lambda: plain(*args), iters, 3),
-                     library_ms=cuda_ms(lib, iters, 3), bytes=nbytes, ops=nops)
+                     library_ms=cuda_ms(lib, iters, 3), bytes=nbytes, ops=nops,
+                     ops_peak=ops_peak, sfu_ops=sfu)
         results.setdefault((kernel, "tgat"), {"parts": []})["parts"].append(entry)
+        b_ms, b_by = bound_ms(nbytes, nops, ops_peak)
         log(f"  {kernel:<24} {part:<24} err {err:.3g} ({rel:.3g} of sum|terms|)  kernel "
             f"{entry['ms']:.4f} ms  plain {entry['plain_ms']:.4f} ms  library (partial: weight "
-            f"gradient mm's) {entry['library_ms']:.4f} ms")
+            f"gradient mm's) {entry['library_ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
 
     def weight_grad_mms(kv, q3, mask, keep, dout, wkv):
         """The partial yardstick's operands: kv (R, Dkv), dkey, dval (R, Dq)."""
@@ -773,16 +786,21 @@ def check_tgat_backward_kernels(data, dev) -> dict:
             del feat_n, feat_e, kv, lib, args
             torch.cuda.empty_cache()
 
-        # ---- Phi projection, R = 240,000 (hop 1's deltas), Wk's Phi rows
-        dt_flat, w_phi = dt.reshape(-1), wk[2 * FEAT:]
-        r = dt_flat.shape[0]
-        dout = 1e-3 * torch.randn((r, dq), device=dev, generator=gen)
-        phi = torch.cos(dt_flat[:, None] * tw + tb)
-        check("phi_projection_bwd", f"R{r} Dt{DT_DIM} Dq{dq}", ops.phi_projection_backward,
-              ops.phi_projection_backward_plain, (dt_flat, tw, tb, w_phi, dout),
-              lambda: (torch.mm(phi.t(), dout), torch.mm(dout, w_phi.t())),
-              4 * (r + 4 * DT_DIM + 2 * DT_DIM * dq + r * dq),
-              4 * r * DT_DIM * dq + 7 * r * DT_DIM, 10)
+        # ---- Phi projection, R = 12,000 and 240,000 (hop 0's and hop 1's
+        # deltas), Wk's Phi rows; both products on the tensor cores in three
+        # TF32 passes, a (cosine, sine) pair per element at the SFU's rate
+        for h in (0, 1):
+            dt_flat, w_phi = hop(h)[1].reshape(-1), wk[2 * FEAT:]
+            r = dt_flat.shape[0]
+            dout = 1e-3 * torch.randn((r, dq), device=dev, generator=gen)
+            phi = torch.cos(dt_flat[:, None] * tw + tb)
+            check("phi_projection_bwd", f"R{r} Dt{DT_DIM} Dq{dq}", ops.phi_projection_backward,
+                  ops.phi_projection_backward_plain, (dt_flat, tw, tb, w_phi, dout),
+                  lambda: (torch.mm(phi.t(), dout), torch.mm(dout, w_phi.t())),
+                  4 * (r + 4 * DT_DIM + 2 * DT_DIM * dq + r * dq),
+                  SPLIT_TF32_PASSES * 4 * r * DT_DIM * dq, 10 if h else 50,
+                  ops_peak=PEAK_TF32_OPS, sfu=2 * r * DT_DIM)
+            del dout, phi
     del net, tables, csr, inputs
     torch.cuda.empty_cache()
     return results

@@ -42,6 +42,7 @@
 #include "cos_reduced.cuh"
 #include "patch_gemm.cuh"
 #include "phi.cuh"
+#include "tiled_gemm.cuh"
 
 namespace dyglib {
 

@@ -1,10 +1,9 @@
 // One output tile of  out = A @ B  in float32 on CUDA cores.
 //
 // A is never read from a tensor by this code: a loader functor yields
-// A(i, k), so the same tile serves a plain row-major operand (the
-// attention kernels' rows), an operand computed on the fly (phi_projection:
-// A(r, k) = cos(dt * tw + tb), which never exists in device memory), and
-// the transposed features of the weight gradients (weight_grad.cuh). Each A loader declares a
+// A(i, k), so the same tile serves the attention kernels' per-head
+// products: row-major operands and, in the backward's weight gradients,
+// transposed ones (attention_bwd.cuh). Each A loader declares a
 // compile-time `k_fast`: true when consecutive k are consecutive
 // addresses (then consecutive threads stage consecutive k of one row),
 // false when consecutive i are; either way a warp's reads are coalesced.

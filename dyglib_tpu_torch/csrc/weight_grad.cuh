@@ -1,69 +1,21 @@
-// Weight and bias gradients of a projection  out = A @ W + bias, summed
-// over its rows, deterministically:
+// The second pass of the port's deterministic sums over rows.
 //
-//   dW_ext (K + 1, n) = [A | 1]^T @ dout,  rows 0..K-1 = dW, row K = dbias
-//
-// A(r, i) is the forward's input (a feature functor, i < K), dout (rows, n)
-// row-major. The ones column turns dbias = sum_r dout[r] into one more
-// output row of the same product.
-//
-// The sum runs over every row of the forward (19,200 at the CanParl
-// training shapes). A Pallas grid carries such a sum from one step to the
-// next in its output block; Hopper's blocks run in no order, so it is
-// split instead. The choice here is a deterministic two-pass reduction,
-// not float atomics, so that two runs give bit-identical gradients:
-//   pass 1: block (i tile, column tile, row chunk z) sums its chunk's
-//           rows into partial[z] (K + 1, n), scratch the wrapper allocates;
-//   pass 2: strided_sum adds the chunks in a fixed order.
-// The chunk size is the wrapper's (ops/_build.py weight_grad_chunk_rows):
-// enough chunks that pass 1 fills the card.
+// A sum over every row of a forward (a weight gradient over 240,000 kv
+// rows, dtw and dtb over every position) is split into row chunks: Hopper's
+// blocks run in no order, where a Pallas grid carries such a sum from one
+// step to the next in its output block. Each chunk's block writes its
+// partial sum to scratch the wrapper allocates, and strided_sum adds the
+// chunks in a fixed order, not by float atomics, so that two runs give
+// bit-identical gradients. Its users: the time channel's and the Phi
+// projection's backward (time_channel_bwd.cuh), the patch projection's
+// (patch_projection.cu) and the attention backward's weight gradients
+// (attention_bwd.cuh, whose chunks ops/_build.py weight_grad_chunk_rows
+// sizes).
 #pragma once
 
-#include "tiled_gemm.cuh"
+#include "common.cuh"
 
 namespace dyglib {
-
-// A^T with a ones row appended: T(i, r) = A(r, i) for i < K, 1 for i == K.
-// Consecutive i of the features read here are consecutive addresses (or
-// consecutive lanes of one computed row), so the staging walks i fastest.
-template <class Feature>
-struct TransposedWithOnes {
-  static constexpr bool k_fast = false;
-  Feature feature;
-  int k_total;
-
-  __device__ __forceinline__ float operator()(int i, int r) const {
-    return i < k_total ? feature(r, i) : 1.f;
-  }
-};
-
-template <class Feature>
-__global__ void __launch_bounds__(kThreads)
-    weight_grad_partial_kernel(Feature feature, const float* __restrict__ dout,
-                               float* __restrict__ partial, int rows, int k_total, int n,
-                               int chunk_rows) {
-  const int r_begin = blockIdx.z * chunk_rows;
-  const int r_end = min(rows, r_begin + chunk_rows);
-  const int out_rows = k_total + 1;
-  const int row0 = blockIdx.x * kBM;
-  const int col0 = blockIdx.y * kBN;
-  float acc[kTM][kTN];
-  gemm_tile<kBRowMajor>(TransposedWithOnes<Feature>{feature, k_total}, dout, n, 1, out_rows, n,
-                        r_begin, r_end, row0, col0, acc);
-  float* out = partial + static_cast<size_t>(blockIdx.z) * out_rows * n;
-  const int ty = threadIdx.x / kThreadCols;
-  const int tx = threadIdx.x % kThreadCols;
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int r = row0 + ty + i * kThreadRows;
-    if (r >= out_rows) continue;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int c = col0 + tx + j * kThreadCols;
-      if (c < n) out[static_cast<size_t>(r) * n + c] = acc[i][j];
-    }
-  }
-}
 
 // out[c] = sum over s < count of in[s * cols + c]. Lane y of a column
 // adds s = y, y + kLanes, ... in order; the lanes are then combined by a
@@ -110,24 +62,6 @@ inline cudaError_t launch_strided_sum(const float* in, float* out, int count, in
     strided_sum_kernel<kSumCols, kSumLanes>
         <<<blocks, dim3(kSumCols, kSumLanes), 0, stream>>>(in, out, count, cols);
   return cudaGetLastError();
-}
-
-// Both passes: dw_ext (k_total + 1, n) from partial (ceil(rows / chunk_rows),
-// k_total + 1, n). With no rows the gradient is zero.
-template <class Feature>
-inline cudaError_t launch_weight_grad(Feature feature, const float* dout, float* partial,
-                                      float* dw_ext, int rows, int k_total, int n,
-                                      int chunk_rows, cudaStream_t stream) {
-  const int out_rows = k_total + 1;
-  if (rows == 0)
-    return cudaMemsetAsync(dw_ext, 0, sizeof(float) * out_rows * static_cast<size_t>(n), stream);
-  const int chunks = (rows + chunk_rows - 1) / chunk_rows;
-  const dim3 grid((out_rows + kBM - 1) / kBM, (n + kBN - 1) / kBN, chunks);
-  weight_grad_partial_kernel<<<grid, kThreads, 0, stream>>>(feature, dout, partial, rows,
-                                                            k_total, n, chunk_rows);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_strided_sum(partial, dw_ext, chunks, out_rows * n, stream);
 }
 
 }  // namespace dyglib

@@ -46,7 +46,8 @@ CanParl the mma.sync products alone take ~0.35 ms and the cosines ~0.19
 more (PERF.md), 7x the bound; wgmma with Phi staged through shared memory,
 or fewer registers for more warps an SM, are the next steps.
 
-The backward (``csrc/time_channel.cu``) is one kernel for both of its
+The backward (``csrc/time_channel_bwd.cuh``, which the Phi projection's
+backward shares without the mask and dbias) is one kernel for both of its
 products, dW_ext = [Phi | 1]^T dout and dPhi = dout W^T, in the same split
 TF32: a block owns 128 padded K entries and reduces over a chunk of rows
 (``backward_chunk_rows``), each thread's (row, entry) pairs the same in

@@ -2,14 +2,21 @@
 """Where the time of the PyTorch port's evaluation or training goes, on one card.
 
     python3 scripts/profile_torch_eval.py [--model dygformer|tgat] [--mode eval|train]
-                                          [--batches 10]
+                                          [--batches 10] [--configs NAMES] [--repo DIR]
 
 Same setting as chip_smoke.py (synthetic wikipedia-scale stream, seed 1;
 random weights, seed 0; B = 200). DyGFormer: the wikipedia (maxlen 32,
 patch 1) and CanParl (maxlen 2048, patch 64) configurations, kernel path.
 TGAT: the published widths (K = 20, 2 layers, 2 heads, Dt = 100), the
 default kernel path (gathered attention at layer 1, fused attention at
-layer 2; in training their backward kernels too) and the plain path. For each configuration it traces, with torch.profiler, one
+layer 2; in training their backward kernels too), the plain path and the
+Phi fusion (``use_phi_fusion=True``: the Phi projection's kernels, two a
+convolution). ``--configs`` picks configurations by name (comma-separated,
+e.g. "TGAT Phi fusion"); ``--repo`` names the tree whose
+``dyglib_tpu_torch`` is run (default: this checkout), so that two trees
+run by one command in turns compare on one card. For each configuration
+it first times the same sweep twice with no profiler (host clock, ending
+in a synchronize: ``ms_per_batch``), then traces, with torch.profiler, one
 ``evaluate`` sweep over the first val batches (``--mode eval``, random val
 negatives) or one ``train_epoch`` over the last train batches (``--mode
 train``, dropout 0.1; wikipedia on the gather path, CanParl with the entry
@@ -47,7 +54,9 @@ import time
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B = 200
 CONFIGS = (("wikipedia", 32, 1), ("CanParl", 2048, 64))
-TGAT_CONFIGS = (("TGAT default", True), ("TGAT plain", False))  # (name, use_kernels)
+# (name, TGAT arguments, use_kernels)
+TGAT_CONFIGS = (("TGAT default", {}, True), ("TGAT plain", {}, False),
+                ("TGAT Phi fusion", {"use_phi_fusion": True}, True))
 
 
 def is_range(name: str) -> bool:
@@ -162,11 +171,15 @@ def main() -> int:
     parser.add_argument("--model", choices=("dygformer", "tgat"), default="dygformer")
     parser.add_argument("--mode", choices=("eval", "train"), default="eval")
     parser.add_argument("--batches", type=int, default=10)
+    parser.add_argument("--configs", default="",
+                        help="comma-separated configuration names (default: all of the model's)")
+    parser.add_argument("--repo", default=REPO_ROOT,
+                        help="tree whose dyglib_tpu_torch is run (default: this checkout)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_eval: needs a CUDA card", file=sys.stderr)
         return 1
-    sys.path.insert(0, REPO_ROOT)
+    sys.path.insert(0, os.path.abspath(args.repo))
     torch.backends.cuda.matmul.allow_tf32 = False
     from dyglib_tpu_torch.data import synthetic_link_prediction_data
     from dyglib_tpu_torch.models import TGAT, DyGFormer
@@ -182,7 +195,7 @@ def main() -> int:
     data = synthetic_link_prediction_data(num_src=8227, num_dst=1000, num_edges=157474, seed=1)
     n = data.train.num_interactions
     if args.model == "tgat":
-        runs = [(name, TGAT(), use_kernels, False) for name, use_kernels in TGAT_CONFIGS]
+        runs = [(name, TGAT(**kw), use_kernels, False) for name, kw, use_kernels in TGAT_CONFIGS]
     else:
         runs = [
             (config, DyGFormer(max_input_sequence_length=maxlen, patch_size=patch,
@@ -190,7 +203,10 @@ def main() -> int:
              True, args.mode == "train" and config == "CanParl")
             for config, maxlen, patch in CONFIGS
         ]
+    wanted = set(filter(None, args.configs.split(",")))
     for config, backbone, use_kernels, fetch in runs:
+        if wanted and config not in wanted:
+            continue
         tr = LinkPredictionTrainer(backbone, data, TrainConfig(batch_size=B), device="cuda")
         tr.init_params(0)
         tr.model.use_kernels = use_kernels
@@ -202,8 +218,14 @@ def main() -> int:
             stream = data.train.slice(n - args.batches * B, n)
             run = synced(lambda: tr.train_epoch(stream))
         torch.cuda.synchronize()
+        host_ms = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            run()
+            host_ms.append((time.perf_counter() - t0) * 1e3 / args.batches)
         out = {"config": config, "mode": args.mode, "batches": args.batches,
-               "use_kernels": use_kernels, "entry_fetch": fetch}
+               "use_kernels": use_kernels, "entry_fetch": fetch,
+               "repo": os.path.abspath(args.repo), "ms_per_batch": host_ms}
         out.update(device_profile(run))
         print(json.dumps(out), flush=True)
     return 0

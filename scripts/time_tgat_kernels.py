@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time TGAT's attention kernels on one card, by CUDA-graph replay (device time).
+"""Time TGAT's attention and Phi projection kernels on one card, by CUDA-graph replay (device time).
 
-    python3 scripts/time_tgat_kernels.py [--repo DIR] [--rounds N]
+    python3 scripts/time_tgat_kernels.py [--repo DIR] [--rounds N] [--only NAMES]
 
 ``--repo`` names the tree whose ``dyglib_tpu_torch`` is imported (default:
 this checkout). Two trees timed by one command in turns, parent, change,
@@ -23,7 +23,16 @@ generators, identical in every tree. At each hop:
     device time summed by kernel name: ``head_project_kernel`` (qk, gv),
     ``attention_bwd_query_kernel`` (the per-query kernel),
     ``head_combine_kernel`` (dq3), ``head_weight_grad_kernel`` (dWk, dWv)
-    and ``strided_sum_kernel`` (their second pass, and dtw, dtb's).
+    and ``strided_sum_kernel`` (their second pass, and dtw, dtb's);
+  * the Phi projection (#8, #8b) on the hop's deltas (R = 12,000 at hop
+    0, 240,000 at hop 1) with Wk's Phi rows (a strided view of the
+    weight), beside its library yardsticks: ``phi_mm``, torch.mm of a
+    precomputed Phi by W, and ``phi_bwd_mms``, the backward's two
+    torch.mm's (Phi^T dout, dout W^T); its backward's launches apart too.
+
+``--only`` takes a comma-separated list of measurement names (e.g.
+``phi_projection,phi_projection_bwd,phi_mm,phi_bwd_mms``) and times only
+those.
 
 Each measurement is taken ``--rounds`` times, in turns with the others.
 Prints the card's name and power limit, one line per measurement, then
@@ -41,8 +50,6 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from time_dygformer_kernels import graph_ms  # noqa: E402
 
 B, K, DT_DIM, FEAT, DROPOUT = 200, 20, 100, 172, 0.1
-BACKWARD_LAUNCHES = ("head_project_kernel", "attention_bwd_query_kernel", "head_combine_kernel",
-                     "head_weight_grad_kernel", "strided_sum_kernel")
 
 
 def tgat_operands(dev):
@@ -92,6 +99,10 @@ def tgat_operands(dev):
             edge = feat_e.view(m, K, FEAT)
             phi = net.time_encoder(dt)
             starts = inputs.hop_win_start[h].reshape(-1)
+            dt_flat, w_phi = dt.reshape(-1), wk[2 * FEAT:]
+            phi_dout = 1e-3 * torch.randn((dt_flat.shape[0], dq), device=dev, generator=gen)
+            phi_mat = torch.cos(dt_flat[:, None] * tw + tb)
+            p_args = (dt_flat, tw, tb, w_phi)
             t_args = (q3, nbr, edge, phi, mask, keep, wk, wv, heads)
             g_args = (q3, feat_n, feat_e, dt, mask, keep, (tw, tb), (wk, wv), heads)
             w_args = (q3, starts, dt, mask, keep, csr.feat_entry, tw, tb, (wk, wv), heads)
@@ -105,13 +116,26 @@ def tgat_operands(dev):
                     ops.gathered_attention_backward(*a[:-1], d, a[-1]),
                 "window_attention_bwd": lambda a=w_args, d=dout: ops.window_attention_backward(
                     *a[:-1], d, a[-1]),
+                "phi_projection": lambda a=p_args: ops.phi_projection(*a),
+                "phi_projection_bwd": lambda a=p_args, d=phi_dout: ops.phi_projection_backward(
+                    *a, d),
+                "phi_mm": lambda p=phi_mat, w_=w_phi: torch.mm(p, w_),
+                "phi_bwd_mms": lambda p=phi_mat, w_=w_phi, d=phi_dout: (
+                    torch.mm(p.t(), d), torch.mm(d, w_.t())),
             }
     return calls
 
 
+def kernel_name(key: str) -> str:
+    """A profiler event's kernel name without its namespaces, template
+    arguments and parameters."""
+    name = key.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+    return name.split("::")[-1].split(" ")[-1] or key
+
+
 def launch_split(fn, calls: int = 5) -> dict:
-    """Device ms per call of each backward launch kind, from a profiler
-    trace of ``calls`` eager calls (after one warm-up call)."""
+    """Device ms per call of each kernel a backward launches, by name, from
+    a profiler trace of ``calls`` eager calls (after one warm-up call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -121,16 +145,15 @@ def launch_split(fn, calls: int = 5) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    split, total = {name: 0.0 for name in BACKWARD_LAUNCHES}, 0.0
+    split, total = {}, 0.0
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(evt, "self_device_time_total", None)
         us = evt.self_cuda_time_total if us is None else us
         total += us
-        for name in BACKWARD_LAUNCHES:
-            if name in evt.key:
-                split[name] += us / calls / 1e3
+        name = kernel_name(evt.key)
+        split[name] = split.get(name, 0.0) + us / calls / 1e3
     if total <= 0.0:
         raise RuntimeError("the profiler recorded no device time")
     return split
@@ -141,7 +164,10 @@ def main() -> int:
     parser.add_argument("--repo", default=REPO_ROOT,
                         help="tree whose dyglib_tpu_torch is timed (default: this checkout)")
     parser.add_argument("--rounds", type=int, default=2)
+    parser.add_argument("--only", default="",
+                        help="comma-separated measurement names to time (default: all)")
     args = parser.parse_args()
+    only = set(filter(None, args.only.split(",")))
     import torch
 
     if not torch.cuda.is_available():
@@ -158,10 +184,12 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
     print(f"timing {os.path.abspath(ops.__file__)}", flush=True)
-    _build.build(["temporal_attention", "gathered_attention", "window_attention"])
+    _build.build(["temporal_attention", "gathered_attention", "window_attention",
+                  "phi_projection"])
     dev = torch.device("cuda:0")
     results = {}
     for h, calls in tgat_operands(dev).items():
+        calls = {name: fn for name, fn in calls.items() if not only or name in only}
         entry = {name: [] for name in calls}
         entry.update({f"{name}_launches": [] for name in calls if name.endswith("_bwd")})
         order = list(calls)

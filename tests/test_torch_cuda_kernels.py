@@ -792,15 +792,19 @@ def test_window_attention_kernel_matches_plain(dev, seed, m, k, dn, de, dt_dim, 
     torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
 
 
-# (seed, R, Dt, Dq): ragged rows and columns; hop 1's R at the published widths
-PHI_CASES = [(0, 7, 10, 16), (1, 130, 9, 70), (2, 240_000, 100, 272)]
+# (seed, R, Dt, Dq, dt scale): ragged rows and columns (Dt 101 padded to
+# 104, Dq 137 three column tiles); hop 0's and hop 1's R at the published
+# widths (the forward's plan splits R = 12,000 into two column groups);
+# deltas up to 1e6 and 2.6e6 (|theta| past 105615: the double reduction)
+PHI_CASES = [(0, 7, 10, 16, 2.6e6), (1, 130, 9, 70, 2.6e6), (3, 1000, 101, 137, 1e6),
+             (4, 12_000, 100, 272, 1e6), (2, 240_000, 100, 272, 2.6e6)]
 
 
 @pytest.mark.parametrize("layout", ["rows", "linear_slice"])
-@pytest.mark.parametrize("seed,r,dt_dim,dq", PHI_CASES)
-def test_phi_projection_kernel_matches_plain(dev, seed, r, dt_dim, dq, layout):
+@pytest.mark.parametrize("seed,r,dt_dim,dq,scale", PHI_CASES)
+def test_phi_projection_kernel_matches_plain(dev, seed, r, dt_dim, dq, scale, layout):
     rng = np.random.RandomState(seed)
-    dt = torch.from_numpy(np.floor(rng.rand(r) * 2.6e6).astype(np.float32)).to(dev)
+    dt = torch.from_numpy(np.floor(rng.rand(r) * scale).astype(np.float32)).to(dev)
     tw = torch.from_numpy((1.0 / 10 ** np.linspace(0, 9, dt_dim)).astype(np.float32)).to(dev)
     tb = torch.from_numpy((rng.randn(dt_dim) * 0.1).astype(np.float32)).to(dev)
     if layout == "rows":
@@ -809,7 +813,7 @@ def test_phi_projection_kernel_matches_plain(dev, seed, r, dt_dim, dq, layout):
         weight = torch.from_numpy(rng.randn(dq, 24 + dt_dim).astype(np.float32)).to(dev)
         w = weight.t()[24:]
         assert not w.is_contiguous() and not w.t().is_contiguous()
-    out = _launched_once(ops.phi_projection, dt, tw, tb, w)
+    out = _forward_twice(ops.phi_projection, dt, tw, tb, w)
     ref = ops.phi_projection_plain(dt, tw, tb, w)
     torch.cuda.synchronize()
     assert out.shape == (r, dq)
@@ -916,10 +920,10 @@ def test_attention_backward_kernels_at_edges(dev, kernel, seed, m, k, dn, de, dt
 
 
 @pytest.mark.parametrize("layout", ["rows", "linear_slice"])
-@pytest.mark.parametrize("seed,r,dt_dim,dq", PHI_CASES)
-def test_phi_projection_backward_kernel_matches_plain(dev, seed, r, dt_dim, dq, layout):
+@pytest.mark.parametrize("seed,r,dt_dim,dq,scale", PHI_CASES)
+def test_phi_projection_backward_kernel_matches_plain(dev, seed, r, dt_dim, dq, scale, layout):
     rng = np.random.RandomState(seed)
-    dt = torch.from_numpy(np.floor(rng.rand(r) * 2.6e6).astype(np.float32)).to(dev)
+    dt = torch.from_numpy(np.floor(rng.rand(r) * scale).astype(np.float32)).to(dev)
     tw = torch.from_numpy((1.0 / 10 ** np.linspace(0, 9, dt_dim)).astype(np.float32)).to(dev)
     tb = torch.from_numpy((rng.randn(dt_dim) * 0.1).astype(np.float32)).to(dev)
     if layout == "rows":

@@ -135,8 +135,9 @@ def _strided_sum(parts):
     return acc[0]
 
 
-def emulated_backward(dt, valid, tw, tb, w, dout, patch):
-    """(dtw, dtb, dW, dbias) by the kernel's arithmetic and sum order."""
+def emulated_backward(dt, valid, tw, tb, w, dout, patch, chunk_rows=None):
+    """(dtw, dtb, dW, dbias) by the kernel's arithmetic and sum order, the
+    rows chunked by ``chunk_rows`` (default: the time channel's plan)."""
     m, l = dt.shape
     dt_dim, ced = tw.shape[0], w.shape[1]
     rows, k = m * (l // patch), patch * dt_dim
@@ -153,7 +154,7 @@ def emulated_backward(dt, valid, tw, tb, w, dout, patch):
     a_hi, a_lo = fwd.split(phi)
     g_hi, g_lo = fwd.split(g)
     w_hi, w_lo = fwd.split(wp)
-    chunk = tc.backward_chunk_rows(rows, patch, dt_dim, ced, H100_SMS)
+    chunk = chunk_rows or tc.backward_chunk_rows(rows, patch, dt_dim, ced, H100_SMS)
     chunks = -(-rows // chunk)
     dw_parts = np.zeros((chunks, k + 1, tiles * TILE_N), F)
     tw_parts = np.zeros((chunks * tiles, k), F)
