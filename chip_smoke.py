@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py            (from the root of a checkout)
 
-The main paths are TGAT and DyGFormer link-prediction evaluation
-(``dyglib_tpu_torch.train.LinkPredictionTrainer.evaluate``) and training
-(``LinkPredictionTrainer.train_step`` over train batches, and ``fit``),
-each model at its published widths (TGAT: 20
+The main paths are TGAT, DyGFormer, TGN, DyRep and JODIE link-prediction
+evaluation (``dyglib_tpu_torch.train.LinkPredictionTrainer.evaluate``) and
+training (``LinkPredictionTrainer.train_step`` over train batches, and
+``fit``), each model at its published widths (TGAT: 20
 neighbours, 2 layers, 2 heads; DyGFormer: channel embedding 50, 2 layers,
-2 heads; both: time features 100, node and edge features 172), random
+2 heads; TGN and DyRep: 10 neighbours, 1 layer, 2 heads, memory 172;
+JODIE: memory 172; all: time features 100, node and edge features 172), random
 weights from seed 0, on the wikipedia-scale synthetic stream (8227 users,
 1000 items, 157474 edges, seed 1) built in memory, B = 200; DyGFormer at
 two published configurations: wikipedia (maxlen 32, patch 1) and CanParl
@@ -39,7 +40,10 @@ and prints no result):
      launched twice, bitwise equal); the same for TGAT's four backward
      kernels at its training shapes (gradients within GRAD_RTOL of their sums of
      |terms|, a second launch bitwise equal to the first; library
-     yardsticks partial: the two weight-gradient products);
+     yardsticks partial: the two weight-gradient products); the temporal
+     attention forward and backward at TGN's shape (M = 600, K = 10; kv =
+     the memory view + node rows of the first val batch's neighbours, from
+     the memory after the last train batches), the same checks;
   4. TGAT evaluation on the first val batches, one set of weights in four
      configurations (plain versions; default kernels: gathered attention
      at layer 1, fused attention at layer 2; window attention with the
@@ -90,12 +94,32 @@ and prints no result):
   5u. TGAT with the uniform strategy (default kernels): a few train steps
      (its kernels launch, forward and backward), then two evaluate sweeps
      over the first val batches with identical probabilities;
+  5m. TGN, DyRep and JODIE (time shifts from the train split), each: the
+     first 20 val batches from the memory after the last 20 train batches,
+     plain and kernel paths in turns (four sweeps each): counters zeroed
+     just before each sweep and read just after (TGN and DyRep launch one
+     temporal attention a batch, JODIE and the plain path none), finite
+     probabilities, metrics in range, every sweep within the probability
+     tolerance of the first plain sweep, the final memory bitwise equal on
+     the two paths for TGN and JODIE (no kernel touches it) and, for DyRep,
+     whose messages carry the attention's output, its largest gap and the
+     batch where it fell printed and held within MEMORY_GAP_RTOL of
+     max|memory|, the first batches against the port's CPU path; then the
+     last 5 train batches from the memory before them, dropout 0, in turns:
+     launches per step (TGN: one temporal attention and its backward;
+     DyRep: the forward only, its loss reading the updated memories; JODIE
+     none), a finite gradient for every parameter the loss reaches and none
+     for the others (DyRep's attention, merge and time encoder; JODIE's
+     time encoder), and one lockstep step as TGAT's; ms per eval batch and
+     per train step;
   6. fit on the JAX test fixture (the 2000-edge synthetic stream of
      tests/conftest.py): DyGFormer 32/2, 2 layers, dropout 0.1, 4 epochs,
      lr 5e-4, test AP above 0.50 and the least epoch loss below 0.67
      (tests/test_remaining_models.py); TGAT K = 10, 2 layers, 4 epochs,
      lr 1e-3, default kernels, test AP above 0.58 and AUC above 0.57
-     (tests/test_tgat_end_to_end.py): the JAX package's floors;
+     (tests/test_tgat_end_to_end.py); TGN, JODIE and DyRep K = 5, 1 layer,
+     2 epochs, lr 1e-3, train negatives seeded 13, test AP above 0.57, 0.58
+     and 0.39 (tests/test_memory_models.py): the JAX package's floors;
   7. print one JSON line of kernel numbers, then the device JSON line.
 """
 import json
@@ -194,6 +218,34 @@ TGAT_KERNEL_CONFIG = {"temporal_attention": "default", "gathered_attention": "de
 TGAT_TRAIN_STEPS, TGAT_DROPOUT = 5, 0.1
 
 
+# TGN, DyRep and JODIE at their published widths (bench.py:94-100: TGN and
+# DyRep K = 10 neighbours, 1 layer, 2 heads; memory 172 = the node features,
+# Dt = 100; JODIE samples none), time shifts from the train split. Per
+# model: the kernels an eval batch launches, and those a train step
+# launches. DyRep's loss reads the updated memories, not the attention's
+# output (which only feeds its messages, outside autograd), so its train
+# step runs no attention backward; JODIE has no attention.
+MEMORY_K, MEMORY_BATCHES, MEMORY_TRAIN_STEPS, MEMORY_WARM = 10, 20, 5, 20
+# the memory models' sweeps, in turns: plain, kernels, kernels, plain, twice
+MEMORY_TURNS = (False, True, True, False) * 2
+MEMORY_MODELS = {
+    "TGN": ({"temporal_attention": 1},
+            {"temporal_attention": 1, "temporal_attention_bwd": 1}),
+    "DyRep": ({"temporal_attention": 1}, {"temporal_attention": 1}),
+    "JODIE": ({}, {}),
+}
+# parameters each model's loss does not reach (no gradient on either path)
+MEMORY_UNREACHED = {"TGN": (), "DyRep": ("temporal_conv_", "merge_", "time_encoder."),
+                    "JODIE": ("time_encoder.",)}
+# DyRep's messages carry the attention's output: its memory after the
+# kernel path's eval sweep is held to this share of max|memory| of the plain
+# path's (TGN's and JODIE's must be bitwise equal: no kernel touches them)
+MEMORY_GAP_RTOL = 1e-3
+# the JAX package's test AP floors of the fixture fits
+# (tests/test_memory_models.py)
+MEMORY_FIT_AP_FLOOR = {"TGN": 0.57, "JODIE": 0.58, "DyRep": 0.39}
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -229,6 +281,34 @@ def cuda_ms(fn, iters: int, reps: int = 5) -> float:
 def bound_ms(nbytes: float, ops: float, ops_peak: float = PEAK_F32_OPS) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / ops_peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_fwd_ops(m, k, kv_dim, dq, heads) -> int:
+    """The operations a temporal attention forward needs, which the kernels
+    compute (reassociated: no kv row projected): qk = Wk_h q3_h and out_h =
+    Av_h Wv_h (2 dq kv_dim each a query), the logits and Av = sum_j w kv_j
+    (2 kv_dim each per (query, head, neighbor)), ~6 for the mask, softmax
+    and keep."""
+    return 4 * m * dq * kv_dim + 4 * m * heads * k * kv_dim + 6 * m * heads * k
+
+
+def attention_bwd_ops(m, k, kv_dim, dq, heads, kv_cols, phi_cols=0) -> int:
+    """The operations of the reassociated attention backward: qk, gv, dq3,
+    dWk, dWv (10 dq kv_dim a query); logits, ds_d, Ak, Av (8 kv_dim per
+    (query, head, neighbor)); dkv's needed columns (4 each); ~12 for the
+    softmax's backward; Phi's argument (2) and -sin * dPhi, dtb, dtw (5) per
+    kv row and Phi column where dtw and dtb are returned."""
+    return (10 * m * dq * kv_dim + 8 * m * heads * k * kv_dim + 4 * m * heads * k * kv_cols
+            + 12 * m * heads * k + 7 * m * k * phi_cols)
+
+
+def attention_small_bytes(m, k, kv_dim, dq, heads, backward: bool) -> int:
+    """Bytes of an attention kernel's operands but its kv rows: q3, mask,
+    keep, the weights, the output (and in the backward dout, dq3 and the
+    weights' gradients)."""
+    if backward:
+        return 4 * (3 * m * dq + 2 * m * k + m * heads * k + 4 * kv_dim * dq)
+    return 4 * (2 * m * dq + 2 * m * k + m * heads * k + 2 * kv_dim * dq)
 
 
 def check_kernels(dev) -> dict:
@@ -585,13 +665,8 @@ def check_tgat_kernels(data, dev) -> dict:
         return err
 
     with torch.inference_mode():
-        # the operations the function needs, which the kernels compute
-        # (reassociated: no kv row projected): qk = Wk_h q3_h and out_h =
-        # Av_h Wv_h (2 dq kv_dim each a query), the logits and Av = sum_j w
-        # kv_j (2 kv_dim each per (query, head, neighbor)), ~6 for the mask,
-        # softmax and keep
-        fwd_ops = lambda m: 4 * m * dq * kv_dim + 4 * m * heads * k * kv_dim + 6 * m * heads * k
-        small = lambda m: 4 * (2 * m * dq + 2 * m * k + m * heads * k + 2 * kv_dim * dq)
+        fwd_ops = lambda m: attention_fwd_ops(m, k, kv_dim, dq, heads)
+        small = lambda m: attention_small_bytes(m, k, kv_dim, dq, heads, backward=False)
 
         # ---- temporal attention, layer 2 (M = 600): kv = [layer-1
         # embeddings || edge rows || Phi(dt)]
@@ -735,16 +810,9 @@ def check_tgat_backward_kernels(data, dev) -> dict:
         dkey, dval = dkey.reshape(m * k, dq), dval.reshape(m * k, dq)
         return lambda: (torch.mm(kv.t(), dkey), torch.mm(kv.t(), dval))
 
-    # operations of the reassociated backward: qk, gv, dq3, dWk, dWv (10 dq
-    # kv_dim a query); logits, ds_d, Ak, Av (8 kv_dim per (query, head,
-    # neighbor)); dkv's needed columns (4 each); ~12 for the softmax's
-    # backward; Phi's argument (2) and -sin * dPhi, dtb, dtw (5) per kv row
-    # and Phi column where dtw and dtb are returned
-    def bwd_ops(m, kv_cols, phi_cols=0):
-        return (10 * m * dq * kv_dim + 8 * m * heads * k * kv_dim
-                + 4 * m * heads * k * kv_cols + 12 * m * heads * k + 7 * m * k * phi_cols)
-
-    small = lambda m: 4 * (3 * m * dq + 2 * m * k + m * heads * k + 4 * kv_dim * dq)
+    bwd_ops = lambda m, kv_cols, phi_cols=0: attention_bwd_ops(
+        m, k, kv_dim, dq, heads, kv_cols, phi_cols)
+    small = lambda m: attention_small_bytes(m, k, kv_dim, dq, heads, backward=True)
 
     with torch.no_grad():
         # ---- temporal attention, layer 2 (M = 600), no scores cotangent
@@ -1057,11 +1125,15 @@ def kernel_side(out, k):
     return torch.where(flipped, k + (out - out.detach()), out), n, worst
 
 
-def tgat_lockstep(tr, params, batches, dropout: float, align: bool = True) -> dict:
-    """TGAT's train steps in lockstep: at every step both paths' loss and
-    gradients from the same parameters (the kernel path's trajectory), the
+def tgat_lockstep(tr, params, batches, dropout: float, align: bool = True,
+                  state=None) -> dict:
+    """TGAT's (or, given its ``state``, a memory model's) train steps in
+    lockstep: at every step both paths' loss and gradients from the same
+    parameters (the kernel path's trajectory; a memory model's from the
+    kernel path's memory, committed after each step), the
     dropout generator reseeded the same way for both, then the kernel
-    path's optimizer step. Returns the largest loss difference
+    path's optimizer step. A parameter the loss does not reach has no
+    gradient on either path. Returns the largest loss difference
     (``loss_diff``), the largest gradient error as a share of its tensor's
     largest entry (``grad_err``; the time encoder's frequencies left to
     phase 3's sum-of-|terms| check), the tensor where it fell (``worst``),
@@ -1088,8 +1160,8 @@ def tgat_lockstep(tr, params, batches, dropout: float, align: bool = True) -> di
     named = [*(("backbone." + k, p) for k, p in tr.model.named_parameters()),
              *(("head." + k, p) for k, p in tr.head.named_parameters())]
     weights = [p for _, p in named]
-    relus = {f"merge_{l}.fc1": getattr(tr.model, f"merge_{l}").fc1
-             for l in range(tr.backbone.num_layers)}
+    relus = {f"{n}.fc1": mod.fc1 for n, mod in tr.model.named_children()
+             if n.startswith("merge_")}
     relus["head.fc1"] = tr.head.fc1
     kernel_acts = {r: [] for r in relus}  # the kernel pass's ReLU inputs, call by call
     calls = {r: 0 for r in relus}
@@ -1123,13 +1195,24 @@ def tgat_lockstep(tr, params, batches, dropout: float, align: bool = True) -> di
                 tr.model.use_kernels = use_kernels
                 tr.dropout_gen.manual_seed(1000 + step)
                 inputs = tr._sample(tr.train_csr, src, dst, neg_dst, ts, bucket)
-                loss, _ = tr._head_loss(tr._embed(inputs, tr.dropout_gen), valid)
-                out[use_kernels] = (float(loss.detach()), torch.autograd.grad(loss, weights))
+                if state is None:
+                    embs = tr._embed(inputs, tr.dropout_gen)
+                else:
+                    embs, raw = tr._embed_memory(inputs, state, tr.dropout_gen)
+                    if use_kernels:
+                        committed = tr._commit(state, arrays, raw.detach())
+                loss, _ = tr._head_loss(embs, valid)
+                out[use_kernels] = (float(loss.detach()),
+                                    torch.autograd.grad(loss, weights, allow_unused=True))
             loss_diff = max(loss_diff, abs(out[True][0] - out[False][0]))
-            top = max(float(g.abs().max()) for g in out[False][1])
+            top = max(float(g.abs().max()) for g in out[False][1] if g is not None)
             for (pname, _), gk, gp in zip(named, out[True][1], out[False][1]):
+                if (gk is None) != (gp is None):
+                    raise AssertionError(f"lockstep: {pname} has a gradient on one path only")
+                if gk is None:
+                    continue
                 if not torch.isfinite(gk).all():
-                    raise AssertionError(f"TGAT lockstep: {pname}'s gradient is not finite")
+                    raise AssertionError(f"lockstep: {pname}'s gradient is not finite")
                 if pname == "backbone.time_encoder.w":
                     continue
                 scale = max(float(gp.abs().max()), 1e-3 * top)  # zero-in-theory tensors
@@ -1139,6 +1222,8 @@ def tgat_lockstep(tr, params, batches, dropout: float, align: bool = True) -> di
             for p, g in zip(weights, out[True][1]):
                 p.grad = g
             tr.optimizer.step()
+            if state is not None:
+                state = committed
     finally:
         for h in hooks:
             h.remove()
@@ -1154,25 +1239,25 @@ def check_tgat_lockstep(stats: dict, name: str, dropout: float) -> dict:
     changed sign within FLIP_ATOL of zero (else the forwards differ by more
     than rounding). Returns the stats."""
     if stats["largest_flipped_input"] > FLIP_ATOL:
-        raise AssertionError(f"TGAT {name} lockstep: a ReLU input "
+        raise AssertionError(f"{name} lockstep: a ReLU input "
                              f"{stats['largest_flipped_input']} from zero changed sign between "
                              f"the paths (limit {FLIP_ATOL}; {stats['flips']})")
     if not (stats["loss_diff"] <= LOSS_ATOL and stats["grad_err"] <= GRAD_STEP_RTOL):
-        raise AssertionError(f"TGAT {name} training in lockstep (dropout {dropout}): losses "
+        raise AssertionError(f"{name} training in lockstep (dropout {dropout}): losses "
                              f"differ by {stats['loss_diff']}, gradients by "
                              f"{stats['grad_err']} of their largest entries ({stats['worst']}); "
                              f"ReLU inputs that changed sign: {stats['flips']}")
     return stats
 
 
-def tgat_train_batches(data, tr) -> list:
-    """The last TGAT_TRAIN_STEPS train batches, negatives from a seeded
-    sampler set on ``tr``: [(arrays, bucket)]."""
+def tgat_train_batches(data, tr, steps: int = TGAT_TRAIN_STEPS) -> list:
+    """The last ``steps`` train batches, negatives from a seeded sampler set
+    on ``tr``: [(arrays, bucket)]."""
     from dyglib_tpu_torch.graph import NegativeEdgeSampler
 
     tr.train_neg = NegativeEdgeSampler(data.train.src, data.train.dst, seed=13)
     n = data.train.num_interactions
-    stream = data.train.slice(n - TGAT_TRAIN_STEPS * B, n)
+    stream = data.train.slice(n - steps * B, n)
     return [(arrays, bucket) for _, arrays, bucket in tr.train_batches(stream)]
 
 
@@ -1226,11 +1311,11 @@ def run_tgat_training(data, dev) -> dict:
         if not (diffs[0] <= LOSS_ATOL and max(diffs) <= LOSS_DRIFT_ATOL):
             raise AssertionError(f"TGAT {name} vs plain training: losses differ by {diffs}")
     steps = {name: check_tgat_lockstep(tgat_lockstep(trainers[name], params, batches, 0.0),
-                                       name, 0.0)
+                                       f"TGAT {name}", 0.0)
              for name in TGAT_CONFIGS if TGAT_CONFIGS[name][1]}
     dropped = {name: check_tgat_lockstep(
-                   tgat_lockstep(trainers[name], params, batches[-1:], TGAT_DROPOUT), name,
-                   TGAT_DROPOUT)
+                   tgat_lockstep(trainers[name], params, batches[-1:], TGAT_DROPOUT),
+                   f"TGAT {name}", TGAT_DROPOUT)
                for name in TGAT_CONFIGS if TGAT_CONFIGS[name][1]}
     result = dict(
         steps=len(batches), launches=launches, ms_per_step=ms, losses=losses_of,
@@ -1277,6 +1362,333 @@ def run_tgat_uniform(data, dev, n_steps: int = 3, n_batches: int = 5) -> dict:
                   eval_sweep_diff=diff, metrics=tr.mean_metrics(m1))
     log(f"  {json.dumps(result)}")
     return result
+
+
+def memory_trainer(data, name, dev, dropout=0.1):
+    """A trainer of one memory model at the published widths (MEMORY_K
+    neighbours, 1 layer, 2 heads, memory 172, Dt 100; time shifts from the
+    train split), seed-0 weights."""
+    from dyglib_tpu_torch.models import MemoryModel, compute_src_dst_node_time_shifts
+    from dyglib_tpu_torch.train import LinkPredictionTrainer, TrainConfig
+
+    shifts = compute_src_dst_node_time_shifts(data.train.src, data.train.dst, data.train.ts)
+    backbone = MemoryModel(model_name=name, num_neighbors=MEMORY_K, num_layers=1, num_heads=2,
+                           time_feat_dim=DT_DIM, dropout=dropout, time_shifts=shifts)
+    tr = LinkPredictionTrainer(backbone, data, TrainConfig(batch_size=B, learning_rate=TRAIN_LR),
+                               device=dev)
+    tr.init_params(0)
+    return tr
+
+
+def warm_memory(data, tr, skip_last: int = 0):
+    """The memory after the MEMORY_WARM train batches that end ``skip_last``
+    batches before the split's end, from an empty memory (an eval sweep:
+    its positive edges committed)."""
+    from dyglib_tpu_torch.graph import NegativeEdgeSampler
+
+    n = data.train.num_interactions - skip_last * B
+    stream = data.train.slice(n - MEMORY_WARM * B, n)
+    sampler = NegativeEdgeSampler(data.train.src, data.train.dst, seed=13)
+    return tr.evaluate(stream, sampler, state=tr.init_state())[3]
+
+
+def check_memory_attention_kernels(data, dev) -> dict:
+    """Phase 3 at TGN's shape: the temporal attention forward and backward
+    (#5, #5b) at M = 600 (the B = 200 triple), K = MEMORY_K, kv = [memory
+    view + node rows || edge rows || Phi(dt)] of the first val batch, from
+    the memory after the last train batches, with TGN's seed-0 weights.
+    The forward against its plain version (KERNEL_ATOL), the backward
+    against its plain backward (dropout keep masks at p = 0.1; GRAD_RTOL of
+    sum|terms|), second launches bitwise equal; times of the kernel, the
+    plain version and the partial library yardstick (the K/V torch.mm's,
+    and in the backward the two weight-gradient ones)."""
+    import numpy as np
+    import torch
+
+    from dyglib_tpu_torch import ops
+    from dyglib_tpu_torch.graph.csr import time_keys
+    from dyglib_tpu_torch.ops import _attention
+
+    tr = memory_trainer(data, "TGN", dev)
+    state = warm_memory(data, tr)
+    net = tr.model.eval()
+    conv, k = net.temporal_conv_0, MEMORY_K
+    heads = conv.num_heads
+    wk, wv = conv.key_projection.weight.detach().t(), conv.value_projection.weight.detach().t()
+    kv_dim, dq = wk.shape
+    rng = np.random.RandomState(0)
+    ids = np.concatenate([data.val.src[:B], data.val.dst[:B],
+                          rng.randint(1, data.num_nodes, B)]).astype(np.int32)
+    ts = np.tile(time_keys(data.val.ts[:B]), 3).astype(np.int32)
+    gen = torch.Generator(device=dev).manual_seed(77)
+    results = {}
+    with torch.no_grad():
+        inputs = tr.backbone.sample(tr.full_csr, torch.from_numpy(ids).to(dev),
+                                    torch.from_numpy(ts).to(dev))
+        hop0, hop1 = (h.reshape(-1).long() for h in inputs.hop_ids)
+        m = hop0.shape[0]
+        base = [net.view_rows(state, h)[0] + tr.tables.node[h] for h in (hop0, hop1)]
+        dt = (inputs.hop_ts[0].reshape(-1, 1) - inputs.hop_ts[1].reshape(m, k)).float()
+        phi0 = net.time_encoder(torch.zeros((m, 1), device=dev))[:, 0, :]
+        q3 = conv.query_projection(torch.cat([base[0], phi0], dim=-1)).contiguous()
+        nbr = base[1].reshape(m, k, -1)
+        edge = tr.tables.edge[inputs.hop_eids[0].reshape(m, k).long()]
+        phi = net.time_encoder(dt)
+        mask = inputs.hop_mask[0].reshape(m, k).float()
+        kv = torch.cat([nbr, edge, phi], dim=-1).reshape(m * k, kv_dim)
+        part = f"M{m} K{k} Dkv{kv_dim} Dq{dq}"
+
+        # forward, evaluation's keep mask (ones)
+        args = (q3, nbr, edge, phi, mask, torch.ones((m, heads, k), device=dev), wk, wv, heads)
+        got, again = ops.temporal_attention(*args), ops.temporal_attention(*args)
+        want = ops.temporal_attention_plain(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("temporal_attention@tgn: two launches differ")
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        if not err <= KERNEL_ATOL:
+            raise AssertionError(f"temporal_attention@tgn: max abs err {err} > {KERNEL_ATOL}")
+        entry = dict(part=part, max_abs_err=err,
+                     ms=cuda_ms(lambda: ops.temporal_attention(*args), 50, 3),
+                     plain_ms=cuda_ms(lambda: ops.temporal_attention_plain(*args), 50, 3),
+                     library_ms=cuda_ms(lambda: (torch.mm(kv, wk), torch.mm(kv, wv)), 50, 3),
+                     bytes=attention_small_bytes(m, k, kv_dim, dq, heads, False)
+                     + 4 * m * k * kv_dim,
+                     ops=attention_fwd_ops(m, k, kv_dim, dq, heads))
+        results[("temporal_attention", "tgn")] = {"parts": [entry]}
+        b_ms, b_by = bound_ms(entry["bytes"], entry["ops"])
+        log(f"  temporal_attention   {part:<24} err {err:.3g}  kernel {entry['ms']:.4f} ms  "
+            f"plain {entry['plain_ms']:.4f} ms  library (partial: K/V mm's) "
+            f"{entry['library_ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+
+        # backward, training's keep mask (p = 0.1) and an output cotangent
+        keep = (torch.rand((m, heads, k), device=dev, generator=gen) < 0.9) / 0.9
+        dout = 1e-3 * torch.randn((m, dq), device=dev, generator=gen)
+        args = (q3, nbr, edge, phi, mask, keep, wk, wv, dout, None, heads)
+        got, again = ops.temporal_attention_backward(*args), ops.temporal_attention_backward(*args)
+        want = ops.temporal_attention_backward_plain(*args)
+        terms = ops.temporal_attention_backward_plain(*args, abs_terms=True)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("temporal_attention_bwd@tgn: two launches differ")
+        if not all(torch.isfinite(a).all() for a in got):
+            raise AssertionError("temporal_attention_bwd@tgn: a gradient is not finite")
+        err, rel = grad_errors(got, want, terms)
+        if not rel <= GRAD_RTOL:
+            raise AssertionError(f"temporal_attention_bwd@tgn: error {rel} of sum|terms| > "
+                                 f"{GRAD_RTOL}")
+        key, val = _attention.project_kv(kv, wk, wv)
+        _, dkey, dval = _attention.attend_backward(
+            q3, key.view(m, k, -1), val.view(m, k, -1), mask, keep, dout, None, heads)
+        dkey, dval = dkey.reshape(m * k, dq), dval.reshape(m * k, dq)
+        entry = dict(part=part, max_abs_err=err,
+                     ms=cuda_ms(lambda: ops.temporal_attention_backward(*args), 20, 3),
+                     plain_ms=cuda_ms(lambda: ops.temporal_attention_backward_plain(*args), 20, 3),
+                     library_ms=cuda_ms(lambda: (torch.mm(kv.t(), dkey), torch.mm(kv.t(), dval)),
+                                        20, 3),
+                     bytes=attention_small_bytes(m, k, kv_dim, dq, heads, True)
+                     + 2 * 4 * m * k * kv_dim,
+                     ops=attention_bwd_ops(m, k, kv_dim, dq, heads, kv_dim))
+        results[("temporal_attention_bwd", "tgn")] = {"parts": [entry]}
+        b_ms, b_by = bound_ms(entry["bytes"], entry["ops"])
+        log(f"  temporal_attention_bwd {part:<22} err {err:.3g} ({rel:.3g} of sum|terms|)  "
+            f"kernel {entry['ms']:.4f} ms  plain {entry['plain_ms']:.4f} ms  library (partial: "
+            f"weight gradient mm's) {entry['library_ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+    del tr, state, inputs, base, kv, key, val, dkey, dval
+    torch.cuda.empty_cache()
+    return results
+
+
+def run_memory_eval(data, name, dev) -> dict:
+    """Phase 4m for one memory model: the first MEMORY_BATCHES val batches
+    from the memory after the last train batches, plain and kernel paths in
+    turns (MEMORY_TURNS)."""
+    import numpy as np
+    import torch
+
+    from dyglib_tpu_torch import ops
+    from dyglib_tpu_torch.models import MemoryState
+    from dyglib_tpu_torch.train import LinkPredictionTrainer, TrainConfig
+
+    tr = memory_trainer(data, name, dev)
+    start = warm_memory(data, tr)
+    stream = data.val.slice(0, MEMORY_BATCHES * B)
+    for use_kernels in (False, True):  # warm-up: allocator, cuBLAS
+        tr.model.use_kernels = use_kernels
+        tr.evaluate(data.val.slice(0, B), tr.val_neg, state=start)
+    memories = []  # each batch's memory after its commit, of the current sweep
+    eval_step = tr.eval_step
+
+    def recording_step(*args, **kw):
+        out = eval_step(*args, **kw)
+        memories.append(out[2].memory)
+        return out
+
+    tr.eval_step = recording_step
+    want = {k: v * MEMORY_BATCHES for k, v in MEMORY_MODELS[name][0].items()}
+    ms, runs = {True: [], False: []}, {}
+    for use_kernels in MEMORY_TURNS:
+        tr.model.use_kernels = use_kernels
+        memories.clear()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()  # just before the sweep
+        t0 = time.perf_counter()
+        losses, metrics, probs, state = tr.evaluate(stream, tr.val_neg, state=start)
+        torch.cuda.synchronize()
+        ms[use_kernels].append((time.perf_counter() - t0) / MEMORY_BATCHES * 1e3)
+        counts = {k: v for k, v in ops.launch_counts().items() if v}  # just after
+        if counts != (want if use_kernels else {}):
+            raise AssertionError(f"{name} evaluation (kernels {use_kernels}): launched {counts}, "
+                                 f"expected {want if use_kernels else {}}")
+        if len(probs) != MEMORY_BATCHES or not all(
+            pos.shape == neg.shape == (B,) and np.isfinite(pos).all() and np.isfinite(neg).all()
+            for pos, neg in probs
+        ):
+            raise AssertionError(f"{name} evaluation: probabilities malformed or not finite")
+        mean = tr.mean_metrics(metrics)
+        if not all(0.0 <= v <= 1.0 for v in mean.values()) or not np.isfinite(losses).all():
+            raise AssertionError(f"{name} evaluation: metrics out of range {mean}")
+        runs.setdefault(use_kernels, (probs, state, list(memories), mean, counts))
+        diff = max_prob_diff(probs, runs[False][0])
+        if not diff <= PROB_ATOL:
+            raise AssertionError(f"{name} evaluation: kernel vs plain probabilities differ by "
+                                 f"{diff}")
+    tr.eval_step = eval_step
+    (k_probs, k_state, k_mems, mean, launches), (_, p_state, p_mems, _, _) = runs[True], runs[False]
+    gaps = [float((a - b).abs().max()) for a, b in zip(k_mems, p_mems)]
+    worst = int(np.argmax(gaps))
+    scale = float(p_state.memory.abs().max())
+    if name == "DyRep":  # its messages carry the attention's output
+        if not gaps[worst] <= MEMORY_GAP_RTOL * scale:
+            raise AssertionError(f"DyRep evaluation: memory gap {gaps[worst]} at batch {worst} > "
+                                 f"{MEMORY_GAP_RTOL} x max|memory| {scale}")
+    elif not all(torch.equal(getattr(k_state, f), getattr(p_state, f))
+                 for f in MemoryState._fields):
+        raise AssertionError(f"{name} evaluation: the final memory differs between the kernel "
+                             f"and plain paths (largest gap {gaps[worst]} at batch {worst})")
+    # the first batches on the port's CPU path, from the same memory
+    n_cpu = 2
+    cpu = LinkPredictionTrainer(tr.backbone, data, TrainConfig(batch_size=B), device="cpu")
+    cpu.load_params({part: {k: v.cpu() for k, v in sd.items()}
+                     for part, sd in tr.state_dicts().items()})
+    _, _, cpu_probs, _ = cpu.evaluate(data.val.slice(0, n_cpu * B), cpu.val_neg,
+                                      state=MemoryState(*(t.cpu() for t in start)))
+    cpu_diff = max_prob_diff(k_probs[:n_cpu], cpu_probs)
+    if not cpu_diff <= PROB_ATOL:
+        raise AssertionError(f"{name}: card vs CPU probabilities differ by {cpu_diff}")
+    result = dict(model=name, batches=MEMORY_BATCHES, launches=launches,
+                  kernel_ms_per_batch=ms[True], plain_ms_per_batch=ms[False],
+                  median_ms_per_batch={"kernels": statistics.median(ms[True]),
+                                       "plain": statistics.median(ms[False])}, metrics=mean,
+                  max_prob_diff_vs_plain=max_prob_diff(k_probs, runs[False][0]),
+                  max_memory_gap_vs_plain=gaps[worst], memory_gap_batch=worst,
+                  max_abs_memory=scale, max_prob_diff_vs_cpu=cpu_diff)
+    log(f"  {json.dumps(result)}")
+    return result
+
+
+def run_memory_training(data, name, dev) -> dict:
+    """Phase 5m for one memory model: the last MEMORY_TRAIN_STEPS train
+    batches from the memory after the MEMORY_WARM batches before them,
+    dropout 0, the same steps from the same weights in sweeps in turns
+    (MEMORY_TURNS); then one lockstep step."""
+    import numpy as np
+    import torch
+
+    from dyglib_tpu_torch import ops
+
+    tr = memory_trainer(data, name, dev, dropout=0.0)
+    params = {part: {n: v.clone() for n, v in sd.items()} for part, sd in tr.state_dicts().items()}
+    batches = tgat_train_batches(data, tr, MEMORY_TRAIN_STEPS)
+    start = warm_memory(data, tr, skip_last=MEMORY_TRAIN_STEPS)
+    unreached = MEMORY_UNREACHED[name]
+
+    def sweep(use_kernels, steps=batches):
+        """The steps from the seed-0 weights and the warm memory; returns
+        launch counts, ms per step, losses and whether each parameter's
+        gradient is finite where the loss reaches it and absent elsewhere."""
+        tr.load_params(params)
+        tr.optimizer = type(tr.optimizer)(
+            list(tr.model.parameters()) + list(tr.head.parameters()), lr=TRAIN_LR)
+        tr.model.use_kernels = use_kernels
+        state, losses = start, []
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()  # just before the sweep
+        t0 = time.perf_counter()
+        for arrays, bucket in steps:
+            loss, _, state = tr.train_step(arrays, bucket, state)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / len(steps) * 1e3
+        counts = {k: v for k, v in ops.launch_counts().items() if v}  # just after
+        grads_ok = all(
+            (p.grad is None) if n.startswith(unreached) else
+            (p.grad is not None and bool(torch.isfinite(p.grad).all()))
+            for n, p in tr.model.named_parameters()
+        ) and all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                  for p in tr.head.parameters())
+        return counts, step_ms, [float(x) for x in losses], grads_ok
+
+    for use_kernels in (False, True):  # warm-up: allocator, cuBLAS
+        sweep(use_kernels, batches[:1])
+    want = {k: v * len(batches) for k, v in MEMORY_MODELS[name][1].items()}
+    ms, losses_of = {True: [], False: []}, {}
+    for use_kernels in MEMORY_TURNS:
+        counts, step_ms, losses, grads_ok = sweep(use_kernels)
+        if counts != (want if use_kernels else {}):
+            raise AssertionError(f"{name} training (kernels {use_kernels}): launched {counts}, "
+                                 f"expected {want if use_kernels else {}}")
+        if not grads_ok or not np.isfinite(losses).all():
+            raise AssertionError(f"{name} training: a loss or gradient is not finite, or a "
+                                 f"parameter out of the loss's reach ({unreached}) got one")
+        ms[use_kernels].append(step_ms)
+        losses_of.setdefault(use_kernels, losses)
+    diffs = [abs(a - b) for a, b in zip(losses_of[True], losses_of[False])]
+    if not (diffs[0] <= LOSS_ATOL and max(diffs) <= LOSS_DRIFT_ATOL):
+        raise AssertionError(f"{name} kernel vs plain training: losses differ by {diffs}")
+    tr.model.use_kernels = True
+    step = check_tgat_lockstep(tgat_lockstep(tr, params, batches[:1], 0.0, state=start),
+                               name, 0.0)
+    result = dict(model=name, steps=len(batches), launches=want, kernel_ms_per_step=ms[True],
+                  plain_ms_per_step=ms[False],
+                  median_ms_per_step={"kernels": statistics.median(ms[True]),
+                                      "plain": statistics.median(ms[False])},
+                  losses=losses_of[True], loss_diffs=diffs,
+                  lockstep_one_step=step)
+    log(f"  {json.dumps(result)}")
+    return result
+
+
+def run_memory_fit(name, dev) -> dict:
+    """Phase 6m: fit on the JAX test fixture (K = 5, 1 layer, 2 epochs, lr
+    1e-3), held to the JAX package's test AP floor. The train negatives
+    come from a sampler seeded 13, as in the training phases, so that the
+    run repeats (the trainer's own is unseeded, as the JAX package's)."""
+    from dyglib_tpu_torch.data import synthetic_link_prediction_data
+    from dyglib_tpu_torch.graph import NegativeEdgeSampler
+    from dyglib_tpu_torch.models import MemoryModel, compute_src_dst_node_time_shifts
+    from dyglib_tpu_torch.train import LinkPredictionTrainer, TrainConfig
+
+    data = synthetic_link_prediction_data(
+        num_src=120, num_dst=60, num_edges=2000, node_feat_scale=1.0, seed=7
+    )
+    shifts = compute_src_dst_node_time_shifts(data.train.src, data.train.dst, data.train.ts)
+    save_path = os.path.join(REPO_ROOT, "dyglib_tpu_torch", "build", f"chip_smoke_{name}_fit.pkl")
+    tr = LinkPredictionTrainer(
+        MemoryModel(model_name=name, num_neighbors=5, num_layers=1, time_shifts=shifts), data,
+        TrainConfig(batch_size=B, num_epochs=2, learning_rate=1e-3, patience=5),
+        save_path=save_path, device=dev,
+    )
+    tr.train_neg = NegativeEdgeSampler(data.train.src, data.train.dst, seed=13)
+    t0 = time.perf_counter()
+    res = tr.fit(seed=0, log=lambda msg: log(f"  {msg}"))
+    seconds = time.perf_counter() - t0
+    ap = res["test metrics"]["average_precision"]
+    log(f"  {name} fixture fit: test AP {ap:.4f} (floor {MEMORY_FIT_AP_FLOOR[name]}), epoch "
+        f"losses {[round(x, 4) for x in res['train losses']]}, {seconds:.1f} s")
+    if not ap > MEMORY_FIT_AP_FLOOR[name]:
+        raise AssertionError(f"{name} fixture fit below the floor: AP {ap}")
+    return {"test_ap": ap, "train_losses": res["train losses"], "seconds": seconds}
 
 
 def lockstep(tr, backbone, batches, fetch, config) -> tuple[float, float, int]:
@@ -1562,6 +1974,9 @@ def main() -> int:
     log(f"TGAT backward kernels vs plain backwards (gradients within {GRAD_RTOL} of sum|terms|, "
         "a second launch bitwise equal):")
     kernel_results.update(check_tgat_backward_kernels(data, dev))
+    log(f"TGN's temporal attention (K = {MEMORY_K}) vs plain versions (atol {KERNEL_ATOL}; "
+        f"gradients within {GRAD_RTOL} of sum|terms|):")
+    kernel_results.update(check_memory_attention_kernels(data, dev))
 
     # ---- 4. the main paths
     log(f"TGAT evaluation path (probability tolerance {PROB_ATOL}):")
@@ -1586,9 +2001,18 @@ def main() -> int:
     log("TGAT with the uniform strategy:")
     run_tgat_uniform(data, dev)
     torch.cuda.empty_cache()
+    log(f"memory models' evaluation path (probability tolerance {PROB_ATOL}; final memory "
+        f"bitwise equal, DyRep's within {MEMORY_GAP_RTOL} of max|memory|):")
+    memory_eval = {name: run_memory_eval(data, name, dev) for name in MEMORY_MODELS}
+    log(f"memory models' training path ({MEMORY_TRAIN_STEPS} steps a sweep; one lockstep step "
+        "as above):")
+    memory_train = {name: run_memory_training(data, name, dev) for name in MEMORY_MODELS}
+    torch.cuda.empty_cache()
     log("fit on the JAX test fixture:")
     run_fit(dev)
     run_tgat_fit(dev)
+    for name in MEMORY_MODELS:
+        run_memory_fit(name, dev)
 
     # ---- 5. results
     rows = []
@@ -1613,7 +2037,11 @@ def main() -> int:
         """Forward kernels: the evaluation sweep; backward kernels: the
         training sweep; window_fetch: its entry-fetch training sweep; TGAT's
         kernels: the first evaluation (forward) or training (backward)
-        sweep of their configuration."""
+        sweep of their configuration; at TGN's shape, TGN's first kernel
+        sweep (evaluation for the forward, training for the backward)."""
+        if config == "tgn":
+            sweep = memory_train if kernel.endswith("_bwd") else memory_eval
+            return sweep["TGN"]["launches"][kernel]
         if kernel in TGAT_KERNEL_CONFIG:
             return tgat_run["launches"][TGAT_KERNEL_CONFIG[kernel]][kernel]
         if kernel.removesuffix("_bwd") in TGAT_KERNEL_CONFIG:

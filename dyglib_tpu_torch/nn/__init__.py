@@ -1,5 +1,7 @@
 from .modules import (
     LN_EPS,
+    FusedGRUCell,
+    FusedRNNCell,
     MergeLayer,
     TemporalMultiHeadAttention,
     TimeEncoder,
@@ -10,6 +12,8 @@ from .modules import (
 
 __all__ = [
     "LN_EPS",
+    "FusedGRUCell",
+    "FusedRNNCell",
     "MergeLayer",
     "TemporalMultiHeadAttention",
     "TimeEncoder",

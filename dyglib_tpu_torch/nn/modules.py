@@ -1,7 +1,8 @@
 """Shared neural modules.
 
 Counterpart of ``dyglib_tpu/nn/modules.py`` (``LN_EPS``, the torch-init
-helpers, ``TimeEncoder``, ``MergeLayer``, ``TemporalMultiHeadAttention``)
+helpers, ``TimeEncoder``, ``FusedGRUCell``, ``FusedRNNCell``,
+``MergeLayer``, ``TemporalMultiHeadAttention``)
 and the inverted ``dropout`` the port's models share. Parameters are drawn
 from an explicit ``torch.Generator`` so a seed fixes the whole model:
 
@@ -73,6 +74,58 @@ class TimeEncoder(nn.Module):
     def forward(self, timestamps: torch.Tensor) -> torch.Tensor:
         """(...,) times -> (..., time_dim) features."""
         return torch.cos(timestamps[..., None] * self.w[0] + self.b)
+
+
+class _FusedCell(nn.Module):
+    """A recurrent cell's parameters in the JAX package's layout and names:
+    wi (D, G H), wh (H, G H), bi and bh (G H,) for G gates, each drawn from
+    U(+-1/sqrt(H)) from ``gen``, in that order. They are not named
+    ``kernel``, so ``transfer`` copies them as they are (nothing is
+    transposed)."""
+
+    def __init__(self, input_dim: int, hidden_dim: int, gen: torch.Generator, gates: int):
+        super().__init__()
+        bound = hidden_dim**-0.5
+        self.hidden_dim = hidden_dim
+        self.wi = nn.Parameter(_uniform((input_dim, gates * hidden_dim), bound, gen))
+        self.wh = nn.Parameter(_uniform((hidden_dim, gates * hidden_dim), bound, gen))
+        self.bi = nn.Parameter(_uniform((gates * hidden_dim,), bound, gen))
+        self.bh = nn.Parameter(_uniform((gates * hidden_dim,), bound, gen))
+
+
+class FusedGRUCell(_FusedCell):
+    """torch ``nn.GRUCell``'s math (counterpart of the JAX package's
+    ``FusedGRUCell``), gate order [r | z | n]:
+
+        r = sigmoid(x Wi_r + bi_r + h Wh_r + bh_r)
+        z = sigmoid(x Wi_z + bi_z + h Wh_z + bh_z)
+        n = tanh(x Wi_n + bi_n + r * (h Wh_n + bh_n))
+        h' = (1 - z) n + z h
+
+    Both bias vectors stay: bh_n sits inside the reset gate's product."""
+
+    def __init__(self, input_dim: int, hidden_dim: int, gen: torch.Generator):
+        super().__init__(input_dim, hidden_dim, gen, gates=3)
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """h (..., H), x (..., D) -> h' (..., H)."""
+        hd = self.hidden_dim
+        gi = x @ self.wi + self.bi
+        gh = h @ self.wh + self.bh
+        r = torch.sigmoid(gi[..., :hd] + gh[..., :hd])
+        z = torch.sigmoid(gi[..., hd : 2 * hd] + gh[..., hd : 2 * hd])
+        n = torch.tanh(gi[..., 2 * hd :] + r * gh[..., 2 * hd :])
+        return (1.0 - z) * n + z * h
+
+
+class FusedRNNCell(_FusedCell):
+    """torch ``nn.RNNCell`` (tanh): h' = tanh(x Wi + bi + h Wh + bh)."""
+
+    def __init__(self, input_dim: int, hidden_dim: int, gen: torch.Generator):
+        super().__init__(input_dim, hidden_dim, gen, gates=1)
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(x @ self.wi + self.bi + h @ self.wh + self.bh)
 
 
 class MergeLayer(nn.Module):

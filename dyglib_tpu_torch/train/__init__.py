@@ -1,4 +1,4 @@
-from .checkpoints import load_checkpoint, save_checkpoint
+from .checkpoints import load_checkpoint, save_checkpoint, to_device
 from .early_stopping import EarlyStopping
 from .link_prediction import LinkPredictionTrainer, TrainConfig, make_optimizer
 from .metrics import average_precision, link_prediction_metrics, roc_auc
@@ -6,6 +6,7 @@ from .metrics import average_precision, link_prediction_metrics, roc_auc
 __all__ = [
     "load_checkpoint",
     "save_checkpoint",
+    "to_device",
     "EarlyStopping",
     "LinkPredictionTrainer",
     "TrainConfig",

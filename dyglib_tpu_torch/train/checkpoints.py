@@ -5,8 +5,9 @@ one pickle of ``{"params": ..., "state": ..., "extra": ...}`` holding numpy
 arrays, written atomically through ``<path>.tmp``. The port's params are
 ``{"backbone": {name: array}, "head": {name: array}}`` (its state dicts as
 numpy); a JAX checkpoint's ``"params"`` go through
-``transfer.from_jax_params``. Unpickling runs code, so load only
-checkpoints this project wrote.
+``transfer.from_jax_params``. A memory model's state is its ``MemoryState``
+with numpy fields; ``to_device`` puts it back on a device. Unpickling runs
+code, so load only checkpoints this project wrote.
 """
 from __future__ import annotations
 
@@ -18,12 +19,27 @@ import numpy as np
 import torch
 
 
-def _to_numpy(tree: Any) -> Any:
+def _map(fn, tree: Any) -> Any:
+    """``fn`` on every leaf of nested dicts and (named) tuples."""
     if isinstance(tree, dict):
-        return {k: _to_numpy(v) for k, v in tree.items()}
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy()
-    return np.asarray(tree)
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        items = [_map(fn, v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return fn(tree)
+
+
+def _to_numpy(tree: Any) -> Any:
+    return _map(
+        lambda x: x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x), tree)
+
+
+def to_device(tree: Any, device) -> Any:
+    """A loaded tree (e.g. a checkpoint's ``"state"``) as tensors on ``device``;
+    None stays None."""
+    if tree is None:
+        return None
+    return _map(lambda a: torch.as_tensor(a).to(device), tree)
 
 
 def save_checkpoint(path: str, params: Any, state: Any = None, extra: Any = None) -> None:

@@ -1,9 +1,9 @@
 """Dynamic link prediction: training and evaluation loops.
 
-Counterpart of ``dyglib_tpu/train/link_prediction.py`` for stateless
-backbones (DyGFormer, TGAT): ``TrainConfig``, ``make_optimizer``, the
-train step, ``train_epoch``, ``evaluate`` and ``fit``. Not ported yet: the
-memory-model paths, resume checkpoints, scan epochs, tensorboard, the
+Counterpart of ``dyglib_tpu/train/link_prediction.py`` for DyGFormer,
+TGAT and the memory models (TGN, DyRep, JODIE): ``TrainConfig``,
+``make_optimizer``, the train step, ``train_epoch``, ``evaluate`` and
+``fit``. Not ported yet: resume checkpoints, scan epochs, tensorboard, the
 profiler hook in ``fit`` and the historical/inductive negative strategies.
 
 Protocol (the JAX package's):
@@ -29,13 +29,30 @@ Protocol (the JAX package's):
     history; metrics are per batch, averaged over batches;
   * early stopping when no validation metric improves (ties count as
     improvement) for ``patience`` epochs, then the best checkpoint is
-    reloaded for the final val / new-node val / test / new-node test sweeps.
+    reloaded for the final val / new-node val / test / new-node test sweeps;
+  * a backbone with state (``has_state``: the memory models) gets its
+    memory as an explicit ``MemoryState``: ``train_step`` and ``eval_step``
+    take it as ``state`` and return the state after committing the batch's
+    positive edges as a third element, ``train_epoch`` and ``evaluate``
+    (from an empty memory unless ``state`` is given) the final state as an
+    extra last element; stateless callers unpack what they did before. The
+    triple's roles ("src", "dst", "dst") go on its inputs (JODIE's time
+    normalization is per role). A train step commits outside autograd, on
+    the raw (not DyRep-swapped) embeddings, with the parameters from before
+    the optimizer's step. ``fit`` starts every epoch from an empty memory;
+    val and new-node val run from the state after training, test (every
+    ``test_interval_epochs``) from the state after val; the best checkpoint
+    holds the parameters and that post-val state, and the final test and
+    new-node test sweeps run from it; the validate metrics reported are the
+    last epoch's (no final val sweep, whose memory has already seen val);
+    ``results["state"]`` is the checkpoint's state.
 
 Each train step's phases are ``torch.profiler`` ranges (``train/sample``,
-``train/forward``, ``train/backward``, ``train/optimizer``) and each eval
-batch's too (``eval/staging``, ``eval/sample``, ``eval/forward``,
-``eval/head``, ``eval/metrics``), so a profiler trace of the real loops
-breaks their time down (``scripts/profile_torch_eval.py``).
+``train/forward``, ``train/backward``, ``train/commit`` for a memory
+model, ``train/optimizer``) and each eval batch's too (``eval/staging``,
+``eval/sample``, ``eval/forward``, ``eval/head``, ``eval/commit``,
+``eval/metrics``), so a profiler trace of the real loops breaks their time
+down (``scripts/profile_torch_eval.py``).
 """
 from __future__ import annotations
 
@@ -54,7 +71,9 @@ from ..device import resolve_device
 from ..graph.csr import FEAT_ENTRY_PAD, TemporalCSR, build_temporal_csr, time_keys
 from ..graph.neg_sampler import NegativeEdgeSampler
 from ..models.base import FeatureTables
+from ..models.memory_model import memory_order_violations, segment_roles
 from ..nn.modules import MergeLayer
+from .checkpoints import to_device
 from .early_stopping import EarlyStopping
 from .metrics import link_prediction_metrics
 
@@ -74,6 +93,9 @@ class TrainConfig:
     # per-batch sequence-length bucketing for backbones that publish
     # bucket_candidates (DyGFormer)
     sequence_buckets: bool = True
+    # after every train step, check that no node's memory clock moved
+    # backwards (memory models; costs a copy of the clocks to the host a step)
+    check_memory_order: bool = False
 
 
 class OptaxRMSprop(torch.optim.Optimizer):
@@ -134,6 +156,7 @@ class LinkPredictionTrainer:
         self.data = data
         self.cfg = cfg
         self.save_path = save_path
+        self.has_state = getattr(backbone, "has_state", False)
         self.device = resolve_device(device)
         dev = self.device
         self.tables = FeatureTables(
@@ -213,16 +236,38 @@ class LinkPredictionTrainer:
         parameters (the form ``load_params`` and the checkpoints take)."""
         return {"backbone": self.model.state_dict(), "head": self.head.state_dict()}
 
+    def init_state(self):
+        """An empty memory on the trainer's device for a backbone with state,
+        else None."""
+        return self.backbone.init_state(self.tables) if self.has_state else None
+
+    def _require_state(self, state) -> None:
+        if self.has_state and state is None:
+            raise ValueError(
+                f"{type(self.backbone).__name__} carries a memory: pass state= "
+                "(init_state() gives an empty one)")
+
     # -------------------------------------------------------------- forward
     def _sample(self, csr: TemporalCSR, src, dst, neg_dst, ts, bucket, gen=None):
         """The triple [src || dst || neg_dst] (neg_src = src); ``gen`` draws
         the neighbors of a stochastic sample strategy."""
         ids, tsx = torch.cat([src, dst, neg_dst]), ts.repeat(3)
         if self._stochastic:
-            return self.backbone.sample(csr, ids, tsx, gen=gen)
-        if bucket is None:
-            return self.backbone.sample(csr, ids, tsx)
-        return self.backbone.sample(csr, ids, tsx, seq_len=bucket)
+            inputs = self.backbone.sample(csr, ids, tsx, gen=gen)
+        elif bucket is None:
+            inputs = self.backbone.sample(csr, ids, tsx)
+        else:
+            inputs = self.backbone.sample(csr, ids, tsx, seq_len=bucket)
+        if self.has_state:  # the triple's roles, explicit
+            roles = segment_roles(src.shape[0], ("src", "dst", "dst"), src.device)
+            inputs = inputs._replace(roles=roles)
+        return inputs
+
+    @staticmethod
+    def _quad(embs: torch.Tensor) -> torch.Tensor:
+        """Triple [src, dst, neg_dst] rows -> quad order [src, dst, src, neg_dst]."""
+        b = embs.shape[0] // 3
+        return torch.cat([embs[: 2 * b], embs[:b], embs[2 * b :]])
 
     def _embed(self, inputs, dropout_gen=None) -> torch.Tensor:
         """Quad-order embeddings [src, dst, neg_src, neg_dst] of a triple's
@@ -230,10 +275,21 @@ class LinkPredictionTrainer:
         src's rows for neg_src; a pair-aware one (DyGFormer) pairs the rows
         itself (``triple=True``)."""
         if getattr(self.backbone, "pair_independent", False):
-            embs = self.model(self.tables, inputs, dropout_gen=dropout_gen)
-            b = embs.shape[0] // 3
-            return torch.cat([embs[: 2 * b], embs[:b], embs[2 * b :]])
+            return self._quad(self.model(self.tables, inputs, dropout_gen=dropout_gen))
         return self.model(self.tables, inputs, triple=True, dropout_gen=dropout_gen)
+
+    def _embed_memory(self, inputs, state, dropout_gen=None):
+        """A memory model's quad-order embeddings against ``state``'s view,
+        and the triple's raw embeddings (what ``commit`` takes)."""
+        embs, raw = self.backbone.embed_quad(self.model, self.tables, state, inputs, dropout_gen)
+        return self._quad(embs), raw
+
+    def _commit(self, state, arrays, raw):
+        """The state after the batch's positive edges (``backbone.commit``)."""
+        src, dst, _, _, ts, eid, valid = arrays
+        b = src.shape[0]
+        return self.backbone.commit(self.model, self.tables, state, src, dst, ts, eid, valid,
+                                    raw[:b], raw[b : 2 * b])
 
     def _head_loss(self, embs, valid):
         """Quad-order embeddings -> (masked mean BCE, (pos_logit, neg_logit))."""
@@ -246,41 +302,63 @@ class LinkPredictionTrainer:
         loss = ((bce_pos + bce_neg) * valid).sum() / torch.clamp(2.0 * valid.sum(), min=1.0)
         return loss, (pos_logit, neg_logit)
 
-    def train_step(self, arrays, bucket: int | None = None):
+    def train_step(self, arrays, bucket: int | None = None, state=None):
         """One optimizer step on a batch (train mode, dropout from the
         trainer's generator) -> (loss, (pos_probs, neg_probs)), detached.
-        The parameters' ``.grad`` hold this step's gradients afterwards."""
+        The parameters' ``.grad`` hold this step's gradients afterwards
+        (None for those the loss does not reach). A memory model takes its
+        memory as ``state`` and gets the committed state as a third element."""
+        self._require_state(state)
         src, dst, _neg_src, neg_dst, ts, _eid, valid = arrays
         self.model.train()
         self.head.train()
         with record_function("train/sample"):
             inputs = self._sample(self.train_csr, src, dst, neg_dst, ts, bucket, self.sample_gen)
         with record_function("train/forward"):
-            embs = self._embed(inputs, self.dropout_gen)
+            if self.has_state:
+                embs, raw = self._embed_memory(inputs, state, self.dropout_gen)
+            else:
+                embs = self._embed(inputs, self.dropout_gen)
             loss, (pos_logit, neg_logit) = self._head_loss(embs, valid)
         with record_function("train/backward"):
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+        if self.has_state:
+            with record_function("train/commit"):  # the parameters before the step
+                state = self._commit(state, arrays, raw.detach())
         with record_function("train/optimizer"):
             self.optimizer.step()
         probs = (torch.sigmoid(pos_logit).detach(), torch.sigmoid(neg_logit).detach())
+        if self.has_state:
+            return loss.detach(), probs, state
         return loss.detach(), probs
 
     @torch.inference_mode()
-    def eval_step(self, csr: TemporalCSR, arrays, bucket: int | None = None, gen=None):
+    def eval_step(self, csr: TemporalCSR, arrays, bucket: int | None = None, gen=None,
+                  state=None):
         """One batch under the random-negative protocol (neg_src = src) ->
         (masked mean BCE loss, (pos_probs, neg_probs)); ``gen`` draws a
-        stochastic strategy's neighbors."""
+        stochastic strategy's neighbors. A memory model takes its memory as
+        ``state`` and gets the state after the batch's positive edges as a
+        third element."""
+        self._require_state(state)
         src, dst, _neg_src, neg_dst, ts, _eid, valid = arrays
         self.model.eval()
         self.head.eval()
         with record_function("eval/sample"):
             inputs = self._sample(csr, src, dst, neg_dst, ts, bucket, gen)
         with record_function("eval/forward"):
-            embs = self._embed(inputs)
+            if self.has_state:
+                embs, raw = self._embed_memory(inputs, state)
+            else:
+                embs = self._embed(inputs)
         with record_function("eval/head"):
             loss, (pos_logit, neg_logit) = self._head_loss(embs, valid)
-            return loss, (torch.sigmoid(pos_logit), torch.sigmoid(neg_logit))
+            probs = (torch.sigmoid(pos_logit), torch.sigmoid(neg_logit))
+        if not self.has_state:
+            return loss, probs
+        with record_function("eval/commit"):
+            return loss, probs, self._commit(state, arrays, raw)
 
     # ---------------------------------------------------------------- loops
     def _batch_arrays(self, b: Batch, neg_src, neg_dst):
@@ -345,32 +423,63 @@ class LinkPredictionTrainer:
             bucket = self._pick_bucket(self.train_csr, b, b.src, neg_dst)
             yield b, self._batch_arrays(b, b.src, neg_dst), bucket
 
-    def train_epoch(self, stream: EdgeStream | None = None):
+    def train_epoch(self, stream: EdgeStream | None = None, state=None):
         """One pass over the train split (or ``stream``) -> (per-batch
-        losses, per-batch AP/AUC dicts)."""
+        losses, per-batch AP/AUC dicts); a memory model's sweep starts from
+        ``state`` (default: an empty memory) and its final state is a third
+        element. With ``cfg.check_memory_order`` each step is checked for
+        node clocks that move backwards."""
         if self.model is None:
             raise RuntimeError("call init_params or load_params first")
+        if self.has_state and state is None:
+            state = self.init_state()
         losses, metrics = [], []
-        for b, arrays, bucket in self.train_batches(stream):
-            loss, (pos, neg) = self.train_step(arrays, bucket)
+        for i, (b, arrays, bucket) in enumerate(self.train_batches(stream)):
+            if not self.has_state:
+                loss, (pos, neg) = self.train_step(arrays, bucket)
+            else:
+                clocks = self._clocks(state)
+                loss, (pos, neg), state = self.train_step(arrays, bucket, state)
+                self._check_order(clocks, state, f"train batch {i}")
             host = (pos.cpu().numpy(), neg.cpu().numpy())
             losses.append(float(loss))
             metrics.append(self._batch_metrics(host, b))
-        return losses, metrics
+        return (losses, metrics, state) if self.has_state else (losses, metrics)
+
+    def _clocks(self, state):
+        """Host copies of the memory's clocks, under ``cfg.check_memory_order``."""
+        if not self.cfg.check_memory_order:
+            return None
+        return state.last_update.cpu().numpy(), state.msg_time.cpu().numpy()
+
+    @staticmethod
+    def _check_order(clocks, new_state, where: str) -> None:
+        if clocks is None:
+            return
+        n = memory_order_violations(*clocks, new_state)
+        if n:
+            raise RuntimeError(
+                f"memory order violated at {where}: {n} node clock(s) moved backwards "
+                "(batches applied out of chronological order, or a corrupted state)")
 
     def evaluate(self, stream: EdgeStream, neg_sampler: NegativeEdgeSampler,
-                 eval_key_salt: int = 0):
+                 eval_key_salt: int = 0, state=None):
         """One sweep over a split; a stochastic sample strategy draws from a
         generator seeded from 12345 + ``eval_key_salt``.
 
         Returns (losses, metrics, probs): per batch, the loss, the AP/AUC
         dict and the host (pos_probs, neg_probs) arrays (padded rows
-        included).
+        included). A memory model's sweep starts from ``state`` (default:
+        an empty memory), commits each batch's positive edges and returns
+        the final state as a fourth element; ``state`` itself is not
+        modified.
         """
         if self.model is None:
             raise RuntimeError("call init_params or load_params first")
+        if self.has_state and state is None:
+            state = self.init_state()
         if stream.num_interactions == 0:
-            return [], [], []
+            return ([], [], [], state) if self.has_state else ([], [], [])
         neg_sampler.reset_random_state()
         gen = None
         if self._stochastic:
@@ -385,13 +494,22 @@ class LinkPredictionTrainer:
                 ns, nd = self._pad_negs(b.src[:n], b), self._pad_negs(neg_dst, b)
                 bucket = self._pick_bucket(self.full_csr, b, ns, nd)
                 arrays = self._batch_arrays(b, ns, nd)
-            loss, (pos, neg) = self.eval_step(self.full_csr, arrays, bucket, gen)
+            if self.has_state:
+                loss, (pos, neg), state = self.eval_step(self.full_csr, arrays, bucket, gen,
+                                                         state)
+            else:
+                loss, (pos, neg) = self.eval_step(self.full_csr, arrays, bucket, gen)
             with record_function("eval/metrics"):  # the copy-back waits for the device
                 host = (pos.cpu().numpy(), neg.cpu().numpy())
                 losses.append(float(loss))
                 metrics.append(self._batch_metrics(host, b))
                 probs.append(host)
-        return losses, metrics, probs
+        return (losses, metrics, probs, state) if self.has_state else (losses, metrics, probs)
+
+    def _sweep(self, stream, sampler, salt, state=None):
+        """(mean metrics, final state or None) of one ``evaluate``."""
+        out = self.evaluate(stream, sampler, salt, state=state)
+        return self.mean_metrics(out[1]), (out[3] if self.has_state else None)
 
     @staticmethod
     def mean_metrics(metrics: list[dict]) -> dict[str, float]:
@@ -418,37 +536,40 @@ class LinkPredictionTrainer:
         d = self.data
         for epoch in range(self.cfg.num_epochs):
             t0 = time.time()
-            tr_losses, tr_metrics = self.train_epoch()
-            _, val_metrics, _ = self.evaluate(d.val, self.val_neg, 0)
-            _, nn_val_metrics, _ = self.evaluate(d.new_node_val, self.nn_val_neg, 1)
-            mv = self.mean_metrics(val_metrics)
+            out = self.train_epoch()  # a memory model's from an empty memory
+            tr_losses, tr_metrics = out[:2]
+            train_state = out[2] if self.has_state else None
+            mv, val_state = self._sweep(d.val, self.val_neg, 0, train_state)
+            nn_mv, _ = self._sweep(d.new_node_val, self.nn_val_neg, 1, train_state)
             epoch_mean_losses.append(float(np.mean(tr_losses)))
             dt = time.time() - t0
             log(
                 f"epoch {epoch + 1}: train loss {np.mean(tr_losses):.4f} "
                 f"ap {self.mean_metrics(tr_metrics).get('average_precision', 0):.4f}"
-                f" | val {mv} | nn-val ap "
-                f"{self.mean_metrics(nn_val_metrics).get('average_precision', 0):.4f} "
+                f" | val {mv} | nn-val ap {nn_mv.get('average_precision', 0):.4f} "
                 f"({dt:.1f}s)"
             )
             if (epoch + 1) % self.cfg.test_interval_epochs == 0:
-                _, test_metrics, _ = self.evaluate(d.test, self.test_neg, 2)
-                log(f"  test {self.mean_metrics(test_metrics)}")
-            if early.step(mv, self.state_dicts()):
+                log(f"  test {self._sweep(d.test, self.test_neg, 2, val_state)[0]}")
+            if early.step(mv, self.state_dicts(), val_state):
                 log(f"early stop at epoch {epoch + 1}")
                 break
 
-        self.load_params(early.load_best()["params"])
+        best = early.load_best()
+        self.load_params(best["params"])
+        state = to_device(best["state"], self.device)
         results: dict = {"train losses": epoch_mean_losses}
-        sweeps = (
-            ("validate metrics", d.val, self.val_neg),
-            ("new node validate metrics", d.new_node_val, self.nn_val_neg),
-            ("test metrics", d.test, self.test_neg),
-            ("new node test metrics", d.new_node_test, self.nn_test_neg),
-        )
-        for salt, (key, stream, sampler) in enumerate(sweeps):
-            results[key] = self.mean_metrics(self.evaluate(stream, sampler, salt)[1])
+        if self.has_state:
+            # the checkpoint's memory has seen val: the last epoch's val
+            # metrics stand, as the JAX package reports them
+            results["validate metrics"], results["new node validate metrics"] = mv, nn_mv
+        else:
+            results["validate metrics"] = self._sweep(d.val, self.val_neg, 0)[0]
+            results["new node validate metrics"] = self._sweep(
+                d.new_node_val, self.nn_val_neg, 1)[0]
+        results["test metrics"] = self._sweep(d.test, self.test_neg, 2, state)[0]
+        results["new node test metrics"] = self._sweep(
+            d.new_node_test, self.nn_test_neg, 3, state)[0]
         results["params"] = self.state_dicts()
-        results["state"] = None
+        results["state"] = state
         return results
-

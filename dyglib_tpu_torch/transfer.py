@@ -16,7 +16,13 @@ checkpoint's ``"params"``) and returns ``{"backbone": state_dict,
     bias; ``.../residual_fc``, ``.../layer_norm``, ``merge_{l}/fc1|fc2``,
     ``time_encoder/w|b``) maps the same way; the JAX kernel paths'
     ``_RawKernel`` projections share ``Dense``'s names, so one tree serves
-    every configuration.
+    every configuration;
+  * a memory model's tree (TGN, DyRep, JODIE): its cell's
+    ``memory_cell/{wi,wh,bi,bh}`` are not named ``kernel`` and keep their
+    JAX layout in the port (``nn.FusedGRUCell``), so they are copied as
+    they are; JODIE's ``time_projection`` is a Linear; TGN's and DyRep's
+    ``temporal_conv_{l}``, ``merge_{l}`` and ``time_encoder`` map as
+    TGAT's do.
 """
 from __future__ import annotations
 

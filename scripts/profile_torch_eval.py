@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's evaluation or training goes, on one card.
 
-    python3 scripts/profile_torch_eval.py [--model dygformer|tgat] [--mode eval|train]
-                                          [--batches 10] [--configs NAMES] [--repo DIR]
+    python3 scripts/profile_torch_eval.py [--model dygformer|tgat|tgn|dyrep|jodie]
+                                          [--mode eval|train] [--batches 10]
+                                          [--configs NAMES] [--repo DIR]
 
 Same setting as chip_smoke.py (synthetic wikipedia-scale stream, seed 1;
 random weights, seed 0; B = 200). DyGFormer: the wikipedia (maxlen 32,
@@ -11,8 +12,12 @@ TGAT: the published widths (K = 20, 2 layers, 2 heads, Dt = 100), the
 default kernel path (gathered attention at layer 1, fused attention at
 layer 2; in training their backward kernels too), the plain path and the
 Phi fusion (``use_phi_fusion=True``: the Phi projection's kernels, two a
-convolution). ``--configs`` picks configurations by name (comma-separated,
-e.g. "TGAT Phi fusion"); ``--repo`` names the tree whose
+convolution). TGN, DyRep, JODIE: the published widths (TGN and DyRep K =
+10, 1 layer, 2 heads; memory 172, Dt = 100; time shifts from the train
+split), the kernel path (TGN's and DyRep's temporal attention kernel) and
+the plain path, each sweep from an empty memory. ``--configs`` picks
+configurations by name (comma-separated, e.g. "TGAT Phi fusion");
+``--repo`` names the tree whose
 ``dyglib_tpu_torch`` is run (default: this checkout), so that two trees
 run by one command in turns compare on one card. For each configuration
 it first times the same sweep twice with no profiler (host clock, ending
@@ -29,8 +34,10 @@ fetch, as chip_smoke.py drives them), and reports:
     ``eval/metrics`` (copy-back, which waits for the device, + metrics);
     for TGAT ``eval/sample`` is ``TGAT.sample`` (the multi-hop fan-out).
     train_step: ``train/sample``, ``train/forward`` (network, with the
-    entry fetch where it runs, head and loss), ``train/backward`` and
-    ``train/optimizer`` (Adam).
+    entry fetch where it runs, head and loss), ``train/backward``,
+    ``train/commit`` (a memory model's state transition) and
+    ``train/optimizer`` (Adam); a memory model's eval batch adds
+    ``eval/commit``.
     A range's device time is that of the kernels launched, from any host
     thread, while the range was open: autograd launches the backward's
     kernels from its own thread, outside the range's child ops;
@@ -41,9 +48,9 @@ fetch, as chip_smoke.py drives them), and reports:
     those spans are not device work and are left out of both.
 
 First it prints the host cost of one profiler range with no profiler
-running (evaluate opens five per batch, train_step four), then one JSON
-line per configuration. Needs a CUDA card; raises if the profiler records no
-device time.
+running (evaluate opens five per batch, train_step four; a memory model one
+more each), then one JSON line per configuration. Needs a CUDA card;
+raises if the profiler records no device time.
 """
 import argparse
 import json
@@ -57,6 +64,7 @@ CONFIGS = (("wikipedia", 32, 1), ("CanParl", 2048, 64))
 # (name, TGAT arguments, use_kernels)
 TGAT_CONFIGS = (("TGAT default", {}, True), ("TGAT plain", {}, False),
                 ("TGAT Phi fusion", {"use_phi_fusion": True}, True))
+MEMORY_MODELS = {"tgn": "TGN", "dyrep": "DyRep", "jodie": "JODIE"}
 
 
 def is_range(name: str) -> bool:
@@ -168,7 +176,8 @@ def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--model", choices=("dygformer", "tgat"), default="dygformer")
+    parser.add_argument("--model", choices=("dygformer", "tgat", *MEMORY_MODELS),
+                        default="dygformer")
     parser.add_argument("--mode", choices=("eval", "train"), default="eval")
     parser.add_argument("--batches", type=int, default=10)
     parser.add_argument("--configs", default="",
@@ -182,7 +191,12 @@ def main() -> int:
     sys.path.insert(0, os.path.abspath(args.repo))
     torch.backends.cuda.matmul.allow_tf32 = False
     from dyglib_tpu_torch.data import synthetic_link_prediction_data
-    from dyglib_tpu_torch.models import TGAT, DyGFormer
+    from dyglib_tpu_torch.models import (
+        TGAT,
+        DyGFormer,
+        MemoryModel,
+        compute_src_dst_node_time_shifts,
+    )
     from dyglib_tpu_torch.train import LinkPredictionTrainer, TrainConfig
 
     def synced(fn):
@@ -196,6 +210,11 @@ def main() -> int:
     n = data.train.num_interactions
     if args.model == "tgat":
         runs = [(name, TGAT(**kw), use_kernels, False) for name, kw, use_kernels in TGAT_CONFIGS]
+    elif args.model in MEMORY_MODELS:
+        name = MEMORY_MODELS[args.model]
+        shifts = compute_src_dst_node_time_shifts(data.train.src, data.train.dst, data.train.ts)
+        runs = [(f"{name} {path}", MemoryModel(model_name=name, time_shifts=shifts),
+                 path == "kernels", False) for path in ("kernels", "plain")]
     else:
         runs = [
             (config, DyGFormer(max_input_sequence_length=maxlen, patch_size=patch,

@@ -2,6 +2,7 @@
 """Time TGAT's attention and Phi projection kernels on one card, by CUDA-graph replay (device time).
 
     python3 scripts/time_tgat_kernels.py [--repo DIR] [--rounds N] [--only NAMES]
+                                         [--neighbors K]
 
 ``--repo`` names the tree whose ``dyglib_tpu_torch`` is imported (default:
 this checkout). Two trees timed by one command in turns, parent, change,
@@ -30,9 +31,15 @@ generators, identical in every tree. At each hop:
     precomputed Phi by W, and ``phi_bwd_mms``, the backward's two
     torch.mm's (Phi^T dout, dout W^T); its backward's launches apart too.
 
+Beside the temporal attention, its partial library yardsticks:
+``kv_mms``, the plain path's two K/V torch.mm's on the materialized kv, and
+``kv_bwd_mms``, the backward's two weight-gradient torch.mm's (kv^T dkey,
+kv^T dval).
+
 ``--only`` takes a comma-separated list of measurement names (e.g.
 ``phi_projection,phi_projection_bwd,phi_mm,phi_bwd_mms``) and times only
-those.
+those. ``--neighbors`` sets K (default 20, TGAT's); at 10, hop 0's
+temporal attention has TGN's and DyRep's shape (M = 600, K = 10).
 
 Each measurement is taken ``--rounds`` times, in turns with the others.
 Prints the card's name and power limit, one line per measurement, then
@@ -49,22 +56,23 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from time_dygformer_kernels import graph_ms  # noqa: E402
 
-B, K, DT_DIM, FEAT, DROPOUT = 200, 20, 100, 172, 0.1
+B, DT_DIM, FEAT, DROPOUT = 200, 100, 172, 0.1
 
 
-def tgat_operands(dev):
-    """{hop: {name: zero-argument call}} for hops 0 and 1."""
+def tgat_operands(dev, k: int = 20):
+    """{hop: {name: zero-argument call}} for hops 0 and 1, k neighbours."""
     import numpy as np
     import torch
 
     from dyglib_tpu_torch import ops
+    from dyglib_tpu_torch.ops import _attention
     from dyglib_tpu_torch.data import synthetic_link_prediction_data
     from dyglib_tpu_torch.graph import build_temporal_csr
     from dyglib_tpu_torch.graph.csr import time_keys
     from dyglib_tpu_torch.models import TGAT, FeatureTables
 
     data = synthetic_link_prediction_data(num_src=8227, num_dst=1000, num_edges=157474, seed=1)
-    tgat = TGAT(num_neighbors=K, num_layers=2, num_heads=2, time_feat_dim=DT_DIM,
+    tgat = TGAT(num_neighbors=k, num_layers=2, num_heads=2, time_feat_dim=DT_DIM,
                 wants_entry_features=True)
     net = tgat.build(FEAT, FEAT, torch.Generator().manual_seed(0)).to(dev).eval()
     feats = (data.node_raw_features, data.edge_raw_features)
@@ -86,17 +94,17 @@ def tgat_operands(dev):
         for h in (0, 1):
             hop_ids = inputs.hop_ids[h].reshape(-1).long()
             m = hop_ids.shape[0]
-            dt = (inputs.hop_ts[h].reshape(-1, 1) - inputs.hop_ts[h + 1].reshape(m, K)).float()
+            dt = (inputs.hop_ts[h].reshape(-1, 1) - inputs.hop_ts[h + 1].reshape(m, k)).float()
             phi0 = net.time_encoder(torch.zeros((m, 1), device=dev))[:, 0, :]
             q3 = conv.query_projection(torch.cat([tables.node[hop_ids], phi0], -1)).contiguous()
-            mask = inputs.hop_mask[h].reshape(m, K).float()
-            keep = (torch.rand((m, heads, K), device=dev, generator=gen) < 1 - DROPOUT) / (
+            mask = inputs.hop_mask[h].reshape(m, k).float()
+            keep = (torch.rand((m, heads, k), device=dev, generator=gen) < 1 - DROPOUT) / (
                 1 - DROPOUT)
             dout = 1e-3 * torch.randn((m, dq), device=dev, generator=gen)
             feat_n = tables.node[inputs.hop_ids[h + 1].reshape(-1).long()]
             feat_e = tables.edge[inputs.hop_eids[h].reshape(-1).long()]
-            nbr = torch.randn((m, K, FEAT), device=dev, generator=gen)
-            edge = feat_e.view(m, K, FEAT)
+            nbr = torch.randn((m, k, FEAT), device=dev, generator=gen)
+            edge = feat_e.view(m, k, FEAT)
             phi = net.time_encoder(dt)
             starts = inputs.hop_win_start[h].reshape(-1)
             dt_flat, w_phi = dt.reshape(-1), wk[2 * FEAT:]
@@ -104,6 +112,11 @@ def tgat_operands(dev):
             phi_mat = torch.cos(dt_flat[:, None] * tw + tb)
             p_args = (dt_flat, tw, tb, w_phi)
             t_args = (q3, nbr, edge, phi, mask, keep, wk, wv, heads)
+            kv = torch.cat([nbr, edge, phi], dim=-1).reshape(m * k, -1)
+            key, val = _attention.project_kv(kv, wk, wv)
+            _, dkey, dval = _attention.attend_backward(
+                q3, key.view(m, k, -1), val.view(m, k, -1), mask, keep, dout, None, heads)
+            dkey, dval = dkey.reshape(m * k, dq), dval.reshape(m * k, dq)
             g_args = (q3, feat_n, feat_e, dt, mask, keep, (tw, tb), (wk, wv), heads)
             w_args = (q3, starts, dt, mask, keep, csr.feat_entry, tw, tb, (wk, wv), heads)
             calls[h] = {
@@ -119,6 +132,9 @@ def tgat_operands(dev):
                 "phi_projection": lambda a=p_args: ops.phi_projection(*a),
                 "phi_projection_bwd": lambda a=p_args, d=phi_dout: ops.phi_projection_backward(
                     *a, d),
+                "kv_mms": lambda x=kv: (torch.mm(x, wk), torch.mm(x, wv)),
+                "kv_bwd_mms": lambda x=kv, a=dkey, b=dval: (torch.mm(x.t(), a),
+                                                            torch.mm(x.t(), b)),
                 "phi_mm": lambda p=phi_mat, w_=w_phi: torch.mm(p, w_),
                 "phi_bwd_mms": lambda p=phi_mat, w_=w_phi, d=phi_dout: (
                     torch.mm(p.t(), d), torch.mm(d, w_.t())),
@@ -166,6 +182,8 @@ def main() -> int:
     parser.add_argument("--rounds", type=int, default=2)
     parser.add_argument("--only", default="",
                         help="comma-separated measurement names to time (default: all)")
+    parser.add_argument("--neighbors", type=int, default=20,
+                        help="K, neighbours a query (default: TGAT's 20)")
     args = parser.parse_args()
     only = set(filter(None, args.only.split(",")))
     import torch
@@ -188,7 +206,7 @@ def main() -> int:
                   "phi_projection"])
     dev = torch.device("cuda:0")
     results = {}
-    for h, calls in tgat_operands(dev).items():
+    for h, calls in tgat_operands(dev, args.neighbors).items():
         calls = {name: fn for name, fn in calls.items() if not only or name in only}
         entry = {name: [] for name in calls}
         entry.update({f"{name}_launches": [] for name in calls if name.endswith("_bwd")})
@@ -208,8 +226,8 @@ def main() -> int:
             else:
                 print(f"hop {h} {name:<32} device {['%.5f' % t for t in times]} ms", flush=True)
         torch.cuda.empty_cache()
-    print(json.dumps({"card": card, "repo": os.path.abspath(args.repo), "device_ms": results}),
-          flush=True)
+    print(json.dumps({"card": card, "repo": os.path.abspath(args.repo),
+                      "neighbors": args.neighbors, "device_ms": results}), flush=True)
     return 0
 
 

@@ -19,8 +19,9 @@ GEMM kernels read (row-major (K, ced) and nn.Linear's (ced, K) transposed),
 and the wrappers' refusals; the time channel's backward with every
 position masked, theta past 2^40 and Dt 1 to 128; the attention
 backwards at K 1, 33 and 96, with every query masked, and with one head
-and four; the reduced cosine and sine bit for bit against torch.cos and
-torch.sin.
+and four; the attention kernels at TGN's and DyRep's shape (M = 600, K =
+10); the memory models' launches per eval batch and train step; the
+reduced cosine and sine bit for bit against torch.cos and torch.sin.
 
 Tolerances: time_channel and patch_projection atol 1e-4 (both sides are
 f32; they differ only in the order of the f32 sums, K <= 11,008 products
@@ -709,6 +710,7 @@ ATTN_CASES = [
     (3, 5, 64, 8, 8, 8, 16, 4),  # K = 64, four heads
     (4, 70, 1, 12, 12, 10, 22, 2),  # K = 1
     (5, 9, 96, 12, 12, 8, 22, 2),  # K = 96: more kv rows a query than one 64-row tile
+    (6, 600, 10, 172, 172, 100, 272, 2),  # TGN's and DyRep's shape: the B = 200 triple, K = 10
 ]
 
 
@@ -1026,3 +1028,59 @@ def test_uniform_sampling_on_the_card_is_seeded(dev):
     after = ops.launch_counts()
     assert after["gathered_attention_bwd"] - before["gathered_attention_bwd"] == 2
     assert after["temporal_attention_bwd"] - before["temporal_attention_bwd"] == 1
+
+
+# the kernels a memory model launches per eval batch and per train step;
+# DyRep's loss reads the updated memories (its attention only feeds its
+# messages), so it runs no attention backward; JODIE has no attention
+MEMORY_LAUNCHES = {
+    "TGN": ({"temporal_attention": 1}, {"temporal_attention": 1, "temporal_attention_bwd": 1}),
+    "DyRep": ({"temporal_attention": 1}, {"temporal_attention": 1}),
+    "JODIE": ({}, {}),
+}
+
+
+@pytest.mark.parametrize("name", list(MEMORY_LAUNCHES))
+def test_memory_model_launches_per_batch_and_step(dev, name):
+    """A memory model at small widths on the card through the trainer: the
+    kernel path launches its kernels once per eval batch and train step,
+    the plain path none; both paths' probabilities and committed memories
+    agree (TGN's and JODIE's memories bitwise: no kernel touches them)."""
+    import dataclasses
+
+    from dyglib_tpu_torch.data import synthetic_link_prediction_data
+    from dyglib_tpu_torch.models import MemoryModel
+    from dyglib_tpu_torch.train import LinkPredictionTrainer, TrainConfig
+
+    data = synthetic_link_prediction_data(num_src=60, num_dst=30, num_edges=1500, seed=3)
+    data = dataclasses.replace(data, node_raw_features=data.node_raw_features[:, :12].copy(),
+                               edge_raw_features=data.edge_raw_features[:, :12].copy())
+    tr = LinkPredictionTrainer(
+        MemoryModel(model_name=name, memory_dim=12, num_neighbors=5, time_feat_dim=10,
+                    dropout=0.0), data, TrainConfig(batch_size=50), device=dev)
+    tr.init_params(0)
+    params = {part: {k: v.clone() for k, v in sd.items()} for part, sd in tr.state_dicts().items()}
+    _, arrays, bucket = next(iter(tr.train_batches()))
+    out = {}
+    for use_kernels in (True, False):
+        tr.load_params(params)
+        tr.model.use_kernels = use_kernels
+        state = tr.init_state()
+        before = ops.launch_counts()
+        _, eval_probs, state = tr.eval_step(tr.full_csr, arrays, bucket, state=state)
+        mid = ops.launch_counts()
+        loss, _, state = tr.train_step(arrays, bucket, state)
+        after = ops.launch_counts()
+        torch.cuda.synchronize()
+        eval_launched = {k: mid[k] - before[k] for k in mid if mid[k] != before[k]}
+        train_launched = {k: after[k] - mid[k] for k in after if after[k] != mid[k]}
+        want = MEMORY_LAUNCHES[name] if use_kernels else ({}, {})
+        assert (eval_launched, train_launched) == want
+        assert torch.isfinite(loss)
+        out[use_kernels] = (eval_probs, state)
+    for a, b in zip(out[True][0], out[False][0]):
+        torch.testing.assert_close(a, b, atol=ATOL, rtol=0)
+    if name == "DyRep":
+        torch.testing.assert_close(out[True][1].memory, out[False][1].memory, atol=1e-4, rtol=0)
+    else:
+        assert torch.equal(out[True][1].memory, out[False][1].memory)
