@@ -3,13 +3,17 @@
 
     python3 chip_smoke.py            (from the root of a checkout)
 
-The main paths are TGAT, DyGFormer, TGN, DyRep and JODIE link-prediction
-evaluation (``dyglib_tpu_torch.train.LinkPredictionTrainer.evaluate``) and
-training (``LinkPredictionTrainer.train_step`` over train batches, and
-``fit``), each model at its published widths (TGAT: 20
-neighbours, 2 layers, 2 heads; DyGFormer: channel embedding 50, 2 layers,
-2 heads; TGN and DyRep: 10 neighbours, 1 layer, 2 heads, memory 172;
-JODIE: memory 172; all: time features 100, node and edge features 172), random
+The main paths are TGAT, DyGFormer, TGN, DyRep, JODIE, GraphMixer, TCL
+and CAWN link-prediction evaluation
+(``dyglib_tpu_torch.train.LinkPredictionTrainer.evaluate``) and training
+(``LinkPredictionTrainer.train_step`` over train batches, and ``fit``),
+and EdgeBank's evaluation (``evaluate_edge_bank_link_prediction``), each
+model at its published widths (TGAT: 20 neighbours, 2 layers, 2 heads;
+DyGFormer: channel embedding 50, 2 layers, 2 heads; TGN and DyRep: 10
+neighbours, 1 layer, 2 heads, memory 172; JODIE: memory 172; GraphMixer:
+30 neighbours, 2 layers, time gap 2000; TCL: 20 neighbours, 2 layers, 2
+heads; CAWN: 32 neighbours, walk length 1, 8 walk heads, position
+features 172; all: time features 100, node and edge features 172), random
 weights from seed 0, on the wikipedia-scale synthetic stream (8227 users,
 1000 items, 157474 edges, seed 1) built in memory, B = 200; DyGFormer at
 two published configurations: wikipedia (maxlen 32, patch 1) and CanParl
@@ -112,6 +116,25 @@ and prints no result):
      for the others (DyRep's attention, merge and time encoder; JODIE's
      time encoder), and one lockstep step as TGAT's; ms per eval batch and
      per train step;
+  5n. GraphMixer, TCL and CAWN (no kernel on their paths), each: the first
+     20 val batches twice (no launch, the rows each batch embeds: the
+     triple for GraphMixer and TCL, the quad for CAWN; finite
+     probabilities, metrics in range, the two sweeps bitwise equal), the
+     first batches against the port's CPU path within PROB_ATOL (CAWN, whose
+     neighbours the card's generator draws: the card's sampled inputs
+     through the CPU net), 5 train steps on the last train batches at
+     dropout 0 (finite losses, a finite gradient for every trainable
+     parameter the loss reaches, none for GraphMixer's frozen time encoder
+     and CAWN's backward-direction recurrent weights); GraphMixer's node
+     encoder by gather against its prefix sums on one batch; TCL under
+     uniform sampling (the quad, two equal sweeps); ms per eval batch and
+     per train step. EdgeBank on the test split under random (unlimited
+     memory), historical and inductive (repeat-threshold memory)
+     negatives, card against the CPU path: equal 0/1 probabilities, losses
+     and metrics; ms per batch. TGAT (default kernels) and TGN evaluate 20
+     val batches under historical and inductive negatives: the quad (4B
+     rows a batch), the launches per batch of the random protocol, the
+     first batches against the CPU path; ms per batch;
   6. fit on the JAX test fixture (the 2000-edge synthetic stream of
      tests/conftest.py): DyGFormer 32/2, 2 layers, dropout 0.1, 4 epochs,
      lr 5e-4, test AP above 0.50 and the least epoch loss below 0.67
@@ -119,7 +142,12 @@ and prints no result):
      lr 1e-3, default kernels, test AP above 0.58 and AUC above 0.57
      (tests/test_tgat_end_to_end.py); TGN, JODIE and DyRep K = 5, 1 layer,
      2 epochs, lr 1e-3, train negatives seeded 13, test AP above 0.57, 0.58
-     and 0.39 (tests/test_memory_models.py): the JAX package's floors;
+     and 0.39 (tests/test_memory_models.py); GraphMixer K = 10, time gap
+     200, 3 epochs, test AP above 0.75 (tests/test_graphmixer.py); TCL K =
+     10, 2 layers, 4 train epochs (the last epoch's mean loss below 0.93 x
+     the first's and below 0.69) and test AP above 0.53 from the final
+     weights; CAWN K = 8, walk length 1, 8 heads, 2 epochs, test AP above
+     0.58 (tests/test_remaining_models.py); lr 1e-3: the JAX package's floors;
   7. print one JSON line of kernel numbers, then the device JSON line.
 """
 import json
@@ -244,6 +272,34 @@ MEMORY_GAP_RTOL = 1e-3
 # the JAX package's test AP floors of the fixture fits
 # (tests/test_memory_models.py)
 MEMORY_FIT_AP_FLOOR = {"TGN": 0.57, "JODIE": 0.58, "DyRep": 0.39}
+
+
+# GraphMixer, TCL and CAWN at their published wikipedia widths
+# (dyglib_tpu/configs/best_configs.py): time features 100; TCL's uniform
+# variant (reddit, CanParl) is asked for apart. No kernel runs on their
+# paths: the JAX models reach no Pallas kernel.
+NEW_MODELS = {
+    "GraphMixer": dict(num_neighbors=30, num_layers=2, dropout=0.5, time_gap=2000,
+                       time_feat_dim=DT_DIM),
+    "TCL": dict(num_neighbors=20, num_layers=2, num_heads=2, dropout=0.1, time_feat_dim=DT_DIM),
+    "CAWN": dict(num_neighbors=32, walk_length=1, num_walk_heads=8, position_feat_dim=FEAT,
+                 time_feat_dim=DT_DIM, dropout=0.1),
+}
+# parameters no loss reaches: GraphMixer's frozen time encoder, and CAWN's
+# backward-direction recurrent weights (that direction runs one step from 0)
+NEW_UNREACHED = {"GraphMixer": ("time_encoder.",), "TCL": (),
+                 "CAWN": ("feature_encoder.bwd_wh", "position_encoder.bwd_wh")}
+NEW_BATCHES, NEW_TRAIN_STEPS = 20, 5
+# EdgeBank's memory under each negative strategy (best_configs.py)
+EDGEBANK_MODES = {"random": "unlimited_memory", "historical": "repeat_threshold_memory",
+                  "inductive": "repeat_threshold_memory"}
+# the fixture fits of the JAX tests (tests/test_graphmixer.py,
+# tests/test_remaining_models.py): (kwargs, epochs, test AP floor)
+NEW_FIT = {
+    "GraphMixer": (dict(num_neighbors=10, num_layers=2, time_gap=200), 3, 0.75),
+    "TCL": (dict(num_neighbors=10, num_layers=2), 4, 0.53),
+    "CAWN": (dict(num_neighbors=8, walk_length=1, num_walk_heads=8), 2, 0.58),
+}
 
 
 def log(msg: str) -> None:
@@ -1053,11 +1109,10 @@ def run_tgat(data, n_batches, dev) -> dict:
                 continue
             b = next(iter(chronological_batches(stream, B)))
             ns, nd = tr._pad_negs(b.src, b), tr._pad_negs(np.roll(b.dst, 1), b)
-            src, dst, _, neg_dst, ts, _, _ = tr._batch_arrays(b, ns, nd)
-            inputs = tr._sample(tr.full_csr, src, dst, neg_dst, ts, None)
-            emb_kernel = tr._embed(inputs)
+            inputs = tr._sample(tr.full_csr, tr._batch_arrays(b, ns, nd), "dedup")
+            emb_kernel = tr._embed(inputs, "dedup")
             tr.model.use_kernels = False
-            emb_plain = tr._embed(inputs)
+            emb_plain = tr._embed(inputs, "dedup")
             tr.model.use_kernels = True
             emb_diffs[name] = (emb_kernel - emb_plain).abs().max().item()
             if not emb_diffs[name] <= KERNEL_ATOL:
@@ -1185,7 +1240,7 @@ def tgat_lockstep(tr, params, batches, dropout: float, align: bool = True,
     loss_diff, grad_err, worst = 0.0, 0.0, ""
     try:
         for step, (arrays, bucket) in enumerate(batches):
-            src, dst, _, neg_dst, ts, _, valid = arrays
+            valid = arrays[6]
             out = {}
             for use_kernels in (True, False):
                 path[0] = use_kernels
@@ -1194,11 +1249,11 @@ def tgat_lockstep(tr, params, batches, dropout: float, align: bool = True,
                         kernel_acts[r], calls[r] = [], 0
                 tr.model.use_kernels = use_kernels
                 tr.dropout_gen.manual_seed(1000 + step)
-                inputs = tr._sample(tr.train_csr, src, dst, neg_dst, ts, bucket)
+                inputs = tr._sample(tr.train_csr, arrays, "dedup", bucket)
                 if state is None:
-                    embs = tr._embed(inputs, tr.dropout_gen)
+                    embs = tr._embed(inputs, "dedup", tr.dropout_gen)
                 else:
-                    embs, raw = tr._embed_memory(inputs, state, tr.dropout_gen)
+                    embs, raw = tr._embed_memory(inputs, state, "dedup", tr.dropout_gen)
                     if use_kernels:
                         committed = tr._commit(state, arrays, raw.detach())
                 loss, _ = tr._head_loss(embs, valid)
@@ -1714,13 +1769,13 @@ def lockstep(tr, backbone, batches, fetch, config) -> tuple[float, float, int]:
     loss_diff, grad_err, worst, flips = 0.0, 0.0, "", 0
     try:
         for step, (arrays, bucket) in enumerate(batches):
-            src, dst, _, neg_dst, ts, _, valid = arrays
+            valid = arrays[6]
             out = {}
             for use_kernels in (True, False):
                 path[0] = use_kernels
                 acts[use_kernels] = []
                 tr.model.use_kernels = use_kernels
-                inputs = tr._sample(tr.train_csr, src, dst, neg_dst, ts, bucket)
+                inputs = tr._sample(tr.train_csr, arrays, "triple", bucket)
                 loss, _ = tr._head_loss(tr.model.train()(tr.tables, inputs, triple=True), valid)
                 out[use_kernels] = (float(loss.detach()), torch.autograd.grad(loss, params))
             loss_diff = max(loss_diff, abs(out[True][0] - out[False][0]))
@@ -1859,6 +1914,353 @@ def run_training(data, config, maxlen, patch, n_steps, dev) -> dict:
     )
     log(f"  {json.dumps(result)}")
     return result
+
+
+def new_model_trainer(data, name, dev, dropout=None, **extra):
+    """A trainer of GraphMixer, TCL or CAWN at the published widths
+    (NEW_MODELS), seed-0 weights; ``dropout`` overrides the published one."""
+    from dyglib_tpu_torch import models
+    from dyglib_tpu_torch.train import LinkPredictionTrainer, TrainConfig
+
+    kw = dict(NEW_MODELS[name], **extra)
+    if dropout is not None:
+        kw["dropout"] = dropout
+    tr = LinkPredictionTrainer(getattr(models, name)(**kw), data,
+                               TrainConfig(batch_size=B, learning_rate=TRAIN_LR), device=dev)
+    tr.init_params(0)
+    return tr
+
+
+def cpu_twin(tr, data):
+    """The port's CPU trainer of ``tr``'s backbone, holding its weights."""
+    from dyglib_tpu_torch.train import LinkPredictionTrainer, TrainConfig
+
+    cpu = LinkPredictionTrainer(tr.backbone, data, TrainConfig(batch_size=B), device="cpu")
+    cpu.load_params({part: {k: v.cpu() for k, v in sd.items()}
+                     for part, sd in tr.state_dicts().items()})
+    return cpu
+
+
+def check_sweep(name, probs, metrics, losses, n_batches):
+    import numpy as np
+
+    if len(probs) != n_batches or not all(
+        pos.shape == neg.shape == (B,) and np.isfinite(pos).all() and np.isfinite(neg).all()
+        for pos, neg in probs
+    ):
+        raise AssertionError(f"{name} evaluation: probabilities malformed or not finite")
+    mean = {k: float(np.mean([m[k] for m in metrics])) for k in metrics[0]}
+    if not all(0.0 <= v <= 1.0 for v in mean.values()) or not np.isfinite(losses).all():
+        raise AssertionError(f"{name} evaluation: metrics out of range {mean}")
+    return mean
+
+
+def timed_sweep(tr, stream, sampler, state=None):
+    """(evaluate's output, ms per batch, launch counts) of one sweep, the
+    counters zeroed just before and read just after."""
+    import torch
+
+    from dyglib_tpu_torch import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = tr.evaluate(stream, sampler, state=state)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / len(out[2]) * 1e3
+    return out, ms, {k: v for k, v in ops.launch_counts().items() if v}
+
+
+def spy_rows(tr):
+    """Record the rows of every ``backbone.sample`` call on ``tr``; undo with
+    ``del tr.backbone.sample``."""
+    rows, sample = [], tr.backbone.sample
+
+    def spy(csr, ids, ts, **kw):
+        rows.append(ids.shape[0])
+        return sample(csr, ids, ts, **kw)
+
+    tr.backbone.sample = spy
+    return rows
+
+
+def run_new_model_eval(data, name, dev) -> dict:
+    """Phase 5n, evaluation: NEW_BATCHES val batches, twice (the same
+    probabilities, bit for bit), no kernel launched, the first batches
+    against the port's CPU path (CAWN, whose draws come from the device's
+    generator: the card's sampled inputs through the CPU net)."""
+    import numpy as np
+    import torch
+
+    from dyglib_tpu_torch.data import chronological_batches
+    from dyglib_tpu_torch.train import to_device
+
+    tr = new_model_trainer(data, name, dev)
+    stream = data.val.slice(0, NEW_BATCHES * B)
+    tr.evaluate(data.val.slice(0, B), tr.val_neg)  # warm-up: allocator, cuBLAS
+    rows = spy_rows(tr)
+    sweeps, ms = [], []
+    for _ in range(2):
+        out, batch_ms, counts = timed_sweep(tr, stream, tr.val_neg)
+        if counts:
+            raise AssertionError(f"{name} evaluation launched kernels: {counts}")
+        mean = check_sweep(name, out[2], out[1], out[0], NEW_BATCHES)
+        sweeps.append(out[2])
+        ms.append(batch_ms)
+    del tr.backbone.sample
+    layout_rows = 4 * B if tr._layout() == "quad" else 3 * B
+    if set(rows) != {layout_rows}:
+        raise AssertionError(f"{name} evaluation sampled {set(rows)} rows a batch, "
+                             f"not {layout_rows}")
+    diff = max_prob_diff(sweeps[0], sweeps[1])
+    if diff != 0.0:
+        raise AssertionError(f"{name}: two evaluate sweeps differ by {diff}")
+    cpu = cpu_twin(tr, data)
+    if name == "CAWN":
+        b = next(iter(chronological_batches(data.val, B)))
+        arrays = tr._batch_arrays(b, b.src, np.roll(b.dst, 1))
+        gen = torch.Generator(device=dev).manual_seed(12345)
+        with torch.inference_mode():
+            inputs = tr._sample(tr.full_csr, arrays, "quad", None, gen)
+            card = tr._head_loss(tr._embed(inputs, "quad"), arrays[6])[1]
+            cpu_out = cpu._head_loss(cpu._embed(to_device(inputs, "cpu"), "quad"),
+                                     to_device(arrays, "cpu")[6])[1]
+        cpu_diff = max(float((torch.sigmoid(a).cpu() - torch.sigmoid(c)).abs().max())
+                       for a, c in zip(card, cpu_out))
+    else:
+        n_cpu = 2
+        cpu_probs = cpu.evaluate(data.val.slice(0, n_cpu * B), cpu.val_neg)[2]
+        cpu_diff = max_prob_diff(sweeps[0][:n_cpu], cpu_probs)
+    if not cpu_diff <= PROB_ATOL:
+        raise AssertionError(f"{name}: card vs CPU probabilities differ by {cpu_diff}")
+    result = dict(model=name, batches=NEW_BATCHES, rows_per_batch=layout_rows,
+                  ms_per_batch=ms, metrics=mean, max_prob_diff_vs_cpu=cpu_diff)
+    if name == "GraphMixer":
+        result["gather_vs_prefix"] = graphmixer_gather_vs_prefix(dev)
+    if name == "TCL":
+        result["uniform"] = run_tcl_uniform(data, dev)
+    log(f"  {json.dumps(result)}")
+    return result
+
+
+def graphmixer_gather_vs_prefix(dev) -> float:
+    """One val batch's embeddings, the node encoder's (B, time_gap, Dn)
+    gather against its prefix-sum reads (they agree to ~1e-6), on the
+    wikipedia-scale stream with N(0, 1) node features (the main stream's
+    node features are zero, as wikipedia's are)."""
+    import numpy as np
+    import torch
+
+    from dyglib_tpu_torch.data import chronological_batches, synthetic_link_prediction_data
+    from dyglib_tpu_torch.models import GraphMixer
+
+    data = synthetic_link_prediction_data(num_src=8227, num_dst=1000, num_edges=157474,
+                                          node_feat_scale=1.0, seed=1)
+    tr = new_model_trainer(data, "GraphMixer", dev)
+    b = next(iter(chronological_batches(data.val, B)))
+    arrays = tr._batch_arrays(b, b.src, np.roll(b.dst, 1))
+    gather = GraphMixer(**NEW_MODELS["GraphMixer"], node_encoder_mode="gather")
+    ids = torch.cat([arrays[0], arrays[1], arrays[3]])
+    with torch.inference_mode():
+        embs = {}
+        for mode, backbone in (("prefix", tr.backbone), ("gather", gather)):
+            inputs = backbone.sample(tr.full_csr, ids, arrays[4].repeat(3))
+            if (inputs.tg_sum is None) != (mode == "gather"):
+                raise AssertionError(f"GraphMixer {mode}: the other node encoder ran")
+            if mode == "prefix" and not bool(inputs.tg_sum.abs().sum() > 0):
+                raise AssertionError("GraphMixer prefix: every window sum is zero")
+            embs[mode] = tr.model.eval()(tr.tables, inputs)
+    diff = float((embs["prefix"] - embs["gather"]).abs().max())
+    if not diff <= KERNEL_ATOL:
+        raise AssertionError(f"GraphMixer gather vs prefix embeddings differ by {diff}")
+    return diff
+
+
+def run_tcl_uniform(data, dev) -> dict:
+    """TCL under uniform sampling: the quad in every eval batch, two sweeps
+    with the same probabilities."""
+    tr = new_model_trainer(data, "TCL", dev, sample_strategy="uniform")
+    rows = spy_rows(tr)
+    stream = data.val.slice(0, NEW_BATCHES * B)
+    (out1, ms1, _), (out2, ms2, _) = (timed_sweep(tr, stream, tr.val_neg) for _ in range(2))
+    del tr.backbone.sample
+    mean = check_sweep("TCL uniform", out1[2], out1[1], out1[0], NEW_BATCHES)
+    diff = max_prob_diff(out1[2], out2[2])
+    if set(rows) != {4 * B} or diff != 0.0:
+        raise AssertionError(f"TCL uniform: {set(rows)} rows a batch, sweeps differ by {diff}")
+    return dict(rows_per_batch=4 * B, ms_per_batch=[ms1, ms2], metrics=mean)
+
+
+def run_new_model_training(data, name, dev) -> dict:
+    """Phase 5n, training: NEW_TRAIN_STEPS steps on the last train batches at
+    dropout 0: no kernel launched, finite losses, a finite gradient for
+    every trainable parameter the loss reaches and none for the others
+    (NEW_UNREACHED); ms per step (after one warm-up step)."""
+    import numpy as np
+    import torch
+
+    from dyglib_tpu_torch import ops
+
+    tr = new_model_trainer(data, name, dev, dropout=0.0)
+    batches = tgat_train_batches(data, tr, NEW_TRAIN_STEPS)
+    tr.train_step(*batches[0])  # warm-up
+    tr.init_params(0)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [tr.train_step(arrays, bucket)[0] for arrays, bucket in batches]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / len(batches) * 1e3
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    losses = [float(x) for x in losses]
+    unreached = NEW_UNREACHED[name]
+    bad = [n for n, p in tr.model.named_parameters()
+           if ((p.grad is not None) if n.startswith(unreached) or not p.requires_grad else
+               (p.grad is None or not bool(torch.isfinite(p.grad).all())))]
+    bad += [n for n, p in tr.head.named_parameters()
+            if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    if counts or bad or not np.isfinite(losses).all():
+        raise AssertionError(f"{name} training: launched {counts}, losses {losses}, "
+                             f"gradients wrong at {bad}")
+    frozen = [n for n, p in tr.model.named_parameters() if not p.requires_grad]
+    result = dict(model=name, steps=len(batches), ms_per_step=step_ms, losses=losses,
+                  frozen=frozen, layout=tr._layout())
+    log(f"  {json.dumps(result)}")
+    return result
+
+
+def run_edgebank(data, dev) -> dict:
+    """Phase 5n, EdgeBank: the test split under random (unlimited memory),
+    historical and inductive (repeat-threshold memory) negatives, card
+    against the port's CPU path: equal 0/1 probabilities, losses and
+    metrics; ms per batch."""
+    import numpy as np
+    import torch
+
+    from dyglib_tpu_torch.graph import build_eval_neg_samplers
+    from dyglib_tpu_torch.train import edgebank_eval
+
+    link_prediction = edgebank_eval.edge_bank_link_prediction
+    recorded = []
+
+    def spy(*args, **kw):
+        out = link_prediction(*args, **kw)
+        recorded.append(torch.cat(out).cpu())
+        return out
+
+    edgebank_eval.edge_bank_link_prediction = spy
+    results = {}
+    try:
+        for strategy, mode in EDGEBANK_MODES.items():
+            sampler = build_eval_neg_samplers(data, strategy)[2]
+            out = []
+            for device in (dev, "cpu"):
+                recorded.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses, metrics = edgebank_eval.evaluate_edge_bank_link_prediction(
+                    data, sampler, B, edge_bank_memory_mode=mode, device=device)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) / len(losses) * 1e3
+                out.append((losses, metrics, list(recorded), ms))
+            (losses, metrics, probs, ms), (c_losses, c_metrics, c_probs, c_ms) = out
+            same = dict(
+                probabilities=len(probs) == len(c_probs) and all(
+                    torch.equal(p, q) for p, q in zip(probs, c_probs)),
+                losses=losses == c_losses, metrics=metrics == c_metrics)
+            if not all(same.values()):
+                raise AssertionError(f"EdgeBank {strategy}: card and CPU agree in {same}")
+            mean = {k: float(np.mean([m[k] for m in metrics])) for k in metrics[0]}
+            if not all(0.0 <= v <= 1.0 for v in mean.values()):
+                raise AssertionError(f"EdgeBank {strategy}: metrics out of range {mean}")
+            results[strategy] = dict(memory=mode, batches=len(losses), ms_per_batch=ms,
+                                     cpu_ms_per_batch=c_ms, metrics=mean)
+    finally:
+        edgebank_eval.edge_bank_link_prediction = link_prediction
+    log(f"  {json.dumps(results)}")
+    return results
+
+
+def run_negatives(data, dev) -> dict:
+    """Phase 5n, negatives: TGAT (default kernels) and TGN evaluate
+    NEW_BATCHES val batches under historical and inductive negatives (the
+    quad: 4B rows a batch; TGN from an empty memory): launches per batch as
+    under random negatives, finite probabilities, the first batches
+    against the port's CPU path; ms per batch."""
+    from dyglib_tpu_torch.graph import build_eval_neg_samplers
+    from dyglib_tpu_torch.models import TGAT
+    from dyglib_tpu_torch.train import LinkPredictionTrainer, TrainConfig
+
+    tgat = LinkPredictionTrainer(TGAT(num_neighbors=TGAT_K, time_feat_dim=DT_DIM), data,
+                                 TrainConfig(batch_size=B), device=dev)
+    tgat.init_params(0)
+    trainers = {"TGAT": (tgat, TGAT_CONFIGS["default"][2]),
+                "TGN": (memory_trainer(data, "TGN", dev), MEMORY_MODELS["TGN"][0])}
+    stream = data.val.slice(0, NEW_BATCHES * B)
+    results = {}
+    for name, (tr, per_batch) in trainers.items():
+        want = {k: v * NEW_BATCHES for k, v in per_batch.items()}
+        for strategy in ("historical", "inductive"):
+            sampler = build_eval_neg_samplers(data, strategy)[0]
+            tr.evaluate(data.val.slice(0, B), sampler)  # warm-up
+            rows = spy_rows(tr)
+            out, ms, counts = timed_sweep(tr, stream, sampler)
+            del tr.backbone.sample
+            mean = check_sweep(f"{name} {strategy}", out[2], out[1], out[0], NEW_BATCHES)
+            if counts != want or set(rows) != {4 * B}:
+                raise AssertionError(f"{name} {strategy}: launched {counts} (expected {want}) "
+                                     f"on {set(rows)} rows a batch (expected {4 * B})")
+            n_cpu = 2
+            cpu = cpu_twin(tr, data)
+            cpu_probs = cpu.evaluate(data.val.slice(0, n_cpu * B), sampler)[2]
+            cpu_diff = max_prob_diff(out[2][:n_cpu], cpu_probs)
+            if not cpu_diff <= PROB_ATOL:
+                raise AssertionError(f"{name} {strategy}: card vs CPU probabilities differ by "
+                                     f"{cpu_diff}")
+            results[f"{name} {strategy}"] = dict(launches=counts, rows_per_batch=4 * B,
+                                                 ms_per_batch=ms, metrics=mean,
+                                                 max_prob_diff_vs_cpu=cpu_diff)
+    log(f"  {json.dumps(results)}")
+    return results
+
+
+def run_new_model_fit(name, dev) -> dict:
+    """Phase 6n: GraphMixer, TCL and CAWN on the JAX test fixture, held to
+    the JAX floors (NEW_FIT): ``fit`` for GraphMixer and CAWN; for TCL, as
+    its JAX test does, four ``train_epoch``s (the last epoch's mean loss
+    below 0.93 x the first's and below 0.69) and the test sweep from the
+    final weights."""
+    import numpy as np
+
+    from dyglib_tpu_torch import models
+    from dyglib_tpu_torch.data import synthetic_link_prediction_data
+    from dyglib_tpu_torch.train import LinkPredictionTrainer, TrainConfig
+
+    kw, epochs, floor = NEW_FIT[name]
+    data = synthetic_link_prediction_data(
+        num_src=120, num_dst=60, num_edges=2000, node_feat_scale=1.0, seed=7
+    )
+    save_path = os.path.join(REPO_ROOT, "dyglib_tpu_torch", "build", f"chip_smoke_{name}_fit.pkl")
+    tr = LinkPredictionTrainer(
+        getattr(models, name)(**kw), data,
+        TrainConfig(batch_size=B, num_epochs=epochs, learning_rate=1e-3, patience=5),
+        save_path=save_path, device=dev)
+    t0 = time.perf_counter()
+    if name == "TCL":
+        tr.init_params(0)
+        losses = [float(np.mean(tr.train_epoch()[0])) for _ in range(epochs)]
+        ap = tr.mean_metrics(tr.evaluate(data.test, tr.test_neg, 2)[1])["average_precision"]
+        ok = ap > floor and losses[-1] < 0.93 * losses[0] and losses[-1] < 0.69
+    else:
+        res = tr.fit(seed=0, log=lambda msg: log(f"  {msg}"))
+        losses, ap = res["train losses"], res["test metrics"]["average_precision"]
+        ok = ap > floor
+    seconds = time.perf_counter() - t0
+    log(f"  {name} fixture fit: test AP {ap:.4f} (floor {floor}), epoch losses "
+        f"{[round(x, 4) for x in losses]}, {seconds:.1f} s")
+    if not ok:
+        raise AssertionError(f"{name} fixture fit below the floors: AP {ap}, losses {losses}")
+    return {"test_ap": ap, "train_losses": losses, "seconds": seconds}
 
 
 def run_fit(dev) -> dict:
@@ -2008,11 +2410,25 @@ def main() -> int:
         "as above):")
     memory_train = {name: run_memory_training(data, name, dev) for name in MEMORY_MODELS}
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"GraphMixer, TCL and CAWN ({NEW_BATCHES} val batches twice, bitwise equal; CPU "
+        f"path within {PROB_ATOL}; {NEW_TRAIN_STEPS} train steps at dropout 0):")
+    for name in NEW_MODELS:
+        run_new_model_eval(data, name, dev)
+        run_new_model_training(data, name, dev)
+        torch.cuda.empty_cache()
+    log("EdgeBank on the test split, card against CPU:")
+    run_edgebank(data, dev)
+    log("historical and inductive negatives (the quad), TGAT and TGN:")
+    run_negatives(data, dev)
+    log(f"  phase 5n: {time.perf_counter() - t0:.1f} s")
     log("fit on the JAX test fixture:")
     run_fit(dev)
     run_tgat_fit(dev)
     for name in MEMORY_MODELS:
         run_memory_fit(name, dev)
+    for name in NEW_FIT:
+        run_new_model_fit(name, dev)
 
     # ---- 5. results
     rows = []

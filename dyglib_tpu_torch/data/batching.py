@@ -32,6 +32,14 @@ class Batch:
     def num_valid(self) -> int:
         return self.stop - self.start
 
+    @property
+    def batch_start_time(self) -> float:
+        return float(self.ts[0])
+
+    @property
+    def batch_end_time(self) -> float:
+        return float(self.ts[self.num_valid - 1])
+
 
 def chronological_batches(stream: EdgeStream, batch_size: int) -> Iterator[Batch]:
     """Yield fixed-shape chronological batches; the final one is padded."""

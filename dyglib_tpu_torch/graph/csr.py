@@ -1,10 +1,11 @@
 """Device-resident temporal adjacency in CSR form.
 
 Counterpart of ``dyglib_tpu/graph/csr.py`` (``offsets/nbr/eid/ts``, the
-next-hop window bounds ``nbr_hi`` and the entry-ordered feature table
-``feat_entry``; the TPU layout aid
-``pack``, the 128-lane slab transpose of ``feat_entry`` and the
-CAWN/GraphMixer tables are not ported). The undirected temporal graph is
+next-hop window bounds ``nbr_hi``, the entry-ordered feature table
+``feat_entry``, GraphMixer's per-segment feature prefix sums
+``feat_prefix`` and CAWN's time-interval-aware cumulative weights
+``tia_cew``; the TPU layout aid ``pack`` and the 128-lane slab transpose
+of ``feat_entry`` are not ported). The undirected temporal graph is
 stored as three flat arrays plus ``offsets``; each node's segment is
 sorted by time, ties broken by edge order with an edge's src-side entry
 first.
@@ -52,6 +53,13 @@ class TemporalCSR:
     # zero guard rows on each side of feat_entry's entry block (layout
     # [guard | entries | guard | node rows])
     feat_entry_guard_pad: int = 0
+    # (M, Dn) f32 or None — inclusive per-segment prefix sums of the peer
+    # nodes' features: a recent window's feature sum is two row reads
+    # (GraphMixer's node encoder)
+    feat_prefix: torch.Tensor | None = None
+    # (M,) f32 or None — per-segment cumulative sums of exp(CAWN's
+    # time-interval-aware logits), searched by time_interval_aware sampling
+    tia_cew: torch.Tensor | None = None
 
     @property
     def num_entries(self) -> int:
@@ -93,6 +101,9 @@ def build_temporal_csr(
     device: str | torch.device = "cpu",
     feat_entry_of: tuple[np.ndarray, np.ndarray] | None = None,
     feat_entry_pad: int = FEAT_ENTRY_PAD,
+    feat_prefix_of: np.ndarray | None = None,
+    with_tia: bool = False,
+    time_scaling_factor: float = 0.0,
 ) -> TemporalCSR:
     """Host-side CSR construction from a chronological edge stream.
 
@@ -100,6 +111,8 @@ def build_temporal_csr(
     with max(feat_entry_pad, 512) guard rows on each side. Row 0 of both
     tables must be zero: the fetch writes zeros where the gather path reads
     node row 0 and edge row 0, and the two agree only then.
+    ``feat_prefix_of = node_feat`` builds ``feat_prefix``; ``with_tia``
+    builds ``tia_cew`` with the logits' ``time_scaling_factor``.
     """
     if num_nodes is None:
         num_nodes = int(max(stream.src.max(), stream.dst.max())) + 1
@@ -138,6 +151,12 @@ def build_temporal_csr(
         table[pad : pad + m, node_dim:] = edge_f[eid]
         table[2 * pad + m : 2 * pad + m + num_nodes, :node_dim] = node_f[:num_nodes]
         feat_entry = torch.from_numpy(table).to(device)
+    as_f32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
+    feat_prefix = tia_cew = None
+    if feat_prefix_of is not None:
+        feat_prefix = as_f32(segment_feature_prefix(offsets, peer, feat_prefix_of))
+    if with_tia:
+        tia_cew = as_f32(tia_cumulative_weights(offsets, ts, time_scaling_factor))
     return TemporalCSR(
         offsets=as_i32(offsets),
         nbr=as_i32(peer),
@@ -148,4 +167,44 @@ def build_temporal_csr(
         feat_entry=feat_entry,
         feat_entry_node_dim=node_dim,
         feat_entry_guard_pad=pad,
+        feat_prefix=feat_prefix,
+        tia_cew=tia_cew,
     )
+
+
+def segment_feature_prefix(
+    offsets: np.ndarray, peer: np.ndarray, node_features: np.ndarray
+) -> np.ndarray:
+    """(M, D) inclusive per-segment prefix sums of the peer nodes' features,
+    accumulated in float64 and stored float32 (``_segment_feature_prefix``
+    of the JAX package): a window's sum feat_prefix[hi-1] -
+    feat_prefix[lo-1] then carries one f32 rounding per entry, ~1e-6 of the
+    direct gather's sum."""
+    feats = np.asarray(node_features, dtype=np.float64)[peer]
+    cs = np.cumsum(feats, axis=0)
+    seg_id = np.repeat(np.arange(len(offsets) - 1), np.diff(offsets))
+    start = np.asarray(offsets)[seg_id]  # each entry's segment start
+    base = np.where((start > 0)[:, None], cs[np.maximum(start, 1) - 1], 0.0)
+    return (cs - base).astype(np.float32)
+
+
+def tia_cumulative_weights(offsets: np.ndarray, ts: np.ndarray, alpha: float) -> np.ndarray:
+    """(M,) per-segment cumulative sums of exp(v_i), v_i CAWN's logits
+    exp(alpha dt_i) / sum_{j<=i} exp(alpha dt_j), dt relative to the node's
+    last interaction; a 0/0 position gets -1e10, whose exp is 0
+    (``_tia_cumulative_weights`` of the JAX package). ``ts`` are the
+    entries' raw times in CSR order."""
+    if len(ts) == 0:
+        return np.zeros(0, dtype=np.float32)
+    seg_id = np.repeat(np.arange(len(offsets) - 1), np.diff(offsets))
+
+    def seg_cumsum(x: np.ndarray) -> np.ndarray:
+        cs = np.cumsum(x)
+        start = offsets[seg_id]
+        return cs - (cs[start] - x[start])
+
+    ew = np.exp(alpha * (ts - ts[offsets[seg_id + 1] - 1]))
+    wcs = seg_cumsum(ew)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        v = np.where(wcs > 0, ew / wcs, -1e10)
+    return seg_cumsum(np.exp(v)).astype(np.float32)

@@ -55,7 +55,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple
+from typing import ClassVar, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -291,6 +291,9 @@ class DyGFormer:
     # instead of two table gathers; off, as the JAX package resolves it,
     # until the card's numbers argue otherwise (PERF.md)
     use_entry_fetch: bool = False
+    # where neg_src = src the net pairs the triple [src, dst, neg_dst]
+    # itself (``triple=True``): src's rows serve both pairs, exactly
+    triple_expand: ClassVar[bool] = True
 
     @property
     def seq_len(self) -> int:

@@ -209,6 +209,11 @@ class TGAT:
 
     def __post_init__(self):
         check_strategy(self.sample_strategy)
+        if self.sample_strategy == "time_interval_aware":
+            # no configuration pairs TGAT with CAWN's strategy; the port
+            # keeps it to CAWN (ROADMAP.md)
+            raise ValueError("TGAT under 'time_interval_aware' is not ported; use 'recent' or "
+                             "'uniform'")
         # windows of feat_entry exist only under recent (JAX tgat.py:243-246)
         self._window_kernel = (
             _resolve(self.use_window_attention, self.wants_entry_features)

@@ -5,6 +5,7 @@ from .modules import (
     MergeLayer,
     TemporalMultiHeadAttention,
     TimeEncoder,
+    TransformerEncoder,
     dropout,
     linear,
     time_encoder_spectrum,
@@ -17,6 +18,7 @@ __all__ = [
     "MergeLayer",
     "TemporalMultiHeadAttention",
     "TimeEncoder",
+    "TransformerEncoder",
     "dropout",
     "linear",
     "time_encoder_spectrum",

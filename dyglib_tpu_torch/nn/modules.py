@@ -2,8 +2,9 @@
 
 Counterpart of ``dyglib_tpu/nn/modules.py`` (``LN_EPS``, the torch-init
 helpers, ``TimeEncoder``, ``FusedGRUCell``, ``FusedRNNCell``,
-``MergeLayer``, ``TemporalMultiHeadAttention``)
-and the inverted ``dropout`` the port's models share. Parameters are drawn
+``MergeLayer``, ``TemporalMultiHeadAttention``, the post-LN
+``TransformerEncoder``) and the inverted ``dropout`` the port's models
+share. Parameters are drawn
 from an explicit ``torch.Generator`` so a seed fixes the whole model:
 
   * ``linear``: torch ``nn.Linear``'s default distribution,
@@ -11,9 +12,14 @@ from an explicit ``torch.Generator`` so a seed fixes the whole model:
     ``xavier=True`` gives ``nn.init.xavier_uniform_`` (attention in/out
     projections), ``zero_bias=True`` a zero bias, ``bias=False`` none;
   * ``TimeEncoder``: cos(t * w + b) with w the fixed spectrum
-    1/10**linspace(0, 9, Dt), stored (1, Dt), and b = 0.
+    1/10**linspace(0, 9, Dt), stored (1, Dt), and b = 0; ``trainable=False``
+    (GraphMixer) freezes both: they stay in the state dict, with
+    ``requires_grad=False``, where the JAX package keeps them in the tree
+    and stops their gradient.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -66,10 +72,11 @@ def time_encoder_spectrum(time_dim: int) -> np.ndarray:
 class TimeEncoder(nn.Module):
     """Cosine time features phi(t) = cos(w * t + b) with exact ``cos``."""
 
-    def __init__(self, time_dim: int):
+    def __init__(self, time_dim: int, trainable: bool = True):
         super().__init__()
-        self.w = nn.Parameter(torch.from_numpy(time_encoder_spectrum(time_dim)))
-        self.b = nn.Parameter(torch.zeros(time_dim))
+        spectrum = torch.from_numpy(time_encoder_spectrum(time_dim))
+        self.w = nn.Parameter(spectrum, requires_grad=trainable)
+        self.b = nn.Parameter(torch.zeros(time_dim), requires_grad=trainable)
 
     def forward(self, timestamps: torch.Tensor) -> torch.Tensor:
         """(...,) times -> (..., time_dim) features."""
@@ -260,3 +267,67 @@ class TemporalMultiHeadAttention(nn.Module):
             )
         out = dropout(self.residual_fc(out), p, dropout_gen)
         return self.layer_norm(out + residual), scores
+
+
+class TransformerEncoder(nn.Module):
+    """Post-LN transformer block with optional cross-attention.
+
+    Counterpart of ``dyglib_tpu/nn/modules.py::TransformerEncoder`` (f32),
+    with its parameter names: ``q_proj``, ``k_proj`` and ``v_proj``
+    (xavier-uniform, zero bias), ``out_proj`` (torch's default Linear
+    weight, zero bias), ``norm1``, ``ffn1`` (d -> 4d), ``ffn2`` and
+    ``norm2``:
+
+        x   = norm1(query + dropout(out_proj(attention(query, key, value))))
+        out = norm2(x + dropout(ffn2(dropout(relu(ffn1(x))))))
+
+    Padded keys (``mask`` False) get the logit -1e10, so an all-padded row
+    attends uniformly instead of giving NaN. Dropout (train mode) draws
+    from ``dropout_gen``. DyGFormer's pre-LN block is another module
+    (``models/dygformer.py::PreLNTransformerEncoder``).
+    """
+
+    def __init__(self, attention_dim: int, num_heads: int, dropout: float, gen: torch.Generator):
+        super().__init__()
+        d = attention_dim
+        if d % num_heads:
+            raise ValueError(f"attention width {d} does not split into {num_heads} heads")
+        self.num_heads = num_heads
+        self.dropout = dropout
+        self.q_proj = linear(d, d, gen, xavier=True, zero_bias=True)
+        self.k_proj = linear(d, d, gen, xavier=True, zero_bias=True)
+        self.v_proj = linear(d, d, gen, xavier=True, zero_bias=True)
+        self.out_proj = linear(d, d, gen, zero_bias=True)
+        self.norm1 = nn.LayerNorm(d, eps=LN_EPS)
+        self.ffn1 = linear(d, 4 * d, gen)
+        self.ffn2 = linear(4 * d, d, gen)
+        self.norm2 = nn.LayerNorm(d, eps=LN_EPS)
+
+    def forward(
+        self,
+        query: torch.Tensor,  # (B, Tq, D)
+        key: torch.Tensor | None = None,  # (B, Tk, D); None: self-attention
+        value: torch.Tensor | None = None,
+        mask: torch.Tensor | None = None,  # (B, Tk) bool, True = keep
+        dropout_gen: torch.Generator | None = None,
+    ) -> torch.Tensor:
+        if (key is None) != (value is None):
+            raise ValueError("pass both key and value, or neither")
+        if key is None:
+            key = value = query
+        p = self.dropout if self.training else 0.0
+        drop = lambda y: dropout(y, p, dropout_gen)
+        b, tq, d = query.shape
+        tk, heads = key.shape[1], self.num_heads
+        hd = d // heads
+        q = self.q_proj(query).view(b, tq, heads, hd)
+        k = self.k_proj(key).view(b, tk, heads, hd)
+        v = self.v_proj(value).view(b, tk, heads, hd)
+        attn = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
+        if mask is not None:
+            attn = torch.where(mask[:, None, None, :], attn, -1e10)
+        scores = drop(torch.softmax(attn, dim=-1))
+        hidden = torch.einsum("bhqk,bkhd->bqhd", scores, v).reshape(b, tq, d)
+        x = self.norm1(query + drop(self.out_proj(hidden)))
+        ffn = self.ffn2(drop(torch.relu(self.ffn1(x))))
+        return self.norm2(x + drop(ffn))

@@ -1,29 +1,43 @@
 """Dynamic link prediction: training and evaluation loops.
 
-Counterpart of ``dyglib_tpu/train/link_prediction.py`` for DyGFormer,
-TGAT and the memory models (TGN, DyRep, JODIE): ``TrainConfig``,
-``make_optimizer``, the train step, ``train_epoch``, ``evaluate`` and
-``fit``. Not ported yet: resume checkpoints, scan epochs, tensorboard, the
-profiler hook in ``fit`` and the historical/inductive negative strategies.
+Counterpart of ``dyglib_tpu/train/link_prediction.py`` for every
+parametric model the JAX package has (DyGFormer, TGAT, TGN, DyRep, JODIE,
+GraphMixer, TCL, CAWN): ``TrainConfig``, ``make_optimizer``, the train
+step, ``train_epoch``, ``evaluate`` and ``fit``. Not ported yet: resume
+checkpoints, scan epochs, tensorboard and the profiler hook in ``fit``.
 
 Protocol (the JAX package's):
   * chronological batches, never shuffled, the last one padded and masked;
   * train negatives: only destinations are drawn (unseeded sampler),
-    neg_src = src, and the backbone embeds the triple [src || dst ||
-    neg_dst]: a pair-independent one (TGAT) reuses src's embeddings for
-    neg_src, DyGFormer pairs the triple's rows itself (its neg_src rows'
-    sequences are the src rows'); the loss is the masked mean BCE over
-    positives and negatives, on logits;
+    neg_src = src; the loss is the masked mean BCE over positives and
+    negatives, on logits;
+  * eval negatives: the eval samplers' seeded streams are reset before
+    every sweep; under the random strategy the sampler's neg_src draw is
+    made and discarded (the negative edge is (src, neg_dst)); under the
+    historical and inductive strategies the drawn pair is the negative
+    edge, drawn from the batch's edges and time range;
+  * the rows a batch embeds (``_layout``), as the JAX trainer picks them:
+    where neg_src = src (training, random eval), a pair-independent
+    backbone (TGAT, GraphMixer, the memory models) embeds the triple
+    [src || dst || neg_dst] and reuses src's rows for neg_src ("dedup"),
+    and a stateless pair-aware one with ``triple_expand`` under ``recent``
+    (DyGFormer, TCL) pairs the triple's rows itself ("triple"); every other
+    case embeds the quad [src || dst || neg_src || neg_dst] ("quad"): the
+    historical and inductive negatives, CAWN (its position counts pair row
+    q with q +- B) and TCL under ``uniform`` (neg_src's draws are not
+    src's);
   * training samples histories from train_csr, evaluation from full_csr;
-  * a backbone with a stochastic sample strategy (TGAT's ``uniform``) draws
-    from the trainer's ``sample_gen`` in training (seeded by
-    ``init_params``) and, in each ``evaluate``, from a generator seeded
-    afresh from 12345 + ``eval_key_salt`` (val / new-node val / test /
-    new-node test: 0 / 1 / 2 / 3), as the JAX package seeds its key: two
-    sweeps give the same probabilities. Draws differ from JAX's bits;
-  * the eval samplers' seeded streams are reset before every sweep; under
-    the random strategy the sampler's neg_src draw is made and discarded:
-    the negative edge is (src, neg_dst), embedded as a triple too;
+    the trainer builds ``csr.feat_prefix`` for a backbone that
+    ``wants_feat_prefix`` (GraphMixer, under a 2 GB budget) and
+    ``csr.tia_cew`` (with ``cfg.time_scaling_factor``) for the
+    ``time_interval_aware`` strategy;
+  * a backbone with a stochastic sample strategy (``uniform``,
+    ``time_interval_aware``) draws from the trainer's ``sample_gen`` in
+    training (seeded by ``init_params``) and, in each ``evaluate``, from a
+    generator seeded afresh from 12345 + ``eval_key_salt`` (val / new-node
+    val / test / new-node test: 0 / 1 / 2 / 3), as the JAX package seeds
+    its key: two sweeps give the same probabilities. Draws differ from
+    JAX's bits;
   * with a backbone that publishes sequence buckets (DyGFormer), each
     batch runs at the smallest bucket covering its longest strictly-before
     history; metrics are per batch, averaged over batches;
@@ -36,10 +50,10 @@ Protocol (the JAX package's):
     positive edges as a third element, ``train_epoch`` and ``evaluate``
     (from an empty memory unless ``state`` is given) the final state as an
     extra last element; stateless callers unpack what they did before. The
-    triple's roles ("src", "dst", "dst") go on its inputs (JODIE's time
-    normalization is per role). A train step commits outside autograd, on
-    the raw (not DyRep-swapped) embeddings, with the parameters from before
-    the optimizer's step. ``fit`` starts every epoch from an empty memory;
+    layout's roles ("src", "dst", "dst") or ("src", "dst", "src", "dst")
+    go on its inputs (JODIE's time normalization is per role). A train step
+    commits outside autograd, on the raw (not DyRep-swapped) embeddings,
+    with the parameters from before the optimizer's step. ``fit`` starts every epoch from an empty memory;
     val and new-node val run from the state after training, test (every
     ``test_interval_epochs``) from the state after val; the best checkpoint
     holds the parameters and that post-val state, and the final test and
@@ -69,7 +83,7 @@ from ..data.containers import EdgeStream
 from ..data.datasets import LinkPredictionData
 from ..device import resolve_device
 from ..graph.csr import FEAT_ENTRY_PAD, TemporalCSR, build_temporal_csr, time_keys
-from ..graph.neg_sampler import NegativeEdgeSampler
+from ..graph.neg_sampler import NegativeEdgeSampler, build_eval_neg_samplers
 from ..models.base import FeatureTables
 from ..models.memory_model import memory_order_violations, segment_roles
 from ..nn.modules import MergeLayer
@@ -77,7 +91,8 @@ from .checkpoints import to_device
 from .early_stopping import EarlyStopping
 from .metrics import link_prediction_metrics
 
-# the JAX package's byte budget for the entry-ordered feature table
+# the JAX package's byte budget for the entry-ordered feature table (and
+# for GraphMixer's feature prefix table)
 ENTRY_TABLE_BUDGET = 2_000_000_000
 
 
@@ -90,6 +105,8 @@ class TrainConfig:
     optimizer: str = "adam"
     patience: int = 20
     test_interval_epochs: int = 10
+    # CAWN's time_interval_aware logits: exp(time_scaling_factor * dt)
+    time_scaling_factor: float = 1e-6
     # per-batch sequence-length bucketing for backbones that publish
     # bucket_candidates (DyGFormer)
     sequence_buckets: bool = True
@@ -166,29 +183,33 @@ class LinkPredictionTrainer:
         # the entry-ordered feature table, for backbones that fetch their
         # windows from it, under the JAX package's byte budget; its guard
         # pads cover the backbone's longest window
-        entry = {}
+        csr_kw = {}
         if getattr(backbone, "wants_entry_features", False) and (
             getattr(backbone, "sample_strategy", "recent") == "recent"
         ):
             width = data.node_raw_features.shape[1] + data.edge_raw_features.shape[1]
             if 2 * data.full.num_interactions * width * 4 <= ENTRY_TABLE_BUDGET:
-                entry = dict(
+                csr_kw = dict(
                     feat_entry_of=(data.node_raw_features, data.edge_raw_features),
                     feat_entry_pad=max(FEAT_ENTRY_PAD, backbone.entry_window_rows),
                 )
+        # GraphMixer's per-segment feature prefix sums, under the same budget
+        prefix_bytes = 2 * data.full.num_interactions * data.node_raw_features.shape[1] * 4
+        if getattr(backbone, "wants_feat_prefix", False) and prefix_bytes <= ENTRY_TABLE_BUDGET:
+            csr_kw["feat_prefix_of"] = data.node_raw_features
+        if getattr(backbone, "sample_strategy", "recent") == "time_interval_aware":
+            csr_kw.update(with_tia=True, time_scaling_factor=cfg.time_scaling_factor)
         # training samples histories from train_csr; evaluation reads full_csr
         self.train_csr = build_temporal_csr(
-            data.train, num_nodes=data.num_nodes, device=dev, **entry
+            data.train, num_nodes=data.num_nodes, device=dev, **csr_kw
         )
-        self.full_csr = build_temporal_csr(data.full, num_nodes=data.num_nodes, device=dev, **entry)
+        self.full_csr = build_temporal_csr(data.full, num_nodes=data.num_nodes, device=dev, **csr_kw)
         # negative samplers with the reference's seeds: train unseeded,
-        # val / new-node val / test / new-node test = 0 / 1 / 2 / 3
-        d = data
-        self.train_neg = NegativeEdgeSampler(d.train.src, d.train.dst)
-        self.val_neg = NegativeEdgeSampler(d.full.src, d.full.dst, seed=0)
-        self.nn_val_neg = NegativeEdgeSampler(d.new_node_val.src, d.new_node_val.dst, seed=1)
-        self.test_neg = NegativeEdgeSampler(d.full.src, d.full.dst, seed=2)
-        self.nn_test_neg = NegativeEdgeSampler(d.new_node_test.src, d.new_node_test.dst, seed=3)
+        # val / new-node val / test / new-node test = 0 / 1 / 2 / 3 (random;
+        # build_eval_neg_samplers gives the other strategies' samplers)
+        self.train_neg = NegativeEdgeSampler(data.train.src, data.train.dst)
+        self.val_neg, self.nn_val_neg, self.test_neg, self.nn_test_neg = (
+            build_eval_neg_samplers(data))
         # sequence buckets, for backbones that publish them: smallest static
         # length covering a batch's histories
         cands = getattr(backbone, "bucket_candidates", ()) if cfg.sequence_buckets else ()
@@ -248,41 +269,61 @@ class LinkPredictionTrainer:
                 "(init_state() gives an empty one)")
 
     # -------------------------------------------------------------- forward
-    def _sample(self, csr: TemporalCSR, src, dst, neg_dst, ts, bucket, gen=None):
-        """The triple [src || dst || neg_dst] (neg_src = src); ``gen`` draws
-        the neighbors of a stochastic sample strategy."""
-        ids, tsx = torch.cat([src, dst, neg_dst]), ts.repeat(3)
+    def _layout(self, neg_src_is_src: bool = True) -> str:
+        """The rows a batch embeds (the JAX trainer's ``_forward``):
+        "dedup" (the triple, src's rows reused for neg_src), "triple" (a
+        pair-aware net pairs the triple itself) or "quad". Training always
+        has neg_src = src; evaluation only under random negatives."""
+        if neg_src_is_src:
+            if getattr(self.backbone, "pair_independent", False):
+                return "dedup"
+            if (not self.has_state and getattr(self.backbone, "triple_expand", False)
+                    and not self._stochastic):
+                return "triple"
+        return "quad"
+
+    def _sample(self, csr: TemporalCSR, arrays, layout: str, bucket=None, gen=None):
+        """The inputs of the rows ``layout`` embeds: [src || dst || neg_dst]
+        or [src || dst || neg_src || neg_dst]; ``gen`` draws the neighbors
+        of a stochastic sample strategy."""
+        src, dst, neg_src, neg_dst, ts = arrays[:5]
+        if layout == "quad":
+            ids, roles = torch.cat([src, dst, neg_src, neg_dst]), ("src", "dst", "src", "dst")
+        else:
+            ids, roles = torch.cat([src, dst, neg_dst]), ("src", "dst", "dst")
+        tsx = ts.repeat(len(roles))
         if self._stochastic:
             inputs = self.backbone.sample(csr, ids, tsx, gen=gen)
         elif bucket is None:
             inputs = self.backbone.sample(csr, ids, tsx)
         else:
             inputs = self.backbone.sample(csr, ids, tsx, seq_len=bucket)
-        if self.has_state:  # the triple's roles, explicit
-            roles = segment_roles(src.shape[0], ("src", "dst", "dst"), src.device)
-            inputs = inputs._replace(roles=roles)
+        if self.has_state:  # the layout's roles, explicit
+            inputs = inputs._replace(roles=segment_roles(src.shape[0], roles, src.device))
         return inputs
 
     @staticmethod
-    def _quad(embs: torch.Tensor) -> torch.Tensor:
-        """Triple [src, dst, neg_dst] rows -> quad order [src, dst, src, neg_dst]."""
+    def _expand(embs: torch.Tensor, layout: str) -> torch.Tensor:
+        """A "dedup" triple's rows [src, dst, neg_dst] -> quad order [src,
+        dst, src, neg_dst]; the other layouts' rows are in quad order."""
+        if layout != "dedup":
+            return embs
         b = embs.shape[0] // 3
         return torch.cat([embs[: 2 * b], embs[:b], embs[2 * b :]])
 
-    def _embed(self, inputs, dropout_gen=None) -> torch.Tensor:
-        """Quad-order embeddings [src, dst, neg_src, neg_dst] of a triple's
-        inputs: a pair-independent backbone embeds the triple and reuses
-        src's rows for neg_src; a pair-aware one (DyGFormer) pairs the rows
-        itself (``triple=True``)."""
-        if getattr(self.backbone, "pair_independent", False):
-            return self._quad(self.model(self.tables, inputs, dropout_gen=dropout_gen))
-        return self.model(self.tables, inputs, triple=True, dropout_gen=dropout_gen)
+    def _embed(self, inputs, layout: str, dropout_gen=None) -> torch.Tensor:
+        """Quad-order embeddings [src, dst, neg_src, neg_dst] of a stateless
+        backbone's inputs in ``layout``."""
+        kw = {"triple": True} if layout == "triple" else {}
+        return self._expand(self.model(self.tables, inputs, dropout_gen=dropout_gen, **kw),
+                            layout)
 
-    def _embed_memory(self, inputs, state, dropout_gen=None):
+    def _embed_memory(self, inputs, state, layout: str, dropout_gen=None):
         """A memory model's quad-order embeddings against ``state``'s view,
-        and the triple's raw embeddings (what ``commit`` takes)."""
+        and its raw embeddings in ``layout`` (whose first 2B rows, src and
+        dst, are what ``commit`` takes)."""
         embs, raw = self.backbone.embed_quad(self.model, self.tables, state, inputs, dropout_gen)
-        return self._quad(embs), raw
+        return self._expand(embs, layout), raw
 
     def _commit(self, state, arrays, raw):
         """The state after the batch's positive edges (``backbone.commit``)."""
@@ -309,16 +350,17 @@ class LinkPredictionTrainer:
         (None for those the loss does not reach). A memory model takes its
         memory as ``state`` and gets the committed state as a third element."""
         self._require_state(state)
-        src, dst, _neg_src, neg_dst, ts, _eid, valid = arrays
+        valid = arrays[6]
+        layout = self._layout()
         self.model.train()
         self.head.train()
         with record_function("train/sample"):
-            inputs = self._sample(self.train_csr, src, dst, neg_dst, ts, bucket, self.sample_gen)
+            inputs = self._sample(self.train_csr, arrays, layout, bucket, self.sample_gen)
         with record_function("train/forward"):
             if self.has_state:
-                embs, raw = self._embed_memory(inputs, state, self.dropout_gen)
+                embs, raw = self._embed_memory(inputs, state, layout, self.dropout_gen)
             else:
-                embs = self._embed(inputs, self.dropout_gen)
+                embs = self._embed(inputs, layout, self.dropout_gen)
             loss, (pos_logit, neg_logit) = self._head_loss(embs, valid)
         with record_function("train/backward"):
             self.optimizer.zero_grad(set_to_none=True)
@@ -335,23 +377,26 @@ class LinkPredictionTrainer:
 
     @torch.inference_mode()
     def eval_step(self, csr: TemporalCSR, arrays, bucket: int | None = None, gen=None,
-                  state=None):
-        """One batch under the random-negative protocol (neg_src = src) ->
-        (masked mean BCE loss, (pos_probs, neg_probs)); ``gen`` draws a
-        stochastic strategy's neighbors. A memory model takes its memory as
-        ``state`` and gets the state after the batch's positive edges as a
-        third element."""
+                  state=None, neg_src_is_src: bool = True):
+        """One batch -> (masked mean BCE loss, (pos_probs, neg_probs)); ``gen``
+        draws a stochastic strategy's neighbors. ``neg_src_is_src``: the
+        batch's neg_src column is its src column (random negatives), so the
+        triple may stand in for the quad (``_layout``); pass False for
+        historical or inductive negatives. A memory model takes its memory
+        as ``state`` and gets the state after the batch's positive edges as
+        a third element."""
         self._require_state(state)
-        src, dst, _neg_src, neg_dst, ts, _eid, valid = arrays
+        valid = arrays[6]
+        layout = self._layout(neg_src_is_src)
         self.model.eval()
         self.head.eval()
         with record_function("eval/sample"):
-            inputs = self._sample(csr, src, dst, neg_dst, ts, bucket, gen)
+            inputs = self._sample(csr, arrays, layout, bucket, gen)
         with record_function("eval/forward"):
             if self.has_state:
-                embs, raw = self._embed_memory(inputs, state)
+                embs, raw = self._embed_memory(inputs, state, layout)
             else:
-                embs = self._embed(inputs)
+                embs = self._embed(inputs, layout)
         with record_function("eval/head"):
             loss, (pos_logit, neg_logit) = self._head_loss(embs, valid)
             probs = (torch.sigmoid(pos_logit), torch.sigmoid(neg_logit))
@@ -464,8 +509,11 @@ class LinkPredictionTrainer:
 
     def evaluate(self, stream: EdgeStream, neg_sampler: NegativeEdgeSampler,
                  eval_key_salt: int = 0, state=None):
-        """One sweep over a split; a stochastic sample strategy draws from a
-        generator seeded from 12345 + ``eval_key_salt``.
+        """One sweep over a split, with negatives from ``neg_sampler`` under
+        its strategy (random: neg_src discarded for src; historical and
+        inductive: the drawn pairs, embedded as the quad); a stochastic
+        sample strategy draws from a generator seeded from 12345 +
+        ``eval_key_salt``.
 
         Returns (losses, metrics, probs): per batch, the loss, the AP/AUC
         dict and the host (pos_probs, neg_probs) arrays (padded rows
@@ -481,6 +529,7 @@ class LinkPredictionTrainer:
         if stream.num_interactions == 0:
             return ([], [], [], state) if self.has_state else ([], [], [])
         neg_sampler.reset_random_state()
+        random_negs = neg_sampler.negative_sample_strategy == "random"
         gen = None
         if self._stochastic:
             gen = torch.Generator(device=self.device).manual_seed(12345 + eval_key_salt)
@@ -488,17 +537,25 @@ class LinkPredictionTrainer:
         for b in chronological_batches(stream, self.cfg.batch_size):
             with record_function("eval/staging"):
                 n = b.num_valid
-                # the neg_src draw is made so the seeded stream stays
-                # aligned, then discarded: the negative edge is (src, neg_dst)
-                _, neg_dst = neg_sampler.sample(n)
-                ns, nd = self._pad_negs(b.src[:n], b), self._pad_negs(neg_dst, b)
+                if random_negs:
+                    # the neg_src draw is made so the seeded stream stays
+                    # aligned, then discarded: the negative edge is (src, neg_dst)
+                    _, neg_dst = neg_sampler.sample(n)
+                    neg_src = b.src[:n]
+                else:
+                    neg_src, neg_dst = neg_sampler.sample(
+                        n, batch_src_node_ids=b.src[:n], batch_dst_node_ids=b.dst[:n],
+                        current_batch_start_time=b.batch_start_time,
+                        current_batch_end_time=b.batch_end_time)
+                ns, nd = self._pad_negs(neg_src, b), self._pad_negs(neg_dst, b)
                 bucket = self._pick_bucket(self.full_csr, b, ns, nd)
                 arrays = self._batch_arrays(b, ns, nd)
+            out = self.eval_step(self.full_csr, arrays, bucket, gen, state,
+                                 neg_src_is_src=random_negs)
             if self.has_state:
-                loss, (pos, neg), state = self.eval_step(self.full_csr, arrays, bucket, gen,
-                                                         state)
+                loss, (pos, neg), state = out
             else:
-                loss, (pos, neg) = self.eval_step(self.full_csr, arrays, bucket, gen)
+                loss, (pos, neg) = out
             with record_function("eval/metrics"):  # the copy-back waits for the device
                 host = (pos.cpu().numpy(), neg.cpu().numpy())
                 losses.append(float(loss))

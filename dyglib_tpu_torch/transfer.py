@@ -22,7 +22,12 @@ checkpoint's ``"params"``) and returns ``{"backbone": state_dict,
     JAX layout in the port (``nn.FusedGRUCell``), so they are copied as
     they are; JODIE's ``time_projection`` is a Linear; TGN's and DyRep's
     ``temporal_conv_{l}``, ``merge_{l}`` and ``time_encoder`` map as
-    TGAT's do.
+    TGAT's do;
+  * GraphMixer's, TCL's and CAWN's trees map the same way: a flax
+    ``Embed``'s ``embedding`` becomes ``nn.Embedding``'s ``weight`` (TCL's
+    ``depth_embedding``), a LayerNorm over the token axis (GraphMixer's
+    ``token_norm``) is a LayerNorm like any other, and CAWN's LSTM leaves
+    (``{fwd,bwd}_{wx,wh,b,bh}``) keep their layout.
 """
 from __future__ import annotations
 
@@ -51,6 +56,8 @@ def module_state_dict(tree: Mapping) -> dict[str, torch.Tensor]:
             out[prefix + "weight"] = t(leaves.pop("kernel")).T.contiguous()
         if "scale" in leaves:  # LayerNorm
             out[prefix + "weight"] = t(leaves.pop("scale"))
+        if "embedding" in leaves:  # Embed
+            out[prefix + "weight"] = t(leaves.pop("embedding"))
         for k, v in leaves.items():
             out[prefix + k] = t(v)
 

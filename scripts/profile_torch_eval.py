@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's evaluation or training goes, on one card.
 
-    python3 scripts/profile_torch_eval.py [--model dygformer|tgat|tgn|dyrep|jodie]
+    python3 scripts/profile_torch_eval.py [--model dygformer|tgat|tgn|dyrep|jodie|
+                                                   graphmixer|tcl|cawn]
                                           [--mode eval|train] [--batches 10]
+                                          [--negatives random|historical|inductive]
                                           [--configs NAMES] [--repo DIR]
 
 Same setting as chip_smoke.py (synthetic wikipedia-scale stream, seed 1;
@@ -15,15 +17,21 @@ Phi fusion (``use_phi_fusion=True``: the Phi projection's kernels, two a
 convolution). TGN, DyRep, JODIE: the published widths (TGN and DyRep K =
 10, 1 layer, 2 heads; memory 172, Dt = 100; time shifts from the train
 split), the kernel path (TGN's and DyRep's temporal attention kernel) and
-the plain path, each sweep from an empty memory. ``--configs`` picks
+the plain path, each sweep from an empty memory. GraphMixer, TCL and CAWN:
+the published wikipedia widths (GraphMixer K = 30, 2 layers, time gap
+2000, dropout 0.5; TCL K = 20, 2 layers, 2 heads; CAWN K = 32, walk length
+1, 8 walk heads, position features 172, time_interval_aware; Dt = 100),
+whose paths run no kernel of the port. ``--configs`` picks
 configurations by name (comma-separated, e.g. "TGAT Phi fusion");
 ``--repo`` names the tree whose
 ``dyglib_tpu_torch`` is run (default: this checkout), so that two trees
 run by one command in turns compare on one card. For each configuration
 it first times the same sweep twice with no profiler (host clock, ending
 in a synchronize: ``ms_per_batch``), then traces, with torch.profiler, one
-``evaluate`` sweep over the first val batches (``--mode eval``, random val
-negatives) or one ``train_epoch`` over the last train batches (``--mode
+``evaluate`` sweep over the first val batches (``--mode eval``; val
+negatives of the ``--negatives`` strategy, random by default: historical
+and inductive ones are drawn in ``eval/staging`` and embedded as the
+quad) or one ``train_epoch`` over the last train batches (``--mode
 train``, dropout 0.1; wikipedia on the gather path, CanParl with the entry
 fetch, as chip_smoke.py drives them), and reports:
 
@@ -65,6 +73,14 @@ CONFIGS = (("wikipedia", 32, 1), ("CanParl", 2048, 64))
 TGAT_CONFIGS = (("TGAT default", {}, True), ("TGAT plain", {}, False),
                 ("TGAT Phi fusion", {"use_phi_fusion": True}, True))
 MEMORY_MODELS = {"tgn": "TGN", "dyrep": "DyRep", "jodie": "JODIE"}
+# the models with no kernel on their paths, at their published widths
+KERNEL_FREE = {
+    "graphmixer": ("GraphMixer", dict(num_neighbors=30, num_layers=2, dropout=0.5,
+                                      time_gap=2000)),
+    "tcl": ("TCL", dict(num_neighbors=20, num_layers=2, num_heads=2, dropout=0.1)),
+    "cawn": ("CAWN", dict(num_neighbors=32, walk_length=1, num_walk_heads=8,
+                          position_feat_dim=172, dropout=0.1)),
+}
 
 
 def is_range(name: str) -> bool:
@@ -176,10 +192,12 @@ def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--model", choices=("dygformer", "tgat", *MEMORY_MODELS),
+    parser.add_argument("--model", choices=("dygformer", "tgat", *MEMORY_MODELS, *KERNEL_FREE),
                         default="dygformer")
     parser.add_argument("--mode", choices=("eval", "train"), default="eval")
     parser.add_argument("--batches", type=int, default=10)
+    parser.add_argument("--negatives", choices=("random", "historical", "inductive"),
+                        default="random", help="the val negatives' strategy (--mode eval)")
     parser.add_argument("--configs", default="",
                         help="comma-separated configuration names (default: all of the model's)")
     parser.add_argument("--repo", default=REPO_ROOT,
@@ -191,6 +209,8 @@ def main() -> int:
     sys.path.insert(0, os.path.abspath(args.repo))
     torch.backends.cuda.matmul.allow_tf32 = False
     from dyglib_tpu_torch.data import synthetic_link_prediction_data
+    from dyglib_tpu_torch.graph import build_eval_neg_samplers
+    from dyglib_tpu_torch import models
     from dyglib_tpu_torch.models import (
         TGAT,
         DyGFormer,
@@ -215,6 +235,9 @@ def main() -> int:
         shifts = compute_src_dst_node_time_shifts(data.train.src, data.train.dst, data.train.ts)
         runs = [(f"{name} {path}", MemoryModel(model_name=name, time_shifts=shifts),
                  path == "kernels", False) for path in ("kernels", "plain")]
+    elif args.model in KERNEL_FREE:
+        name, kw = KERNEL_FREE[args.model]
+        runs = [(name, getattr(models, name)(**kw), False, False)]
     else:
         runs = [
             (config, DyGFormer(max_input_sequence_length=maxlen, patch_size=patch,
@@ -230,8 +253,9 @@ def main() -> int:
         tr.init_params(0)
         tr.model.use_kernels = use_kernels
         if args.mode == "eval":
-            tr.evaluate(data.val.slice(0, B), tr.val_neg)  # warm-up
-            run = synced(lambda: tr.evaluate(data.val.slice(0, args.batches * B), tr.val_neg))
+            negs = build_eval_neg_samplers(data, args.negatives)[0]
+            tr.evaluate(data.val.slice(0, B), negs)  # warm-up
+            run = synced(lambda: tr.evaluate(data.val.slice(0, args.batches * B), negs))
         else:
             tr.train_epoch(data.train.slice(n - B, n))  # warm-up
             stream = data.train.slice(n - args.batches * B, n)
@@ -243,6 +267,7 @@ def main() -> int:
             run()
             host_ms.append((time.perf_counter() - t0) * 1e3 / args.batches)
         out = {"config": config, "mode": args.mode, "batches": args.batches,
+               "negatives": args.negatives,
                "use_kernels": use_kernels, "entry_fetch": fetch,
                "repo": os.path.abspath(args.repo), "ms_per_batch": host_ms}
         out.update(device_profile(run))
