@@ -7,9 +7,12 @@ The main paths are TGAT, DyGFormer, TGN, DyRep, JODIE, GraphMixer, TCL
 and CAWN link-prediction evaluation
 (``dyglib_tpu_torch.train.LinkPredictionTrainer.evaluate``) and training
 (``LinkPredictionTrainer.train_step`` over train batches, and ``fit``),
-and EdgeBank's evaluation (``evaluate_edge_bank_link_prediction``), each
-model at its published widths (TGAT: 20 neighbours, 2 layers, 2 heads;
-DyGFormer: channel embedding 50, 2 layers, 2 heads; TGN and DyRep: 10
+EdgeBank's evaluation (``evaluate_edge_bank_link_prediction``), node
+classification (``NodeClassificationTrainer.evaluate`` and ``train_step``
+on a frozen backbone) and DyGLib's four CLI drivers
+(``dyglib_tpu_torch.cli.*.main``), each model at its published widths
+(TGAT: 20 neighbours, 2 layers, 2 heads; DyGFormer: channel embedding 50,
+2 layers, 2 heads; TGN and DyRep: 10
 neighbours, 1 layer, 2 heads, memory 172; JODIE: memory 172; GraphMixer:
 30 neighbours, 2 layers, time gap 2000; TCL: 20 neighbours, 2 layers, 2
 heads; CAWN: 32 neighbours, walk length 1, 8 walk heads, position
@@ -135,6 +138,31 @@ and prints no result):
      val batches under historical and inductive negatives: the quad (4B
      rows a batch), the launches per batch of the random protocol, the
      first batches against the CPU path; ms per batch;
+  5c. node classification and the CLI: the same stream split by the
+     node-classification rule; DyGFormer 32/1 (2 layers), TGAT (K = 20, 2
+     layers) and TGN (K = 10, 1 layer) at the published wikipedia
+     node-classification widths, built from the CLI's arguments by
+     ``build_backbone``, backbone and head from seed 0: the first 20 val
+     batches (TGN from the memory after the last 20 train batches), plain
+     and kernel paths in turns P, K, K, P, counters zeroed just before each
+     sweep and read just after (DyGFormer #1 x1, #2 x2, #3 x2 a batch; TGAT
+     #6 x2, #5 x1; TGN #5 x1; the plain path none), probabilities within
+     PROB_ATOL of the first plain sweep, the two kernel sweeps bitwise
+     equal, DyGFormer's first batches against the port's CPU path; then 5
+     head steps on the last train batches at head dropout 0 in lockstep
+     with the plain path (losses within LOSS_ATOL, head gradients within
+     GRAD_STEP_RTOL of each tensor's largest entry), the forward kernels
+     launched and no backward kernel, every backbone parameter bitwise
+     unchanged with no ``.grad``; ms per eval batch and per head step, the
+     val AUC. The JAX slow test's relabelled fixture (4000 edges, seed 7,
+     labels under seed 777), a random TGAT backbone (K = 10, 1 layer), 5
+     head epochs: val AUC at least 0.70. The four drivers in a temporary
+     working directory on a 6000-edge ``write_synthetic_dataset`` stream,
+     for DyGFormer and TGN (``--load_best_configs``): link-prediction
+     training (1 epoch), evaluation under historical negatives,
+     node-class training (2 epochs) and evaluation; the artifacts in
+     DyGLib's layout, every aggregate finite and in [0, 1], each driver's
+     wall seconds;
   6. fit on the JAX test fixture (the 2000-edge synthetic stream of
      tests/conftest.py): DyGFormer 32/2, 2 layers, dropout 0.1, 4 epochs,
      lr 5e-4, test AP above 0.50 and the least epoch loss below 0.67
@@ -148,7 +176,9 @@ and prints no result):
      the first's and below 0.69) and test AP above 0.53 from the final
      weights; CAWN K = 8, walk length 1, 8 heads, 2 epochs, test AP above
      0.58 (tests/test_remaining_models.py); lr 1e-3: the JAX package's floors;
-  7. print one JSON line of kernel numbers, then the device JSON line.
+  7. print one JSON line of kernel numbers (each row with its main-path
+     launches and, where phase 5c runs it, its node-classification
+     launches over 20 eval batches), then the device JSON line.
 """
 import json
 import math
@@ -300,6 +330,29 @@ NEW_FIT = {
     "TCL": (dict(num_neighbors=10, num_layers=2), 4, 0.53),
     "CAWN": (dict(num_neighbors=8, walk_length=1, num_walk_heads=8), 2, 0.58),
 }
+
+
+# node classification (phase 5c) at the published wikipedia widths
+# (load_node_classification_best_configs: DyGFormer 32/1 with 2 layers, TGAT
+# K = 20 with 2 layers, TGN K = 10 with 1 layer; all "recent", dropout 0.1),
+# backbone and head from seed 0: the forward kernels an eval batch and a head
+# step launch (the frozen backbone launches no backward kernel)
+NODECLS_MODELS = {
+    "DyGFormer": {"time_channel": 1, "cooccurrence": 2, "patch_projection": 2},
+    "TGAT": {"gathered_attention": 2, "temporal_attention": 1},
+    "TGN": {"temporal_attention": 1},
+}
+# the kernel rows whose configuration is each model's node-class width
+NODECLS_KERNEL_ROWS = {"wikipedia": "DyGFormer", "tgat": "TGAT", "tgn": "TGN"}
+NODECLS_BATCHES, NODECLS_STEPS = 20, 5
+NODECLS_TURNS = (False, True, True, False)
+# the JAX package's slow test_node_cls_discriminative_auc_floor
+# (tests/test_node_classification_and_cli.py:268-324): relabelled fixture,
+# random TGAT backbone (K = 10, 1 layer), 5 head epochs, val AUC floor
+NODECLS_FIXTURE_AUC_FLOOR = 0.70
+# the four drivers' dataset (write_synthetic_dataset) and models
+DRIVER_EDGES = 6000
+DRIVER_MODELS = ("DyGFormer", "TGN")
 
 
 def log(msg: str) -> None:
@@ -2263,6 +2316,317 @@ def run_new_model_fit(name, dev) -> dict:
     return {"test_ap": ap, "train_losses": losses, "seconds": seconds}
 
 
+def nonzero_launches() -> dict:
+    from dyglib_tpu_torch import ops
+
+    return {k: v for k, v in ops.launch_counts().items() if v}
+
+
+def nodecls_trainer(data, nc, name, dev):
+    """A node-classification trainer of ``name`` at its published wikipedia
+    widths, built as the CLI builds it (``get_node_classification_args`` with
+    ``--load_best_configs``, ``build_backbone``), backbone weights and head
+    from seed 0, head dropout 0."""
+    import torch
+
+    from dyglib_tpu_torch.configs import build_backbone, get_node_classification_args
+    from dyglib_tpu_torch.train import NodeClassificationTrainer, TrainConfig
+
+    args = get_node_classification_args(
+        ["--model_name", name, "--dataset_name", "wikipedia", "--load_best_configs"])
+    backbone = build_backbone(args, data)
+    params = backbone.build(FEAT, FEAT, torch.Generator().manual_seed(0)).state_dict()
+    tr = NodeClassificationTrainer(
+        backbone, nc, TrainConfig(batch_size=B, learning_rate=TRAIN_LR, head_dropout=0.0), None,
+        params, device=dev)
+    tr.init_params(0)
+    return tr
+
+
+def recorded_probs(tr) -> list:
+    """Record each ``eval_step``'s probabilities on ``tr`` as host arrays;
+    undo with ``del tr.eval_step``."""
+    out, step = [], tr.eval_step
+
+    def spy(*args, **kw):
+        probs, state = step(*args, **kw)
+        out.append(probs.cpu().numpy())
+        return probs, state
+
+    tr.eval_step = spy
+    return out
+
+
+def run_nodecls_eval(data, nc, name, dev) -> tuple:
+    """Phase 5c, evaluation: the first NODECLS_BATCHES val batches (a memory
+    model's from the memory after the last MEMORY_WARM train batches), plain
+    and kernel paths in turns (NODECLS_TURNS), counters zeroed just before
+    each sweep and read just after; every sweep within PROB_ATOL of the
+    first plain one, the two kernel sweeps bitwise equal, DyGFormer's card
+    path within PROB_ATOL of its CPU path. Returns (trainer, results)."""
+    import numpy as np
+    import torch
+
+    from dyglib_tpu_torch import ops
+    from dyglib_tpu_torch.train import NodeClassificationTrainer
+
+    tr = nodecls_trainer(data, nc, name, dev)
+    state0 = None
+    if tr.has_state:
+        n = nc.train.num_interactions
+        state0 = tr.evaluate(nc.train.slice(n - MEMORY_WARM * B, n))[1]
+    stream = nc.val.slice(0, NODECLS_BATCHES * B)
+    tr.evaluate(nc.val.slice(0, B), state=state0)  # warm-up
+    want = {k: v * NODECLS_BATCHES for k, v in NODECLS_MODELS[name].items()}
+    sweeps = []
+    for use_kernels in NODECLS_TURNS:
+        path = "kernels" if use_kernels else "plain"
+        tr.model.use_kernels = use_kernels
+        probs = recorded_probs(tr)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics, _ = tr.evaluate(stream, state=state0)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / NODECLS_BATCHES * 1e3
+        counts = nonzero_launches()
+        del tr.eval_step
+        if counts != (want if use_kernels else {}):
+            raise AssertionError(f"{name} node-class evaluation ({path}) launched {counts}, "
+                                 f"expected {want if use_kernels else {}}")
+        if len(probs) != NODECLS_BATCHES or not all(
+                p.shape == (B,) and np.isfinite(p).all() for p in probs):
+            raise AssertionError(f"{name} node-class evaluation: probabilities malformed")
+        if not 0.0 <= metrics["roc_auc"] <= 1.0:
+            raise AssertionError(f"{name} node-class val AUC out of range: {metrics}")
+        sweeps.append(dict(kernels=use_kernels, probs=probs, auc=metrics["roc_auc"], ms=ms,
+                           launches=counts))
+    diff = lambda a, b: max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+    plain = sweeps[0]["probs"]
+    kernel_runs = [sw for sw in sweeps if sw["kernels"]]
+    path_diff = max(diff(sw["probs"], plain) for sw in sweeps[1:])
+    repeat = diff(kernel_runs[0]["probs"], kernel_runs[1]["probs"])
+    if not path_diff <= PROB_ATOL or repeat != 0.0:
+        raise AssertionError(f"{name} node-class: kernel vs plain probabilities differ by "
+                             f"{path_diff} (limit {PROB_ATOL}); two kernel sweeps by {repeat}")
+    result = dict(model=name, batches=NODECLS_BATCHES, rows_per_batch=len(tr.layout) * B,
+                  launches_per_batch=NODECLS_MODELS[name],
+                  launches=kernel_runs[0]["launches"],
+                  ms_per_eval_batch={"kernels": [sw["ms"] for sw in kernel_runs],
+                                     "plain": [sw["ms"] for sw in sweeps if not sw["kernels"]]},
+                  val_auc=kernel_runs[0]["auc"], max_prob_diff=path_diff)
+    if name == "DyGFormer":
+        n_cpu = 2
+        cpu = NodeClassificationTrainer(
+            tr.backbone, nc, tr.cfg, None,
+            {k: v.cpu() for k, v in tr.model.state_dict().items()}, device="cpu")
+        cpu.load_head({k: v.cpu() for k, v in tr.head.state_dict().items()})
+        cpu_probs = recorded_probs(cpu)
+        cpu.evaluate(nc.val.slice(0, n_cpu * B))
+        result["max_prob_diff_vs_cpu"] = cpu_diff = diff(kernel_runs[0]["probs"][:n_cpu],
+                                                         cpu_probs)
+        if not cpu_diff <= PROB_ATOL:
+            raise AssertionError(f"{name} node-class: card vs CPU probabilities differ by "
+                                 f"{cpu_diff}")
+    return tr, result
+
+
+def run_nodecls_training(tr, nc, name) -> dict:
+    """Phase 5c, head training: the last NODECLS_STEPS train batches (a memory
+    model's from the memory after the MEMORY_WARM batches before them), head
+    dropout 0, in lockstep: at each step the plain path's loss and head
+    gradients from the same head, then the kernel path's ``train_step``.
+    Losses within LOSS_ATOL, head gradients within GRAD_STEP_RTOL of each
+    tensor's largest entry; the kernel path's forward launches and no
+    backward kernel; every backbone parameter bitwise unchanged, with no
+    ``.grad``."""
+    import numpy as np
+    import torch
+
+    from dyglib_tpu_torch import ops
+    from dyglib_tpu_torch.data import chronological_batches
+
+    n = nc.train.num_interactions
+    state = None
+    if tr.has_state:
+        state = tr.evaluate(nc.train.slice(n - (MEMORY_WARM + NODECLS_STEPS) * B,
+                                           n - NODECLS_STEPS * B))[1]
+    before = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    head = dict(tr.head.named_parameters())
+    loss_diff, grad_err, ms = 0.0, 0.0, []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for b in chronological_batches(nc.train.slice(n - NODECLS_STEPS * B, n), B):
+        arrays = tr._batch_arrays(b)
+        labels = torch.from_numpy(b.label.astype(np.float32)).to(tr.device)
+        tr.model.use_kernels = False
+        tr.head.train()
+        emb, _ = tr._src_embeddings(arrays, state)
+        plain_loss, _ = tr.head_loss(emb, labels, arrays[4])
+        plain_grads = torch.autograd.grad(plain_loss, list(head.values()))
+        tr.model.use_kernels = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, probs, state = tr.train_step(arrays, labels, state)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if not (torch.isfinite(loss) and torch.isfinite(probs).all()):
+            raise AssertionError(f"{name} head step: loss or probabilities not finite")
+        loss_diff = max(loss_diff, abs(float(loss) - plain_loss.item()))
+        for (k, p), g in zip(head.items(), plain_grads):
+            scale = float(g.abs().max())
+            err = float((p.grad - g).abs().max())
+            if not err <= GRAD_STEP_RTOL * scale:
+                raise AssertionError(f"{name} head step: {k} gradient differs by {err} "
+                                     f"(largest entry {scale})")
+            grad_err = max(grad_err, err / scale)
+    counts = nonzero_launches()
+    want = {k: v * NODECLS_STEPS for k, v in NODECLS_MODELS[name].items()}
+    if counts != want:
+        raise AssertionError(f"{name} head training launched {counts}, expected {want} "
+                             "(no backward kernel)")
+    if not loss_diff <= LOSS_ATOL:
+        raise AssertionError(f"{name} head training: losses differ by {loss_diff}")
+    changed = [k for k, v in tr.model.state_dict().items() if not torch.equal(v, before[k])]
+    grads = [k for k, p in tr.model.named_parameters() if p.grad is not None]
+    if changed or grads:
+        raise AssertionError(f"{name} head training touched the backbone: changed {changed}, "
+                             f"gradients {grads}")
+    return dict(steps=NODECLS_STEPS, head_step_launches=counts, ms_per_head_step=ms,
+                max_loss_diff=loss_diff, max_grad_rel_err=grad_err)
+
+
+def run_nodecls_fixture_fit(dev, root) -> dict:
+    """Phase 5c, the JAX slow test test_node_cls_discriminative_auc_floor:
+    the 4000-edge fixture (seed 7) relabelled with numpy under seed 777
+    (flagged sources carry label 1 w.p. 0.8, the others 0.02), written and
+    read back through the processed layout; a random TGAT backbone (K = 10,
+    1 layer, seed 0), 5 head epochs at batch 100; val AUC at least
+    NODECLS_FIXTURE_AUC_FLOOR."""
+    import numpy as np
+
+    from dyglib_tpu_torch.data import (
+        get_link_prediction_data,
+        get_node_classification_data,
+        make_synthetic_bipartite,
+        write_processed,
+    )
+    from dyglib_tpu_torch.models import TGAT
+    from dyglib_tpu_torch.train import LinkPredictionTrainer, NodeClassificationTrainer, TrainConfig
+
+    stream, edge_feats, node_feats = make_synthetic_bipartite(
+        num_src=120, num_dst=60, num_edges=4000, node_feat_scale=1.0, seed=7)
+    rs = np.random.RandomState(777)
+    src_ids = np.unique(stream.src)
+    flagged = rs.choice(src_ids, size=max(2, len(src_ids) // 8), replace=False)
+    p = np.where(np.isin(stream.src, flagged), 0.8, 0.02)
+    stream.label = (rs.uniform(size=len(stream.src)) < p).astype(np.float64)
+    write_processed(root, "s", stream, edge_feats, node_feats)
+    link = get_link_prediction_data("s", data_root=root)
+    nc = get_node_classification_data("s", data_root=root)
+    backbone = TGAT(num_neighbors=10, num_layers=1)
+    lp = LinkPredictionTrainer(backbone, link, TrainConfig(batch_size=100), device=dev)
+    lp.init_params(0)  # a random backbone: no training
+    tr = NodeClassificationTrainer(
+        backbone, nc, TrainConfig(batch_size=100, num_epochs=5, learning_rate=1e-3, patience=6),
+        os.path.join(root, "nc.pkl"), lp.state_dicts()["backbone"], device=dev)
+    t0 = time.perf_counter()
+    res = tr.fit(seed=0, log=lambda msg: log(f"  {msg}"))
+    seconds = time.perf_counter() - t0
+    auc = res["validate metrics"]["roc_auc"]
+    log(f"  node-class fixture fit: val AUC {auc:.4f} (floor {NODECLS_FIXTURE_AUC_FLOOR}), "
+        f"test AUC {res['test metrics']['roc_auc']:.4f}, {seconds:.1f} s")
+    if not auc >= NODECLS_FIXTURE_AUC_FLOOR:
+        raise AssertionError(f"node-class fixture fit below the floor: val AUC {auc}")
+    return {"val_auc": auc, "test_auc": res["test metrics"]["roc_auc"],
+            "train_losses": res["train losses"], "seconds": seconds}
+
+
+def run_drivers(root) -> dict:
+    """Phase 5c, the four CLI drivers (``dyglib_tpu_torch.cli.*.main``, on the
+    card by default) in ``root`` as the working directory, on a
+    DRIVER_EDGES-edge dataset written by ``write_synthetic_dataset``: for
+    each of DRIVER_MODELS (``--load_best_configs``), link-prediction
+    training (1 run, 1 epoch), evaluation under historical negatives,
+    node-class training (2 epochs) and node-class evaluation; the
+    artifacts in DyGLib's layout, every aggregate finite and in [0, 1],
+    each driver's wall seconds."""
+    import numpy as np
+
+    from dyglib_tpu_torch.cli import (
+        evaluate_link_prediction,
+        evaluate_node_classification,
+        train_link_prediction,
+        train_node_classification,
+    )
+    from dyglib_tpu_torch.data import write_synthetic_dataset
+
+    write_synthetic_dataset(os.path.join(root, "processed_data"), "synthetic",
+                            num_edges=DRIVER_EDGES, node_feat_scale=1.0, seed=0)
+    cwd = os.getcwd()
+    os.chdir(root)
+    results = {}
+    try:
+        for model in DRIVER_MODELS:
+            base = ["--model_name", model, "--dataset_name", "synthetic", "--data_root",
+                    "processed_data", "--load_best_configs", "--num_runs", "1"]
+            seconds = {}
+            for driver, extra in (
+                (train_link_prediction, ["--num_epochs", "1"]),
+                (evaluate_link_prediction, ["--negative_sample_strategy", "historical"]),
+                (train_node_classification, ["--num_epochs", "2"]),
+                (evaluate_node_classification, []),
+            ):
+                name = driver.__name__.rsplit(".", 1)[-1]
+                t0 = time.perf_counter()
+                aggregate = driver.main(base + extra)
+                seconds[name] = time.perf_counter() - t0
+                values = [mean for split in aggregate.values() for mean, _ in split.values()]
+                if not values or not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in values):
+                    raise AssertionError(f"{model} {name}: aggregate out of range {aggregate}")
+            run = f"saved_models/{model}/synthetic/{model}_seed0/{model}_seed0"
+            artifacts = [f"{run}.pkl", f"{run}_node_classification.pkl"] + [
+                f"saved_results/{model}/synthetic/{r}.json"
+                for r in (f"{model}_seed0", f"historical_negative_sampling_{model}_seed0",
+                          f"node_classification_{model}_seed0",
+                          f"evaluate_node_classification_{model}_seed0")]
+            missing = [a for a in artifacts if not os.path.isfile(a)]
+            logs = os.listdir(f"logs/{model}/synthetic")
+            if missing or len(logs) != 4:
+                raise AssertionError(f"{model} drivers: missing {missing}, logs {logs}")
+            log(f"  {model} drivers: wall seconds {json.dumps(seconds)}")
+            results[model] = seconds
+    finally:
+        os.chdir(cwd)
+    return results
+
+
+def run_node_classification(data, dev) -> dict:
+    """Phase 5c: node classification and the CLI."""
+    import tempfile
+
+    import torch
+
+    from dyglib_tpu_torch.data import split_node_classification_data
+
+    t0 = time.perf_counter()
+    nc = split_node_classification_data(data.full, data.edge_raw_features,
+                                        data.node_raw_features)
+    results = {}
+    for name in NODECLS_MODELS:
+        tr, result = run_nodecls_eval(data, nc, name, dev)
+        result.update(run_nodecls_training(tr, nc, name))
+        log(f"  {json.dumps(result)}")
+        results[name] = result
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        results["fixture_fit"] = run_nodecls_fixture_fit(dev, root)
+        results["drivers"] = run_drivers(root)
+    results["seconds"] = time.perf_counter() - t0
+    log(f"  phase 5c: {results['seconds']:.1f} s")
+    return results
+
+
 def run_fit(dev) -> dict:
     """Phase 6: fit on the JAX test fixture, held to the end-metric floors."""
     import numpy as np
@@ -2422,6 +2786,11 @@ def main() -> int:
     log("historical and inductive negatives (the quad), TGAT and TGN:")
     run_negatives(data, dev)
     log(f"  phase 5n: {time.perf_counter() - t0:.1f} s")
+    log(f"node classification and the CLI (probability tolerance {PROB_ATOL}; head steps in "
+        f"lockstep: losses within {LOSS_ATOL}, gradients within {GRAD_STEP_RTOL}; fixture val "
+        f"AUC floor {NODECLS_FIXTURE_AUC_FLOOR}; the four drivers for {DRIVER_MODELS}):")
+    nodecls = run_node_classification(data, dev)
+    torch.cuda.empty_cache()
     log("fit on the JAX test fixture:")
     run_fit(dev)
     run_tgat_fit(dev)
@@ -2484,6 +2853,10 @@ def main() -> int:
             "source": f"dyglib_tpu_torch/csrc/{kernel.removesuffix('_bwd')}.cu",
             "replaces": replaces[kernel],
             "launches": main_path_launches(kernel, config),
+            # the node-classification path's launches (phase 5c: its first
+            # kernel evaluation sweep, NODECLS_BATCHES batches)
+            "node_classification_launches": nodecls.get(
+                NODECLS_KERNEL_ROWS.get(config), {}).get("launches", {}).get(kernel, 0),
             "max_abs_err": max(p["max_abs_err"] for p in parts),
             "ms": sum(p["ms"] for p in parts),
             "plain_ms": sum(p["plain_ms"] for p in parts),

@@ -5,12 +5,13 @@ layout and names. It imports torch, numpy and the standard library only,
 never JAX or anything of ``dyglib_tpu``. Hand-written CUDA kernels live in
 ``csrc/`` and are compiled with nvcc at first use (``ops/_build.py``).
 
-Ported so far: DyGFormer link-prediction evaluation and training (data,
-temporal CSR, recent-window sampling, random negatives, the DyGFormer
-network with its time-channel, co-occurrence, patch-projection and
-window-fetch kernels, the trainer, AP/AUC) and TGAT link-prediction
-evaluation (multi-hop recent sampling, temporal attention with its
-temporal, gathered and window attention and Phi projection kernels).
+Ported so far: link-prediction evaluation and training of every model
+(DyGFormer with its time-channel, co-occurrence, patch-projection and
+window-fetch kernels; TGAT with its temporal, gathered and window
+attention and Phi projection kernels; TGN, DyRep and JODIE; GraphMixer,
+TCL and CAWN; EdgeBank's evaluation) under random, historical and
+inductive negatives, node classification on a frozen backbone, and
+DyGLib's four CLI drivers (``python -m dyglib_tpu_torch.cli.<driver>``).
 """
 from .device import resolve_device
 

@@ -1,10 +1,10 @@
 """Dataset loading and chronological train/val/test splitting.
 
-Counterpart of ``dyglib_tpu/data/datasets.py`` (link prediction), read
-without pandas: the processed ``ml_<name>.csv`` edge list is parsed with
-numpy, columns found by their header names.
+Counterpart of ``dyglib_tpu/data/datasets.py``, read without pandas: the
+processed ``ml_<name>.csv`` edge list is parsed with numpy, columns found
+by their header names.
 
-Split protocol (identical to the JAX package):
+Link-prediction split protocol (identical to the JAX package):
   * features are zero-padded to 172 dims (asserted <= 172);
   * val/test boundary times are the (1 - val - test) / (1 - test) quantiles
     of the timestamp column;
@@ -12,6 +12,9 @@ Split protocol (identical to the JAX package):
     sampled from the sorted post-val-time node set as "new nodes" and every
     edge touching one is removed from train; new_node_val/test hold the
     val/test edges touching at least one node absent from the train set.
+
+Node-classification split: the same features and quantile boundaries, a
+plain chronological 3-way split with no new-node logic.
 """
 from __future__ import annotations
 
@@ -41,6 +44,20 @@ class LinkPredictionData:
     @property
     def num_nodes(self) -> int:
         """Number of node-id slots including the 0 sentinel."""
+        return self.node_raw_features.shape[0]
+
+
+@dataclasses.dataclass
+class NodeClassificationData:
+    node_raw_features: np.ndarray  # (N+1, 172) float32, row 0 = sentinel
+    edge_raw_features: np.ndarray  # (E+1, 172) float32, row 0 = sentinel
+    full: EdgeStream
+    train: EdgeStream
+    val: EdgeStream
+    test: EdgeStream
+
+    @property
+    def num_nodes(self) -> int:
         return self.node_raw_features.shape[0]
 
 
@@ -119,15 +136,52 @@ def split_link_prediction_data(
     )
 
 
+def split_node_classification_data(
+    full: EdgeStream,
+    edge_feats: np.ndarray,
+    node_feats: np.ndarray,
+    val_ratio: float = 0.15,
+    test_ratio: float = 0.15,
+) -> NodeClassificationData:
+    """Pad features and split a full stream chronologically at the
+    (1 - val - test) and (1 - test) time quantiles."""
+    val_time, test_time = np.quantile(full.ts, [1.0 - val_ratio - test_ratio, 1.0 - test_ratio])
+    return NodeClassificationData(
+        node_raw_features=_pad_features(node_feats).astype(np.float32),
+        edge_raw_features=_pad_features(edge_feats).astype(np.float32),
+        full=full,
+        train=full.mask(full.ts <= val_time),
+        val=full.mask((full.ts <= test_time) & (full.ts > val_time)),
+        test=full.mask(full.ts > test_time),
+    )
+
+
+def _load_processed(dataset_name: str, data_root: str):
+    """(full stream, edge features, node features) of
+    ``data_root/<name>/ml_<name>{.csv,.npy,_node.npy}``."""
+    d = os.path.join(data_root, dataset_name)
+    return (read_edge_csv(os.path.join(d, f"ml_{dataset_name}.csv")),
+            np.load(os.path.join(d, f"ml_{dataset_name}.npy")),
+            np.load(os.path.join(d, f"ml_{dataset_name}_node.npy")))
+
+
 def get_link_prediction_data(
     dataset_name: str,
     val_ratio: float = 0.15,
     test_ratio: float = 0.15,
     data_root: str = "./processed_data",
 ) -> LinkPredictionData:
-    """Load ``data_root/<name>/ml_<name>{.csv,.npy,_node.npy}`` and split it."""
-    d = os.path.join(data_root, dataset_name)
-    full = read_edge_csv(os.path.join(d, f"ml_{dataset_name}.csv"))
-    edge_feats = np.load(os.path.join(d, f"ml_{dataset_name}.npy"))
-    node_feats = np.load(os.path.join(d, f"ml_{dataset_name}_node.npy"))
-    return split_link_prediction_data(full, edge_feats, node_feats, val_ratio, test_ratio)
+    """Load a processed dataset and split it for link prediction."""
+    return split_link_prediction_data(
+        *_load_processed(dataset_name, data_root), val_ratio, test_ratio)
+
+
+def get_node_classification_data(
+    dataset_name: str,
+    val_ratio: float = 0.15,
+    test_ratio: float = 0.15,
+    data_root: str = "./processed_data",
+) -> NodeClassificationData:
+    """Load a processed dataset and split it for node classification."""
+    return split_node_classification_data(
+        *_load_processed(dataset_name, data_root), val_ratio, test_ratio)

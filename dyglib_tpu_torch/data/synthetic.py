@@ -3,7 +3,8 @@
 Counterpart of ``dyglib_tpu/data/synthetic.py``: the same
 ``np.random.default_rng(seed)`` draws in the same order, so one seed gives
 the same stream in both packages. ``synthetic_link_prediction_data``
-builds the split dataset without touching files.
+builds the split dataset without touching files;
+``write_synthetic_dataset`` writes the stream in the processed layout.
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import numpy as np
 
 from .containers import EdgeStream
 from .datasets import LinkPredictionData, split_link_prediction_data
+from .preprocess import write_processed
 
 
 def make_synthetic_bipartite(
@@ -68,3 +70,9 @@ def synthetic_link_prediction_data(
     """The split dataset of ``make_synthetic_bipartite(**kwargs)``, in memory."""
     stream, edge_feats, node_feats = make_synthetic_bipartite(**kwargs)
     return split_link_prediction_data(stream, edge_feats, node_feats, val_ratio, test_ratio)
+
+
+def write_synthetic_dataset(out_dir: str, dataset_name: str = "synthetic", **kwargs) -> None:
+    """``make_synthetic_bipartite(**kwargs)`` as a processed dataset under
+    ``out_dir/<dataset_name>/``."""
+    write_processed(out_dir, dataset_name, *make_synthetic_bipartite(**kwargs))

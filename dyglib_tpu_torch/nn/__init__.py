@@ -3,6 +3,7 @@ from .modules import (
     FusedGRUCell,
     FusedRNNCell,
     MergeLayer,
+    MLPClassifier,
     TemporalMultiHeadAttention,
     TimeEncoder,
     TransformerEncoder,
@@ -16,6 +17,7 @@ __all__ = [
     "FusedGRUCell",
     "FusedRNNCell",
     "MergeLayer",
+    "MLPClassifier",
     "TemporalMultiHeadAttention",
     "TimeEncoder",
     "TransformerEncoder",

@@ -2,9 +2,9 @@
 
 Counterpart of ``dyglib_tpu/nn/modules.py`` (``LN_EPS``, the torch-init
 helpers, ``TimeEncoder``, ``FusedGRUCell``, ``FusedRNNCell``,
-``MergeLayer``, ``TemporalMultiHeadAttention``, the post-LN
-``TransformerEncoder``) and the inverted ``dropout`` the port's models
-share. Parameters are drawn
+``MergeLayer``, ``MLPClassifier``, ``TemporalMultiHeadAttention``, the
+post-LN ``TransformerEncoder``) and the inverted ``dropout`` the port's
+models share. Parameters are drawn
 from an explicit ``torch.Generator`` so a seed fixes the whole model:
 
   * ``linear``: torch ``nn.Linear``'s default distribution,
@@ -146,6 +146,24 @@ class MergeLayer(nn.Module):
     def forward(self, input_1: torch.Tensor, input_2: torch.Tensor) -> torch.Tensor:
         h = self.fc1(torch.cat([input_1, input_2], dim=-1))
         return self.fc2(torch.relu(h))
+
+
+class MLPClassifier(nn.Module):
+    """Node classification's head: input -> 80 -> 10 -> 1, ReLU, dropout
+    after each hidden layer (in train mode, masks from ``dropout_gen``)."""
+
+    def __init__(self, input_dim: int, gen: torch.Generator, dropout: float = 0.1):
+        super().__init__()
+        self.fc1 = linear(input_dim, 80, gen)
+        self.fc2 = linear(80, 10, gen)
+        self.fc3 = linear(10, 1, gen)
+        self.dropout = dropout
+
+    def forward(self, x: torch.Tensor, dropout_gen: torch.Generator | None = None):
+        p = self.dropout if self.training else 0.0
+        x = dropout(torch.relu(self.fc1(x)), p, dropout_gen)
+        x = dropout(torch.relu(self.fc2(x)), p, dropout_gen)
+        return self.fc3(x)
 
 
 def _keep_mask(shape, p: float, gen: torch.Generator | None, device) -> torch.Tensor:

@@ -4,7 +4,8 @@ Counterpart of ``dyglib_tpu/train/link_prediction.py`` for every
 parametric model the JAX package has (DyGFormer, TGAT, TGN, DyRep, JODIE,
 GraphMixer, TCL, CAWN): ``TrainConfig``, ``make_optimizer``, the train
 step, ``train_epoch``, ``evaluate`` and ``fit``. Not ported yet: resume
-checkpoints, scan epochs, tensorboard and the profiler hook in ``fit``.
+checkpoints, scan epochs (``TrainConfig(scan_epochs=True)`` raises),
+tensorboard and the profiler hook in ``fit``.
 
 Protocol (the JAX package's):
   * chronological batches, never shuffled, the last one padded and masked;
@@ -71,6 +72,7 @@ down (``scripts/profile_torch_eval.py``).
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time
 
 import numpy as np
@@ -113,6 +115,19 @@ class TrainConfig:
     # after every train step, check that no node's memory clock moved
     # backwards (memory models; costs a copy of the clocks to the host a step)
     check_memory_order: bool = False
+    # MLPClassifier's dropout (node classification)
+    head_dropout: float = 0.1
+    # a live per-batch train-loss line on stderr (train_epoch)
+    show_progress: bool = False
+    # each train epoch as one program: not ported (ROADMAP Queue 1 item 3,
+    # scan epochs as CUDA graphs); True raises
+    scan_epochs: bool = False
+
+    def __post_init__(self):
+        if self.scan_epochs:
+            raise NotImplementedError(
+                "scan_epochs is not ported yet (ROADMAP Queue 1 item 3: scan epochs as CUDA "
+                "graphs)")
 
 
 class OptaxRMSprop(torch.optim.Optimizer):
@@ -468,12 +483,13 @@ class LinkPredictionTrainer:
             bucket = self._pick_bucket(self.train_csr, b, b.src, neg_dst)
             yield b, self._batch_arrays(b, b.src, neg_dst), bucket
 
-    def train_epoch(self, stream: EdgeStream | None = None, state=None):
+    def train_epoch(self, stream: EdgeStream | None = None, state=None, epoch: int = 0):
         """One pass over the train split (or ``stream``) -> (per-batch
         losses, per-batch AP/AUC dicts); a memory model's sweep starts from
         ``state`` (default: an empty memory) and its final state is a third
         element. With ``cfg.check_memory_order`` each step is checked for
-        node clocks that move backwards."""
+        node clocks that move backwards; with ``cfg.show_progress`` each
+        step's loss is shown on stderr (``epoch`` numbers the line)."""
         if self.model is None:
             raise RuntimeError("call init_params or load_params first")
         if self.has_state and state is None:
@@ -489,6 +505,11 @@ class LinkPredictionTrainer:
             host = (pos.cpu().numpy(), neg.cpu().numpy())
             losses.append(float(loss))
             metrics.append(self._batch_metrics(host, b))
+            if self.cfg.show_progress:
+                print(f"\rEpoch: {epoch + 1}, train for the {i + 1}-th batch, "
+                      f"train loss: {losses[-1]:.4f}", end="", file=sys.stderr, flush=True)
+        if self.cfg.show_progress and losses:
+            print(file=sys.stderr)  # ends the progress line
         return (losses, metrics, state) if self.has_state else (losses, metrics)
 
     def _clocks(self, state):
@@ -593,7 +614,7 @@ class LinkPredictionTrainer:
         d = self.data
         for epoch in range(self.cfg.num_epochs):
             t0 = time.time()
-            out = self.train_epoch()  # a memory model's from an empty memory
+            out = self.train_epoch(epoch=epoch)  # a memory model's from an empty memory
             tr_losses, tr_metrics = out[:2]
             train_state = out[2] if self.has_state else None
             mv, val_state = self._sweep(d.val, self.val_neg, 0, train_state)

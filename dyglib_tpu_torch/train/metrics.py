@@ -2,7 +2,8 @@
 
 Counterpart of ``dyglib_tpu/train/metrics.py`` (same semantics as
 sklearn's ``average_precision_score`` / ``roc_auc_score``). Link-prediction
-metrics are computed per batch and then averaged across batches.
+metrics are computed per batch and then averaged across batches; the
+node-classification metric is ROC-AUC over the whole split.
 """
 from __future__ import annotations
 
@@ -58,3 +59,8 @@ def link_prediction_metrics(predicts: np.ndarray, labels: np.ndarray) -> dict[st
         "average_precision": average_precision(labels, predicts),
         "roc_auc": roc_auc(labels, predicts),
     }
+
+
+def node_classification_metrics(predicts: np.ndarray, labels: np.ndarray) -> dict[str, float]:
+    """ROC-AUC only, over all the split's rows at once."""
+    return {"roc_auc": roc_auc(labels, predicts)}

@@ -3,6 +3,7 @@
 
     python3 scripts/profile_torch_eval.py [--model dygformer|tgat|tgn|dyrep|jodie|
                                                    graphmixer|tcl|cawn]
+                                          [--task link_prediction|node_classification]
                                           [--mode eval|train] [--batches 10]
                                           [--negatives random|historical|inductive]
                                           [--configs NAMES] [--repo DIR]
@@ -23,7 +24,17 @@ the published wikipedia widths (GraphMixer K = 30, 2 layers, time gap
 1, 8 walk heads, position features 172, time_interval_aware; Dt = 100),
 whose paths run no kernel of the port. ``--configs`` picks
 configurations by name (comma-separated, e.g. "TGAT Phi fusion");
-``--repo`` names the tree whose
+``--task node_classification`` runs the model's node-classification
+path instead (``NodeClassificationTrainer`` on the same stream split by
+the node-classification rule; the model at its published wikipedia
+node-classification widths, ``load_node_classification_best_configs``,
+built by ``build_backbone`` with seed-0 weights; the head seed 0 at the
+published dropout; kernel path and plain path): ``--mode eval`` traces
+``evaluate`` over the first val batches (a memory model's from an empty
+memory), ``--mode train`` one ``train_epoch`` of head training over the
+last train batches; its ranges are ``nodecls/sample``, ``nodecls/forward``,
+``nodecls/commit`` (memory models), ``nodecls/head`` and in training
+``nodecls/backward`` and ``nodecls/optimizer``. ``--repo`` names the tree whose
 ``dyglib_tpu_torch`` is run (default: this checkout), so that two trees
 run by one command in turns compare on one card. For each configuration
 it first times the same sweep twice with no profiler (host clock, ending
@@ -85,7 +96,7 @@ KERNEL_FREE = {
 
 def is_range(name: str) -> bool:
     """One of the loops' own profiler ranges."""
-    return name.startswith(("eval/", "train/"))
+    return name.startswith(("eval/", "train/", "nodecls/"))
 
 
 def is_span(name: str) -> bool:
@@ -167,7 +178,8 @@ def device_profile(run) -> dict:
         if is_range(e.key) and e.device_type != cuda
     }
     if not phases:
-        raise RuntimeError("the trace holds none of the loop's eval/* or train/* ranges")
+        raise RuntimeError("the trace holds none of the loop's eval/*, train/* or nodecls/* "
+                           "ranges")
     if not any(device_ms.values()):
         raise RuntimeError("no device time could be tied to a range's launches")
     kernels = sorted(
@@ -188,12 +200,63 @@ def device_profile(run) -> dict:
     }
 
 
+def profile_node_classification(args, data, synced) -> int:
+    """``--task node_classification``: the model's kernel and plain paths."""
+    import torch
+
+    from dyglib_tpu_torch.configs import build_backbone, get_node_classification_args
+    from dyglib_tpu_torch.data import split_node_classification_data
+    from dyglib_tpu_torch.train import NodeClassificationTrainer, TrainConfig
+
+    name = {"dygformer": "DyGFormer", "tgat": "TGAT", **MEMORY_MODELS,
+            **{k: v[0] for k, v in KERNEL_FREE.items()}}[args.model]
+    nc = split_node_classification_data(data.full, data.edge_raw_features,
+                                        data.node_raw_features)
+    cli = get_node_classification_args(["--model_name", name, "--dataset_name", "wikipedia",
+                                        "--load_best_configs"])
+    backbone = build_backbone(cli, data)
+    params = backbone.build(nc.node_raw_features.shape[1], nc.edge_raw_features.shape[1],
+                            torch.Generator().manual_seed(0)).state_dict()
+    n = nc.train.num_interactions
+    wanted = set(filter(None, args.configs.split(",")))
+    for path in ("kernels", "plain"):
+        config = f"{name} node-class {path}"
+        if wanted and config not in wanted:
+            continue
+        tr = NodeClassificationTrainer(
+            backbone, nc, TrainConfig(batch_size=B, head_dropout=cli.dropout), None, params,
+            device="cuda")
+        tr.init_params(0)
+        tr.model.use_kernels = path == "kernels"
+        if args.mode == "eval":
+            tr.evaluate(nc.val.slice(0, B))  # warm-up
+            run = synced(lambda: tr.evaluate(nc.val.slice(0, args.batches * B)))
+        else:
+            tr.train_epoch(nc.train.slice(n - B, n))  # warm-up
+            stream = nc.train.slice(n - args.batches * B, n)
+            run = synced(lambda: tr.train_epoch(stream))
+        torch.cuda.synchronize()
+        host_ms = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            run()
+            host_ms.append((time.perf_counter() - t0) * 1e3 / args.batches)
+        out = {"config": config, "task": args.task, "mode": args.mode,
+               "batches": args.batches, "use_kernels": path == "kernels",
+               "repo": os.path.abspath(args.repo), "ms_per_batch": host_ms}
+        out.update(device_profile(run))
+        print(json.dumps(out), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--model", choices=("dygformer", "tgat", *MEMORY_MODELS, *KERNEL_FREE),
                         default="dygformer")
+    parser.add_argument("--task", choices=("link_prediction", "node_classification"),
+                        default="link_prediction")
     parser.add_argument("--mode", choices=("eval", "train"), default="eval")
     parser.add_argument("--batches", type=int, default=10)
     parser.add_argument("--negatives", choices=("random", "historical", "inductive"),
@@ -228,6 +291,8 @@ def main() -> int:
     print(json.dumps({"record_function_us": range_cost_us()}), flush=True)
     data = synthetic_link_prediction_data(num_src=8227, num_dst=1000, num_edges=157474, seed=1)
     n = data.train.num_interactions
+    if args.task == "node_classification":
+        return profile_node_classification(args, data, synced)
     if args.model == "tgat":
         runs = [(name, TGAT(**kw), use_kernels, False) for name, kw, use_kernels in TGAT_CONFIGS]
     elif args.model in MEMORY_MODELS:

@@ -77,16 +77,49 @@ def test_metrics_match_jax():
         assert roc_auc(labels, scores) == pytest.approx(jax_auc(labels, scores), abs=1e-12)
 
 
+# modules the walk below must reach: the node-classification and CLI slice's
+# among them, so that a module left out of the package fails here
+REQUIRED_MODULES = (
+    "dyglib_tpu_torch.configs.args", "dyglib_tpu_torch.configs.best_configs",
+    "dyglib_tpu_torch.configs.factory", "dyglib_tpu_torch.runners",
+    "dyglib_tpu_torch.cli.train_link_prediction", "dyglib_tpu_torch.cli.evaluate_link_prediction",
+    "dyglib_tpu_torch.cli.train_node_classification",
+    "dyglib_tpu_torch.cli.evaluate_node_classification",
+    "dyglib_tpu_torch.train.node_classification", "dyglib_tpu_torch.data.preprocess",
+)
+BANNED_ROOTS = {"jax", "jaxlib", "flax", "optax", "pandas", "sklearn", "dyglib_tpu"}
+
+
+def _imported_roots(path: str) -> set[str]:
+    """The top-level names of every import statement in a source file,
+    function bodies included."""
+    import ast
+
+    roots = set()
+    for node in ast.walk(ast.parse(open(path).read())):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
 def test_port_imports_no_jax_or_reference_package():
-    """Importing every module of the port loads neither JAX nor dyglib_tpu
-    (nor the JAX package's host dependencies)."""
+    """Importing every module of the port (each of REQUIRED_MODULES among
+    them) and chip_smoke.py loads neither JAX nor dyglib_tpu (nor the JAX
+    package's host dependencies); no import statement of the port or of
+    chip_smoke.py, in a function body or not, names one."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, importlib.util, pkgutil, sys\n"
         "import dyglib_tpu_torch as pkg\n"
-        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
-        "banned = {'jax', 'jaxlib', 'flax', 'optax', 'pandas', 'sklearn', 'dyglib_tpu'}\n"
-        "bad = sorted(n for n in sys.modules if n.split('.')[0] in banned)\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        f"missing = sorted(set({REQUIRED_MODULES!r}) - set(names))\n"
+        "assert not missing, missing\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {BANNED_ROOTS!r})\n"
         "print(len([n for n in sys.modules if n.startswith('dyglib_tpu_torch')]))\n"
         "sys.exit('imported: ' + ', '.join(bad) if bad else 0)\n"
     )
@@ -95,7 +128,14 @@ def test_port_imports_no_jax_or_reference_package():
         timeout=300,
     )
     assert res.returncode == 0, res.stderr + res.stdout
-    assert int(res.stdout.strip().splitlines()[-1]) >= 20
+    assert int(res.stdout.strip().splitlines()[-1]) >= 30
+    sources = [os.path.join(REPO_ROOT, "chip_smoke.py")] + [
+        os.path.join(d, f)
+        for d, _, files in os.walk(os.path.join(REPO_ROOT, "dyglib_tpu_torch"))
+        for f in files if f.endswith(".py")
+    ]
+    for path in sources:
+        assert not _imported_roots(path) & BANNED_ROOTS, path
 
 
 def test_entry_points_default_to_cuda():
