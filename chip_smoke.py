@@ -163,6 +163,35 @@ and prints no result):
      node-class training (2 epochs) and evaluation; the artifacts in
      DyGLib's layout, every aggregate finite and in [0, 1], each driver's
      wall seconds;
+  5s. scan epochs as CUDA graphs (``TrainConfig(scan_epochs=True)``, no
+     sequence buckets, dropout 0, train negatives seeded 13): for each path
+     a train epoch then an eval sweep from the state it leaves, once by the
+     per-batch loop and once captured (each sweep's first step eager, every
+     later one a graph replay), from one snapshot of weights, optimizer
+     state and generators: losses, probabilities, weights and the memory's
+     floats within SCAN_ATOL, clocks, flags and generator states equal, the
+     loop's launches of every kernel equal to the captured run's eager
+     (warm-up) launches plus its replays' (captured launches x replays),
+     each kernel replayed; then one more captured run, replays only, under
+     ``torch.profiler``: each kernel's device launches counted by name in
+     the trace (TRACE_KERNELS) must equal the replays' reckoning and the
+     loop's counts, and are the ``scan_launches`` printed. DyGFormer 32/1,
+     TGAT (K = 20, 2 layers) and TGN
+     (from the memory the 20 train batches before leave) over the last 10
+     train and the first 20 val batches, and DyGFormer's node-class head
+     epoch (10 train batches) and eval sweep (20 val batches), each then
+     timed in turns loop, graph, graph, loop (medians of ms per train step
+     and eval batch); TGAT under ``uniform`` (the sampling generators
+     registered with the graphs) over 5 and 5 batches; TGAT window (#7,
+     #7b), Phi fusion (#8, #8b) and DyGFormer's entry fetch (#4) one
+     replay each; DyRep, JODIE, GraphMixer, TCL and CAWN two replays each.
+     TGAT under ``uniform`` again: eval sweeps with salts 0, 2 and 0 through
+     one cached graph (its generator re-seeded a sweep) against eager sweeps
+     with those salts; and a 2-epoch ``fit`` on the JAX test fixture (TGAT
+     ``uniform``, K = 10, 2 layers, dropout 0.1) with ``scan_epochs``
+     against the same ``fit`` on the loop's steps (and the scan mode's
+     ``capturable`` Adam): every metric, the train losses and the
+     checkpoint's weights within SCAN_ATOL;
   6. fit on the JAX test fixture (the 2000-edge synthetic stream of
      tests/conftest.py): DyGFormer 32/2, 2 layers, dropout 0.1, 4 epochs,
      lr 5e-4, test AP above 0.50 and the least epoch loss below 0.67
@@ -177,9 +206,11 @@ and prints no result):
      weights; CAWN K = 8, walk length 1, 8 heads, 2 epochs, test AP above
      0.58 (tests/test_remaining_models.py); lr 1e-3: the JAX package's floors;
   7. print one JSON line of kernel numbers (each row with its main-path
-     launches and, where phase 5c runs it, its node-classification
-     launches over 20 eval batches), then the device JSON line.
+     launches, where phase 5c runs it its node-classification launches
+     over 20 eval batches, and its launches by phase 5s's replays), then
+     the device JSON line.
 """
+import dataclasses
 import json
 import math
 import os
@@ -353,6 +384,42 @@ NODECLS_FIXTURE_AUC_FLOOR = 0.70
 # the four drivers' dataset (write_synthetic_dataset) and models
 DRIVER_EDGES = 6000
 DRIVER_MODELS = ("DyGFormer", "TGN")
+
+
+# scan epochs as CUDA graphs (phase 5s): TrainConfig(scan_epochs=True), so a
+# sweep's first step runs eagerly and every later one replays its graph,
+# against the per-batch loop from the same parameters, optimizer state and
+# generator states (dropout 0, seeded train negatives, no sequence
+# buckets), at the atol of the JAX tests/test_scan_epoch.py
+SCAN_ATOL = 1e-5
+SCAN_TRAIN_BATCHES, SCAN_EVAL_BATCHES = 10, 20
+# the loop (False) and the captured sweeps (True), timed in turns
+SCAN_TURNS = (False, True, True, False)
+# (train, eval) batches of the other captures: one replay each for the
+# non-default configurations, two for the models without kernels
+SCAN_ONE_REPLAY, SCAN_TWO_REPLAYS = (2, 2), (3, 3)
+# the eval salts of the cached-graph check (fit's val sweep, its test
+# sweep, and val again) and its batches
+SCAN_SALTS, SCAN_SALT_BATCHES = (0, 2, 0), 5
+# the device kernel each wrapper launches once a call, as the profiler names
+# it (regular expressions on the demangled names; a wrapper's other
+# launches, partial sums and memsets, are not counted)
+TRACE_KERNELS = {
+    "time_channel": r"time_channel_fwd_kernel",
+    "time_channel_bwd": r"time_bwd_kernel<\d+, true",
+    "cooccurrence": r"cooccurrence_(pairs|table)_kernel",
+    "patch_projection": r"patch_forward_kernel",
+    "patch_projection_bwd": r"patch_backward_kernel",
+    "window_fetch": r"window_fetch_kernel",
+    "temporal_attention": r"\battention_query_kernel<.*KvLoader",
+    "temporal_attention_bwd": r"attention_bwd_query_kernel<.*KvLoader",
+    "gathered_attention": r"\battention_query_kernel<.*GatheredLoader",
+    "gathered_attention_bwd": r"attention_bwd_query_kernel<.*GatheredLoader",
+    "window_attention": r"\battention_query_kernel<.*WindowLoader",
+    "window_attention_bwd": r"attention_bwd_query_kernel<.*WindowLoader",
+    "phi_projection": r"phi_fwd_kernel",
+    "phi_projection_bwd": r"time_bwd_kernel<\d+, false",
+}
 
 
 def log(msg: str) -> None:
@@ -2627,6 +2694,400 @@ def run_node_classification(data, dev) -> dict:
     return results
 
 
+def scan_generators(tr) -> list:
+    return [g for g in (tr.dropout_gen, tr.sample_gen, tr._eval_gen) if g is not None]
+
+
+def scan_snapshot(tr):
+    """Copies of the weights, the optimizer's state and the generators'
+    states (``scan_restore`` puts them back in place: a captured graph keeps
+    the tensors it captured)."""
+    params = [p.detach().clone() for m in (tr.model, tr.head) for p in m.parameters()]
+    opt = [{k: v.clone() for k, v in st.items()} for st in tr.optimizer.state.values()]
+    return params, opt, [g.get_state() for g in scan_generators(tr)]
+
+
+def scan_restore(tr, snap) -> None:
+    import torch
+
+    params, opt, gens = snap
+    with torch.no_grad():
+        for p, v in zip([p for m in (tr.model, tr.head) for p in m.parameters()], params):
+            p.copy_(v)
+        for st, saved in zip(tr.optimizer.state.values(), opt):
+            for k, v in saved.items():
+                st[k].copy_(v)
+    for g, st in zip(scan_generators(tr), gens):
+        g.set_state(st)
+
+
+def scan_lp_trainer(data, backbone, dev):
+    """A link-prediction trainer in scan mode (capturable Adam, no sequence
+    buckets) with seed-0 weights and train negatives from a seeded stream."""
+    from dyglib_tpu_torch.graph import NegativeEdgeSampler
+    from dyglib_tpu_torch.train import LinkPredictionTrainer, TrainConfig
+
+    tr = LinkPredictionTrainer(backbone, data, TrainConfig(
+        batch_size=B, learning_rate=TRAIN_LR, scan_epochs=True, sequence_buckets=False),
+        device=dev)
+    tr.init_params(0)
+    tr.train_neg = NegativeEdgeSampler(data.train.src, data.train.dst, seed=13)
+    return tr
+
+
+def scan_run(tr, captured: bool, train_stream, eval_stream, state=None) -> dict:
+    """One run from where ``scan_restore`` left ``tr``: a train epoch over
+    ``train_stream`` (from ``state`` for a memory model), then an eval sweep
+    over ``eval_stream`` from the state it leaves; the per-batch loop or the
+    captured sweeps. The launch counters are zeroed just before."""
+    import numpy as np
+    import torch
+
+    from dyglib_tpu_torch import ops
+
+    probs, batch_metrics = [], tr._batch_metrics
+
+    def record(p, b):
+        probs.append((np.array(p[0]), np.array(p[1])))
+        return batch_metrics(p, b)
+
+    tr._batch_metrics = record
+    tr.train_neg.reset_random_state()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    tr.graphs.reset_counts()
+    t0 = time.perf_counter()
+    out = (tr.train_epoch_scanned if captured else tr.train_epoch)(train_stream, state=state)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ev = tr.evaluate(eval_stream, tr.val_neg, 0, state=out[2] if tr.has_state else None,
+                     scanned=captured)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del tr._batch_metrics
+    return dict(
+        losses=list(out[0]) + list(ev[0]), probs=probs,
+        params=[p.detach().clone() for m in (tr.model, tr.head) for p in m.parameters()],
+        states=[out[2], ev[3]] if tr.has_state else [],
+        gens=[g.get_state() for g in scan_generators(tr)],
+        eager=nonzero_launches(), replay=tr.graphs.launches(), replays=tr.graphs.replays,
+        train_ms=(t1 - t0) / len(out[0]) * 1e3, eval_ms=(t2 - t1) / len(ev[0]) * 1e3)
+
+
+def scan_nodecls_run(tr, captured: bool, train_stream, eval_stream) -> dict:
+    """``scan_run`` for a node-classification trainer (a stateless
+    backbone): a head epoch, then an eval sweep."""
+    import torch
+
+    from dyglib_tpu_torch import ops
+
+    if captured:  # the sweep's (T, B) buffer (a capture must not copy to the host)
+        probs, scan = [], tr.graphs.scan
+
+        def record_scan(*args, **kw):
+            out = scan(*args, **kw)
+            if args[0] == ("eval",):
+                probs.extend(out[0][0].cpu().numpy())
+            return out
+
+        tr.graphs.scan = record_scan
+    else:
+        probs = recorded_probs(tr)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    tr.graphs.reset_counts()
+    t0 = time.perf_counter()
+    losses, _ = (tr.train_epoch_scanned if captured else tr.train_epoch)(train_stream)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    metrics, _ = tr.evaluate(eval_stream, scanned=captured)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if captured:
+        del tr.graphs.scan
+    else:
+        del tr.eval_step
+    n_eval = -(-eval_stream.num_interactions // B)
+    return dict(
+        losses=list(losses) + [metrics["roc_auc"]], probs=[(p, p) for p in probs],
+        params=[p.detach().clone() for p in tr.head.parameters()], states=[],
+        gens=[g.get_state() for g in scan_generators(tr)],
+        eager=nonzero_launches(), replay=tr.graphs.launches(), replays=tr.graphs.replays,
+        train_ms=(t1 - t0) / len(losses) * 1e3, eval_ms=(t2 - t1) / n_eval * 1e3)
+
+
+def scan_check(name: str, loop: dict, graph: dict) -> dict:
+    """The captured run against the loop: losses, probabilities, weights
+    and the memory's floats within SCAN_ATOL, its clocks and flags and the
+    generators' states equal, and every kernel's loop launches equal to the
+    captured run's eager (warm-up) launches plus its replays' launches,
+    each kernel replayed at least once."""
+    import numpy as np
+    import torch
+
+    errs = [abs(a - b) for a, b in zip(loop["losses"], graph["losses"])]
+    if len(loop["probs"]) != len(graph["probs"]) or len(loop["losses"]) != len(graph["losses"]):
+        raise AssertionError(f"{name}: the captured run has another number of batches")
+    errs += [float(np.abs(a - c).max()) for (a, b), (c, d) in zip(loop["probs"], graph["probs"])]
+    errs += [float(np.abs(b - d).max()) for (a, b), (c, d) in zip(loop["probs"], graph["probs"])]
+    errs += [float((a - b).abs().max()) for a, b in zip(loop["params"], graph["params"])]
+    for s0, s1 in zip(loop["states"], graph["states"]):
+        for f in s0._fields:
+            a, b = getattr(s0, f), getattr(s1, f)
+            if a.is_floating_point():
+                errs.append(float((a - b).abs().max()))
+            elif not torch.equal(a, b):
+                raise AssertionError(f"{name}: the memory's {f} differs after the captured run")
+    err = max(errs)
+    if not err <= SCAN_ATOL:
+        raise AssertionError(f"{name}: captured run vs loop {err:.3g} > {SCAN_ATOL}")
+    if len(loop["gens"]) != len(graph["gens"]) or not all(
+            torch.equal(a, b) for a, b in zip(loop["gens"], graph["gens"])):
+        raise AssertionError(f"{name}: a generator's state differs after the captured run")
+    total = {k: graph["eager"].get(k, 0) + graph["replay"].get(k, 0)
+             for k in set(graph["eager"]) | set(graph["replay"])}
+    if total != loop["eager"] or not all(graph["replay"].get(k, 0) > 0 for k in loop["eager"]):
+        raise AssertionError(f"{name}: launches, loop {loop['eager']} vs captured run's eager "
+                             f"{graph['eager']} + replays {graph['replay']}")
+    if graph["replays"] == 0:
+        raise AssertionError(f"{name}: no graph was replayed")
+    return dict(max_abs_err=err, launches=loop["eager"], warmup_launches=graph["eager"],
+                replay_launches=graph["replay"], replays=graph["replays"])
+
+
+def traced_kernel_launches(fn) -> tuple[dict, list]:
+    """Run ``fn()`` under ``torch.profiler`` (the card's activity) -> (each
+    TRACE_KERNELS kernel's launches in its trace, the distinct kernel names
+    the trace holds)."""
+    import re
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    counts = {k: sum(1 for n in names if re.search(pat, n))
+              for k, pat in TRACE_KERNELS.items()}
+    return {k: v for k, v in counts.items() if v}, sorted(set(names))
+
+
+def scan_traced(name, tr, run, snap, result) -> None:
+    """A captured run that only replays, under the profiler: the kernels
+    the trace shows launched must be the replays' reckoning (launches a
+    replay x replays) and the loop's counts. They are the printed
+    ``scan_launches``."""
+    scan_restore(tr, snap)
+    box = {}
+    traced, names = traced_kernel_launches(lambda: box.setdefault("run", run(True)))
+    r = box["run"]
+    if r["eager"] or traced != r["replay"] or traced != result["launches"]:
+        raise AssertionError(
+            f"{name}: the trace of a replayed run shows {traced}; the replays' reckoning "
+            f"{r['replay']}, eager {r['eager']}, the loop {result['launches']}; kernels in "
+            f"the trace: {names}")
+    result["scan_launches"] = traced
+
+
+def scan_compare(name, tr, run, timed: bool) -> dict:
+    """The loop, then the captured run (which captures), from one snapshot
+    taken after a first loop run (Adam makes its state at its first step);
+    with ``timed``, SCAN_TURNS more runs for the medians of ms per train
+    step and eval batch."""
+    import torch
+
+    run(False)
+    snap = scan_snapshot(tr)
+    runs = {}
+    for captured in (False, True):
+        scan_restore(tr, snap)
+        runs[captured] = run(captured)
+    result = scan_check(name, runs[False], runs[True])
+    scan_traced(name, tr, run, snap, result)
+    if timed:
+        turns = {False: [], True: []}
+        for captured in SCAN_TURNS:
+            scan_restore(tr, snap)
+            r = run(captured)
+            turns[captured].append((r["train_ms"], r["eval_ms"]))
+        for captured, key in ((False, "loop"), (True, "graph")):
+            result[f"{key}_train_ms"] = statistics.median(t for t, _ in turns[captured])
+            result[f"{key}_eval_ms"] = statistics.median(e for _, e in turns[captured])
+            result[f"{key}_turns"] = turns[captured]
+    log(f"  {name}: {json.dumps(result)}")
+    torch.cuda.empty_cache()
+    return result
+
+
+def run_scan_epochs(data, dev) -> dict:
+    """Phase 5s: the scan path's captured sweeps against the loop."""
+    import gc
+
+    import torch
+
+    from dyglib_tpu_torch import models
+    from dyglib_tpu_torch.data import split_node_classification_data
+
+    t0 = time.perf_counter()
+    n = data.train.num_interactions
+    stream = lambda split, start, batches: split.slice(start, start + batches * B)
+    train_last = stream(data.train, n - SCAN_TRAIN_BATCHES * B, SCAN_TRAIN_BATCHES)
+    val = stream(data.val, 0, SCAN_EVAL_BATCHES)
+    shifts = models.compute_src_dst_node_time_shifts(data.train.src, data.train.dst,
+                                                     data.train.ts)
+    tgat = lambda **kw: models.TGAT(num_neighbors=TGAT_K, num_layers=2, num_heads=2,
+                                    time_feat_dim=DT_DIM, dropout=0.0, **kw)
+    dygformer = lambda **kw: models.DyGFormer(
+        max_input_sequence_length=32, patch_size=1, channel_embedding_dim=CED, num_layers=2,
+        num_heads=2, time_feat_dim=DT_DIM, dropout=0.0, **kw)
+    memory = lambda name: models.MemoryModel(
+        model_name=name, num_neighbors=MEMORY_K, num_layers=1, num_heads=2,
+        time_feat_dim=DT_DIM, dropout=0.0, time_shifts=shifts)
+    new = lambda name: getattr(models, name)(**dict(NEW_MODELS[name], dropout=0.0))
+    # (name, backbone, (train, eval) batches, timed in turns)
+    cases = [
+        ("DyGFormer", dygformer(), (SCAN_TRAIN_BATCHES, SCAN_EVAL_BATCHES), True),
+        ("TGAT", tgat(), (SCAN_TRAIN_BATCHES, SCAN_EVAL_BATCHES), True),
+        ("TGN", memory("TGN"), (SCAN_TRAIN_BATCHES, SCAN_EVAL_BATCHES), True),
+        ("TGAT uniform", tgat(sample_strategy="uniform"), (5, 5), False),
+        ("TGAT window", tgat(wants_entry_features=True), SCAN_ONE_REPLAY, False),
+        ("TGAT Phi fusion", tgat(use_phi_fusion=True), SCAN_ONE_REPLAY, False),
+        ("DyGFormer entry fetch", dygformer(use_entry_fetch=True), SCAN_ONE_REPLAY, False),
+    ] + [(name, memory(name), SCAN_TWO_REPLAYS, False) for name in ("DyRep", "JODIE")] + [
+        (name, new(name), SCAN_TWO_REPLAYS, False) for name in NEW_MODELS]
+    results = {}
+    for name, backbone, (n_train, n_eval), timed in cases:
+        tr = scan_lp_trainer(data, backbone, dev)
+        train = stream(data.train, n - n_train * B, n_train)
+        state = None
+        if name == "TGN":  # the memory the SCAN_TRAIN_BATCHES * 2 batches before leave
+            warm = stream(data.train, n - 3 * SCAN_TRAIN_BATCHES * B, 2 * SCAN_TRAIN_BATCHES)
+            state = tr.evaluate(warm, tr.train_neg, state=tr.init_state(), scanned=False)[3]
+        results[name] = scan_compare(
+            name, tr, lambda c: scan_run(tr, c, train, stream(data.val, 0, n_eval), state),
+            timed)
+        del tr
+        gc.collect()
+    nc = split_node_classification_data(data.full, data.edge_raw_features,
+                                        data.node_raw_features)
+    tr = nodecls_trainer(data, nc, "DyGFormer", dev)
+    tr.cfg = dataclasses.replace(tr.cfg, scan_epochs=True)
+    tr.init_params(0)  # a fresh optimizer and graphs
+    train = stream(nc.train, 0, SCAN_TRAIN_BATCHES)
+    results["DyGFormer node classification"] = scan_compare(
+        "DyGFormer node classification", tr,
+        lambda c: scan_nodecls_run(tr, c, train, stream(nc.val, 0, SCAN_EVAL_BATCHES)), True)
+    del tr
+    gc.collect()
+    results["TGAT uniform salts"] = scan_salts(data, tgat(sample_strategy="uniform"), dev)
+    results["TGAT uniform fit"] = scan_fit(dev)
+    torch.cuda.empty_cache()
+    results["seconds"] = time.perf_counter() - t0
+    log(f"  phase 5s: {results['seconds']:.1f} s")
+    return results
+
+
+def scan_salts(data, backbone, dev) -> dict:
+    """Eval sweeps with the salts SCAN_SALTS through one cached graph (its
+    generator re-seeded a sweep) against eager sweeps with those salts:
+    probabilities within SCAN_ATOL, the generator's state equal after each
+    sweep, salts 0 and 2 drawing different neighbours."""
+    import numpy as np
+    import torch
+
+    tr = scan_lp_trainer(data, backbone, dev)
+    val = data.val.slice(0, SCAN_SALT_BATCHES * B)
+
+    def sweep(salt, scanned):
+        ev = tr.evaluate(val, tr.val_neg, salt, scanned=scanned)
+        return ev[2], tr._eval_gen.get_state()
+
+    eager = {salt: sweep(salt, False) for salt in set(SCAN_SALTS)}
+    err, replays = 0.0, []
+    for salt in SCAN_SALTS:
+        tr.graphs.reset_counts()
+        probs, gen = sweep(salt, True)
+        replays.append(tr.graphs.replays)
+        want, want_gen = eager[salt]
+        err = max([err] + [float(np.abs(a - c).max()) for p, q in zip(probs, want)
+                           for a, c in zip(p, q)])
+        if not torch.equal(gen, want_gen):
+            raise AssertionError(f"salt {salt}: the eval generator's state differs")
+    graphs = [k for k in tr.graphs._entries if k[0] == "eval"]
+    differ = max(float(np.abs(p[0] - q[0]).max()) for p, q in zip(eager[0][0], eager[2][0]))
+    if not (err <= SCAN_ATOL and len(graphs) == 1 and all(replays[1:]) and differ > 0):
+        raise AssertionError(f"salts through one graph: err {err}, eval graphs {graphs}, "
+                             f"replays {replays}, salt 0 vs 2 {differ}")
+    out = dict(max_abs_err=err, replays=replays, salt_0_vs_2=differ)
+    log(f"  TGAT uniform, salts {SCAN_SALTS} through one graph: {json.dumps(out)}")
+    return out
+
+
+def scan_fit(dev) -> dict:
+    """A 2-epoch ``fit`` with ``scan_epochs`` on the JAX test fixture (TGAT
+    ``uniform``, train negatives seeded 13), whose val, new-node val, test
+    and new-node test sweeps replay one cached eval graph with salts 0-3,
+    against the same ``fit`` taking the loop's steps. Both keep the scan
+    mode's ``capturable`` Adam, whose f32 arithmetic differs from the
+    default Adam's in the last bits."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dyglib_tpu_torch.data import synthetic_link_prediction_data
+    from dyglib_tpu_torch.graph import NegativeEdgeSampler
+    from dyglib_tpu_torch.models import TGAT
+    from dyglib_tpu_torch.train import LinkPredictionTrainer, TrainConfig
+
+    data = synthetic_link_prediction_data(
+        num_src=120, num_dst=60, num_edges=2000, node_feat_scale=1.0, seed=7)
+    res, replays = {}, 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for scanned in (False, True):
+            tr = LinkPredictionTrainer(
+                TGAT(num_neighbors=10, num_layers=2, time_feat_dim=DT_DIM,
+                     sample_strategy="uniform"), data,
+                TrainConfig(batch_size=B, num_epochs=2, learning_rate=1e-3, patience=5,
+                            scan_epochs=True),
+                save_path=os.path.join(tmp, f"{scanned}.pkl"), device=dev)
+            tr.train_neg = NegativeEdgeSampler(data.train.src, data.train.dst, seed=13)
+            if not scanned:  # the loop's train epochs and sweeps
+                evaluate = tr.evaluate
+                tr.train_epoch_scanned = lambda state=None, epoch=0, tr=tr: tr.train_epoch(
+                    state=state, epoch=epoch)
+                tr.evaluate = lambda *a, evaluate=evaluate, **kw: evaluate(
+                    *a, **{**kw, "scanned": False})
+            res[scanned] = tr.fit(seed=0, log=lambda msg: None)
+            if not scanned and tr.graphs.replays:
+                raise AssertionError("the loop's fit replayed a graph")
+            replays = tr.graphs.replays
+    loop, graph = res[False], res[True]
+    errs = [abs(a - b) for a, b in zip(loop["train losses"], graph["train losses"])]
+    for key in ("validate metrics", "new node validate metrics", "test metrics",
+                "new node test metrics"):
+        if set(loop[key]) != set(graph[key]):
+            raise AssertionError(f"scanned fit: {key} has other keys")
+        errs += [abs(loop[key][k] - graph[key][k]) for k in loop[key]]
+    for part, sd in loop["params"].items():
+        errs += [float((v - graph["params"][part][k]).abs().max()) for k, v in sd.items()]
+    err = max(errs)
+    if not (err <= SCAN_ATOL and replays > 0 and np.isfinite(loop["train losses"]).all()):
+        raise AssertionError(f"scanned fit vs the loop's: {err} (replays {replays})")
+    out = dict(max_abs_err=err, replays=replays,
+               test_ap=graph["test metrics"]["average_precision"])
+    log(f"  TGAT uniform fit, scan_epochs against the loop: {json.dumps(out)}")
+    torch.cuda.empty_cache()
+    return out
+
+
 def run_fit(dev) -> dict:
     """Phase 6: fit on the JAX test fixture, held to the end-metric floors."""
     import numpy as np
@@ -2791,6 +3252,10 @@ def main() -> int:
         f"AUC floor {NODECLS_FIXTURE_AUC_FLOOR}; the four drivers for {DRIVER_MODELS}):")
     nodecls = run_node_classification(data, dev)
     torch.cuda.empty_cache()
+    log(f"scan epochs as CUDA graphs (captured sweeps against the loop: within {SCAN_ATOL}, "
+        "memory clocks and generator states equal, eager + replayed launches equal to the "
+        f"loop's; ms in turns {['graph' if c else 'loop' for c in SCAN_TURNS]}; {card_line()}):")
+    scan = run_scan_epochs(data, dev)
     log("fit on the JAX test fixture:")
     run_fit(dev)
     run_tgat_fit(dev)
@@ -2817,6 +3282,21 @@ def main() -> int:
         "window_attention_bwd": "dyglib_tpu/ops/pallas/window_attention.py:167",
         "phi_projection_bwd": "dyglib_tpu/ops/pallas/phi_projection.py:56",
     }
+
+    def scan_launches(kernel, config):
+        """The launches the replays of phase 5s made: TGAT's window and Phi
+        fusion kernels and the entry fetch in their one-replay captures,
+        every other kernel in its model's captured train epoch and eval
+        sweep; none at CanParl's width (not captured)."""
+        base = kernel.removesuffix("_bwd")
+        case = {"tgn": "TGN", "wikipedia": "DyGFormer", "tgat": "TGAT"}.get(config)
+        if base == "window_fetch":
+            case = "DyGFormer entry fetch" if config == "wikipedia" else None
+        elif base == "window_attention":
+            case = "TGAT window"
+        elif base == "phi_projection":
+            case = "TGAT Phi fusion"
+        return scan[case]["scan_launches"].get(kernel, 0) if case else 0
 
     def main_path_launches(kernel, config):
         """Forward kernels: the evaluation sweep; backward kernels: the
@@ -2857,6 +3337,8 @@ def main() -> int:
             # kernel evaluation sweep, NODECLS_BATCHES batches)
             "node_classification_launches": nodecls.get(
                 NODECLS_KERNEL_ROWS.get(config), {}).get("launches", {}).get(kernel, 0),
+            # launches made by replays of captured graphs (phase 5s)
+            "scan_launches": scan_launches(kernel, config),
             "max_abs_err": max(p["max_abs_err"] for p in parts),
             "ms": sum(p["ms"] for p in parts),
             "plain_ms": sum(p["plain_ms"] for p in parts),

@@ -10,8 +10,12 @@ Ported so far: link-prediction evaluation and training of every model
 window-fetch kernels; TGAT with its temporal, gathered and window
 attention and Phi projection kernels; TGN, DyRep and JODIE; GraphMixer,
 TCL and CAWN; EdgeBank's evaluation) under random, historical and
-inductive negatives, node classification on a frozen backbone, and
-DyGLib's four CLI drivers (``python -m dyglib_tpu_torch.cli.<driver>``).
+inductive negatives, node classification on a frozen backbone,
+DyGLib's four CLI drivers (``python -m dyglib_tpu_torch.cli.<driver>``),
+and the JAX trainers' scan epochs, replayed as CUDA graphs
+(``train/step_graph.py``), with the rest of their ``fit``: mid-epoch
+resume, TensorBoard scalars (``utils/tensorboard.py``) and the profiler
+hook.
 """
 from .device import resolve_device
 

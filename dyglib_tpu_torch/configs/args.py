@@ -6,7 +6,7 @@ and choices (DyGLib's utils/load_configs.py:6-66 and :239-289), plus
 ``cpu`` runs on the CPU, as the tests do). The JAX package's scale-out
 and TPU flags are parsed alike; those whose feature the port lacks raise
 ``NotImplementedError`` when set to anything but their default
-(``runners.setup_parallelism``, ``TrainConfig``, ``build_backbone``),
+(``runners.setup_parallelism``, ``build_backbone``),
 never ignored.
 """
 from __future__ import annotations
@@ -72,10 +72,11 @@ def _common_args(parser: argparse.ArgumentParser) -> None:
         help="directory containing processed datasets",
     )
     # --- the JAX package's scale-out flags (no DyGLib equivalent); the
-    # port raises on those it lacks (ROADMAP Queue 1 items 3 and 7)
+    # port raises on those it lacks (ROADMAP Queue 1 item 7)
     parser.add_argument(
         "--scan_epochs", action="store_true", default=False,
-        help="each train epoch as one program (not ported yet: raises)",
+        help="stage each train epoch and eval sweep at once and replay its "
+        "steps as CUDA graphs",
     )
     parser.add_argument(
         "--no_sequence_buckets", action="store_true", default=False,

@@ -135,8 +135,9 @@ def segment_roles(b: int, layout: tuple[str, ...], device=None) -> torch.Tensor:
     for s in layout:
         if s not in ("src", "dst"):
             raise ValueError(f"unknown role {s!r}")
-    flags = torch.tensor([s == "dst" for s in layout], dtype=torch.bool, device=device)
-    return flags.repeat_interleave(b)
+    # filled on the device (no host copy: a CUDA graph can capture it)
+    return torch.cat([torch.full((b,), s == "dst", dtype=torch.bool, device=device)
+                      for s in layout])
 
 
 def quad_roles(b: int, device=None) -> torch.Tensor:

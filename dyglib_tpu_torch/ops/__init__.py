@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port, one module each.
 
 Each module holds the kernel's wrapper (which counts its launches in
-``<wrapper>.launches``), its plain PyTorch version, and a header naming the
+``<wrapper>.launches``, and the launches a CUDA graph capture records in
+``<wrapper>.captured``), its plain PyTorch version, and a header naming the
 TPU kernel it replaces and its bound on the card. A kernel with a gradient
 is wrapped in a ``torch.autograd.Function`` whose backward calls the
 backward kernel's wrapper (on CPU tensors, the plain forward and the
@@ -70,13 +71,19 @@ def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def captured_counts() -> dict[str, int]:
+    """Launches recorded by CUDA graph captures (each runs at every replay)."""
+    return {name: fn.captured for name, fn in KERNELS.items()}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
-        fn.launches = 0
+        fn.launches = fn.captured = 0
 
 
 __all__ = [
     "KERNELS",
+    "captured_counts",
     "launch_counts",
     "reset_launch_counts",
     "cooccurrence_counts",

@@ -122,6 +122,18 @@ def weight_grad_chunk_rows(rows: int, k_total: int, n: int) -> int:
     return max(chunk, -(-rows // 65535))
 
 
+def count_launch(wrapper) -> None:
+    """One launch of ``wrapper``'s kernel: ``wrapper.launches`` when it runs
+    now, ``wrapper.captured`` when a CUDA graph capture records it (it then
+    runs at each replay of that graph, which calls no Python)."""
+    import torch
+
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1
+    else:
+        wrapper.launches += 1
+
+
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if rc != 0:

@@ -82,8 +82,8 @@ def cooccurrence_counts(q_ids: torch.Tensor, k_ids: torch.Tensor) -> torch.Tenso
         table_slots(lk), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, _NAME)
-    cooccurrence_counts.launches += 1
+    _build.count_launch(cooccurrence_counts)
     return out
 
 
-cooccurrence_counts.launches = 0
+cooccurrence_counts.launches = cooccurrence_counts.captured = 0

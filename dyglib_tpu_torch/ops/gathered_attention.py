@@ -141,7 +141,7 @@ def _forward_kernel(q3, feat_n, feat_e, dt, mask, keep, tw, tb, wk, wv, num_head
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, _NAME)
-    gathered_attention.launches += 1
+    _build.count_launch(gathered_attention)
     return out
 
 
@@ -180,7 +180,7 @@ def gathered_attention_backward(q3, feat_n, feat_e, dt, mask, keep, time_wb, wkv
         _attention.head_scale(dq, num_heads), chunk, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, f"{_NAME} backward")
-    gathered_attention_backward.launches += 1
+    _build.count_launch(gathered_attention_backward)
     return dq3, dt_grads[0], dt_grads[1], dwk, dwv
 
 
@@ -215,5 +215,5 @@ def gathered_attention(q3, feat_n, feat_e, dt, mask, keep, time_wb, wkv, num_hea
     return _GatheredAttention.apply(q3, feat_n, feat_e, dt, mask, keep, tw, tb, wk, wv, num_heads)
 
 
-gathered_attention.launches = 0
-gathered_attention_backward.launches = 0
+gathered_attention.launches = gathered_attention.captured = 0
+gathered_attention_backward.launches = gathered_attention_backward.captured = 0

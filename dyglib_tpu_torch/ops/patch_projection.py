@@ -160,7 +160,7 @@ def _forward_kernel(x, w, bias, patch):
         copy_floats(x, k), w_vec, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, rc, _NAME)
-    patch_projection.launches += 1
+    _build.count_launch(patch_projection)
     return out.view(m, lp // patch, ced)
 
 
@@ -197,7 +197,7 @@ def patch_projection_backward(
         copy_floats(x, k), copy_floats(dout, ced), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, f"{_NAME} backward")
-    patch_projection_backward.launches += 1
+    _build.count_launch(patch_projection_backward)
     return dw_ext[:k], dw_ext[k]
 
 
@@ -232,5 +232,5 @@ def patch_projection(
     return _PatchProjection.apply(x, w, bias, patch)
 
 
-patch_projection.launches = 0
-patch_projection_backward.launches = 0
+patch_projection.launches = patch_projection.captured = 0
+patch_projection_backward.launches = patch_projection_backward.captured = 0

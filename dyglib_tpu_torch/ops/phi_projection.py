@@ -178,7 +178,7 @@ def _forward_kernel(dt, tw, tb, w):
         row_blocks, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, _NAME)
-    phi_projection.launches += 1
+    _build.count_launch(phi_projection)
     return out
 
 
@@ -209,7 +209,7 @@ def phi_projection_backward(dt, tw, tb, w, dout):
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, f"{_NAME} backward")
-    phi_projection_backward.launches += 1
+    _build.count_launch(phi_projection_backward)
     return dt_grads[0], dt_grads[1], dw
 
 
@@ -250,5 +250,5 @@ def _require_strided(w, shape, device) -> None:
         raise ValueError(f"w has strides {w.stride()}; the kernel needs one unit stride")
 
 
-phi_projection.launches = 0
-phi_projection_backward.launches = 0
+phi_projection.launches = phi_projection.captured = 0
+phi_projection_backward.launches = phi_projection_backward.captured = 0

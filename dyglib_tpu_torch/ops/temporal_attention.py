@@ -124,7 +124,7 @@ def _forward_kernel(q3, nbr, edge, phi, mask, keep, wk, wv, num_heads):
         _attention.head_scale(dq, num_heads), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, _NAME)
-    temporal_attention.launches += 1
+    _build.count_launch(temporal_attention)
     return out, scores
 
 
@@ -162,7 +162,7 @@ def temporal_attention_backward(q3, nbr, edge, phi, mask, keep, wk, wv, dout, ds
         _attention.head_scale(dq, num_heads), chunk, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, f"{_NAME} backward")
-    temporal_attention_backward.launches += 1
+    _build.count_launch(temporal_attention_backward)
     return dq3, dnbr, dedge, dphi, dwk, dwv
 
 
@@ -198,5 +198,5 @@ def temporal_attention(q3, nbr, edge, phi, mask, keep, wk, wv, num_heads: int):
     return _TemporalAttention.apply(q3, nbr, edge, phi, mask, keep, wk, wv, num_heads)
 
 
-temporal_attention.launches = 0
-temporal_attention_backward.launches = 0
+temporal_attention.launches = temporal_attention.captured = 0
+temporal_attention_backward.launches = temporal_attention_backward.captured = 0

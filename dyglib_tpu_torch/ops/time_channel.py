@@ -203,7 +203,7 @@ def _forward_kernel(dt, valid, tw, tb, w, bias, patch):
         rows, patch, dt_dim, dt_pad, ced, k_chunk, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, _NAME)
-    time_channel_projection.launches += 1
+    _build.count_launch(time_channel_projection)
     return out.view(m, l // patch, ced)
 
 
@@ -264,7 +264,7 @@ def time_channel_backward(
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, f"{_NAME} backward")
-    time_channel_backward.launches += 1
+    _build.count_launch(time_channel_backward)
     return dt_grads[0], dt_grads[1], dw_ext[:k], dw_ext[k]
 
 
@@ -308,5 +308,5 @@ def time_channel_projection(
     return _TimeChannel.apply(dt, valid, tw, tb, w, bias, patch)
 
 
-time_channel_projection.launches = 0
-time_channel_backward.launches = 0
+time_channel_projection.launches = time_channel_projection.captured = 0
+time_channel_backward.launches = time_channel_backward.captured = 0

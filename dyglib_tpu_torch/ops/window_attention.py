@@ -140,7 +140,7 @@ def _forward_kernel(q3, starts, dt, mask, keep, table, tw, tb, wk, wv, num_heads
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, _NAME)
-    window_attention.launches += 1
+    _build.count_launch(window_attention)
     return out
 
 
@@ -179,7 +179,7 @@ def window_attention_backward(q3, starts, dt, mask, keep, table, tw, tb, wkv, do
         _attention.head_scale(dq, num_heads), chunk, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, f"{_NAME} backward")
-    window_attention_backward.launches += 1
+    _build.count_launch(window_attention_backward)
     return dq3, dt_grads[0], dt_grads[1], dwk, dwv
 
 
@@ -213,5 +213,5 @@ def window_attention(q3, starts, dt, mask, keep, table, tw, tb, wkv, num_heads: 
     return _WindowAttention.apply(q3, starts, dt, mask, keep, table, tw, tb, wk, wv, num_heads)
 
 
-window_attention.launches = 0
-window_attention_backward.launches = 0
+window_attention.launches = window_attention.captured = 0
+window_attention_backward.launches = window_attention_backward.captured = 0

@@ -97,8 +97,8 @@ def fetch_sequence_features(
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, _NAME)
-    fetch_sequence_features.launches += 1
+    _build.count_launch(fetch_sequence_features)
     return node, edge
 
 
-fetch_sequence_features.launches = 0
+fetch_sequence_features.launches = fetch_sequence_features.captured = 0

@@ -18,8 +18,8 @@ Counterpart of ``dyglib_tpu/runners.py``:
 Paths are relative to the working directory, as DyGLib's are. Each
 ``run_*`` runs on ``device`` (default: the ``--device`` flag, ``cuda``
 unless asked otherwise). Flags of the JAX package whose feature the port
-lacks raise ``NotImplementedError`` (``setup_parallelism``; ``TrainConfig``
-for ``--scan_epochs``; ``build_backbone`` for ``--compute_dtype``).
+lacks raise ``NotImplementedError`` (``setup_parallelism``;
+``build_backbone`` for ``--compute_dtype``).
 """
 from __future__ import annotations
 

@@ -34,6 +34,16 @@ def _to_numpy(tree: Any) -> Any:
         lambda x: x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x), tree)
 
 
+def to_cpu(tree: Any) -> Any:
+    """Every tensor of nested dicts, lists and tuples moved to the host (an
+    optimizer's ``state_dict`` for a checkpoint's ``extra``)."""
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_cpu(v) for v in tree)
+    return tree.detach().cpu() if isinstance(tree, torch.Tensor) else tree
+
+
 def to_device(tree: Any, device) -> Any:
     """A loaded tree (e.g. a checkpoint's ``"state"``) as tensors on ``device``;
     None stays None."""

@@ -3,9 +3,9 @@
 Counterpart of ``dyglib_tpu/train/link_prediction.py`` for every
 parametric model the JAX package has (DyGFormer, TGAT, TGN, DyRep, JODIE,
 GraphMixer, TCL, CAWN): ``TrainConfig``, ``make_optimizer``, the train
-step, ``train_epoch``, ``evaluate`` and ``fit``. Not ported yet: resume
-checkpoints, scan epochs (``TrainConfig(scan_epochs=True)`` raises),
-tensorboard and the profiler hook in ``fit``.
+step, ``train_epoch``, ``train_epoch_scanned``, ``evaluate`` and ``fit``
+with its mid-epoch resume checkpoints, TensorBoard scalars and profiler
+hook.
 
 Protocol (the JAX package's):
   * chronological batches, never shuffled, the last one padded and masked;
@@ -60,7 +60,22 @@ Protocol (the JAX package's):
     holds the parameters and that post-val state, and the final test and
     new-node test sweeps run from it; the validate metrics reported are the
     last epoch's (no final val sweep, whose memory has already seen val);
-    ``results["state"]`` is the checkpoint's state.
+    ``results["state"]`` is the checkpoint's state;
+  * scan epochs (``cfg.scan_epochs``, the JAX ``lax.scan`` programs): a
+    train epoch's negatives are drawn first, in the per-batch order, its
+    batches staged on the device at once, and every step after the first
+    replayed as a CUDA graph (``step_graph.StepGraphs``; on the CPU the
+    same staged loop runs eagerly) at the full sequence length (no bucket);
+    ``evaluate`` scans likewise when ``cfg.scan_epochs`` and the backbone
+    has no sequence buckets (the JAX rule), its graphs kept per layout and
+    CSR; losses and probabilities are read back once a sweep. ``fit`` scans
+    an epoch unless it resumes mid-epoch or writes resume checkpoints;
+  * mid-epoch resume: every ``cfg.resume_every_batches`` train batches
+    ``<save_path>.resume`` records the parameters, the optimizer's state,
+    the memory, the epoch and next batch, early stopping's progress and
+    the dropout and sampling generators' states (the JAX package folds its
+    keys from (epoch, batch) instead); ``fit(resume=True)`` restarts there,
+    the skipped batches still drawing their negatives.
 
 Each train step's phases are ``torch.profiler`` ranges (``train/sample``,
 ``train/forward``, ``train/backward``, ``train/commit`` for a memory
@@ -71,7 +86,9 @@ down (``scripts/profile_torch_eval.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import sys
 import time
 
@@ -89,9 +106,11 @@ from ..graph.neg_sampler import NegativeEdgeSampler, build_eval_neg_samplers
 from ..models.base import FeatureTables
 from ..models.memory_model import memory_order_violations, segment_roles
 from ..nn.modules import MergeLayer
-from .checkpoints import to_device
+from ..utils.tensorboard import SummaryWriter
+from .checkpoints import load_checkpoint, save_checkpoint, to_cpu, to_device
 from .early_stopping import EarlyStopping
 from .metrics import link_prediction_metrics
+from .step_graph import StepGraphs, eval_generator, stack_columns
 
 # the JAX package's byte budget for the entry-ordered feature table (and
 # for GraphMixer's feature prefix table)
@@ -117,17 +136,18 @@ class TrainConfig:
     check_memory_order: bool = False
     # MLPClassifier's dropout (node classification)
     head_dropout: float = 0.1
-    # a live per-batch train-loss line on stderr (train_epoch)
+    # a live per-batch train-loss line on stderr (train_epoch; not in scan
+    # mode)
     show_progress: bool = False
-    # each train epoch as one program: not ported (ROADMAP Queue 1 item 3,
-    # scan epochs as CUDA graphs); True raises
+    # each train epoch and eval sweep staged at once and replayed step by
+    # step as CUDA graphs (the JAX package's lax.scan programs)
     scan_epochs: bool = False
-
-    def __post_init__(self):
-        if self.scan_epochs:
-            raise NotImplementedError(
-                "scan_epochs is not ported yet (ROADMAP Queue 1 item 3: scan epochs as CUDA "
-                "graphs)")
+    # > 0: write <save_path>.resume every that many train batches
+    resume_every_batches: int = 0
+    # non-empty: a torch.profiler trace of the second epoch, into this directory
+    profile_dir: str = ""
+    # non-empty: one TensorBoard scalar record per epoch, into this directory
+    tensorboard_dir: str = ""
 
 
 class OptaxRMSprop(torch.optim.Optimizer):
@@ -160,10 +180,14 @@ def make_optimizer(cfg: TrainConfig, params) -> torch.optim.Optimizer:
 
     The JAX package builds Adam's weight decay as optax's
     add_decayed_weights before scale_by_adam: the decay is added to the
-    gradient, which is torch.optim.Adam's own (coupled) weight_decay.
+    gradient, which is torch.optim.Adam's own (coupled) weight_decay. In
+    scan mode on a card Adam keeps its step count on the device
+    (``capturable``), so that a CUDA graph can replay its step.
     """
     if cfg.optimizer == "adam":
-        return torch.optim.Adam(params, lr=cfg.learning_rate, weight_decay=cfg.weight_decay)
+        capturable = cfg.scan_epochs and all(p.is_cuda for p in params)
+        return torch.optim.Adam(params, lr=cfg.learning_rate, weight_decay=cfg.weight_decay,
+                                capturable=capturable)
     if cfg.optimizer == "sgd":
         return torch.optim.SGD(params, lr=cfg.learning_rate)
     if cfg.optimizer == "rmsprop":
@@ -238,6 +262,11 @@ class LinkPredictionTrainer:
         # stochastic (None otherwise: recent sampling draws nothing)
         self.sample_gen: torch.Generator | None = None
         self._stochastic = getattr(backbone, "sample_strategy", "recent") != "recent"
+        # each evaluate's neighbor draws: one generator, re-seeded a sweep
+        # (a captured eval graph keeps drawing from the generator it registered)
+        self._eval_gen: torch.Generator | None = None
+        self._early: EarlyStopping | None = None  # fit's, for resume checkpoints
+        self.graphs = StepGraphs(self.device)
 
     # ----------------------------------------------------------- parameters
     def init_params(self, seed: int) -> None:
@@ -257,6 +286,7 @@ class LinkPredictionTrainer:
         self.dropout_gen = torch.Generator(device=self.device).manual_seed(seed)
         if self._stochastic:
             self.sample_gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.graphs = StepGraphs(self.device)  # captured against the old modules
 
     def load_params(self, params: dict) -> None:
         """Load ``{"backbone": state_dict, "head": state_dict}`` (see
@@ -421,14 +451,21 @@ class LinkPredictionTrainer:
             return loss, probs, self._commit(state, arrays, raw)
 
     # ---------------------------------------------------------------- loops
+    @staticmethod
+    def _host_arrays(b: Batch, neg_src, neg_dst) -> tuple[np.ndarray, ...]:
+        """(src, dst, neg_src, neg_dst, time keys, eid) int32 and valid float32."""
+        i32 = lambda a: np.asarray(a, dtype=np.int32)
+        return (i32(b.src), i32(b.dst), i32(neg_src), i32(neg_dst), i32(time_keys(b.ts)),
+                i32(b.eid), np.asarray(b.valid, dtype=np.float32))
+
     def _batch_arrays(self, b: Batch, neg_src, neg_dst):
-        as_dev = lambda a, dt: torch.from_numpy(np.asarray(a, dtype=dt)).to(self.device)
-        i32 = np.int32
-        return (
-            as_dev(b.src, i32), as_dev(b.dst, i32), as_dev(neg_src, i32),
-            as_dev(neg_dst, i32), as_dev(time_keys(b.ts), i32), as_dev(b.eid, i32),
-            as_dev(b.valid, np.float32),
-        )
+        return tuple(torch.from_numpy(a).to(self.device)
+                     for a in self._host_arrays(b, neg_src, neg_dst))
+
+    def _stack(self, staged) -> tuple[torch.Tensor, ...]:
+        """(batch, neg_src, neg_dst) triples -> their seven arrays as (T, B)
+        device tensors (a scanned sweep's staging)."""
+        return stack_columns((self._host_arrays(*row) for row in staged), self.device)
 
     def _pad_negs(self, neg: np.ndarray, b: Batch) -> np.ndarray:
         out = np.zeros(len(b.src), dtype=np.int64)
@@ -472,30 +509,44 @@ class LinkPredictionTrainer:
         labels = np.concatenate([np.ones(n), np.zeros(n)])
         return link_prediction_metrics(predicts, labels)
 
-    def train_batches(self, stream: EdgeStream | None = None):
-        """(batch, arrays, bucket) for each train batch of ``stream``
-        (default: the train split), drawing each batch's negatives from the
+    def _train_negatives(self, stream: EdgeStream | None = None):
+        """(batch, padded neg_dst) for each train batch of ``stream``
+        (default: the train split), each batch's destinations drawn from the
         train sampler as the batch is reached."""
         stream = self.data.train if stream is None else stream
         for b in chronological_batches(stream, self.cfg.batch_size):
             _, neg_dst = self.train_neg.sample(b.num_valid)
-            neg_dst = self._pad_negs(neg_dst, b)
+            yield b, self._pad_negs(neg_dst, b)
+
+    def train_batches(self, stream: EdgeStream | None = None):
+        """(batch, arrays, bucket) for each train batch of ``stream``
+        (default: the train split), drawing each batch's negatives from the
+        train sampler as the batch is reached."""
+        for b, neg_dst in self._train_negatives(stream):
             bucket = self._pick_bucket(self.train_csr, b, b.src, neg_dst)
             yield b, self._batch_arrays(b, b.src, neg_dst), bucket
 
-    def train_epoch(self, stream: EdgeStream | None = None, state=None, epoch: int = 0):
+    def train_epoch(self, stream: EdgeStream | None = None, state=None, epoch: int = 0,
+                    start_batch: int = 0):
         """One pass over the train split (or ``stream``) -> (per-batch
         losses, per-batch AP/AUC dicts); a memory model's sweep starts from
         ``state`` (default: an empty memory) and its final state is a third
         element. With ``cfg.check_memory_order`` each step is checked for
         node clocks that move backwards; with ``cfg.show_progress`` each
-        step's loss is shown on stderr (``epoch`` numbers the line)."""
-        if self.model is None:
-            raise RuntimeError("call init_params or load_params first")
+        step's loss is shown on stderr (``epoch`` numbers the line).
+        ``start_batch``: resume mid-epoch there (the batches before it still
+        draw their negatives, so the sampler's stream stays aligned); with
+        ``cfg.resume_every_batches`` a resume checkpoint is written every
+        that many batches."""
+        self._require_params()
         if self.has_state and state is None:
             state = self.init_state()
         losses, metrics = [], []
-        for i, (b, arrays, bucket) in enumerate(self.train_batches(stream)):
+        for i, (b, neg_dst) in enumerate(self._train_negatives(stream)):
+            if i < start_batch:
+                continue
+            bucket = self._pick_bucket(self.train_csr, b, b.src, neg_dst)
+            arrays = self._batch_arrays(b, b.src, neg_dst)
             if not self.has_state:
                 loss, (pos, neg) = self.train_step(arrays, bucket)
             else:
@@ -508,9 +559,74 @@ class LinkPredictionTrainer:
             if self.cfg.show_progress:
                 print(f"\rEpoch: {epoch + 1}, train for the {i + 1}-th batch, "
                       f"train loss: {losses[-1]:.4f}", end="", file=sys.stderr, flush=True)
+            every = self.cfg.resume_every_batches
+            if every and (i + 1) % every == 0:
+                self._write_resume(epoch, i + 1, state)
         if self.cfg.show_progress and losses:
             print(file=sys.stderr)  # ends the progress line
         return (losses, metrics, state) if self.has_state else (losses, metrics)
+
+    def _require_params(self) -> None:
+        if self.model is None:
+            raise RuntimeError("call init_params or load_params first")
+
+    def _packed(self, out):
+        """A step's outputs as ((loss, pos, neg), state or None)."""
+        return (out[0], *out[1]), (out[2] if self.has_state else None)
+
+    def train_epoch_scanned(self, stream: EdgeStream | None = None, state=None,
+                            epoch: int = 0):
+        """``train_epoch`` as the JAX ``train_epoch_scanned`` runs it: the
+        epoch's negatives drawn first (the per-batch order, so the sampler's
+        stream is the same), its batches staged on the device at once, every
+        step at the full sequence length (no bucket) and replayed as a CUDA
+        graph after the first (``StepGraphs``; eagerly off the card), the
+        losses and probabilities read back once. Memory order is checked
+        once for the epoch; no resume checkpoint is written. Same returns
+        as ``train_epoch``."""
+        self._require_params()
+        if self.has_state and state is None:
+            state = self.init_state()
+        staged = [(b, b.src, neg_dst) for b, neg_dst in self._train_negatives(stream)]
+        clocks = self._clocks(state)
+
+        def step(arrays, st):
+            return self._packed(self.train_step(arrays, None, st))
+
+        gens = [g for g in (self.dropout_gen, self.sample_gen) if g is not None]
+        (loss, pos, neg), state = self.graphs.scan(("train",), step, self._stack(staged), state,
+                                                   gens)
+        self._check_order(clocks, state, f"epoch {epoch} (scan)")
+        losses, pos, neg = loss.tolist(), pos.cpu().numpy(), neg.cpu().numpy()
+        metrics = [self._batch_metrics((pos[i], neg[i]), b) for i, (b, _, _) in enumerate(staged)]
+        return (losses, metrics, state) if self.has_state else (losses, metrics)
+
+    def _write_resume(self, epoch: int, next_batch: int, state) -> None:
+        """``<save_path>.resume``: what ``fit(resume=True)`` restarts from."""
+        if self.save_path is None:
+            raise ValueError("resume_every_batches writes <save_path>.resume; pass save_path")
+        gens = {"dropout_gen": self.dropout_gen, "sample_gen": self.sample_gen}
+        save_checkpoint(self.save_path + ".resume", self.state_dicts(), state, extra={
+            "epoch": epoch,
+            "next_batch": next_batch,
+            "opt_state": to_cpu(self.optimizer.state_dict()),
+            "early_best": dict(self._early.best) if self._early else {},
+            "early_counter": self._early.counter if self._early else 0,
+            "generators": {k: g.get_state() for k, g in gens.items() if g is not None},
+        })
+
+    def _load_resume(self, ck: dict):
+        """Parameters, optimizer state, generators and early stopping from a
+        resume checkpoint -> (epoch, next batch, memory state or None)."""
+        extra = ck["extra"]
+        self.load_params(ck["params"])
+        self.optimizer.load_state_dict(extra["opt_state"])
+        self.graphs = StepGraphs(self.device)  # the optimizer's state tensors are new
+        for name, st in extra["generators"].items():
+            getattr(self, name).set_state(st)
+        self._early.best = dict(extra["early_best"])
+        self._early.counter = extra["early_counter"]
+        return extra["epoch"], extra["next_batch"], to_device(ck["state"], self.device)
 
     def _clocks(self, state):
         """Host copies of the memory's clocks, under ``cfg.check_memory_order``."""
@@ -528,8 +644,26 @@ class LinkPredictionTrainer:
                 f"memory order violated at {where}: {n} node clock(s) moved backwards "
                 "(batches applied out of chronological order, or a corrupted state)")
 
+    def _eval_negatives(self, stream: EdgeStream, neg_sampler: NegativeEdgeSampler,
+                        random_negs: bool):
+        """(batch, padded neg_src, padded neg_dst) for each batch of a sweep,
+        drawn as the batch is reached. Random negatives: the neg_src draw is
+        made so the seeded stream stays aligned, then discarded (the negative
+        edge is (src, neg_dst)); historical and inductive: the drawn pair."""
+        for b in chronological_batches(stream, self.cfg.batch_size):
+            n = b.num_valid
+            if random_negs:
+                _, neg_dst = neg_sampler.sample(n)
+                neg_src = b.src[:n]
+            else:
+                neg_src, neg_dst = neg_sampler.sample(
+                    n, batch_src_node_ids=b.src[:n], batch_dst_node_ids=b.dst[:n],
+                    current_batch_start_time=b.batch_start_time,
+                    current_batch_end_time=b.batch_end_time)
+            yield b, self._pad_negs(neg_src, b), self._pad_negs(neg_dst, b)
+
     def evaluate(self, stream: EdgeStream, neg_sampler: NegativeEdgeSampler,
-                 eval_key_salt: int = 0, state=None):
+                 eval_key_salt: int = 0, state=None, scanned: bool | None = None):
         """One sweep over a split, with negatives from ``neg_sampler`` under
         its strategy (random: neg_src discarded for src; historical and
         inductive: the drawn pairs, embedded as the quad); a stochastic
@@ -542,33 +676,42 @@ class LinkPredictionTrainer:
         an empty memory), commits each batch's positive edges and returns
         the final state as a fourth element; ``state`` itself is not
         modified.
+
+        ``scanned`` stages the whole sweep first and replays its steps as
+        CUDA graphs (``train_epoch_scanned``'s way; the full sequence
+        length); None: ``cfg.scan_epochs`` unless the backbone has sequence
+        buckets, as the JAX package decides. Both give the same draws.
         """
-        if self.model is None:
-            raise RuntimeError("call init_params or load_params first")
+        self._require_params()
         if self.has_state and state is None:
             state = self.init_state()
         if stream.num_interactions == 0:
             return ([], [], [], state) if self.has_state else ([], [], [])
+        if scanned is None:
+            scanned = self.cfg.scan_epochs and not self._buckets
         neg_sampler.reset_random_state()
         random_negs = neg_sampler.negative_sample_strategy == "random"
-        gen = None
-        if self._stochastic:
-            gen = torch.Generator(device=self.device).manual_seed(12345 + eval_key_salt)
+        gen = self._eval_gen = (eval_generator(self._eval_gen, self.device, eval_key_salt)
+                                if self._stochastic else None)
+        batches = self._eval_negatives(stream, neg_sampler, random_negs)
+        if scanned:
+            staged = list(batches)
+
+            def step(arrays, st):
+                return self._packed(self.eval_step(self.full_csr, arrays, None, gen, st,
+                                                   neg_src_is_src=random_negs))
+
+            key = ("eval", self._layout(random_negs), id(self.full_csr))
+            (loss, pos, neg), state = self.graphs.scan(
+                key, step, self._stack(staged), state, [gen] if gen is not None else [])
+            losses, pos, neg = loss.tolist(), pos.cpu().numpy(), neg.cpu().numpy()
+            probs = [(pos[i], neg[i]) for i in range(len(staged))]
+            metrics = [self._batch_metrics(p, b) for p, (b, _, _) in zip(probs, staged)]
+            return (losses, metrics, probs, state) if self.has_state else (losses, metrics, probs)
         losses, metrics, probs = [], [], []
-        for b in chronological_batches(stream, self.cfg.batch_size):
+        for _ in range(-(-stream.num_interactions // self.cfg.batch_size)):
             with record_function("eval/staging"):
-                n = b.num_valid
-                if random_negs:
-                    # the neg_src draw is made so the seeded stream stays
-                    # aligned, then discarded: the negative edge is (src, neg_dst)
-                    _, neg_dst = neg_sampler.sample(n)
-                    neg_src = b.src[:n]
-                else:
-                    neg_src, neg_dst = neg_sampler.sample(
-                        n, batch_src_node_ids=b.src[:n], batch_dst_node_ids=b.dst[:n],
-                        current_batch_start_time=b.batch_start_time,
-                        current_batch_end_time=b.batch_end_time)
-                ns, nd = self._pad_negs(neg_src, b), self._pad_negs(neg_dst, b)
+                b, ns, nd = next(batches)
                 bucket = self._pick_bucket(self.full_csr, b, ns, nd)
                 arrays = self._batch_arrays(b, ns, nd)
             out = self.eval_step(self.full_csr, arrays, bucket, gen, state,
@@ -595,11 +738,19 @@ class LinkPredictionTrainer:
             return {}
         return {k: float(np.mean([m[k] for m in metrics])) for k in metrics[0]}
 
-    def fit(self, seed: int = 0, log=print) -> dict:
+    def fit(self, seed: int = 0, log=print, resume: bool = False) -> dict:
         """The reference's choreography for one run; returns the results
         dict with the JAX package's keys ("train losses", "validate
         metrics", "new node validate metrics", "test metrics", "new node
-        test metrics", "params", "state")."""
+        test metrics", "params", "state").
+
+        ``resume``: restart from ``<save_path>.resume`` where one exists
+        (written every ``cfg.resume_every_batches`` train batches). An epoch
+        scans (``train_epoch_scanned``) under ``cfg.scan_epochs`` unless it
+        resumes mid-epoch or resume checkpoints are written, as in the JAX
+        ``fit``. ``cfg.profile_dir``: the second epoch (train and both val
+        sweeps) runs under ``torch.profiler`` and its trace is written
+        there; ``cfg.tensorboard_dir``: one scalar record per epoch."""
         if self.save_path is None:
             raise ValueError("fit writes its best checkpoint to save_path; pass one")
         self.init_params(seed)
@@ -609,33 +760,21 @@ class LinkPredictionTrainer:
             f"#parameters: {n_params * 4} B, {n_params * 4 / 1024:.4f} KB, "
             f"{n_params * 4 / 1024 / 1024:.4f} MB."
         )
-        early = EarlyStopping(self.cfg.patience, self.save_path)
-        epoch_mean_losses: list[float] = []
-        d = self.data
-        for epoch in range(self.cfg.num_epochs):
-            t0 = time.time()
-            out = self.train_epoch(epoch=epoch)  # a memory model's from an empty memory
-            tr_losses, tr_metrics = out[:2]
-            train_state = out[2] if self.has_state else None
-            mv, val_state = self._sweep(d.val, self.val_neg, 0, train_state)
-            nn_mv, _ = self._sweep(d.new_node_val, self.nn_val_neg, 1, train_state)
-            epoch_mean_losses.append(float(np.mean(tr_losses)))
-            dt = time.time() - t0
-            log(
-                f"epoch {epoch + 1}: train loss {np.mean(tr_losses):.4f} "
-                f"ap {self.mean_metrics(tr_metrics).get('average_precision', 0):.4f}"
-                f" | val {mv} | nn-val ap {nn_mv.get('average_precision', 0):.4f} "
-                f"({dt:.1f}s)"
-            )
-            if (epoch + 1) % self.cfg.test_interval_epochs == 0:
-                log(f"  test {self._sweep(d.test, self.test_neg, 2, val_state)[0]}")
-            if early.step(mv, self.state_dicts(), val_state):
-                log(f"early stop at epoch {epoch + 1}")
-                break
+        early = self._early = EarlyStopping(self.cfg.patience, self.save_path)
+        start_epoch, start_batch, resume_state = 0, 0, None
+        if resume and os.path.exists(self.save_path + ".resume"):
+            start_epoch, start_batch, resume_state = self._load_resume(
+                load_checkpoint(self.save_path + ".resume"))
+            log(f"resuming from epoch {start_epoch + 1}, batch {start_batch}")
+        tb_dir = self.cfg.tensorboard_dir
+        with SummaryWriter(tb_dir) if tb_dir else contextlib.nullcontext() as tb:
+            epoch_mean_losses, mv, nn_mv = self._fit_epochs(
+                early, start_epoch, start_batch, resume_state, tb, log)
 
         best = early.load_best()
         self.load_params(best["params"])
         state = to_device(best["state"], self.device)
+        d = self.data
         results: dict = {"train losses": epoch_mean_losses}
         if self.has_state:
             # the checkpoint's memory has seen val: the last epoch's val
@@ -651,3 +790,65 @@ class LinkPredictionTrainer:
         results["params"] = self.state_dicts()
         results["state"] = state
         return results
+
+    def _fit_epochs(self, early, start_epoch, start_batch, resume_state, tb, log):
+        """``fit``'s epochs -> (each epoch's mean train loss, the last val
+        and new-node val metrics)."""
+        epoch_mean_losses: list[float] = []
+        mv, nn_mv = {}, {}
+        d = self.data
+        for epoch in range(start_epoch, self.cfg.num_epochs):
+            t0 = time.time()
+            profiler = None
+            if self.cfg.profile_dir and epoch == start_epoch + 1:
+                profiler = self._profiler()
+                profiler.start()
+            # a memory model's epoch starts from an empty memory (or the
+            # resumed one)
+            state = resume_state if epoch == start_epoch else None
+            sb = start_batch if epoch == start_epoch else 0
+            if self.cfg.scan_epochs and sb == 0 and not self.cfg.resume_every_batches:
+                out = self.train_epoch_scanned(state=state, epoch=epoch)
+            else:
+                out = self.train_epoch(state=state, epoch=epoch, start_batch=sb)
+            tr_losses, tr_metrics = out[:2]
+            train_state = out[2] if self.has_state else None
+            mv, val_state = self._sweep(d.val, self.val_neg, 0, train_state)
+            nn_mv, _ = self._sweep(d.new_node_val, self.nn_val_neg, 1, train_state)
+            if profiler is not None:
+                profiler.stop()
+                log(f"profiler trace written to {self.cfg.profile_dir}")
+            epoch_mean_losses.append(float(np.mean(tr_losses)))
+            dt = time.time() - t0
+            n_train = len(tr_losses) * self.cfg.batch_size
+            train_ap = self.mean_metrics(tr_metrics).get("average_precision", 0.0)
+            log(
+                f"epoch {epoch + 1}: train loss {np.mean(tr_losses):.4f} ap {train_ap:.4f}"
+                f" | val {mv} | nn-val ap {nn_mv.get('average_precision', 0):.4f} "
+                f"({dt:.1f}s, ~{n_train / max(dt, 1e-9):.0f} edges/s incl. eval)"
+            )
+            if tb is not None:
+                tb.add_scalars({
+                    "train/loss": float(np.mean(tr_losses)),
+                    "train/average_precision": train_ap,
+                    **{f"val/{k}": v for k, v in mv.items()},
+                    "new_node_val/average_precision": nn_mv.get("average_precision", 0.0),
+                    "perf/epoch_seconds": dt,
+                    "perf/edges_per_second": n_train / max(dt, 1e-9),
+                }, step=epoch + 1)
+            if (epoch + 1) % self.cfg.test_interval_epochs == 0:
+                log(f"  test {self._sweep(d.test, self.test_neg, 2, val_state)[0]}")
+            if early.step(mv, self.state_dicts(), val_state):
+                log(f"early stop at epoch {epoch + 1}")
+                break
+        return epoch_mean_losses, mv, nn_mv
+
+    def _profiler(self) -> torch.profiler.profile:
+        """A profiler of the host (and of the card on ``cuda``) whose trace
+        goes into ``cfg.profile_dir`` when it stops."""
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        return torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(self.cfg.profile_dir))

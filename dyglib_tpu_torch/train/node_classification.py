@@ -1,7 +1,6 @@
 """Dynamic node classification: a frozen backbone and an MLPClassifier head.
 
-Counterpart of ``dyglib_tpu/train/node_classification.py``, all of it but
-the scan path (``TrainConfig(scan_epochs=True)`` raises). Protocol (the
+Counterpart of ``dyglib_tpu/train/node_classification.py``. Protocol (the
 JAX package's):
   * the backbone's parameters come from a link-prediction checkpoint and
     stay frozen: the net runs in eval mode (no dropout) under
@@ -23,7 +22,11 @@ JAX package's):
     post-val state, and test runs from it;
   * training and evaluation both sample from the full stream's CSR; a
     stochastic strategy draws from ``sample_gen`` in training and, in each
-    ``evaluate``, from a generator seeded afresh from 12345 + ``salt``.
+    ``evaluate``, from a generator seeded afresh from 12345 + ``salt``;
+  * scan epochs (``cfg.scan_epochs``): a head epoch and an eval sweep are
+    staged on the device at once (every batch full, as the JAX
+    ``_stacked_batches`` requires) and their steps replayed as CUDA graphs
+    after the first (``step_graph.StepGraphs``; eagerly off the card).
 
 Each step's phases are ``torch.profiler`` ranges: ``nodecls/sample``,
 ``nodecls/forward``, ``nodecls/commit`` (memory models), ``nodecls/head``,
@@ -51,6 +54,7 @@ from .checkpoints import to_device
 from .early_stopping import EarlyStopping
 from .link_prediction import ENTRY_TABLE_BUDGET, TrainConfig, make_optimizer
 from .metrics import node_classification_metrics
+from .step_graph import StepGraphs, eval_generator, stack_columns
 
 
 class NodeClassificationTrainer:
@@ -103,6 +107,8 @@ class NodeClassificationTrainer:
         self.optimizer: torch.optim.Optimizer | None = None
         self.dropout_gen: torch.Generator | None = None
         self.sample_gen: torch.Generator | None = None
+        self._eval_gen: torch.Generator | None = None  # re-seeded a sweep
+        self.graphs = StepGraphs(dev)
 
     # ----------------------------------------------------------- parameters
     def init_params(self, seed: int) -> None:
@@ -115,6 +121,7 @@ class NodeClassificationTrainer:
         self.dropout_gen = torch.Generator(device=self.device).manual_seed(seed)
         if self._stochastic:
             self.sample_gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.graphs = StepGraphs(self.device)  # captured against the old head
 
     def load_head(self, params: dict) -> None:
         """Load the head's state dict (numpy arrays are accepted too)."""
@@ -134,12 +141,25 @@ class NodeClassificationTrainer:
                 "(init_state() gives an empty one)")
 
     # -------------------------------------------------------------- forward
+    @staticmethod
+    def _host_arrays(b: Batch) -> tuple[np.ndarray, ...]:
+        """(src, dst, time keys, eid) int32, valid float32 and label float32."""
+        i32 = lambda a: np.asarray(a, dtype=np.int32)
+        return (i32(b.src), i32(b.dst), i32(time_keys(b.ts)), i32(b.eid),
+                np.asarray(b.valid, dtype=np.float32), np.asarray(b.label, dtype=np.float32))
+
     def _batch_arrays(self, b: Batch):
         """(src, dst, time keys, eid, valid) of a batch on the device."""
-        as_dev = lambda a, dt: torch.from_numpy(np.asarray(a, dtype=dt)).to(self.device)
-        i32 = np.int32
-        return (as_dev(b.src, i32), as_dev(b.dst, i32), as_dev(time_keys(b.ts), i32),
-                as_dev(b.eid, i32), as_dev(b.valid, np.float32))
+        return tuple(torch.from_numpy(a).to(self.device) for a in self._host_arrays(b)[:5])
+
+    def _stacked_batches(self, stream: EdgeStream):
+        """(batches, their (src, dst, time keys, eid, valid, label) as (T, B)
+        device tensors, one copy each); every batch must be full (padded), as
+        the JAX ``_stacked_batches`` requires of a scan."""
+        batches = list(chronological_batches(stream, self.cfg.batch_size))
+        if any(len(b.src) != self.cfg.batch_size for b in batches):
+            raise ValueError("the scan path needs uniform (padded) batches; got a ragged batch")
+        return batches, stack_columns((self._host_arrays(b) for b in batches), self.device)
 
     @torch.no_grad()
     def _src_embeddings(self, arrays, state=None, gen=None):
@@ -215,17 +235,54 @@ class NodeClassificationTrainer:
             losses.append(float(loss))
         return losses, state
 
-    def evaluate(self, stream: EdgeStream, state=None, salt: int = 0):
+    def train_epoch_scanned(self, stream: EdgeStream | None = None, state=None):
+        """``train_epoch`` as the JAX ``train_scan`` runs it: the batches
+        staged on the device at once, every step after the first replayed as
+        a CUDA graph (eagerly off the card), the losses read back once."""
+        if self.head is None:
+            raise RuntimeError("call init_params or load_head first")
+        stream = self.data.train if stream is None else stream
+        if self.has_state and state is None:
+            state = self.init_state()
+        _, stacked = self._stacked_batches(stream)
+
+        def step(x, st):
+            loss, _, st = self.train_step(x[:5], x[5], st)
+            return (loss,), st
+
+        gens = [g for g in (self.dropout_gen, self.sample_gen) if g is not None]
+        (loss,), state = self.graphs.scan(("train",), step, stacked, state, gens)
+        return loss.tolist(), state
+
+    def evaluate(self, stream: EdgeStream, state=None, salt: int = 0,
+                 scanned: bool | None = None):
         """One sweep over a split -> (global ROC-AUC dict, final state); a
         memory model's sweep starts from ``state`` (default: an empty
-        memory) and commits every edge; ``state`` itself is not modified."""
+        memory) and commits every edge; ``state`` itself is not modified.
+        ``scanned`` (default ``cfg.scan_epochs``): stage the sweep at once
+        and replay its steps as CUDA graphs, as ``train_epoch_scanned``."""
         if self.head is None:
             raise RuntimeError("call init_params or load_head first")
         if self.has_state and state is None:
             state = self.init_state()
-        gen = None
-        if self._stochastic:
-            gen = torch.Generator(device=self.device).manual_seed(12345 + salt)
+        gen = self._eval_gen = (eval_generator(self._eval_gen, self.device, salt)
+                                if self._stochastic else None)
+        if scanned is None:
+            scanned = self.cfg.scan_epochs
+        if scanned:
+            batches, stacked = self._stacked_batches(stream)
+
+            def step(x, st):
+                p, st = self.eval_step(x[:5], st, gen)
+                return (p,), st
+
+            (p_all,), state = self.graphs.scan(("eval",), step, stacked, state,
+                                               [gen] if gen is not None else [])
+            p_all = p_all.cpu().numpy()
+            probs = [p_all[i][: b.num_valid] for i, b in enumerate(batches)]
+            labels = [b.label[: b.num_valid] for b in batches]
+            return node_classification_metrics(np.concatenate(probs),
+                                               np.concatenate(labels)), state
         probs, labels = [], []
         for b in chronological_batches(stream, self.cfg.batch_size):
             p, state = self.eval_step(self._batch_arrays(b), state, gen)
@@ -251,7 +308,9 @@ class NodeClassificationTrainer:
         epoch_mean_losses: list[float] = []
         for epoch in range(self.cfg.num_epochs):
             t0 = time.time()
-            losses, state = self.train_epoch()  # a memory model's from an empty memory
+            # a memory model's epoch starts from an empty memory
+            losses, state = (self.train_epoch_scanned() if self.cfg.scan_epochs
+                             else self.train_epoch())
             val_metrics, val_state = self.evaluate(self.data.val, state=state, salt=0)
             epoch_mean_losses.append(float(np.mean(losses)))
             log(

@@ -6,7 +6,7 @@
                                           [--task link_prediction|node_classification]
                                           [--mode eval|train] [--batches 10]
                                           [--negatives random|historical|inductive]
-                                          [--configs NAMES] [--repo DIR]
+                                          [--configs NAMES] [--scan] [--repo DIR]
 
 Same setting as chip_smoke.py (synthetic wikipedia-scale stream, seed 1;
 random weights, seed 0; B = 200). DyGFormer: the wikipedia (maxlen 32,
@@ -34,7 +34,13 @@ published dropout; kernel path and plain path): ``--mode eval`` traces
 memory), ``--mode train`` one ``train_epoch`` of head training over the
 last train batches; its ranges are ``nodecls/sample``, ``nodecls/forward``,
 ``nodecls/commit`` (memory models), ``nodecls/head`` and in training
-``nodecls/backward`` and ``nodecls/optimizer``. ``--repo`` names the tree whose
+``nodecls/backward`` and ``nodecls/optimizer``. ``--scan`` runs the scan
+path instead (``TrainConfig(scan_epochs=True)``, no sequence buckets:
+``train_epoch_scanned`` and ``evaluate(scanned=True)``, every step after a
+sweep's first a CUDA graph replay; the warm-up is one whole sweep, so the
+graphs are captured before the timing and the trace): a replay opens no
+profiler range, so its JSON line has no per-range times, only the ms a
+batch, the device busy share and the top kernels. ``--repo`` names the tree whose
 ``dyglib_tpu_torch`` is run (default: this checkout), so that two trees
 run by one command in turns compare on one card. For each configuration
 it first times the same sweep twice with no profiler (host clock, ending
@@ -137,8 +143,9 @@ def phase_device_ms(prof) -> dict[str, float]:
     return out
 
 
-def device_profile(run) -> dict:
-    """Trace ``run()`` (which ends in a synchronize)."""
+def device_profile(run, scanned: bool = False) -> dict:
+    """Trace ``run()`` (which ends in a synchronize); ``scanned``: graph
+    replays, which open no range."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -177,10 +184,10 @@ def device_profile(run) -> dict:
         for e in rows
         if is_range(e.key) and e.device_type != cuda
     }
-    if not phases:
+    if not scanned and not phases:
         raise RuntimeError("the trace holds none of the loop's eval/*, train/* or nodecls/* "
                            "ranges")
-    if not any(device_ms.values()):
+    if not scanned and not any(device_ms.values()):
         raise RuntimeError("no device time could be tied to a range's launches")
     kernels = sorted(
         (e for e in rows if e.device_type == cuda and not is_span(e.key)), key=self_dev,
@@ -224,8 +231,8 @@ def profile_node_classification(args, data, synced) -> int:
         if wanted and config not in wanted:
             continue
         tr = NodeClassificationTrainer(
-            backbone, nc, TrainConfig(batch_size=B, head_dropout=cli.dropout), None, params,
-            device="cuda")
+            backbone, nc, TrainConfig(batch_size=B, head_dropout=cli.dropout,
+                                      scan_epochs=args.scan), None, params, device="cuda")
         tr.init_params(0)
         tr.model.use_kernels = path == "kernels"
         if args.mode == "eval":
@@ -234,7 +241,10 @@ def profile_node_classification(args, data, synced) -> int:
         else:
             tr.train_epoch(nc.train.slice(n - B, n))  # warm-up
             stream = nc.train.slice(n - args.batches * B, n)
-            run = synced(lambda: tr.train_epoch(stream))
+            train = tr.train_epoch_scanned if args.scan else tr.train_epoch
+            run = synced(lambda: train(stream))
+        if args.scan:
+            run()  # captures the graphs
         torch.cuda.synchronize()
         host_ms = []
         for _ in range(2):
@@ -242,9 +252,9 @@ def profile_node_classification(args, data, synced) -> int:
             run()
             host_ms.append((time.perf_counter() - t0) * 1e3 / args.batches)
         out = {"config": config, "task": args.task, "mode": args.mode,
-               "batches": args.batches, "use_kernels": path == "kernels",
+               "batches": args.batches, "use_kernels": path == "kernels", "scan": args.scan,
                "repo": os.path.abspath(args.repo), "ms_per_batch": host_ms}
-        out.update(device_profile(run))
+        out.update(device_profile(run, args.scan))
         print(json.dumps(out), flush=True)
     return 0
 
@@ -263,6 +273,8 @@ def main() -> int:
                         default="random", help="the val negatives' strategy (--mode eval)")
     parser.add_argument("--configs", default="",
                         help="comma-separated configuration names (default: all of the model's)")
+    parser.add_argument("--scan", action="store_true",
+                        help="the scan path: sweeps replayed as CUDA graphs")
     parser.add_argument("--repo", default=REPO_ROOT,
                         help="tree whose dyglib_tpu_torch is run (default: this checkout)")
     args = parser.parse_args()
@@ -314,7 +326,8 @@ def main() -> int:
     for config, backbone, use_kernels, fetch in runs:
         if wanted and config not in wanted:
             continue
-        tr = LinkPredictionTrainer(backbone, data, TrainConfig(batch_size=B), device="cuda")
+        tr = LinkPredictionTrainer(backbone, data, TrainConfig(
+            batch_size=B, scan_epochs=args.scan, sequence_buckets=not args.scan), device="cuda")
         tr.init_params(0)
         tr.model.use_kernels = use_kernels
         if args.mode == "eval":
@@ -324,7 +337,10 @@ def main() -> int:
         else:
             tr.train_epoch(data.train.slice(n - B, n))  # warm-up
             stream = data.train.slice(n - args.batches * B, n)
-            run = synced(lambda: tr.train_epoch(stream))
+            train = tr.train_epoch_scanned if args.scan else tr.train_epoch
+            run = synced(lambda: train(stream))
+        if args.scan:
+            run()  # captures the graphs
         torch.cuda.synchronize()
         host_ms = []
         for _ in range(2):
@@ -333,9 +349,9 @@ def main() -> int:
             host_ms.append((time.perf_counter() - t0) * 1e3 / args.batches)
         out = {"config": config, "mode": args.mode, "batches": args.batches,
                "negatives": args.negatives,
-               "use_kernels": use_kernels, "entry_fetch": fetch,
+               "use_kernels": use_kernels, "entry_fetch": fetch, "scan": args.scan,
                "repo": os.path.abspath(args.repo), "ms_per_batch": host_ms}
-        out.update(device_profile(run))
+        out.update(device_profile(run, args.scan))
         print(json.dumps(out), flush=True)
     return 0
 

@@ -9,6 +9,8 @@
   * each flag whose feature the port lacks raises ``NotImplementedError``
     when set, and the default ``--device cuda`` raises without a card;
   * ``--show_progress`` writes each train step's loss line to stderr;
+  * ``--scan_epochs`` trains one epoch through the two training drivers
+    on the scanned path;
   * a CPU pipeline through the drivers (``--device cpu``): TGAT (K = 5, 1
     layer) through the four ``cli.*.main`` entry points, train ->
     evaluate (historical negatives) -> node-class train -> node-class
@@ -147,7 +149,6 @@ def test_aggregate_and_results_match_jax(tmp_path, monkeypatch):
 
 
 UNPORTED_FLAGS = [
-    ["--scan_epochs"],
     ["--data_parallelism", "2"],
     ["--data_parallelism", "-1"],
     ["--model_parallelism", "2"],
@@ -225,6 +226,34 @@ def test_show_progress_prints_each_train_step(synthetic_dataset, tmp_path, monke
           .train.num_interactions // 200)
     assert n > 1 and err.count("\rEpoch: 1, train for the ") == n
     assert f"train for the {n}-th batch, train loss: " in err and err.endswith("\n")
+
+
+def test_scan_epochs_trains_one_epoch_through_the_drivers(synthetic_dataset, tmp_path,
+                                                         monkeypatch, capsys):
+    """``--scan_epochs`` reaches both trainers' scanned epochs and sweeps
+    (on the CPU the staged loop runs uncaptured) and each driver ends with
+    its aggregate."""
+    from dyglib_tpu_torch.train import LinkPredictionTrainer, NodeClassificationTrainer
+
+    calls = []
+    for cls in (LinkPredictionTrainer, NodeClassificationTrainer):
+        scanned = cls.train_epoch_scanned
+
+        def spy(self, *a, _scanned=scanned, **kw):
+            calls.append(type(self).__name__)
+            return _scanned(self, *a, **kw)
+
+        monkeypatch.setattr(cls, "train_epoch_scanned", spy)
+    monkeypatch.chdir(tmp_path)
+    argv = _argv(synthetic_dataset, "--model_name", "TGAT", "--num_neighbors", "5",
+                 "--num_layers", "1", "--device", "cpu", "--scan_epochs")
+    train_link_prediction.main(argv)
+    train_node_classification.main(argv)
+    assert calls == ["LinkPredictionTrainer", "NodeClassificationTrainer"]
+    lines = capsys.readouterr().out.splitlines()
+    printed = {line.split(":")[0]: float(line.split(":")[1].split("±")[0]) for line in lines}
+    for key in ("test average_precision", "new node test roc_auc", "test roc_auc"):
+        assert 0.0 <= printed[key] <= 1.0, key
 
 
 def test_memory_model_node_class_evaluation_replays_without_state(

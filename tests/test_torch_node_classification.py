@@ -22,8 +22,7 @@ carried by ``transfer.module_state_dict``:
     1e-5 and the global AUC within 1e-6;
   * ``fit`` (2 epochs, head dropout 0, the JAX head init) for TGAT and
     JODIE: each epoch's mean loss within 1e-4 of JAX's, JODIE's memory
-    after the last train sweep within 1e-5;
-  * ``TrainConfig(scan_epochs=True)`` raises.
+    after the last train sweep within 1e-5.
 """
 import filecmp
 
@@ -311,8 +310,3 @@ def test_fit_matches_jax(splits, tmp_path, name):
         assert abs(res[split]["roc_auc"] - jres[split]["roc_auc"]) <= 1e-4
     if name in MEMORY:
         _state_close(train_states["port"], train_states["jax"], atol=1e-5)
-
-
-def test_scan_epochs_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        TrainConfig(scan_epochs=True)
