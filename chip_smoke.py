@@ -205,10 +205,28 @@ and prints no result):
      the first's and below 0.69) and test AP above 0.53 from the final
      weights; CAWN K = 8, walk length 1, 8 heads, 2 epochs, test AP above
      0.58 (tests/test_remaining_models.py); lr 1e-3: the JAX package's floors;
+  5d. the rank grid (``dyglib_tpu_torch.parallel``): the native CSR
+     builder (g++ at first use) against the numpy path on the 157,474-edge
+     stream, identical arrays, both build times; then a one-rank NCCL
+     process group (TCP store on a free localhost port) and the (1, 1)
+     mesh: TGAT default, DyGFormer 32/1 and TGN at their published widths
+     and dropout, MESH_STEPS train steps on the last train batches and the
+     first MESH_BATCHES val batches, with and without the mesh from the
+     same seed-0 weights and generators: losses, probabilities, parameters
+     and TGN's whole memory within MESH_ATOL (one rank's collectives are
+     copies); every kernel of the model's path launched on the mesh path
+     (MESH_KERNELS); each step's collectives (calls and bytes per call
+     site) equal to the CPU tests' reckoning (``expected_collectives``);
+     ms per train step and eval batch, no mesh against mesh, in
+     MESH_TURNS; TGAT's ``train_epoch_scanned`` under the mesh (CUDA
+     graphs holding the NCCL collectives) against its loop within
+     SCAN_ATOL; the group destroyed; with two or more cards, the TGAT
+     steps at two NCCL ranks against one device (rtol 2e-3), else one
+     line saying the run was not possible;
   7. print one JSON line of kernel numbers (each row with its main-path
      launches, where phase 5c runs it its node-classification launches
-     over 20 eval batches, and its launches by phase 5s's replays), then
-     the device JSON line.
+     over 20 eval batches, its launches by phase 5s's replays, and its
+     launches on phase 5d's mesh path), then the device JSON line.
 """
 import dataclasses
 import json
@@ -3151,6 +3169,314 @@ def run_tgat_fit(dev) -> dict:
             "seconds": seconds, "validate_metrics": res["validate metrics"]}
 
 
+
+# the rank grid (phase 5d): a one-rank NCCL process group on the card and
+# the (1, 1) mesh; TGAT default, DyGFormer wikipedia (32/1) and TGN at their
+# published widths, published dropout, trained MESH_STEPS steps and
+# evaluated MESH_BATCHES val batches with and without the mesh from the same
+# weights: one rank's collectives are copies, so every loss, probability,
+# parameter and memory row agrees within MESH_ATOL; then timed in turns
+MESH_MODELS = ("TGAT", "DyGFormer", "TGN")
+MESH_STEPS, MESH_BATCHES, MESH_ATOL = 5, 10, 1e-6
+MESH_TURNS = (False, True, True, False)
+# the kernels each model's mesh path must launch (forward in evaluation,
+# both directions in training)
+MESH_KERNELS = {
+    "TGAT": ("gathered_attention", "temporal_attention", "gathered_attention_bwd",
+             "temporal_attention_bwd"),
+    "DyGFormer": ("time_channel", "cooccurrence", "patch_projection", "time_channel_bwd",
+                  "patch_projection_bwd"),
+    "TGN": ("temporal_attention", "temporal_attention_bwd"),
+}
+# scan epochs under the mesh: TGAT default at dropout 0, captured against
+# its loop (SCAN_ATOL)
+MESH_SCAN_BATCHES = 5
+
+
+def mesh_model_trainer(data, name, dev, mesh=None, scan=False, dropout=0.1):
+    """A link-prediction trainer of ``name`` at its published widths, seed-0
+    weights, on ``mesh`` (None: one device)."""
+    from dyglib_tpu_torch.models import TGAT, DyGFormer, MemoryModel, compute_src_dst_node_time_shifts
+    from dyglib_tpu_torch.train import LinkPredictionTrainer, TrainConfig
+
+    if name == "TGAT":
+        backbone = TGAT(num_neighbors=TGAT_K, num_layers=2, num_heads=2, time_feat_dim=DT_DIM,
+                        dropout=dropout)
+    elif name == "DyGFormer":
+        backbone = DyGFormer(max_input_sequence_length=32, patch_size=1, time_feat_dim=DT_DIM,
+                             dropout=dropout)
+    else:
+        shifts = compute_src_dst_node_time_shifts(data.train.src, data.train.dst, data.train.ts)
+        backbone = MemoryModel(model_name="TGN", num_neighbors=MEMORY_K, num_layers=1,
+                               num_heads=2, time_feat_dim=DT_DIM, dropout=dropout,
+                               time_shifts=shifts)
+    tr = LinkPredictionTrainer(backbone, data, TrainConfig(batch_size=B, learning_rate=TRAIN_LR,
+                                                           scan_epochs=scan),
+                               device=dev, mesh=mesh)
+    tr.init_params(0)
+    return tr
+
+
+def expected_collectives(tr, name, train: bool) -> dict:
+    """The collectives one step makes on a (1, 1) mesh, as the CPU tests
+    reckon them (tests/test_torch_parallel_*.py): {site: (calls, bytes)}."""
+    out = {"step/loss": (1, 4), "step/probs": (1, 2 * B * 4)}
+    if train:  # one flat buffer of the gradients the loss reached
+        n = sum(p.numel() for m in (tr.model, tr.head) for p in m.parameters()
+                if p.grad is not None)
+        out["train/grads"] = (1, 4 * n)
+    if name == "TGN":  # memory 172 wide, messages 2 x 172 + Dt + 172
+        w = 2 * FEAT + DT_DIM + FEAT
+        rows = 3 * B + 3 * B * MEMORY_K + 2 * B  # hop 0, hop 1, the commit's 2B
+        out["memory/ids"] = (3, 4 * rows)
+        out["memory/rows"] = (3, 4 * rows * (FEAT + w + 3))
+        out["memory/messages"] = (1, 4 * 2 * B * (w + 2))
+    return out
+
+
+def mesh_lockstep(name, plain, meshed, batches, val) -> dict:
+    """Train both trainers on the same batches and evaluate both on the val
+    slice: the largest difference of losses, probabilities, parameters and
+    (TGN) the memory, and the mesh path's launches and collectives."""
+    import numpy as np
+    import torch
+
+    from dyglib_tpu_torch import ops
+    from dyglib_tpu_torch.parallel import collective_counts, reset_collective_counts
+
+    diffs, states = {"loss": 0.0, "probs": 0.0}, [None, None]
+    if plain.has_state:
+        states = [plain.init_state(), meshed.init_state()]
+    launches, per_step = {}, {}
+    for k, (arrays, bucket) in enumerate(batches):
+        outs = []
+        for i, tr in enumerate((plain, meshed)):
+            if tr is meshed:
+                ops.reset_launch_counts()
+                reset_collective_counts()
+            out = tr.train_step(arrays, bucket, states[i]) if tr.has_state else \
+                tr.train_step(arrays, bucket)
+            if tr is meshed:
+                torch.cuda.synchronize()
+                for kk, v in ops.launch_counts().items():
+                    launches[kk] = launches.get(kk, 0) + v
+                if k == 0:
+                    per_step["train"] = collective_counts()
+            if tr.has_state:
+                states[i] = out[2]
+            outs.append(out)
+        diffs["loss"] = max(diffs["loss"], abs(float(outs[0][0]) - float(outs[1][0])))
+        for a, b in zip(outs[0][1], outs[1][1]):
+            diffs["probs"] = max(diffs["probs"], float((a - b).abs().max()))
+    diffs["params"] = max(
+        float((a - b).abs().max()) for part in ("backbone", "head")
+        for a, b in zip(plain.state_dicts()[part].values(), meshed.state_dicts()[part].values()))
+    if plain.has_state:
+        whole = meshed.host_state(states[1])
+        diffs["memory"] = max(float((a.float() - b.float()).abs().max())
+                              for a, b in zip(states[0], whole))
+    ops.reset_launch_counts()
+    reset_collective_counts()
+    ev_mesh = meshed.evaluate(val, meshed.val_neg, state=states[1])
+    torch.cuda.synchronize()
+    for kk, v in ops.launch_counts().items():
+        launches[kk] = launches.get(kk, 0) + v
+    n_eval = len(ev_mesh[2])
+    per_step["eval"] = {site: (c // n_eval, b // n_eval) for site, (c, b) in
+                        collective_counts().items()}
+    ev_plain = plain.evaluate(val, plain.val_neg, state=states[0])
+    diffs["eval_probs"] = max_prob_diff(ev_plain[2], ev_mesh[2])
+    diffs["eval_loss"] = float(np.max(np.abs(np.subtract(ev_plain[0], ev_mesh[0]))))
+    return diffs, {k: v for k, v in launches.items() if v}, per_step
+
+
+def mesh_times(plain, meshed, batches, val) -> dict:
+    """ms per train step and per eval batch, without and with the mesh, in
+    MESH_TURNS (host clock around synchronized sweeps; medians)."""
+    import statistics
+
+    import torch
+
+    times = {False: {"train": [], "eval": []}, True: {"train": [], "eval": []}}
+    for use_mesh in MESH_TURNS:
+        tr = meshed if use_mesh else plain
+        state = tr.init_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for arrays, bucket in batches:
+            out = tr.train_step(arrays, bucket, state) if tr.has_state else \
+                tr.train_step(arrays, bucket)
+            state = out[2] if tr.has_state else None
+        torch.cuda.synchronize()
+        times[use_mesh]["train"].append((time.perf_counter() - t0) / len(batches) * 1e3)
+        t0 = time.perf_counter()
+        n = len(tr.evaluate(val, tr.val_neg, state=state)[2])
+        torch.cuda.synchronize()
+        times[use_mesh]["eval"].append((time.perf_counter() - t0) / n * 1e3)
+    return {f"{kind}_ms_{'mesh' if m else 'no_mesh'}": statistics.median(times[m][kind])
+            for m in (False, True) for kind in ("train", "eval")}
+
+
+def mesh_scan_check(data, dev, mesh) -> dict:
+    """TGAT (dropout 0) under the mesh: ``train_epoch_scanned`` (captured
+    CUDA graphs holding the NCCL collectives) against ``train_epoch`` from
+    the same weights and seeded negatives."""
+    import numpy as np
+
+    from dyglib_tpu_torch.graph import NegativeEdgeSampler
+
+    n = data.train.num_interactions
+    stream = data.train.slice(n - MESH_SCAN_BATCHES * B, n)
+    runs = []
+    for scanned in (False, True):
+        tr = mesh_model_trainer(data, "TGAT", dev, mesh, scan=True, dropout=0.0)
+        tr.train_neg = NegativeEdgeSampler(data.train.src, data.train.dst, seed=13)
+        losses = (tr.train_epoch_scanned if scanned else tr.train_epoch)(stream)[0]
+        runs.append((np.asarray(losses), tr))
+    (l0, t0), (l1, t1) = runs
+    param_diff = max(float((a - b).abs().max()) for part in ("backbone", "head")
+                     for a, b in zip(t0.state_dicts()[part].values(),
+                                     t1.state_dicts()[part].values()))
+    out = {"loss_diff": float(np.max(np.abs(l0 - l1))), "param_diff": param_diff,
+           "replays": t1.graphs.replays}
+    if out["loss_diff"] > SCAN_ATOL or param_diff > SCAN_ATOL or not t1.graphs.replays:
+        raise AssertionError(f"scan under the mesh disagrees with its loop: {out}")
+    return out
+
+
+def native_csr_check(data) -> dict:
+    """The native CSR builder (g++ at first use) against the numpy path on
+    the full stream: identical arrays; g++'s seconds and both build times."""
+    import numpy as np
+
+    from dyglib_tpu_torch import native
+    from dyglib_tpu_torch.graph import csr
+    from dyglib_tpu_torch.native import build_temporal_csr_native, native_available
+
+    if not native_available():
+        raise AssertionError("the native CSR builder did not build (g++ missing or failed)")
+    s = data.full
+    t0 = time.perf_counter()
+    built = build_temporal_csr_native(s.src, s.dst, s.eid, s.ts, data.num_nodes)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    plain = csr._entries_numpy(s, data.num_nodes)
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    for a, b in zip(built, plain):
+        if not np.array_equal(a, b.astype(a.dtype)):
+            raise AssertionError("the native CSR differs from the numpy path")
+    # g++ ran at the first CSR build of this process (phase 2's stream)
+    return {"edges": int(s.num_interactions), "identical": True,
+            "compile_s": native.build_seconds, "native_ms": native_ms, "numpy_ms": numpy_ms}
+
+
+def two_rank_worker(rank, port, steps, out_q):
+    """One of two NCCL ranks on its own card: TGAT at the published widths,
+    dropout 0, ``steps`` train steps of the (2, 1) mesh; the losses."""
+    import torch
+
+    from dyglib_tpu_torch.data import synthetic_link_prediction_data
+    from dyglib_tpu_torch.parallel import initialize_distributed, make_mesh, shutdown_distributed
+
+    initialize_distributed(f"127.0.0.1:{port}", 2, rank, device="cuda")
+    try:
+        data = synthetic_link_prediction_data(num_src=8227, num_dst=1000, num_edges=157474,
+                                              seed=1)
+        dev = torch.device("cuda", rank)
+        tr = mesh_model_trainer(data, "TGAT", dev, make_mesh(2), dropout=0.0)
+        batches = [(a, b) for a, b in tgat_train_batches(data, tr, steps)]
+        out_q.put((rank, [float(tr.train_step(a, b)[0]) for a, b in batches]))
+    finally:
+        shutdown_distributed()
+
+
+def two_rank_run(data, dev) -> dict:
+    """With two or more cards: the same TGAT steps at two NCCL ranks against
+    one device (losses within the mesh tests' rtol 2e-3 / atol 2e-4)."""
+    import multiprocessing as mp
+
+    import numpy as np
+
+    from dyglib_tpu_torch.parallel import free_port
+
+    tr = mesh_model_trainer(data, "TGAT", dev, dropout=0.0)
+    ref = [float(tr.train_step(a, b)[0]) for a, b in tgat_train_batches(data, tr, MESH_STEPS)]
+    ctx = mp.get_context("spawn")
+    q, port = ctx.Queue(), free_port()
+    procs = [ctx.Process(target=two_rank_worker, args=(r, port, MESH_STEPS, q)) for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        got = dict(q.get(timeout=300) for _ in procs)
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+    for r in (0, 1):
+        if not np.allclose(got[r], ref, rtol=2e-3, atol=2e-4):
+            raise AssertionError(f"two-rank losses {got[r]} (rank {r}) vs one device {ref}")
+    return {"ranks": 2, "losses": got[0], "one_device": ref}
+
+
+def run_distributed(data, dev) -> dict:
+    """Phase 5d: the rank grid on the card (see MESH_MODELS)."""
+    import torch
+
+    from dyglib_tpu_torch.parallel import (
+        free_port,
+        initialize_distributed,
+        make_mesh,
+        shutdown_distributed,
+    )
+
+    t_phase = time.perf_counter()
+    results = {"native_csr": native_csr_check(data)}
+    log(f"  native CSR: {json.dumps(results['native_csr'])}")
+    initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    try:
+        import torch.distributed as dist
+
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"process group backend {dist.get_backend()}, not nccl")
+        mesh = make_mesh(1, 1)
+        n = data.val.num_interactions
+        val = data.val.slice(0, min(n, MESH_BATCHES * B))
+        for name in MESH_MODELS:
+            plain = mesh_model_trainer(data, name, dev)
+            meshed = mesh_model_trainer(data, name, dev, mesh)
+            batches = tgat_train_batches(data, plain, MESH_STEPS)
+            diffs, launches, per_step = mesh_lockstep(name, plain, meshed, batches, val)
+            if max(diffs.values()) > MESH_ATOL:
+                raise AssertionError(f"{name}: mesh vs one device differ: {diffs}")
+            missing = [k for k in MESH_KERNELS[name] if not launches.get(k)]
+            if missing:
+                raise AssertionError(f"{name}: the mesh path launched no {missing}: {launches}")
+            for kind in ("train", "eval"):
+                want = expected_collectives(meshed, name, kind == "train")
+                if per_step[kind] != want:
+                    raise AssertionError(f"{name} {kind} step collectives {per_step[kind]}, "
+                                         f"expected {want}")
+            times = mesh_times(plain, meshed, batches, val)
+            results[name] = dict(max_diff=diffs, mesh_launches=launches,
+                                 collectives_per_step=per_step, **times)
+            log(f"  {name}: {json.dumps(results[name])}")
+            del plain, meshed
+            torch.cuda.empty_cache()
+        results["scan"] = mesh_scan_check(data, dev, mesh)
+        log(f"  TGAT scan_epochs under the mesh: {json.dumps(results['scan'])}")
+    finally:
+        shutdown_distributed()
+    if torch.cuda.device_count() >= 2:
+        results["two_ranks"] = two_rank_run(data, dev)
+        log(f"  two ranks: {json.dumps(results['two_ranks'])}")
+    else:
+        log(f"  two-rank run not possible on this machine: {torch.cuda.device_count()} card")
+    results["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 5d: {results['seconds']:.1f} s ({card_line()})")
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -3263,6 +3589,11 @@ def main() -> int:
         run_memory_fit(name, dev)
     for name in NEW_FIT:
         run_new_model_fit(name, dev)
+    log(f"the rank grid on torch.distributed (one NCCL rank; {MESH_STEPS} train steps and "
+        f"{MESH_BATCHES} val batches with and without the (1, 1) mesh within {MESH_ATOL}; "
+        f"collectives per step as the CPU tests reckon them; ms in turns "
+        f"{['mesh' if m else 'no mesh' for m in MESH_TURNS]}; the native CSR builder):")
+    dist_run = run_distributed(data, dev)
 
     # ---- 5. results
     rows = []
@@ -3339,6 +3670,10 @@ def main() -> int:
                 NODECLS_KERNEL_ROWS.get(config), {}).get("launches", {}).get(kernel, 0),
             # launches made by replays of captured graphs (phase 5s)
             "scan_launches": scan_launches(kernel, config),
+            # the launches of the (1, 1) mesh path (phase 5d: its train steps
+            # and val batches; 0 where the configuration is not driven there)
+            "mesh_launches": dist_run.get(NODECLS_KERNEL_ROWS.get(config), {}).get(
+                "mesh_launches", {}).get(kernel, 0),
             "max_abs_err": max(p["max_abs_err"] for p in parts),
             "ms": sum(p["ms"] for p in parts),
             "plain_ms": sum(p["plain_ms"] for p in parts),

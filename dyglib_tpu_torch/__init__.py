@@ -15,7 +15,10 @@ DyGLib's four CLI drivers (``python -m dyglib_tpu_torch.cli.<driver>``),
 and the JAX trainers' scan epochs, replayed as CUDA graphs
 (``train/step_graph.py``), with the rest of their ``fit``: mid-epoch
 resume, TensorBoard scalars (``utils/tensorboard.py``) and the profiler
-hook.
+hook; multi-device training and evaluation over a (data, model) grid of
+ranks on ``torch.distributed`` (``parallel/``, the trainer's ``mesh=``);
+and the host tier: raw preprocessing and statistics without pandas
+(``data/``), the native CSR builder (``native/``) and ``utils/rng.py``.
 """
 from .device import resolve_device
 

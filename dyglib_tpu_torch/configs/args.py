@@ -4,9 +4,9 @@ Counterpart of ``dyglib_tpu/configs/args.py``: the same flags, defaults
 and choices (DyGLib's utils/load_configs.py:6-66 and :239-289), plus
 ``--device`` (default ``cuda``, resolved by ``device.resolve_device``;
 ``cpu`` runs on the CPU, as the tests do). The JAX package's scale-out
-and TPU flags are parsed alike; those whose feature the port lacks raise
-``NotImplementedError`` when set to anything but their default
-(``runners.setup_parallelism``, ``build_backbone``),
+flags build a rank grid (``runners.setup_parallelism``: one process per
+device). Its TPU flags whose feature the port lacks (``--fast_prng``,
+``--compute_dtype bfloat16``) raise ``NotImplementedError`` when set,
 never ignored.
 """
 from __future__ import annotations
@@ -71,8 +71,7 @@ def _common_args(parser: argparse.ArgumentParser) -> None:
         "--data_root", type=str, default="./processed_data",
         help="directory containing processed datasets",
     )
-    # --- the JAX package's scale-out flags (no DyGLib equivalent); the
-    # port raises on those it lacks (ROADMAP Queue 1 item 7)
+    # --- the JAX package's scale-out flags (no DyGLib equivalent)
     parser.add_argument(
         "--scan_epochs", action="store_true", default=False,
         help="stage each train epoch and eval sweep at once and replay its "
@@ -89,24 +88,25 @@ def _common_args(parser: argparse.ArgumentParser) -> None:
     )
     parser.add_argument(
         "--data_parallelism", type=int, default=0,
-        help="devices on the mesh data axis (0 = single device; others not "
-        "ported yet: raise)",
+        help="ranks on the mesh data axis (0 with one process = single device; "
+        "0 or -1 = processes / model_parallelism)",
     )
     parser.add_argument(
         "--model_parallelism", type=int, default=1,
-        help="devices on the mesh model axis (1; others not ported yet: raise)",
+        help="ranks on the mesh model axis (feature columns, DyGFormer's "
+        "sequence axis)",
     )
     parser.add_argument(
         "--coordinator_address", type=str, default="",
-        help="multi-host coordinator host:port (not ported yet: raises)",
+        help="rank 0's host:port for the process group's TCP store",
     )
     parser.add_argument(
         "--num_processes", type=int, default=1,
-        help="multi-host process count (1; others not ported yet: raise)",
+        help="processes of the run, one per device",
     )
     parser.add_argument(
         "--process_id", type=int, default=0,
-        help="multi-host process index (0; others not ported yet: raise)",
+        help="this process's rank",
     )
     parser.add_argument(
         "--compute_dtype", type=str, default="float32",

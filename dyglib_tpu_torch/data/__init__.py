@@ -10,7 +10,16 @@ from .datasets import (
     split_link_prediction_data,
     split_node_classification_data,
 )
-from .preprocess import DATASET_NAMES, write_processed
+from .preprocess import (
+    BIPARTITE_DATASETS,
+    DATASET_NAMES,
+    check_processed,
+    parse_raw_csv,
+    preprocess_dataset,
+    reindex,
+    write_processed,
+)
+from .statistics import dataset_statistics
 from .synthetic import (
     make_synthetic_bipartite,
     synthetic_link_prediction_data,
@@ -29,8 +38,14 @@ __all__ = [
     "read_edge_csv",
     "split_link_prediction_data",
     "split_node_classification_data",
+    "BIPARTITE_DATASETS",
     "DATASET_NAMES",
+    "check_processed",
+    "parse_raw_csv",
+    "preprocess_dataset",
+    "reindex",
     "write_processed",
+    "dataset_statistics",
     "make_synthetic_bipartite",
     "synthetic_link_prediction_data",
     "write_synthetic_dataset",

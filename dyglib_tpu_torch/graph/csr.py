@@ -10,9 +10,10 @@ stored as three flat arrays plus ``offsets``; each node's segment is
 sorted by time, ties broken by edge order with an edge's src-side entry
 first.
 
-Host numpy builds it (the interleave + stable argsort, whose output the
-JAX package's native builder reproduces exactly); the arrays then live on
-the device. Times are int32 keys, so strictly-before visibility and time
+The host builds it: the native builder (``native/``, a counting sort in
+C++, compiled at first use) where a compiler is present, else numpy's
+interleave + stable argsort, which give the same arrays; the arrays then
+live on the device. Times are int32 keys, so strictly-before visibility and time
 deltas are exact for every integer-timestamped dataset.
 """
 from __future__ import annotations
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from ..data.containers import EdgeStream
+from ..native import build_temporal_csr_native
 
 
 @dataclasses.dataclass
@@ -95,6 +97,25 @@ def _segment_steps(offsets: np.ndarray) -> int:
     return max(1, int(math.ceil(math.log2(max(max_deg, 2)))) + 1)
 
 
+def _entries_numpy(stream: EdgeStream, num_nodes: int):
+    """(offsets, peer, eid, ts) of the CSR's entries: the interleave (an
+    edge's src-side entry, then its dst-side one) and a stable argsort by node."""
+    e = stream.num_interactions
+    node = np.empty(2 * e, dtype=np.int64)
+    peer = np.empty(2 * e, dtype=np.int64)
+    eid = np.empty(2 * e, dtype=np.int64)
+    ts = np.empty(2 * e, dtype=np.float64)
+    # interleave so per-edge append order (src entry, then dst entry) survives
+    node[0::2], node[1::2] = stream.src, stream.dst
+    peer[0::2], peer[1::2] = stream.dst, stream.src
+    eid[0::2] = eid[1::2] = stream.eid
+    ts[0::2] = ts[1::2] = stream.ts
+    order = np.argsort(node, kind="stable")  # chronological per node
+    offsets = np.zeros(num_nodes + 1, dtype=np.int64)
+    np.cumsum(np.bincount(node, minlength=num_nodes), out=offsets[1:])
+    return offsets, peer[order], eid[order], ts[order]
+
+
 def build_temporal_csr(
     stream: EdgeStream,
     num_nodes: int | None = None,
@@ -116,21 +137,14 @@ def build_temporal_csr(
     """
     if num_nodes is None:
         num_nodes = int(max(stream.src.max(), stream.dst.max())) + 1
-    e = stream.num_interactions
-    node = np.empty(2 * e, dtype=np.int64)
-    peer = np.empty(2 * e, dtype=np.int64)
-    eid = np.empty(2 * e, dtype=np.int64)
-    ts = np.empty(2 * e, dtype=np.float64)
-    # interleave so per-edge append order (src entry, then dst entry) survives
-    node[0::2], node[1::2] = stream.src, stream.dst
-    peer[0::2], peer[1::2] = stream.dst, stream.src
-    eid[0::2] = eid[1::2] = stream.eid
-    ts[0::2] = ts[1::2] = stream.ts
-
-    order = np.argsort(node, kind="stable")  # chronological per node
-    peer, eid, ts = peer[order], eid[order], ts[order]
-    offsets = np.zeros(num_nodes + 1, dtype=np.int64)
-    np.cumsum(np.bincount(node, minlength=num_nodes), out=offsets[1:])
+    # the native builder (one counting-sort pass) where a host compiler is
+    # present; else the interleave + stable argsort, the same arrays
+    native = build_temporal_csr_native(stream.src, stream.dst, stream.eid, stream.ts, num_nodes)
+    if native is not None:
+        offsets, peer, eid, ts = native
+        peer, eid = peer.astype(np.int64), eid.astype(np.int64)
+    else:
+        offsets, peer, eid, ts = _entries_numpy(stream, num_nodes)
     keys = time_keys(ts)
     # the flat arrays are sorted by (node, time key), so one global
     # searchsorted of every entry's (peer, time key) gives offsets[peer]

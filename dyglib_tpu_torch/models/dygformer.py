@@ -2,8 +2,7 @@
 neighbor co-occurrence encoding.
 
 Counterpart of ``dyglib_tpu/models/dygformer.py`` (f32 compute, no
-sequence sharding, no TPU layout aids). The semantics are the JAX
-package's:
+``remat``, no TPU layout aids). The semantics are the JAX package's:
 
   * sequence = the target node first (edge id 0, t = query time), then its
     most recent ``min(maxlen, total) - 1`` interactions in chronological
@@ -41,6 +40,13 @@ device. ``sample`` launches no kernel, so the net's flag is the one
 switch. Unlike the JAX package, the patch kernel also runs
 at patch 1 (it is then a plain projection of the gathered rows).
 
+Ulysses (``sequence_axis``, under a trainer's mesh): the channel
+projections run on whole sequences; then each rank of the axis keeps its
+shard of the joint tokens for LN, the projections and the FFN, the
+attention runs on its heads over every token between two all-to-alls, and
+the tokens are gathered again (differentiably) before the pooling. Plain
+PyTorch, as the JAX package's is XLA's.
+
 Training: in train mode the transformer's dropout draws its masks from a
 ``torch.Generator`` the caller passes (the trainer owns one, seeded from
 ``fit``'s seed), never from the global RNG.
@@ -64,6 +70,7 @@ from torch import nn
 from ..graph.csr import TemporalCSR
 from ..graph.sampler import window_bounds
 from ..nn.modules import LN_EPS, TimeEncoder, dropout, linear
+from ..parallel.mesh import all_gather, all_to_all
 from ..ops import (
     cooccurrence_counts,
     cooccurrence_counts_plain,
@@ -126,7 +133,12 @@ class PreLNTransformerEncoder(nn.Module):
         self.ffn2 = linear(4 * d, d, gen)
         self.dropout = dropout
 
-    def forward(self, x: torch.Tensor, dropout_gen: torch.Generator | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dropout_gen: torch.Generator | None = None,
+                seq_group=None) -> torch.Tensor:
+        """``seq_group = (mesh, axis)``: ``x`` is this rank's shard of the
+        tokens (Ulysses); LN, the projections and the FFN run on it, and
+        the attention on this rank's heads over every token, between two
+        all-to-alls along ``axis`` (tokens -> heads, heads -> tokens)."""
         p = self.dropout if self.training else 0.0
         drop = lambda y: dropout(y, p, dropout_gen)
         b, t, d = x.shape
@@ -135,9 +147,17 @@ class PreLNTransformerEncoder(nn.Module):
         q = self.q_proj(h).view(b, t, self.num_heads, hd)
         k = self.k_proj(h).view(b, t, self.num_heads, hd)
         v = self.v_proj(h).view(b, t, self.num_heads, hd)
+        if seq_group is not None:
+            mesh, axis = seq_group
+            # (3, b, t/n, H, hd) -> (3, b, t, H/n, hd)
+            q, k, v = all_to_all(torch.stack([q, k, v]), mesh, axis, "dygformer/qkv",
+                                 split_dim=3, cat_dim=2).unbind(0)
         attn = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
         scores = drop(torch.softmax(attn, dim=-1))
-        hidden = torch.einsum("bhqk,bkhd->bqhd", scores, v).reshape(b, t, d)
+        hidden = torch.einsum("bhqk,bkhd->bqhd", scores, v)
+        if seq_group is not None:  # (b, t, H/n, hd) -> (b, t/n, H, hd)
+            hidden = all_to_all(hidden, mesh, axis, "dygformer/hidden", split_dim=1, cat_dim=2)
+        hidden = hidden.reshape(b, t, d)
         x = x + drop(self.out_proj(hidden))
         h = self.norm2(x)
         h = F.gelu(self.ffn1(h))  # exact erf
@@ -157,10 +177,16 @@ class DyGFormerNet(nn.Module):
         num_heads: int = 2,
         dropout: float = 0.1,
         use_kernels: bool = True,
+        sequence_axis: str | None = None,
     ):
         super().__init__()
         ced = channel_embedding_dim
         self.ced = ced
+        self.num_heads = num_heads
+        # Ulysses: with a mesh (set by a trainer) and an axis, the joint
+        # token stream is sharded over that axis inside the encoder
+        self.sequence_axis = sequence_axis
+        self.mesh = None
         self.patch_size = patch_size
         self.use_kernels = use_kernels
         self.co_occurrence_fc1 = linear(1, ced, gen)
@@ -266,8 +292,19 @@ class DyGFormerNet(nn.Module):
 
         # ---- joint src||dst attention per pair
         joint = torch.cat([xl, xr], dim=1)
+        seq_group = None
+        if self.mesh is not None and self.sequence_axis is not None:
+            seq_group = (self.mesh, self.sequence_axis)
+            n, i = self.mesh.size(self.sequence_axis), self.mesh.index(self.sequence_axis)
+            t = joint.shape[1]
+            if t % n or self.num_heads % n:
+                raise ValueError(f"sequence axis of {n} ranks must divide the {t} joint tokens "
+                                 f"and the {self.num_heads} heads")
+            joint = joint.narrow(1, i * (t // n), t // n)
         for i in range(self.num_layers):
-            joint = getattr(self, f"transformer_{i}")(joint, dropout_gen)
+            joint = getattr(self, f"transformer_{i}")(joint, dropout_gen, seq_group)
+        if seq_group is not None:  # every token again, for the pooling
+            joint = all_gather(joint, *seq_group, "dygformer/tokens", dim=1)
         emb_l = self.output_layer(joint[:, :p, :].mean(dim=1))
         emb_r = self.output_layer(joint[:, p:, :].mean(dim=1))
         return torch.cat([emb_l[:b], emb_r[:b], emb_l[b:], emb_r[b:]], dim=0)
@@ -291,6 +328,10 @@ class DyGFormer:
     # instead of two table gathers; off, as the JAX package resolves it,
     # until the card's numbers argue otherwise (PERF.md)
     use_entry_fetch: bool = False
+    # mesh axis over which the joint patch tokens are sharded (Ulysses);
+    # None: unsharded. Its size must divide num_heads and the joint token
+    # count 2 * seq_len / patch_size
+    sequence_axis: str | None = None
     # where neg_src = src the net pairs the triple [src, dst, neg_dst]
     # itself (``triple=True``): src's rows serve both pairs, exactly
     triple_expand: ClassVar[bool] = True
@@ -332,6 +373,7 @@ class DyGFormer:
             num_heads=self.num_heads,
             dropout=self.dropout,
             use_kernels=self.use_kernels,
+            sequence_axis=self.sequence_axis,
         )
 
     def sample(

@@ -25,6 +25,11 @@ batch rows point at, and no write changes it.
     row's own values back to it, so every writer of a row writes the same
     value, and no write waits on the host (no boolean indexing).
   * Cells: TGN a GRU cell, DyRep and JODIE an RNN cell (``nn/modules.py``).
+  * Under a trainer's mesh the state is node-sharded over the data axis
+    (``shard_state``): ``view_rows`` fetches the rows from their owners
+    (``fetch_rows``) and ``commit`` routes messages to them
+    (``_commit_sharded``); ``gather_state`` makes a checkpoint's whole
+    state.
   * Embeddings: JODIE projects its view by time, mem * (1 + Linear(dt')),
     dt' the gap since the node's last update normalized by its ROLE's
     train-set statistics (``roles``, never inferred from the row count but
@@ -66,6 +71,7 @@ from ..nn.modules import (
     dropout,
     linear,
 )
+from ..parallel.mesh import DATA_AXIS, all_gather, all_to_all, row_slice
 from .base import FeatureTables
 
 MODEL_NAMES = ("TGN", "DyRep", "JODIE")
@@ -170,6 +176,9 @@ class MemoryModelNet(nn.Module):
         self.dropout = dropout
         self.time_shifts = time_shifts
         self.use_kernels = use_kernels
+        # set by a trainer under a mesh: the state is then this rank's
+        # shard of the node rows (``shard_state``)
+        self.mesh = None
         self.time_encoder = TimeEncoder(time_feat_dim)
         message_dim = 2 * memory_dim + time_feat_dim + edge_dim
         cell = FusedGRUCell if model_name == "TGN" else FusedRNNCell
@@ -202,13 +211,18 @@ class MemoryModelNet(nn.Module):
         return memory, torch.where(state.msg_valid, state.msg_time, state.last_update)
 
     def view_rows(self, state: MemoryState, rows: torch.Tensor):
-        """``memory_view(state)`` at ``rows`` only: (memory, last_update)."""
+        """``memory_view(state)`` at ``rows`` only: (memory, last_update).
+        Under a mesh ``rows`` are global ids, read from their owners
+        (``fetch_rows``); the cell runs here, so gradients stay local."""
         rows = rows.long()
-        mem = state.memory[rows]
-        valid = state.msg_valid[rows]
-        upd = self.memory_cell(mem, state.msg[rows])
+        if self.mesh is not None:
+            mem, msg, lu, msg_time, valid = fetch_rows(state, rows, self.mesh)
+        else:
+            mem, msg, lu = state.memory[rows], state.msg[rows], state.last_update[rows]
+            msg_time, valid = state.msg_time[rows], state.msg_valid[rows]
+        upd = self.memory_cell(mem, msg)
         memory = torch.where(valid[:, None], upd, mem)
-        return memory, torch.where(valid, state.msg_time[rows], state.last_update[rows])
+        return memory, torch.where(valid, msg_time, lu)
 
     def forward(
         self,
@@ -276,10 +290,17 @@ class MemoryModelNet(nn.Module):
     ) -> torch.Tensor:
         """Messages for ``own_ids`` from the committed memory."""
         own = own_ids.long()
-        partner_mem = partner_emb if self.model_name == "DyRep" else memory[partner_ids.long()]
-        dt = ts.to(torch.float32) - last_update[own].to(torch.float32)
-        phi = self.time_encoder(dt)
-        return torch.cat([memory[own], partner_mem, phi, tables.edge[eids.long()]], dim=-1)
+        return self.message(tables, memory[own], last_update[own], memory[partner_ids.long()],
+                            partner_emb, ts, eids)
+
+    def message(self, tables, own_mem, own_lu, partner_mem, partner_emb, ts, eids):
+        """[own memory || partner memory (DyRep: its embedding) ||
+        Phi(t - own last update) || edge features] of rows already read."""
+        if self.model_name == "DyRep":
+            partner_mem = partner_emb
+        dt = ts.to(torch.float32) - own_lu.to(torch.float32)
+        return torch.cat([own_mem, partner_mem, self.time_encoder(dt), tables.edge[eids.long()]],
+                         dim=-1)
 
 
 def memory_order_violations(
@@ -306,6 +327,86 @@ def _last_occurrence_mask(safe_ids: torch.Tensor, valid: torch.Tensor, n: int) -
     seg_last = torch.full((n + 1,), -1, dtype=pos.dtype, device=pos.device)
     seg_last = seg_last.scatter_reduce(0, safe_ids, pos_v, reduce="amax")
     return valid & (seg_last[safe_ids] == pos_v)
+
+
+# ------------------------------------------------- node-sharded state (mesh)
+# Each data rank owns a contiguous block of S = ceil(R / dp) of the R global
+# rows (rank d: rows [d S, (d + 1) S)) plus one dump row of its own, local
+# row S, which the writes of rows it does not own go to. No collective
+# carries a tensor that grows with the number of nodes: a read sends the
+# ids it needs and gets those rows back, a commit routes each kept row's
+# message to its owner. Only ``gather_state`` (a checkpoint) moves a shard.
+
+def state_rows(num_nodes: int) -> int:
+    """R, the rows of an unsharded state: num_nodes + 1 rounded up to 8."""
+    return ((num_nodes + 1 + 7) // 8) * 8
+
+
+def shard_rows(rows: int, mesh) -> int:
+    """S, the global rows a data rank owns."""
+    return -(-rows // mesh.data_size)
+
+
+def shard_state(state: MemoryState, mesh) -> MemoryState:
+    """A whole state (R rows, the last its dump row) -> this data rank's
+    shard: its S rows and a dump row (the whole state's, all zero)."""
+    r = state.memory.shape[0]
+    s = shard_rows(r, mesh)
+    lo = mesh.index(DATA_AXIS) * s
+
+    def part(t):
+        pad = t.new_zeros((mesh.data_size * s - r + 1, *t.shape[1:]))
+        full = torch.cat([t, pad])  # row dp*s is a zero dump row
+        return torch.cat([full[lo:lo + s], full[-1:]])
+
+    return MemoryState(*(part(t) for t in state))
+
+
+def gather_state(state: MemoryState, mesh, rows: int) -> MemoryState:
+    """The shards of the data axis gathered into the whole R-row state (every
+    rank gets it; a checkpoint's only num_nodes-sized collective)."""
+    s = state.memory.shape[0] - 1
+
+    def whole(t, name):
+        if t.dtype == torch.bool:
+            return whole(t.to(torch.int32), name).to(torch.bool)
+        return all_gather(t[:s].contiguous(), mesh, DATA_AXIS, f"checkpoint/{name}")[:rows]
+
+    return MemoryState(*(whole(t, name) for t, name in zip(state, MemoryState._fields)))
+
+
+def _as_f32(t: torch.Tensor) -> torch.Tensor:
+    """int32 / bool columns carried bit for bit in a float32 payload."""
+    return t.to(torch.int32).view(torch.float32)
+
+
+def _owners(ids: torch.Tensor, s: int, mesh):
+    """(dp, n) local rows each data rank is asked for: the id's local row on
+    its owner, the dump row s on every other rank."""
+    ranks = torch.arange(mesh.data_size, device=ids.device)[:, None]
+    return torch.where(ids[None, :] // s == ranks, ids[None, :] % s, s)
+
+
+def fetch_rows(state: MemoryState, ids: torch.Tensor, mesh):
+    """(memory, msg, last_update, msg_time, msg_valid) at global ``ids`` from
+    their owners, by two all-to-alls over the data axis: the ids out, the
+    rows back (one float32 payload a row, the clocks and flag bitwise)."""
+    s = state.memory.shape[0] - 1
+    n = ids.shape[0]
+    asked = all_to_all(_owners(ids, s, mesh).to(torch.int32), mesh, DATA_AXIS,
+                       "memory/ids").reshape(-1).long()
+    payload = torch.cat([state.memory[asked], state.msg[asked],
+                         _as_f32(state.last_update[asked])[:, None],
+                         _as_f32(state.msg_time[asked])[:, None],
+                         _as_f32(state.msg_valid[asked])[:, None]], dim=1)
+    back = all_to_all(payload.reshape(mesh.data_size, n, -1), mesh, DATA_AXIS, "memory/rows")
+    got = back[ids // s, torch.arange(n, device=ids.device)]  # the owner's answer
+    d, w = state.memory.shape[1], state.msg.shape[1]
+    ints = got[:, d + w:].contiguous().view(torch.int32)
+    # contiguous, as a gather's rows are: the cell's products then round
+    # as they do on one device
+    return (got[:, :d].contiguous(), got[:, d:d + w].contiguous(), ints[:, 0], ints[:, 1],
+            ints[:, 2].to(torch.bool))
 
 
 @dataclasses.dataclass
@@ -374,10 +475,12 @@ class MemoryModel:
             hop_mask=tuple(blk.mask.reshape(b, -1) for blk in blocks),
         )
 
-    def init_state(self, tables: FeatureTables) -> MemoryState:
-        """An empty memory on the tables' device."""
-        n = tables.node.shape[0]
-        rows = ((n + 1 + 7) // 8) * 8
+    def init_state(self, tables: FeatureTables, mesh=None) -> MemoryState:
+        """An empty memory on the tables' device (under a mesh, this data
+        rank's shard: S + 1 rows)."""
+        rows = state_rows(tables.node.shape[0])
+        if mesh is not None:
+            rows = shard_rows(rows, mesh) + 1
         message_dim = 2 * self.memory_dim + self.time_feat_dim + tables.edge_dim
         zeros = lambda *shape, dtype=torch.float32: torch.zeros(
             shape, dtype=dtype, device=tables.node.device)
@@ -408,7 +511,13 @@ class MemoryModel:
         clear their slots, then store new messages computed from the
         committed memory. No gradient flows through it (the reference
         detaches the memory at every batch boundary); ``src_emb`` and
-        ``dst_emb`` are the raw embeddings DyRep's messages carry."""
+        ``dst_emb`` are the raw embeddings DyRep's messages carry. Under a
+        mesh (``net.mesh``) the batch columns are the GLOBAL batch, the
+        embeddings this rank's rows of it, and the state a shard
+        (``_commit_sharded``)."""
+        if net.mesh is not None:
+            return self._commit_sharded(net, tables, state, src, dst, ts, eids, valid,
+                                        src_emb, dst_emb)
         n = state.memory.shape[0] - 1
         valid = valid.to(torch.bool)
         ids2 = torch.cat([src, dst]).long()
@@ -438,6 +547,67 @@ class MemoryModel:
                                    torch.where(valid, partner.long(), n), partner_emb, ts, eids)
             msg[idx] = torch.where(keep[:, None], new, msg[idx])
             msg_time[idx] = torch.where(keep, ts, msg_time[idx])
+            msg_valid[idx] = keep | msg_valid[idx]
+        return MemoryState(memory, last_update, msg, msg_time, msg_valid)
+
+    def _commit_sharded(self, net, tables, state, src, dst, ts, eids, valid, src_emb, dst_emb):
+        """``commit`` on a node-sharded state. Every rank computes the global
+        last-occurrence masks from the global batch; each owner commits the
+        pending slots of the kept rows it owns; each rank reads the committed
+        rows of its own batch rows' nodes from their owners, computes their
+        messages and routes each kept one to its owner, which stores the
+        source side's, then the destination side's (which win for a node
+        on both)."""
+        mesh = net.mesh
+        s = state.memory.shape[0] - 1
+        n = s * mesh.data_size  # the global id of no row: the masks' dump
+        d = mesh.index(DATA_AXIS)
+        valid = valid.to(torch.bool)
+        ids2 = torch.cat([src, dst]).long()
+        valid2 = torch.cat([valid, valid])
+        safe2 = torch.where(valid2, ids2, n)
+        keep2 = _last_occurrence_mask(safe2, valid2, n) & (safe2 // s == d)
+        rows = torch.where(keep2, safe2 % s, s)
+        pending = (state.msg_valid[rows] & keep2)[:, None]
+        upd = net.memory_cell(state.memory[rows], state.msg[rows])
+        memory, last_update = state.memory.clone(), state.last_update.clone()
+        msg_valid = state.msg_valid.clone()
+        memory[rows] = torch.where(pending, upd, state.memory[rows])
+        last_update[rows] = torch.where(pending[:, 0], state.msg_time[rows],
+                                        state.last_update[rows])
+        msg_valid[rows] = state.msg_valid[rows] & ~keep2
+
+        sl = row_slice(src.shape[0], mesh, src.device)
+        loc = lambda t: t.index_select(0, sl.rows)
+        ts = ts.to(torch.int32)
+        l_src, l_dst, l_ts, l_eid = loc(src).long(), loc(dst).long(), loc(ts), loc(eids)
+        # the committed rows of this rank's batch nodes, from their owners
+        committed = MemoryState(memory, last_update, state.msg, state.msg_time, msg_valid)
+        mem, _, lu, _, _ = fetch_rows(committed, torch.cat([l_src, l_dst]), mesh)
+        b = l_src.shape[0]
+        sides = []
+        for own, (om, ol), pm, pe in (
+            (src, (mem[:b], lu[:b]), mem[b:], dst_emb),
+            (dst, (mem[b:], lu[b:]), mem[:b], src_emb),
+        ):
+            own_safe = torch.where(valid, own.long(), n)
+            kept = loc(_last_occurrence_mask(own_safe, valid, n)) & sl.real
+            target = loc(own_safe)
+            new = net.message(tables, om, ol, pm, pe, l_ts, l_eid)
+            # (dp, b) local row on each rank: the owner's row if kept, else its dump
+            dest = torch.where(kept[None, :], _owners(target, s, mesh), s)
+            sides.append(torch.cat([new.expand(mesh.data_size, -1, -1),
+                                    _as_f32(l_ts).expand(mesh.data_size, -1)[..., None],
+                                    _as_f32(dest)[..., None]], dim=-1))
+        got = all_to_all(torch.stack(sides, 1), mesh, DATA_AXIS, "memory/messages")
+        msg, msg_time = state.msg.clone(), state.msg_time.clone()
+        w = msg.shape[1]
+        for side in got.unbind(1):  # (dp, b, w + 2): the source side first
+            side = side.reshape(-1, w + 2)
+            ints = side[:, w:].contiguous().view(torch.int32)
+            idx, keep = ints[:, 1].long(), ints[:, 1] < s
+            msg[idx] = torch.where(keep[:, None], side[:, :w], msg[idx])
+            msg_time[idx] = torch.where(keep, ints[:, 0], msg_time[idx])
             msg_valid[idx] = keep | msg_valid[idx]
         return MemoryState(memory, last_update, msg, msg_time, msg_valid)
 

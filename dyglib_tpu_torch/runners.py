@@ -17,9 +17,14 @@ Counterpart of ``dyglib_tpu/runners.py``:
 
 Paths are relative to the working directory, as DyGLib's are. Each
 ``run_*`` runs on ``device`` (default: the ``--device`` flag, ``cuda``
-unless asked otherwise). Flags of the JAX package whose feature the port
-lacks raise ``NotImplementedError`` (``setup_parallelism``;
-``build_backbone`` for ``--compute_dtype``).
+unless asked otherwise). The link-prediction drivers run over a rank grid
+when the parallelism flags ask for one (``setup_parallelism``): one
+process per device, ``--num_processes``, ``--process_id`` and
+``--coordinator_address`` (rank 0's host:port) on each; only the lead
+rank writes results, checkpoints and logs. The node-classification
+drivers run on one device, as the JAX package's do. Flags of the JAX
+package whose feature the port lacks raise ``NotImplementedError``
+(``--fast_prng``; ``build_backbone`` for ``--compute_dtype``).
 """
 from __future__ import annotations
 
@@ -29,11 +34,15 @@ import os
 import time
 
 import numpy as np
+import torch
 
 from .configs.factory import build_backbone
 from .data.datasets import get_link_prediction_data, get_node_classification_data
 from .device import resolve_device
 from .graph.neg_sampler import build_eval_neg_samplers
+from .parallel import initialize_distributed, make_mesh
+from .parallel.distributed import free_port
+from .parallel.mesh import broadcast_object
 from .train.checkpoints import load_checkpoint, to_device
 from .train.edgebank_eval import evaluate_edge_bank_link_prediction
 from .train.link_prediction import LinkPredictionTrainer, TrainConfig
@@ -42,24 +51,25 @@ from .train.node_classification import NodeClassificationTrainer
 LINK_SPLITS = ("validate", "new node validate", "test", "new node test")
 
 
-def make_run_logger(args, run_name: str) -> logging.Logger:
+def make_run_logger(args, run_name: str, write: bool = True) -> logging.Logger:
     """Per-run file (DEBUG) + console (WARNING) logger under
-    ./logs/{model}/{dataset}/{run_name}/."""
+    ./logs/{model}/{dataset}/{run_name}/ (``write=False``: the console only)."""
     logger = logging.getLogger(run_name)
     logger.setLevel(logging.DEBUG)
     for handler in list(logger.handlers):
         logger.removeHandler(handler)
         handler.close()
-    log_dir = f"./logs/{args.model_name}/{args.dataset_name}/{run_name}/"
-    os.makedirs(log_dir, exist_ok=True)
-    fh = logging.FileHandler(os.path.join(log_dir, f"{time.time()}.log"))
-    fh.setLevel(logging.DEBUG)
+    fmt = logging.Formatter("%(asctime)s - %(name)s - %(levelname)s - %(message)s")
+    if write:
+        log_dir = f"./logs/{args.model_name}/{args.dataset_name}/{run_name}/"
+        os.makedirs(log_dir, exist_ok=True)
+        fh = logging.FileHandler(os.path.join(log_dir, f"{time.time()}.log"))
+        fh.setLevel(logging.DEBUG)
+        fh.setFormatter(fmt)
+        logger.addHandler(fh)
     ch = logging.StreamHandler()
     ch.setLevel(logging.WARNING)
-    fmt = logging.Formatter("%(asctime)s - %(name)s - %(levelname)s - %(message)s")
-    fh.setFormatter(fmt)
     ch.setFormatter(fmt)
-    logger.addHandler(fh)
     logger.addHandler(ch)
     return logger
 
@@ -82,21 +92,48 @@ def train_config_from_args(args) -> TrainConfig:
     )
 
 
-def setup_parallelism(args) -> None:
-    """The port runs one process on one device: raise on the JAX package's
-    multi-device and multi-host flags (ROADMAP Queue 1 item 7) and on
-    ``--fast_prng``, set to anything but their defaults."""
+def refuse_fast_prng(args) -> None:
     if args.fast_prng:
         raise NotImplementedError(
             "--fast_prng picks a JAX PRNG implementation; the port has no counterpart "
             "(its dropout draws from torch.Generator)")
-    multi = {"data_parallelism": 0, "model_parallelism": 1, "num_processes": 1,
-             "process_id": 0, "coordinator_address": ""}
-    unported = [f"--{k} {getattr(args, k)!r}" for k, v in multi.items() if getattr(args, k) != v]
-    if unported:
-        raise NotImplementedError(
-            f"{', '.join(unported)}: multi-device and multi-host runs are not ported yet "
-            "(ROADMAP Queue 1 item 7, multi-GPU)")
+
+
+def setup_parallelism(args, device=None):
+    """The process group and rank grid the flags ask for -> (mesh | None,
+    is_lead). Call once per process before building trainers.
+
+    One process and the default grid (``--data_parallelism 0``,
+    ``--model_parallelism 1``) keep the single-device path: (None, True).
+    Otherwise ``--num_processes`` ranks (``--process_id`` this one,
+    ``--coordinator_address`` rank 0's host:port; a single process makes
+    its own one-rank group on a free local port) form a (dp, mp) grid:
+    ``dp`` of 0 or -1 is the process count / mp, else dp x mp must equal
+    the process count (``ValueError`` otherwise). The backend is NCCL on
+    ``cuda`` (each rank on ``cuda:<process_id % device_count>``), gloo on
+    the CPU."""
+    refuse_fast_prng(args)
+    dev = _device(args, device)
+    n = args.num_processes
+    if n < 1:
+        raise ValueError(f"--num_processes {n}: need at least one process")
+    dp, mp = args.data_parallelism, args.model_parallelism
+    if n == 1 and dp == 0 and mp == 1:
+        return None, True
+    if mp < 1 or dp < -1:
+        raise ValueError(f"--data_parallelism {dp} / --model_parallelism {mp}: dp must be "
+                         ">= -1 and mp >= 1")
+    if n % mp:
+        raise ValueError(f"--model_parallelism {mp} does not divide {n} processes")
+    if dp not in (0, -1) and dp * mp != n:
+        raise ValueError(f"--data_parallelism {dp} x --model_parallelism {mp} = {dp * mp} "
+                         f"ranks, but the run has {n} processes (--num_processes)")
+    address = args.coordinator_address or (f"127.0.0.1:{free_port()}" if n == 1 else "")
+    rank, _ = initialize_distributed(address, n, args.process_id, device=dev)
+    mesh = make_mesh(n, model_parallelism=mp,
+                     device=torch.device("cuda", torch.cuda.current_device())
+                     if dev.type == "cuda" else dev)
+    return mesh, rank == 0
 
 
 def _device(args, device):
@@ -131,9 +168,10 @@ def _aggregate(logger, name: str, all_runs: list[dict]) -> dict:
     return out
 
 
-def checkpoint_path(args, run: int) -> str:
+def checkpoint_path(args, run: int, create: bool = True) -> str:
     folder = f"./saved_models/{args.model_name}/{args.dataset_name}/{args.model_name}_seed{run}/"
-    os.makedirs(folder, exist_ok=True)
+    if create:
+        os.makedirs(folder, exist_ok=True)
     return os.path.join(folder, f"{args.model_name}_seed{run}.pkl")
 
 
@@ -149,9 +187,10 @@ def print_aggregate(aggregate: dict) -> None:
 
 
 def run_link_prediction_training(args, device=None) -> dict:
-    """Multi-run training driver; returns aggregate metrics."""
-    setup_parallelism(args)
-    dev = _device(args, device)
+    """Multi-run training driver; returns aggregate metrics. Under a mesh
+    every rank trains; the lead writes the results, checkpoints and logs."""
+    mesh, is_lead = setup_parallelism(args, device)
+    dev = mesh.device if mesh is not None else _device(args, device)
     data = get_link_prediction_data(
         args.dataset_name, args.val_ratio, args.test_ratio, args.data_root
     )
@@ -160,28 +199,36 @@ def run_link_prediction_training(args, device=None) -> dict:
     logger = None
     for run in range(args.num_runs):
         run_name = f"{args.model_name}_seed{run}"
-        logger = make_run_logger(args, run_name)
+        logger = make_run_logger(args, run_name, write=is_lead)
         logger.info(f"********** Run {run + 1} starts. **********")
         logger.info(f"configuration is {args}")
         t0 = time.time()
         trainer = LinkPredictionTrainer(
-            build_backbone(args, data), data, cfg, checkpoint_path(args, run), device=dev)
+            build_backbone(args, data), data, cfg, checkpoint_path(args, run, create=is_lead),
+            device=dev, mesh=mesh)
         results = trainer.fit(seed=run, log=logger.info)
         for split in aggregates:
             aggregates[split].append(results[f"{split} metrics"])
             for k, v in results[f"{split} metrics"].items():
                 logger.info(f"{split} {k}, {v:.4f}")
         logger.info(f"Run {run + 1} cost {time.time() - t0:.2f} seconds.")
-        _save_results(args, run_name, results)
+        if is_lead:
+            _save_results(args, run_name, results)
     logger.info(f"metrics over {args.num_runs} runs:")
     return {split: _aggregate(logger, split, runs) for split, runs in aggregates.items()}
 
 
 def run_link_prediction_evaluation(args, device=None) -> dict:
     """Evaluate saved checkpoints under a negative-sampling strategy,
-    including the EdgeBank arm."""
-    setup_parallelism(args)
-    dev = _device(args, device)
+    including the EdgeBank arm (on one device). Under a mesh the lead
+    reads each checkpoint and sends it to the other ranks, and writes the
+    results."""
+    if args.model_name == "EdgeBank":
+        refuse_fast_prng(args)
+        mesh, is_lead = None, True
+    else:
+        mesh, is_lead = setup_parallelism(args, device)
+    dev = mesh.device if mesh is not None else _device(args, device)
     data = get_link_prediction_data(
         args.dataset_name, args.val_ratio, args.test_ratio, args.data_root
     )
@@ -210,12 +257,15 @@ def run_link_prediction_evaluation(args, device=None) -> dict:
     logger = None
     for run in range(args.num_runs):
         run_name = f"{args.negative_sample_strategy}_negative_sampling_{args.model_name}_seed{run}"
-        logger = make_run_logger(args, run_name)
-        trainer = LinkPredictionTrainer(
-            build_backbone(args, data), data, cfg, checkpoint_path(args, run), device=dev)
-        ckpt = load_checkpoint(checkpoint_path(args, run))
+        logger = make_run_logger(args, run_name, write=is_lead)
+        backbone = build_backbone(args, data)
+        path = checkpoint_path(args, run, create=is_lead)
+        trainer = LinkPredictionTrainer(backbone, data, cfg, path, device=dev, mesh=mesh)
+        ckpt = load_checkpoint(path) if is_lead else None
+        if mesh is not None:
+            ckpt = broadcast_object(ckpt, mesh, "checkpoint/load")
         trainer.load_params(ckpt["params"])
-        state = to_device(ckpt["state"], dev)
+        state = trainer.load_state(ckpt["state"])
         # val and new-node val from the checkpoint's state, test and
         # new-node test from the state after val
         val = trainer.evaluate(data.val, val_neg, 0, state=state)
@@ -233,13 +283,15 @@ def run_link_prediction_evaluation(args, device=None) -> dict:
             aggregates[split].append(md)
             for k, v in md.items():
                 logger.info(f"{split} {k}, {v:.4f}")
-        _save_results(args, run_name, {f"{s} metrics": m for s, m in per_split.items()})
+        if is_lead:
+            _save_results(args, run_name, {f"{s} metrics": m for s, m in per_split.items()})
     return {split: _aggregate(logger, split, runs) for split, runs in aggregates.items()}
 
 
 def run_node_classification_training(args, device=None) -> dict:
-    """Frozen-backbone head training from each run's link-prediction checkpoint."""
-    setup_parallelism(args)
+    """Frozen-backbone head training from each run's link-prediction
+    checkpoint, on one device (the JAX package's driver takes no mesh)."""
+    refuse_fast_prng(args)
     dev = _device(args, device)
     link_data = get_link_prediction_data(
         args.dataset_name, args.val_ratio, args.test_ratio, args.data_root
@@ -270,8 +322,9 @@ def run_node_classification_training(args, device=None) -> dict:
 
 
 def run_node_classification_evaluation(args, device=None) -> dict:
-    """Evaluate saved node-classification heads on the test split."""
-    setup_parallelism(args)
+    """Evaluate saved node-classification heads on the test split, on one
+    device."""
+    refuse_fast_prng(args)
     dev = _device(args, device)
     link_data = get_link_prediction_data(
         args.dataset_name, args.val_ratio, args.test_ratio, args.data_root

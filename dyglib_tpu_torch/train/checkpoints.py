@@ -6,7 +6,10 @@ arrays, written atomically through ``<path>.tmp``. The port's params are
 ``{"backbone": {name: array}, "head": {name: array}}`` (its state dicts as
 numpy); a JAX checkpoint's ``"params"`` go through
 ``transfer.from_jax_params``. A memory model's state is its ``MemoryState``
-with numpy fields; ``to_device`` puts it back on a device. Unpickling runs
+with numpy fields; ``to_device`` puts it back on a device. Under a mesh a
+checkpoint holds the whole state: the trainer gathers the node shards
+before saving (``host_state``) and shards the loaded one
+(``load_state``). Unpickling runs
 code, so load only checkpoints this project wrote.
 """
 from __future__ import annotations
@@ -52,12 +55,17 @@ def to_device(tree: Any, device) -> Any:
     return _map(lambda a: torch.as_tensor(a).to(device), tree)
 
 
-def save_checkpoint(path: str, params: Any, state: Any = None, extra: Any = None) -> None:
-    payload = {
+def checkpoint_payload(params: Any, state: Any = None, extra: Any = None) -> dict:
+    """What a checkpoint holds (numpy leaves), as ``load_checkpoint`` returns it."""
+    return {
         "params": _to_numpy(params),
         "state": _to_numpy(state) if state is not None else None,
         "extra": extra,
     }
+
+
+def save_checkpoint(path: str, params: Any, state: Any = None, extra: Any = None) -> None:
+    payload = checkpoint_payload(params, state, extra)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:

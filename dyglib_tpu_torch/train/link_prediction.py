@@ -70,6 +70,16 @@ Protocol (the JAX package's):
     has no sequence buckets (the JAX rule), its graphs kept per layout and
     CSR; losses and probabilities are read back once a sweep. ``fit`` scans
     an epoch unless it resumes mid-epoch or writes resume checkpoints;
+  * a rank grid (``mesh=``, ``parallel.make_mesh``; one process a
+    device): every rank holds the global batch (the same seeded train
+    negatives, and a stochastic strategy's draws made for the whole
+    batch) and embeds its rows of it; the loss divides by the global
+    batch's valid rows, the gradients are summed over all ranks (the
+    model axis's ranks each backpropagating 1/mp of the loss), the
+    probabilities gathered, so every rank reports the global numbers;
+    only the lead rank (0) writes checkpoints, the others keep theirs in
+    memory; a memory model's state is node-sharded (``load_state`` and
+    ``host_state`` convert a whole state);
   * mid-epoch resume: every ``cfg.resume_every_batches`` train batches
     ``<save_path>.resume`` records the parameters, the optimizer's state,
     the memory, the epoch and next batch, early stopping's progress and
@@ -104,8 +114,25 @@ from ..device import resolve_device
 from ..graph.csr import FEAT_ENTRY_PAD, TemporalCSR, build_temporal_csr, time_keys
 from ..graph.neg_sampler import NegativeEdgeSampler, build_eval_neg_samplers
 from ..models.base import FeatureTables
-from ..models.memory_model import memory_order_violations, segment_roles
+from ..models.memory_model import (
+    gather_state,
+    memory_order_violations,
+    segment_roles,
+    shard_state,
+    state_rows,
+)
 from ..nn.modules import MergeLayer
+from ..parallel.mesh import (
+    DATA_AXIS,
+    ColumnShardedTable,
+    Mesh,
+    all_reduce,
+    batch_sharded,
+    gather_rows,
+    replicated,
+    row_slice,
+)
+from ..utils.rng import generator
 from ..utils.tensorboard import SummaryWriter
 from .checkpoints import load_checkpoint, save_checkpoint, to_cpu, to_device
 from .early_stopping import EarlyStopping
@@ -207,18 +234,42 @@ class LinkPredictionTrainer:
         cfg: TrainConfig,
         save_path: str | None = None,
         device: str | torch.device | None = None,
+        mesh: Mesh | None = None,
     ):
+        """``mesh`` (``parallel.make_mesh``; every rank builds its trainer
+        with the same arguments): each step runs over the rank grid. Every
+        rank holds the global batch and embeds its rows of it
+        (``parallel.row_slice``); the loss is the global masked mean,
+        gradients are summed over the ranks, probabilities gathered over the
+        data axis; feature tables are column-sharded over the model axis
+        when it has more than one rank (``ColumnShardedTable``), a memory
+        model's state node-sharded over the data axis, and a DyGFormer with
+        ``sequence_axis`` shards its joint tokens (Ulysses). ``device``
+        defaults to the mesh's."""
         self.backbone = backbone
         self.data = data
         self.cfg = cfg
         self.save_path = save_path
+        self.mesh = mesh
+        self.is_lead = mesh is None or mesh.rank == 0
         self.has_state = getattr(backbone, "has_state", False)
-        self.device = resolve_device(device)
+        self.device = resolve_device(mesh.device if device is None and mesh is not None
+                                     else device)
         dev = self.device
-        self.tables = FeatureTables(
-            node=torch.from_numpy(data.node_raw_features).to(dev),
-            edge=torch.from_numpy(data.edge_raw_features).to(dev),
-        )
+        if mesh is not None and mesh.model_size > 1:
+            self.tables = FeatureTables(
+                node=ColumnShardedTable(data.node_raw_features, mesh, "features/node", dev),
+                edge=ColumnShardedTable(data.edge_raw_features, mesh, "features/edge", dev),
+            )
+        else:
+            self.tables = FeatureTables(
+                node=torch.from_numpy(data.node_raw_features).to(dev),
+                edge=torch.from_numpy(data.edge_raw_features).to(dev),
+            )
+        axis = getattr(backbone, "sequence_axis", None)
+        if mesh is not None and axis is not None and backbone.num_heads % mesh.size(axis):
+            raise ValueError(f"sequence axis {axis!r} of {mesh.size(axis)} ranks does not "
+                             f"divide num_heads {backbone.num_heads}")
         # the entry-ordered feature table, for backbones that fetch their
         # windows from it, under the JAX package's byte budget; its guard
         # pads cover the backbone's longest window
@@ -247,6 +298,10 @@ class LinkPredictionTrainer:
         # val / new-node val / test / new-node test = 0 / 1 / 2 / 3 (random;
         # build_eval_neg_samplers gives the other strategies' samplers)
         self.train_neg = NegativeEdgeSampler(data.train.src, data.train.dst)
+        if mesh is not None:  # every rank draws the same global negatives
+            seed = torch.tensor([np.random.SeedSequence().entropy % 2**32], device=dev)
+            seed = int(replicated(seed, mesh, "init/train_negatives_seed"))
+            self.train_neg = NegativeEdgeSampler(data.train.src, data.train.dst, seed=seed)
         self.val_neg, self.nn_val_neg, self.test_neg, self.nn_test_neg = (
             build_eval_neg_samplers(data))
         # sequence buckets, for backbones that publish them: smallest static
@@ -274,7 +329,7 @@ class LinkPredictionTrainer:
         a fresh optimizer over them, and the dropout generator (and, for a
         stochastic sample strategy, the sampling generator) seeded from
         ``seed`` on the trainer's device."""
-        gen = torch.Generator().manual_seed(seed)
+        gen = generator(seed)
         nd = self.tables.node_dim
         model = self.backbone.build(nd, self.tables.edge_dim, gen)
         head = MergeLayer(2 * nd, nd, 1, gen)
@@ -283,10 +338,23 @@ class LinkPredictionTrainer:
         self.optimizer = make_optimizer(
             self.cfg, list(self.model.parameters()) + list(self.head.parameters())
         )
-        self.dropout_gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.dropout_gen = generator(seed, self.device)
         if self._stochastic:
-            self.sample_gen = torch.Generator(device=self.device).manual_seed(seed)
+            self.sample_gen = generator(seed, self.device)
         self.graphs = StepGraphs(self.device)  # captured against the old modules
+        if self.mesh is not None:
+            if hasattr(self.model, "mesh"):  # node-sharded memory, Ulysses
+                self.model.mesh = self.mesh
+            # every rank starts from rank 0's parameters
+            tensors = self._float_tensors()
+            flat = replicated(torch.cat([t.reshape(-1) for t in tensors]), self.mesh,
+                              "init/params")
+            for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+                t.copy_(part.view_as(t))
+
+    def _float_tensors(self) -> list[torch.Tensor]:
+        return [t for m in (self.model, self.head) for t in m.state_dict().values()
+                if t.is_floating_point()]
 
     def load_params(self, params: dict) -> None:
         """Load ``{"backbone": state_dict, "head": state_dict}`` (see
@@ -303,9 +371,24 @@ class LinkPredictionTrainer:
         return {"backbone": self.model.state_dict(), "head": self.head.state_dict()}
 
     def init_state(self):
-        """An empty memory on the trainer's device for a backbone with state,
-        else None."""
-        return self.backbone.init_state(self.tables) if self.has_state else None
+        """An empty memory on the trainer's device for a backbone with state
+        (under a mesh, this rank's shard), else None."""
+        return self.backbone.init_state(self.tables, self.mesh) if self.has_state else None
+
+    def load_state(self, state):
+        """A whole memory state (a checkpoint's, numpy or tensors) on the
+        trainer's device; under a mesh, this rank's shard of it."""
+        state = to_device(state, self.device)
+        if state is None or self.mesh is None:
+            return state
+        return shard_state(state, self.mesh)
+
+    def host_state(self, state):
+        """The whole memory state of ``state`` (under a mesh, the shards
+        gathered over the data axis: every rank takes part)."""
+        if state is None or self.mesh is None:
+            return state
+        return gather_state(state, self.mesh, state_rows(self.tables.node.shape[0]))
 
     def _require_state(self, state) -> None:
         if self.has_state and state is None:
@@ -370,23 +453,81 @@ class LinkPredictionTrainer:
         embs, raw = self.backbone.embed_quad(self.model, self.tables, state, inputs, dropout_gen)
         return self._expand(embs, layout), raw
 
-    def _commit(self, state, arrays, raw):
-        """The state after the batch's positive edges (``backbone.commit``)."""
+    def _commit(self, state, arrays, raw, b: int | None = None):
+        """The state after the batch's positive edges (``backbone.commit``);
+        ``b``: the rows of each segment of ``raw`` (default: the batch's;
+        this rank's under a mesh, where ``arrays`` are the global batch's)."""
         src, dst, _, _, ts, eid, valid = arrays
-        b = src.shape[0]
+        b = src.shape[0] if b is None else b
         return self.backbone.commit(self.model, self.tables, state, src, dst, ts, eid, valid,
                                     raw[:b], raw[b : 2 * b])
 
-    def _head_loss(self, embs, valid):
-        """Quad-order embeddings -> (masked mean BCE, (pos_logit, neg_logit))."""
+    def _head_loss(self, embs, valid, denom=None):
+        """Quad-order embeddings -> (masked mean BCE, (pos_logit, neg_logit));
+        ``denom``: the mean's divisor (default 2 x the valid rows; a mesh
+        passes the global batch's)."""
         s_e, d_e, ns_e, nd_e = embs.split(valid.shape[0])
         pos_logit = self.head(s_e, d_e)[..., 0]
         neg_logit = self.head(ns_e, nd_e)[..., 0]
         bce = F.binary_cross_entropy_with_logits
         bce_pos = bce(pos_logit, torch.ones_like(pos_logit), reduction="none")
         bce_neg = bce(neg_logit, torch.zeros_like(neg_logit), reduction="none")
-        loss = ((bce_pos + bce_neg) * valid).sum() / torch.clamp(2.0 * valid.sum(), min=1.0)
+        if denom is None:
+            denom = torch.clamp(2.0 * valid.sum(), min=1.0)
+        loss = ((bce_pos + bce_neg) * valid).sum() / denom
         return loss, (pos_logit, neg_logit)
+
+    # ------------------------------------------------------------- the mesh
+    def _shard(self, arrays):
+        """(this rank's rows of the global batch arrays, the loss's global
+        divisor); the batch itself and None without a mesh. Padded rows
+        repeat the last real one and are not valid."""
+        if self.mesh is None:
+            return arrays, None
+        local = tuple(batch_sharded(a, self.mesh) for a in arrays)
+        real = row_slice(arrays[0].shape[0], self.mesh, arrays[0].device).real
+        denom = torch.clamp(2.0 * arrays[6].sum(), min=1.0)
+        return local[:6] + (local[6] * real,), denom
+
+    def _sample_rows(self, csr, garrays, arrays, layout, bucket, gen):
+        """``_sample`` of this rank's rows. A stochastic strategy under a
+        mesh draws for the global batch, as one process would, and keeps
+        this rank's rows of every segment."""
+        if self.mesh is None or not self._stochastic:
+            return self._sample(csr, arrays, layout, bucket, gen)
+        inputs = self._sample(csr, garrays, layout, bucket, gen)
+        nseg, b = (4 if layout == "quad" else 3), garrays[0].shape[0]
+        rows = row_slice(b, self.mesh, garrays[0].device).rows
+
+        def keep(x):
+            if isinstance(x, tuple):
+                items = [keep(v) for v in x]
+                return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+            if isinstance(x, torch.Tensor) and x.dim() and x.shape[0] == nseg * b:
+                return x.reshape(nseg, b, *x.shape[1:]).index_select(1, rows).reshape(
+                    -1, *x.shape[1:])
+            return x
+
+        return keep(inputs)
+
+    def _global(self, loss, pos, neg, b: int):
+        """A step's loss and probabilities over the global batch: the loss
+        summed over the data axis, the probabilities gathered into the
+        global row order."""
+        if self.mesh is None:
+            return loss, (pos, neg)
+        loss = all_reduce(loss.detach().clone(), self.mesh, DATA_AXIS, "step/loss")
+        probs = gather_rows(torch.stack([pos, neg], dim=1), b, self.mesh, "step/probs")
+        return loss, (probs[:, 0], probs[:, 1])
+
+    def _reduce_grads(self) -> None:
+        """Sum the gradients over every rank, in one flat buffer."""
+        grads = [p.grad for m in (self.model, self.head) for p in m.parameters()
+                 if p.grad is not None]
+        flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), self.mesh, None,
+                          "train/grads")
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
 
     def train_step(self, arrays, bucket: int | None = None, state=None):
         """One optimizer step on a batch (train mode, dropout from the
@@ -395,30 +536,40 @@ class LinkPredictionTrainer:
         (None for those the loss does not reach). A memory model takes its
         memory as ``state`` and gets the committed state as a third element."""
         self._require_state(state)
-        valid = arrays[6]
         layout = self._layout()
         self.model.train()
         self.head.train()
         with record_function("train/sample"):
-            inputs = self._sample(self.train_csr, arrays, layout, bucket, self.sample_gen)
+            garrays, (arrays, denom) = arrays, self._shard(arrays)
+            valid = arrays[6]
+            inputs = self._sample_rows(self.train_csr, garrays, arrays, layout, bucket,
+                                       self.sample_gen)
         with record_function("train/forward"):
             if self.has_state:
                 embs, raw = self._embed_memory(inputs, state, layout, self.dropout_gen)
             else:
                 embs = self._embed(inputs, layout, self.dropout_gen)
-            loss, (pos_logit, neg_logit) = self._head_loss(embs, valid)
+            loss, (pos_logit, neg_logit) = self._head_loss(embs, valid, denom)
         with record_function("train/backward"):
             self.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
+            if self.mesh is not None and self.mesh.model_size > 1:
+                # the model axis's ranks each compute the whole loss: a
+                # 1/mp share each makes the summed gradients the loss's
+                (loss / self.mesh.model_size).backward()
+            else:
+                loss.backward()
+            if self.mesh is not None:
+                self._reduce_grads()
         if self.has_state:
             with record_function("train/commit"):  # the parameters before the step
-                state = self._commit(state, arrays, raw.detach())
+                state = self._commit(state, garrays, raw.detach(), valid.shape[0])
         with record_function("train/optimizer"):
             self.optimizer.step()
-        probs = (torch.sigmoid(pos_logit).detach(), torch.sigmoid(neg_logit).detach())
+        loss, probs = self._global(loss.detach(), torch.sigmoid(pos_logit).detach(),
+                                   torch.sigmoid(neg_logit).detach(), garrays[0].shape[0])
         if self.has_state:
-            return loss.detach(), probs, state
-        return loss.detach(), probs
+            return loss, probs, state
+        return loss, probs
 
     @torch.inference_mode()
     def eval_step(self, csr: TemporalCSR, arrays, bucket: int | None = None, gen=None,
@@ -431,24 +582,26 @@ class LinkPredictionTrainer:
         as ``state`` and gets the state after the batch's positive edges as
         a third element."""
         self._require_state(state)
-        valid = arrays[6]
         layout = self._layout(neg_src_is_src)
         self.model.eval()
         self.head.eval()
         with record_function("eval/sample"):
-            inputs = self._sample(csr, arrays, layout, bucket, gen)
+            garrays, (arrays, denom) = arrays, self._shard(arrays)
+            valid = arrays[6]
+            inputs = self._sample_rows(csr, garrays, arrays, layout, bucket, gen)
         with record_function("eval/forward"):
             if self.has_state:
                 embs, raw = self._embed_memory(inputs, state, layout)
             else:
                 embs = self._embed(inputs, layout)
         with record_function("eval/head"):
-            loss, (pos_logit, neg_logit) = self._head_loss(embs, valid)
-            probs = (torch.sigmoid(pos_logit), torch.sigmoid(neg_logit))
+            loss, (pos_logit, neg_logit) = self._head_loss(embs, valid, denom)
+            loss, probs = self._global(loss, torch.sigmoid(pos_logit), torch.sigmoid(neg_logit),
+                                       garrays[0].shape[0])
         if not self.has_state:
             return loss, probs
         with record_function("eval/commit"):
-            return loss, probs, self._commit(state, arrays, raw)
+            return loss, probs, self._commit(state, garrays, raw, valid.shape[0])
 
     # ---------------------------------------------------------------- loops
     @staticmethod
@@ -606,6 +759,9 @@ class LinkPredictionTrainer:
         if self.save_path is None:
             raise ValueError("resume_every_batches writes <save_path>.resume; pass save_path")
         gens = {"dropout_gen": self.dropout_gen, "sample_gen": self.sample_gen}
+        state = self.host_state(state)  # every rank gathers; the lead writes
+        if not self.is_lead:
+            return
         save_checkpoint(self.save_path + ".resume", self.state_dicts(), state, extra={
             "epoch": epoch,
             "next_batch": next_batch,
@@ -626,7 +782,7 @@ class LinkPredictionTrainer:
             getattr(self, name).set_state(st)
         self._early.best = dict(extra["early_best"])
         self._early.counter = extra["early_counter"]
-        return extra["epoch"], extra["next_batch"], to_device(ck["state"], self.device)
+        return extra["epoch"], extra["next_batch"], self.load_state(ck["state"])
 
     def _clocks(self, state):
         """Host copies of the memory's clocks, under ``cfg.check_memory_order``."""
@@ -745,7 +901,9 @@ class LinkPredictionTrainer:
         test metrics", "params", "state").
 
         ``resume``: restart from ``<save_path>.resume`` where one exists
-        (written every ``cfg.resume_every_batches`` train batches). An epoch
+        (written every ``cfg.resume_every_batches`` train batches; under a
+        mesh by the lead rank, and read by every rank: they must share
+        the path). An epoch
         scans (``train_epoch_scanned``) under ``cfg.scan_epochs`` unless it
         resumes mid-epoch or resume checkpoints are written, as in the JAX
         ``fit``. ``cfg.profile_dir``: the second epoch (train and both val
@@ -760,20 +918,23 @@ class LinkPredictionTrainer:
             f"#parameters: {n_params * 4} B, {n_params * 4 / 1024:.4f} KB, "
             f"{n_params * 4 / 1024 / 1024:.4f} MB."
         )
-        early = self._early = EarlyStopping(self.cfg.patience, self.save_path)
+        # under a mesh every rank decides from the same metrics; the lead
+        # writes the checkpoint, the others keep theirs in memory
+        early = self._early = EarlyStopping(self.cfg.patience, self.save_path,
+                                            write=self.is_lead)
         start_epoch, start_batch, resume_state = 0, 0, None
         if resume and os.path.exists(self.save_path + ".resume"):
             start_epoch, start_batch, resume_state = self._load_resume(
                 load_checkpoint(self.save_path + ".resume"))
             log(f"resuming from epoch {start_epoch + 1}, batch {start_batch}")
-        tb_dir = self.cfg.tensorboard_dir
+        tb_dir = self.cfg.tensorboard_dir if self.is_lead else ""
         with SummaryWriter(tb_dir) if tb_dir else contextlib.nullcontext() as tb:
             epoch_mean_losses, mv, nn_mv = self._fit_epochs(
                 early, start_epoch, start_batch, resume_state, tb, log)
 
         best = early.load_best()
         self.load_params(best["params"])
-        state = to_device(best["state"], self.device)
+        state = self.load_state(best["state"])
         d = self.data
         results: dict = {"train losses": epoch_mean_losses}
         if self.has_state:
@@ -838,7 +999,7 @@ class LinkPredictionTrainer:
                 }, step=epoch + 1)
             if (epoch + 1) % self.cfg.test_interval_epochs == 0:
                 log(f"  test {self._sweep(d.test, self.test_neg, 2, val_state)[0]}")
-            if early.step(mv, self.state_dicts(), val_state):
+            if early.step(mv, self.state_dicts(), self.host_state(val_state)):
                 log(f"early stop at epoch {epoch + 1}")
                 break
         return epoch_mean_losses, mv, nn_mv

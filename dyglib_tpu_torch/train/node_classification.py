@@ -50,6 +50,7 @@ from ..graph.csr import build_temporal_csr, time_keys
 from ..models.base import FeatureTables
 from ..models.memory_model import segment_roles
 from ..nn.modules import MLPClassifier
+from ..utils.rng import generator
 from .checkpoints import to_device
 from .early_stopping import EarlyStopping
 from .link_prediction import ENTRY_TABLE_BUDGET, TrainConfig, make_optimizer
@@ -92,7 +93,7 @@ class NodeClassificationTrainer:
         self.full_csr = build_temporal_csr(data.full, num_nodes=data.num_nodes, device=dev,
                                            **csr_kw)
         model = backbone.build(self.tables.node_dim, self.tables.edge_dim,
-                               torch.Generator().manual_seed(0))
+                               generator(0))
         model.load_state_dict({k: torch.as_tensor(v) for k, v in backbone_params.items()})
         self.model = model.to(dev).eval().requires_grad_(False)
         # the rows a batch embeds, as the JAX trainer's _src_embeddings picks them
@@ -115,12 +116,12 @@ class NodeClassificationTrainer:
         """A head drawn from ``seed``, a fresh optimizer over its parameters
         only, and the dropout (and, for a stochastic strategy, sampling)
         generators seeded from ``seed`` on the trainer's device."""
-        gen = torch.Generator().manual_seed(seed)
+        gen = generator(seed)
         self.head = MLPClassifier(self.tables.node_dim, gen, self.cfg.head_dropout).to(self.device)
         self.optimizer = make_optimizer(self.cfg, list(self.head.parameters()))
-        self.dropout_gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.dropout_gen = generator(seed, self.device)
         if self._stochastic:
-            self.sample_gen = torch.Generator(device=self.device).manual_seed(seed)
+            self.sample_gen = generator(seed, self.device)
         self.graphs = StepGraphs(self.device)  # captured against the old head
 
     def load_head(self, params: dict) -> None:

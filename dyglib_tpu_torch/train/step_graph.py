@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from .. import ops
+from ..utils.rng import eval_seed
 
 
 def stack_columns(rows, device) -> tuple[torch.Tensor, ...]:
@@ -59,7 +60,7 @@ def eval_generator(gen: torch.Generator | None, device, salt: int) -> torch.Gene
     graph keeps drawing from the generator it registered."""
     if gen is None:
         gen = torch.Generator(device=device)
-    return gen.manual_seed(12345 + salt)
+    return gen.manual_seed(eval_seed(salt))
 
 
 def _leaves(tree) -> list[torch.Tensor]:

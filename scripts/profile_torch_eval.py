@@ -6,7 +6,8 @@
                                           [--task link_prediction|node_classification]
                                           [--mode eval|train] [--batches 10]
                                           [--negatives random|historical|inductive]
-                                          [--configs NAMES] [--scan] [--repo DIR]
+                                          [--configs NAMES] [--scan] [--mesh]
+                                          [--repo DIR]
 
 Same setting as chip_smoke.py (synthetic wikipedia-scale stream, seed 1;
 random weights, seed 0; B = 200). DyGFormer: the wikipedia (maxlen 32,
@@ -40,7 +41,10 @@ path instead (``TrainConfig(scan_epochs=True)``, no sequence buckets:
 sweep's first a CUDA graph replay; the warm-up is one whole sweep, so the
 graphs are captured before the timing and the trace): a replay opens no
 profiler range, so its JSON line has no per-range times, only the ms a
-batch, the device busy share and the top kernels. ``--repo`` names the tree whose
+batch, the device busy share and the top kernels. ``--mesh`` runs the
+link-prediction trainers on the (1, 1) mesh of a one-rank NCCL process
+group (``dyglib_tpu_torch.parallel``): each collective is its own range,
+``mesh/<call site>``, inside the loop's ranges. ``--repo`` names the tree whose
 ``dyglib_tpu_torch`` is run (default: this checkout), so that two trees
 run by one command in turns compare on one card. For each configuration
 it first times the same sweep twice with no profiler (host clock, ending
@@ -101,8 +105,8 @@ KERNEL_FREE = {
 
 
 def is_range(name: str) -> bool:
-    """One of the loops' own profiler ranges."""
-    return name.startswith(("eval/", "train/", "nodecls/"))
+    """One of the loops' own profiler ranges, or a collective's (``mesh/``)."""
+    return name.startswith(("eval/", "train/", "nodecls/", "mesh/"))
 
 
 def is_span(name: str) -> bool:
@@ -277,6 +281,8 @@ def main() -> int:
                         help="the scan path: sweeps replayed as CUDA graphs")
     parser.add_argument("--repo", default=REPO_ROOT,
                         help="tree whose dyglib_tpu_torch is run (default: this checkout)")
+    parser.add_argument("--mesh", action="store_true",
+                        help="run the trainers on the (1, 1) mesh of a one-rank NCCL group")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_eval: needs a CUDA card", file=sys.stderr)
@@ -322,12 +328,19 @@ def main() -> int:
              True, args.mode == "train" and config == "CanParl")
             for config, maxlen, patch in CONFIGS
         ]
+    mesh = None
+    if args.mesh:
+        from dyglib_tpu_torch.parallel import free_port, initialize_distributed, make_mesh
+
+        initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+        mesh = make_mesh(1, 1)
     wanted = set(filter(None, args.configs.split(",")))
     for config, backbone, use_kernels, fetch in runs:
         if wanted and config not in wanted:
             continue
         tr = LinkPredictionTrainer(backbone, data, TrainConfig(
-            batch_size=B, scan_epochs=args.scan, sequence_buckets=not args.scan), device="cuda")
+            batch_size=B, scan_epochs=args.scan, sequence_buckets=not args.scan), device="cuda",
+            mesh=mesh)
         tr.init_params(0)
         tr.model.use_kernels = use_kernels
         if args.mode == "eval":
@@ -350,6 +363,7 @@ def main() -> int:
         out = {"config": config, "mode": args.mode, "batches": args.batches,
                "negatives": args.negatives,
                "use_kernels": use_kernels, "entry_fetch": fetch, "scan": args.scan,
+               "mesh": args.mesh,
                "repo": os.path.abspath(args.repo), "ms_per_batch": host_ms}
         out.update(device_profile(run, args.scan))
         print(json.dumps(out), flush=True)

@@ -6,8 +6,9 @@
   * ``build_backbone`` gives each model the JAX factory's fields (the
     memory models' time shifts included); the aggregate over runs (sample
     std) and the saved results JSON equal the JAX runner's;
-  * each flag whose feature the port lacks raises ``NotImplementedError``
-    when set, and the default ``--device cuda`` raises without a card;
+  * each flag whose feature the port lacks (``--compute_dtype bfloat16``,
+    ``--fast_prng``) raises ``NotImplementedError`` when set, and the
+    default ``--device cuda`` raises without a card;
   * ``--show_progress`` writes each train step's loss line to stderr;
   * ``--scan_epochs`` trains one epoch through the two training drivers
     on the scanned path;
@@ -148,13 +149,9 @@ def test_aggregate_and_results_match_jax(tmp_path, monkeypatch):
         "test metrics": {"average_precision": "0.6100", "roc_auc": "0.7000"}}
 
 
+# the parallelism flags are accepted since the port runs over rank grids
+# (tests/test_torch_parallel_cli.py)
 UNPORTED_FLAGS = [
-    ["--data_parallelism", "2"],
-    ["--data_parallelism", "-1"],
-    ["--model_parallelism", "2"],
-    ["--num_processes", "2"],
-    ["--process_id", "1"],
-    ["--coordinator_address", "localhost:1234"],
     ["--compute_dtype", "bfloat16"],
     ["--fast_prng"],
 ]
