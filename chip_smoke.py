@@ -51,6 +51,16 @@ and prints no result):
      attention forward and backward at TGN's shape (M = 600, K = 10; kv =
      the memory view + node rows of the first val batch's neighbours, from
      the memory after the last train batches), the same checks;
+  3b. the bf16 variants of the time channel (#1, #1b) and the patch
+     projection (#3, #3b) at the wikipedia and CanParl shapes against their
+     plain bf16 versions (each output and gradient within GRAD_RTOL of its
+     sum of |terms|; the bf16 patch projection's output, rounded to bf16
+     twice, also within a bf16 ulp of its product and one of itself, the
+     entries past GRAD_RTOL counted and held under 1 in 1000), a second
+     launch bitwise equal; times of the variant, its split-TF32 sibling,
+     the plain version and the library call (#3: torch.addmm in bf16;
+     #1, #1b, #3b: the bf16 torch.mm(s) on a precomputed Phi or x, partial);
+     bounds at 989 T/s in bf16, the bytes (x read as bf16), or the SFU;
   4. TGAT evaluation on the first val batches, one set of weights in four
      configurations (plain versions; default kernels: gathered attention
      at layer 1, fused attention at layer 2; window attention with the
@@ -138,6 +148,31 @@ and prints no result):
      val batches under historical and inductive negatives: the quad (4B
      rows a batch), the launches per batch of the random protocol, the
      first batches against the CPU path; ms per batch;
+  5b. bf16 compute (``compute_dtype="bfloat16"``) for DyGFormer 32/1 and
+     CanParl, TGAT (default kernels) and CAWN at the published widths,
+     dropout 0, seed-0 weights: the val batches through the kernels
+     (counters zeroed just before and read just after: the bf16 variants
+     and the co-occurrence count launched for DyGFormer, TGAT's attention
+     kernels, no split-TF32 variant anywhere), finite probabilities within
+     half the plain bf16 path's bf16-vs-f32 gap of that path, and
+     BF16_PROB_ATOL at most (CAWN, which runs no kernel: of the port's CPU
+     path on the first batch, within half its own gap), the kernel path's
+     own gap at least half the plain path's; train steps over the last
+     train batches (the bf16 backward variants launched, no split-TF32
+     one), the kernel and plain paths in lockstep (losses within half the
+     free-running bf16-vs-f32 loss gap, and BF16_LOSS_ATOL at most); ms per
+     eval batch and per train step, f32 and bf16 in BF16_TURNS, by the loop
+     and by the captured scan path (DyGFormer 32/1 and TGAT: each bf16
+     capture checked against its loop as in 5s, within SCAN_ATOL, and its
+     replays traced: the bf16 variants' launches in the trace are the
+     printed ``scan_launches`` of their rows). DyGFormer CanParl with remat
+     against without, dropout 0.1, REMAT_STEPS train steps from the same
+     weights and dropout seed, in turns: per-step gradients equal (bitwise,
+     or within REMAT_GRAD_RTOL of each tensor's largest entry: the indexed
+     rows' gradients are summed by atomics), the dropout generator equal
+     after every step, losses equal, peak device memory above the weights
+     and ms per step for each; a captured remat scan epoch against its loop
+     within SCAN_ATOL, generators equal, in f32 and in bf16;
   5c. node classification and the CLI: the same stream split by the
      node-classification rule; DyGFormer 32/1 (2 layers), TGAT (K = 20, 2
      layers) and TGN (K = 10, 1 layer) at the published wikipedia
@@ -224,7 +259,8 @@ and prints no result):
      steps at two NCCL ranks against one device (rtol 2e-3), else one
      line saying the run was not possible;
   7. print one JSON line of kernel numbers (each row with its main-path
-     launches, where phase 5c runs it its node-classification launches
+     launches (the bf16 variants: phase 5b's DyGFormer sweeps; their rows
+     also carry their split-TF32 siblings' ms), where phase 5c runs it its node-classification launches
      over 20 eval batches, its launches by phase 5s's replays, and its
      launches on phase 5d's mesh path), then the device JSON line.
 """
@@ -244,6 +280,8 @@ REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_F32_OPS = 67e12
 PEAK_TF32_OPS = 495e12
 PEAK_BYTES = 3.35e12
+# bf16 on the tensor cores, dense (the bf16 variants' one pass)
+PEAK_BF16_OPS = 989e12
 # the SFU's cosines: 16 a clock on each of 132 SMs at the 1.98 GHz boost
 PEAK_SFU_OPS = 16 * 132 * 1.98e9
 # the patch projection's, the time channel's and the Phi projection's
@@ -423,11 +461,15 @@ SCAN_SALTS, SCAN_SALT_BATCHES = (0, 2, 0), 5
 # it (regular expressions on the demangled names; a wrapper's other
 # launches, partial sums and memsets, are not counted)
 TRACE_KERNELS = {
-    "time_channel": r"time_channel_fwd_kernel",
-    "time_channel_bwd": r"time_bwd_kernel<\d+, true",
+    "time_channel": r"time_channel_fwd_kernel<.*SplitTf32",
+    "time_channel_bwd": r"time_bwd_kernel<\d+, true, \d+, .*SplitTf32",
     "cooccurrence": r"cooccurrence_(pairs|table)_kernel",
     "patch_projection": r"patch_forward_kernel",
     "patch_projection_bwd": r"patch_backward_kernel",
+    "time_channel_bf16": r"time_channel_fwd_kernel<.*Bf16",
+    "time_channel_bf16_bwd": r"time_bwd_kernel<\d+, true, \d+, .*Bf16",
+    "patch_projection_bf16": r"patch_forward_bf16_kernel",
+    "patch_projection_bf16_bwd": r"patch_backward_bf16_kernel",
     "window_fetch": r"window_fetch_kernel",
     "temporal_attention": r"\battention_query_kernel<.*KvLoader",
     "temporal_attention_bwd": r"attention_bwd_query_kernel<.*KvLoader",
@@ -766,6 +808,194 @@ def check_training_kernels(dev) -> dict:
             0,
         )
         del table, idx, args
+        torch.cuda.empty_cache()
+    return results
+
+
+def bf16_ulp(v):
+    """One bf16 unit in the last place of each |v| (8 bits of precision)."""
+    import torch
+
+    return torch.ldexp(torch.ones_like(v, dtype=torch.float32),
+                       torch.frexp(v.float()).exponent - 8)
+
+
+def check_bf16_kernels(dev) -> dict:
+    """Phase 3b: the bf16 variants of the time channel (#1, #1b) and the
+    patch projection (#3, #3b) against their plain bf16 versions at the
+    main path's shapes, each output and gradient within GRAD_RTOL of its
+    sum of |terms| (the bf16 patch projection's output, which is rounded to
+    bf16 twice, also within one bf16 ulp of the product and one of the
+    output: a sum that the two take in another order may fall on either
+    side of a rounding boundary), a second launch bitwise equal; times of
+    the variant, its split-TF32 sibling, the plain version and the library
+    call; bounds at 989 T/s (bf16) or the SFU."""
+    import torch
+
+    from dyglib_tpu_torch import ops
+    from dyglib_tpu_torch.nn.modules import time_encoder_spectrum
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    m = 3 * B
+    results = {}
+
+    def record(key, part, err, rel, ms, sibling, plain, lib, nbytes, nops, sfu=0, flips=0):
+        results[key] = {"parts": [dict(part=part, max_abs_err=err, ms=ms, plain_ms=plain,
+                                       library_ms=lib, bytes=nbytes, ops=nops,
+                                       ops_peak=PEAK_BF16_OPS, sfu_ops=sfu,
+                                       sibling_ms=sibling, rounding_flips=flips)]}
+        log(f"  {key[0]:<24} {key[1]:<9} {part:<26} err {err:.3g} ({rel:.3g} of sum|terms|"
+            f"{f', {flips} one-ulp rounding flips' if flips else ''})  kernel {ms:.4f} ms  "
+            f"split-TF32 {sibling:.4f} ms  plain {plain:.4f} ms  library {lib:.4f} ms")
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    for config, maxlen, patch, _, _ in CONFIGS:
+        lp = maxlen
+        rows = m * (lp // patch)
+        iters = 20 if lp > 100 else 200
+        # ---- time channel, forward and backward
+        dt = torch.randint(0, 1_000_000, (m, lp), device=dev, generator=gen).float()
+        valid = torch.rand((m, lp), device=dev, generator=gen) < 0.8
+        tw = torch.from_numpy(time_encoder_spectrum(DT_DIM)).reshape(-1).to(dev)
+        tb = 0.1 * torch.randn(DT_DIM, device=dev, generator=gen)
+        k = patch * DT_DIM
+        w = ((torch.rand((CED, k), device=dev, generator=gen) * 2 - 1) * k**-0.5).t()
+        bias = (torch.rand(CED, device=dev, generator=gen) * 2 - 1) * k**-0.5
+        args = (dt, valid, tw, tb, w, bias, patch)
+        out = ops.time_channel_projection(*args, compute_dtype=bf16)
+        again = ops.time_channel_projection(*args, compute_dtype=bf16)
+        ref = ops.time_channel_projection_plain(*args, compute_dtype=bf16)
+        phi16 = torch.where(valid[..., None], torch.cos(dt[..., None] * tw + tb),
+                            0.0).to(bf16).view(rows, k)
+        w16 = w.to(bf16)
+        terms = (phi16.float().abs() @ w16.float().abs() + bias.abs()).view(out.shape)
+        torch.cuda.synchronize()
+        diff = (out - ref).abs()
+        err, rel = diff.max().item(), (diff / terms.clamp_min(1e-30)).max().item()
+        if out.dtype != torch.float32 or not rel <= GRAD_RTOL:
+            raise AssertionError(f"time_channel_bf16@{config}: error {rel} of sum|terms| > "
+                                 f"{GRAD_RTOL}")
+        if not torch.equal(out, again):
+            raise AssertionError(f"time_channel_bf16@{config}: a second launch differs")
+        n_valid = int(valid.sum())
+        record(
+            ("time_channel_bf16", config), f"M{m} L{lp} patch{patch}", err, rel,
+            cuda_ms(lambda: ops.time_channel_projection(*args, compute_dtype=bf16), iters),
+            cuda_ms(lambda: ops.time_channel_projection(*args), iters),
+            cuda_ms(lambda: ops.time_channel_projection_plain(*args, compute_dtype=bf16), iters),
+            # partial: the bf16 product on a precomputed Phi
+            cuda_ms(lambda: torch.mm(phi16, w16), iters),
+            4 * m * lp + m * lp + 4 * (2 * DT_DIM + k * CED + CED + rows * CED),
+            2 * rows * k * CED, sfu=n_valid * DT_DIM,
+        )
+        del out, again, ref, terms, diff
+
+        dout = 1e-3 * torch.randn((m, lp // patch, CED), device=dev, generator=gen)
+        bargs = (dt, valid, tw, tb, w, dout, patch)
+        got = ops.time_channel_backward(*bargs, compute_dtype=bf16)
+        again = ops.time_channel_backward(*bargs, compute_dtype=bf16)
+        want = ops.time_channel_backward_plain(*bargs, compute_dtype=bf16)
+        theta = dt[..., None] * tw + tb
+        mask = valid[..., None]
+        g16 = dout.reshape(rows, CED).to(bf16)
+        g_abs = g16.float().abs()
+        common = torch.where(
+            mask, (g_abs @ w16.float().abs().t()).reshape(theta.shape) * torch.sin(theta).abs(),
+            0.0)
+        terms = ((common * dt[..., None]).sum((0, 1)), common.sum((0, 1)),
+                 phi16.float().abs().t() @ g_abs, dout.reshape(rows, CED).abs().sum(0))
+        torch.cuda.synchronize()
+        err, rel = grad_errors(got, want, terms)
+        if not rel <= GRAD_RTOL:
+            raise AssertionError(f"time_channel_bf16_bwd@{config}: error {rel} of sum|terms| > "
+                                 f"{GRAD_RTOL}")
+        if not same(got, again):
+            raise AssertionError(f"time_channel_bf16_bwd@{config}: a second launch differs")
+        del theta, mask, common, got, again, want, terms
+        record(
+            ("time_channel_bf16_bwd", config), f"M{m} L{lp} patch{patch}", err, rel,
+            cuda_ms(lambda: ops.time_channel_backward(*bargs, compute_dtype=bf16), iters // 2),
+            cuda_ms(lambda: ops.time_channel_backward(*bargs), iters // 2),
+            cuda_ms(lambda: ops.time_channel_backward_plain(*bargs, compute_dtype=bf16),
+                    max(2, iters // 10)),
+            # partial: the two bf16 products on a precomputed Phi
+            cuda_ms(lambda: (torch.mm(phi16.t(), g16), torch.mm(g16, w16.t())), iters // 2),
+            4 * m * lp + m * lp + 4 * (2 * DT_DIM + k * CED + rows * CED)
+            + 4 * (k * CED + CED + 2 * DT_DIM),
+            4 * rows * k * CED, sfu=2 * n_valid * DT_DIM,
+        )
+        del dt, valid, dout, args, bargs, phi16, g16, g_abs
+        torch.cuda.empty_cache()
+
+        # ---- patch projection, forward and backward: bf16 rows, pads zero
+        x = torch.randn((m, lp, FEAT), device=dev, generator=gen).to(bf16)
+        x[:, lp // 2 :, :] = 0.0
+        k = patch * FEAT
+        w = ((torch.rand((CED, k), device=dev, generator=gen) * 2 - 1) * k**-0.5).t()
+        bias = (torch.rand(CED, device=dev, generator=gen) * 2 - 1) * k**-0.5
+        out = ops.patch_projection(x, w, bias, patch, compute_dtype=bf16)
+        again = ops.patch_projection(x, w, bias, patch, compute_dtype=bf16)
+        ref = ops.patch_projection_plain(x, w, bias, patch, bf16, round_output=True)
+        x2, w16, b16 = x.view(rows, k), w.to(bf16), bias.to(bf16)
+        prod = (x2.float() @ w16.float()).view(out.shape)
+        terms = (x2.float().abs() @ w16.float().abs() + bias.abs()).view(out.shape)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs()
+        err, rel = diff.max().item(), (diff / terms.clamp_min(1e-30)).max().item()
+        beyond = diff > GRAD_RTOL * terms
+        flips = int(beyond.sum())
+        allowed = GRAD_RTOL * terms + bf16_ulp(prod) + bf16_ulp(ref)
+        if out.dtype != bf16 or not bool((diff <= allowed).all()):
+            raise AssertionError(f"patch_projection_bf16@{config}: error {rel} of sum|terms|, "
+                                 f"{flips} entries past {GRAD_RTOL} of it, some past two bf16 ulp")
+        if flips > max(1, out.numel() // 1000):
+            raise AssertionError(f"patch_projection_bf16@{config}: {flips} rounding flips")
+        if not torch.equal(out, again):
+            raise AssertionError(f"patch_projection_bf16@{config}: a second launch differs")
+        del prod, terms, diff, beyond, allowed, out, again, ref
+        x32 = x.float()
+        record(
+            ("patch_projection_bf16", config), f"M{m} Lp{lp} D{FEAT} patch{patch}", err, rel,
+            cuda_ms(lambda: ops.patch_projection(x, w, bias, patch, compute_dtype=bf16), iters),
+            cuda_ms(lambda: ops.patch_projection(x32, w, bias, patch), iters),
+            cuda_ms(lambda: ops.patch_projection_plain(x, w, bias, patch, bf16, round_output=True),
+                    iters),
+            cuda_ms(lambda: torch.addmm(b16, x2, w16), iters),
+            2 * m * lp * FEAT + 4 * (k * CED + CED) + 2 * rows * CED,
+            2 * rows * k * CED, flips=flips,
+        )
+        del x32
+        torch.cuda.empty_cache()
+
+        dout = (1e-3 * torch.randn((m, lp // patch, CED), device=dev, generator=gen)).to(bf16)
+        got = ops.patch_projection_backward(x, dout, patch, bf16)
+        again = ops.patch_projection_backward(x, dout, patch, bf16)
+        want = ops.patch_projection_backward_plain(x, dout, patch, bf16)
+        g2 = dout.view(rows, CED)
+        terms = (x2.float().abs().t() @ g2.float().abs(), g2.float().abs().sum(0))
+        torch.cuda.synchronize()
+        err, rel = grad_errors(got, want, terms)
+        if not rel <= GRAD_RTOL:
+            raise AssertionError(
+                f"patch_projection_bf16_bwd@{config}: error {rel} of sum|terms| > {GRAD_RTOL}")
+        if not same(got, again):
+            raise AssertionError(f"patch_projection_bf16_bwd@{config}: a second launch differs")
+        del got, again, want, terms
+        x32, d32 = x.float(), dout.float()
+        record(
+            ("patch_projection_bf16_bwd", config), f"M{m} Lp{lp} D{FEAT} patch{patch}", err, rel,
+            cuda_ms(lambda: ops.patch_projection_backward(x, dout, patch, bf16), iters),
+            cuda_ms(lambda: ops.patch_projection_backward(x32, d32, patch), iters),
+            cuda_ms(lambda: ops.patch_projection_backward_plain(x, dout, patch, bf16), iters),
+            # partial: dW's bf16 product
+            cuda_ms(lambda: torch.mm(x2.t(), g2), iters),
+            2 * (m * lp * FEAT + rows * CED) + 4 * (k + 1) * CED,
+            2 * rows * (k + 1) * CED,
+        )
+        del x, x2, g2, dout, x32, d32
         torch.cuda.empty_cache()
     return results
 
@@ -2122,17 +2352,34 @@ def spy_rows(tr):
     return rows
 
 
-def run_new_model_eval(data, name, dev) -> dict:
-    """Phase 5n, evaluation: NEW_BATCHES val batches, twice (the same
-    probabilities, bit for bit), no kernel launched, the first batches
-    against the port's CPU path (CAWN, whose draws come from the device's
-    generator: the card's sampled inputs through the CPU net)."""
+def cawn_cpu_diff(tr, data, dev) -> float:
+    """CAWN's first val batch, its neighbours drawn by the card's generator,
+    through the card's net and the port's CPU twin: the largest probability
+    difference (the CPU's generator would draw other walks)."""
     import numpy as np
     import torch
 
     from dyglib_tpu_torch.data import chronological_batches
     from dyglib_tpu_torch.train import to_device
 
+    cpu = cpu_twin(tr, data)
+    b = next(iter(chronological_batches(data.val, B)))
+    arrays = tr._batch_arrays(b, b.src, np.roll(b.dst, 1))
+    gen = torch.Generator(device=dev).manual_seed(12345)
+    with torch.inference_mode():
+        inputs = tr._sample(tr.full_csr, arrays, "quad", None, gen)
+        card = tr._head_loss(tr._embed(inputs, "quad"), arrays[6])[1]
+        cpu_out = cpu._head_loss(cpu._embed(to_device(inputs, "cpu"), "quad"),
+                                 to_device(arrays, "cpu")[6])[1]
+    return max(float((torch.sigmoid(a).cpu() - torch.sigmoid(c)).abs().max())
+               for a, c in zip(card, cpu_out))
+
+
+def run_new_model_eval(data, name, dev) -> dict:
+    """Phase 5n, evaluation: NEW_BATCHES val batches, twice (the same
+    probabilities, bit for bit), no kernel launched, the first batches
+    against the port's CPU path (CAWN, whose draws come from the device's
+    generator: the card's sampled inputs through the CPU net)."""
     tr = new_model_trainer(data, name, dev)
     stream = data.val.slice(0, NEW_BATCHES * B)
     tr.evaluate(data.val.slice(0, B), tr.val_neg)  # warm-up: allocator, cuBLAS
@@ -2153,20 +2400,11 @@ def run_new_model_eval(data, name, dev) -> dict:
     diff = max_prob_diff(sweeps[0], sweeps[1])
     if diff != 0.0:
         raise AssertionError(f"{name}: two evaluate sweeps differ by {diff}")
-    cpu = cpu_twin(tr, data)
     if name == "CAWN":
-        b = next(iter(chronological_batches(data.val, B)))
-        arrays = tr._batch_arrays(b, b.src, np.roll(b.dst, 1))
-        gen = torch.Generator(device=dev).manual_seed(12345)
-        with torch.inference_mode():
-            inputs = tr._sample(tr.full_csr, arrays, "quad", None, gen)
-            card = tr._head_loss(tr._embed(inputs, "quad"), arrays[6])[1]
-            cpu_out = cpu._head_loss(cpu._embed(to_device(inputs, "cpu"), "quad"),
-                                     to_device(arrays, "cpu")[6])[1]
-        cpu_diff = max(float((torch.sigmoid(a).cpu() - torch.sigmoid(c)).abs().max())
-                       for a, c in zip(card, cpu_out))
+        cpu_diff = cawn_cpu_diff(tr, data, dev)
     else:
         n_cpu = 2
+        cpu = cpu_twin(tr, data)
         cpu_probs = cpu.evaluate(data.val.slice(0, n_cpu * B), cpu.val_neg)[2]
         cpu_diff = max_prob_diff(sweeps[0][:n_cpu], cpu_probs)
     if not cpu_diff <= PROB_ATOL:
@@ -3176,6 +3414,344 @@ def run_tgat_fit(dev) -> dict:
 # evaluated MESH_BATCHES val batches with and without the mesh from the same
 # weights: one rank's collectives are copies, so every loss, probability,
 # parameter and memory row agrees within MESH_ATOL; then timed in turns
+# ---- phase 5b: bf16 compute (compute_dtype "bfloat16")
+# the kernel path against the plain bf16 path (and CAWN, which runs no
+# kernel, the card against the CPU): both round the same operands to bf16
+# and sum in f32 in other orders, so a product now and then lands on the
+# other side of a bf16 rounding boundary and moves by a bf16 ulp; such a
+# flip in a rounded channel runs on through the bf16 blocks (measured up to
+# a third of the gap at DyGFormer wikipedia, NVIDIA H100 80GB HBM3, 700.00 W).
+# Each path is held to half its own bf16-vs-f32 gap (the plain bf16 path's
+# largest |probability difference| from the f32 path), which a path that
+# computed in f32 would miss, and to BF16_PROB_ATOL at most; the kernel
+# path's own gap must be at least half the plain path's (bf16 changes the
+# math there too). Losses in lockstep: within half the largest bf16-vs-f32
+# loss difference of the free-running train sweeps, and BF16_LOSS_ATOL at
+# most.
+BF16_PROB_ATOL = 1e-3
+BF16_LOSS_ATOL = 1e-3
+# (name, val batches, train steps)
+BF16_PATHS = (("DyGFormer wikipedia", 20, 5), ("DyGFormer CanParl", 5, 3), ("TGAT", 20, 5),
+              ("CAWN", 5, 3))
+# each path's bf16 kernels; none of the split-TF32 variants may launch there
+BF16_PATH_KERNELS = {
+    "DyGFormer": (("time_channel_bf16", "patch_projection_bf16", "cooccurrence"),
+                  ("time_channel_bf16_bwd", "patch_projection_bf16_bwd")),
+    "TGAT": (("gathered_attention", "temporal_attention"),
+             ("gathered_attention_bwd", "temporal_attention_bwd")),
+    "CAWN": ((), ()),
+}
+SPLIT_TF32_KERNELS = ("time_channel", "time_channel_bwd", "patch_projection",
+                      "patch_projection_bwd")
+BF16_TURNS = ("float32", "bfloat16", "bfloat16", "float32")
+BF16_SCAN_BATCHES = 10
+# remat at CanParl: gradients with and without remat equal (bitwise
+# expected: the recompute repeats the same operations on the same inputs);
+# else within this share of each tensor's largest entry
+REMAT_GRAD_RTOL = 1e-6
+REMAT_STEPS = 3
+
+
+def bf16_backbone(name: str, compute_dtype: str, **extra):
+    """The path's backbone at the published widths, dropout 0."""
+    from dyglib_tpu_torch import models
+
+    if name.startswith("DyGFormer"):
+        maxlen, patch = (32, 1) if name.endswith("wikipedia") else (2048, 64)
+        return models.DyGFormer(max_input_sequence_length=maxlen, patch_size=patch,
+                                channel_embedding_dim=CED, num_layers=2, num_heads=2,
+                                time_feat_dim=DT_DIM, dropout=0.0, compute_dtype=compute_dtype,
+                                **extra)
+    if name == "TGAT":
+        return models.TGAT(num_neighbors=TGAT_K, num_layers=2, num_heads=2, time_feat_dim=DT_DIM,
+                           dropout=0.0, compute_dtype=compute_dtype, **extra)
+    return models.CAWN(**dict(NEW_MODELS["CAWN"], dropout=0.0, compute_dtype=compute_dtype,
+                              **extra))
+
+
+def bf16_trainers(data, name, dev):
+    """{dtype: trainer} at seed-0 weights, train negatives from a seeded
+    sampler (each sweep re-seeds it)."""
+    from dyglib_tpu_torch.graph import NegativeEdgeSampler
+    from dyglib_tpu_torch.train import LinkPredictionTrainer, TrainConfig
+
+    out = {}
+    for cd in ("float32", "bfloat16"):
+        tr = LinkPredictionTrainer(bf16_backbone(name, cd), data,
+                                   TrainConfig(batch_size=B, learning_rate=TRAIN_LR), device=dev)
+        tr.init_params(0)
+        tr.train_neg = NegativeEdgeSampler(data.train.src, data.train.dst, seed=17)
+        out[cd] = tr
+    return out
+
+
+def check_bf16_launches(name, what, counts, kernels) -> None:
+    missing = [k for k in kernels if counts.get(k, 0) == 0]
+    split = {k: counts[k] for k in SPLIT_TF32_KERNELS if counts.get(k, 0)}
+    if missing or split:
+        raise AssertionError(f"{name} bf16 {what}: bf16 kernels not launched {missing}, "
+                             f"split-TF32 kernels launched {split}")
+
+
+def run_bf16_path(data, name, n_batches, n_steps, dev) -> dict:
+    """Phase 5b for one path: evaluation and training in bf16 on the card,
+    the kernel path against the plain one, the gap to f32, ms in turns."""
+    import numpy as np
+    import torch
+
+    from dyglib_tpu_torch import ops
+
+    family = name.split()[0]
+    fwd_kernels, bwd_kernels = BF16_PATH_KERNELS[family]
+    trs = bf16_trainers(data, name, dev)
+    tr = trs["bfloat16"]
+    stream = data.val.slice(0, n_batches * B)
+    n = data.train.num_interactions
+    train_stream = data.train.slice(n - n_steps * B, n)
+    has_kernels = hasattr(tr.model, "use_kernels")
+
+    def evaluate(t, use_kernels=True, s=stream):
+        if has_kernels:
+            t.model.use_kernels = use_kernels
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses, _, probs = t.evaluate(s, t.val_neg)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / len(probs) * 1e3, probs, ops.launch_counts(), losses
+
+    def train(t, use_kernels=True):
+        t.init_params(0)
+        t.train_neg.reset_random_state()
+        if has_kernels:
+            t.model.use_kernels = use_kernels
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = [float(t.train_step(arrays, bucket)[0])
+                  for _, arrays, bucket in t.train_batches(train_stream)]
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / len(losses) * 1e3, losses, ops.launch_counts()
+
+    for t in trs.values():  # warm-up: allocator, cuBLAS, the kernels' first launches
+        evaluate(t, s=stream.slice(0, B))
+    # the main path: counters zeroed just before, read just after
+    _, probs, eval_launches, losses = evaluate(tr)
+    check_bf16_launches(name, "evaluation", eval_launches, fwd_kernels)
+    if not all(np.isfinite(p).all() and np.isfinite(q).all() for p, q in probs):
+        raise AssertionError(f"{name} bf16: probabilities not finite")
+    _, probs32, _, _ = evaluate(trs["float32"])
+    gap = max_prob_diff(probs, probs32)
+    if has_kernels:
+        _, plain, plain_counts, _ = evaluate(tr, use_kernels=False)
+        if any(plain_counts.values()):
+            raise AssertionError(f"{name} bf16: the plain path launched {plain_counts}")
+        plain_diff = max_prob_diff(probs, plain)
+        plain_gap = max_prob_diff(plain, probs32)
+    else:  # the CPU, on the card's draws of the first batch's walks
+        plain_diff, plain_gap = cawn_cpu_diff(tr, data, dev), gap
+    limit = min(BF16_PROB_ATOL, plain_gap / 2)
+    if not plain_diff <= limit:
+        raise AssertionError(f"{name} bf16: kernel vs plain probabilities differ by {plain_diff} "
+                             f"> {limit} (the plain path's bf16-vs-f32 gap {plain_gap})")
+    if not gap >= plain_gap / 2:
+        raise AssertionError(f"{name} bf16: the kernel path's bf16-vs-f32 gap {gap} is under "
+                             f"half the plain path's {plain_gap}")
+
+    # training: the main path, then the kernel and plain paths in lockstep
+    _, train_losses, train_launches = train(tr)
+    check_bf16_launches(name, "training", train_launches, fwd_kernels + bwd_kernels)
+    if not np.isfinite(train_losses).all():
+        raise AssertionError(f"{name} bf16 training: a loss is not finite")
+    # from the same weights, the same batches
+    loss_gap = float(np.abs(np.subtract(train_losses, train(trs["float32"])[1])).max())
+    lock_diff = bf16_lockstep(tr, train_stream) if has_kernels else None
+    lock_limit = min(BF16_LOSS_ATOL, loss_gap / 2)
+    if lock_diff is not None and not lock_diff <= lock_limit:
+        raise AssertionError(f"{name} bf16 training in lockstep: losses differ by {lock_diff} "
+                             f"> {lock_limit} (the bf16-vs-f32 loss gap {loss_gap})")
+
+    # ms per batch and per step, f32 and bf16 in turns, after a warm-up step
+    # of each (the first sweeps allocate)
+    for t in trs.values():
+        train(t)
+    eval_ms = {cd: [] for cd in trs}
+    train_ms = {cd: [] for cd in trs}
+    for cd in BF16_TURNS:
+        eval_ms[cd].append(evaluate(trs[cd])[0])
+        train_ms[cd].append(train(trs[cd])[0])
+    result = dict(
+        path=name, batches=n_batches, steps=n_steps, eval_launches=eval_launches,
+        train_launches=train_launches, max_prob_diff_vs_plain=plain_diff, prob_limit=limit,
+        lockstep_max_loss_diff=lock_diff, lockstep_limit=lock_limit, bf16_vs_f32_prob_gap=gap,
+        plain_bf16_vs_f32_prob_gap=plain_gap, bf16_vs_f32_loss_gap=loss_gap,
+        eval_ms_per_batch=eval_ms, train_ms_per_step=train_ms, bf16_losses=train_losses,
+    )
+    log(f"  {json.dumps(result)}")
+    torch.cuda.empty_cache()
+    return result
+
+
+def bf16_lockstep(tr, stream) -> float:
+    """At every step both paths' loss from the same parameters (the kernel
+    path's trajectory), then the kernel path's optimizer step: the largest
+    loss difference."""
+    import torch
+
+    tr.init_params(0)
+    tr.train_neg.reset_random_state()
+    layout = tr._layout()
+    params = [p for m in (tr.model, tr.head) for p in m.parameters()]
+    tr.model.train()
+    tr.head.train()
+    worst = 0.0
+    for _, arrays, bucket in list(tr.train_batches(stream)):
+        out = {}
+        for use_kernels in (True, False):
+            tr.model.use_kernels = use_kernels
+            inputs = tr._sample(tr.train_csr, arrays, layout, bucket)
+            loss, _ = tr._head_loss(tr._embed(inputs, layout), arrays[6])
+            out[use_kernels] = (float(loss.detach()), torch.autograd.grad(loss, params))
+        worst = max(worst, abs(out[True][0] - out[False][0]))
+        for p, g in zip(params, out[True][1]):
+            p.grad = g
+        tr.optimizer.step()
+    tr.model.use_kernels = True
+    return worst
+
+
+def bf16_scan_times(data, dev) -> dict:
+    """The captured scan path, f32 and bf16 in turns (DyGFormer wikipedia
+    and TGAT): each bf16 capture against its loop and its replays traced
+    (``scan_compare``), then ms per train step and eval batch."""
+    import gc
+
+    n = data.train.num_interactions
+    train = data.train.slice(n - BF16_SCAN_BATCHES * B, n)
+    val = data.val.slice(0, BF16_SCAN_BATCHES * B)
+    out = {}
+    for name in ("DyGFormer wikipedia", "TGAT"):
+        trs = {cd: scan_lp_trainer(data, bf16_backbone(name, cd), dev)
+               for cd in ("float32", "bfloat16")}
+        runs = {cd: (lambda c, tr=tr: scan_run(tr, c, train, val)) for cd, tr in trs.items()}
+        res = scan_compare(f"{name} bf16", trs["bfloat16"], runs["bfloat16"], timed=False)
+        fwd, bwd = BF16_PATH_KERNELS[name.split()[0]]
+        check_bf16_launches(name, "captured scan", res["scan_launches"], fwd + bwd)
+        snaps = {"bfloat16": scan_snapshot(trs["bfloat16"])}
+        tr = trs["float32"]  # its capture, from one snapshot after a first loop run
+        runs["float32"](False)
+        snaps["float32"] = scan_snapshot(tr)
+        scan_restore(tr, snaps["float32"])
+        runs["float32"](True)
+        res.update(train_ms={cd: [] for cd in trs}, eval_ms={cd: [] for cd in trs})
+        for cd in BF16_TURNS:
+            scan_restore(trs[cd], snaps[cd])
+            r = runs[cd](True)
+            res["train_ms"][cd].append(r["train_ms"])
+            res["eval_ms"][cd].append(r["eval_ms"])
+        out[name] = res
+        log(f"  {name} scan path: {json.dumps(res)}")
+        del trs, runs
+        gc.collect()
+    return out
+
+
+def run_bf16(data, dev) -> dict:
+    """Phase 5b: every bf16 path, the scan path's times, remat at CanParl."""
+    t0 = time.perf_counter()
+    out = {name: run_bf16_path(data, name, nb, ns, dev) for name, nb, ns in BF16_PATHS}
+    out["scan"] = bf16_scan_times(data, dev)
+    out["remat"] = run_remat(data, dev)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 5b: {out['seconds']:.1f} s")
+    return out
+
+
+def run_remat(data, dev) -> dict:
+    """DyGFormer CanParl train steps at dropout 0.1 with and without remat,
+    from the same weights and dropout seed: gradients and the generator's
+    state after each step equal, peak memory and ms of each; then a
+    captured remat step against its loop."""
+    import numpy as np
+    import torch
+
+    from dyglib_tpu_torch.graph import NegativeEdgeSampler
+    from dyglib_tpu_torch.train import LinkPredictionTrainer, TrainConfig
+
+    n = data.train.num_interactions
+    train = data.train.slice(n - REMAT_STEPS * B, n)
+    out = {}
+    grads, gens, losses = {}, {}, {}
+    for remat in (False, True, True, False):  # in turns; the second of each timed
+        backbone = bf16_backbone("DyGFormer CanParl", "float32", remat=remat)
+        backbone.dropout = 0.1
+        tr = LinkPredictionTrainer(backbone, data, TrainConfig(batch_size=B,
+                                   learning_rate=TRAIN_LR), device=dev)
+        tr.init_params(0)
+        tr.train_neg = NegativeEdgeSampler(data.train.src, data.train.dst, seed=19)
+        batches = [(a, bk) for _, a, bk in tr.train_batches(train)]
+        tr.train_step(*batches[0])  # warm-up: allocator, cuBLAS
+        tr.init_params(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        step_grads, step_gens, step_losses = [], [], []
+        for arrays, bucket in batches:
+            step_losses.append(float(tr.train_step(arrays, bucket)[0]))
+            step_grads.append([p.grad.detach().clone() for p in tr.model.parameters()
+                               if p.grad is not None])
+            step_gens.append(tr.dropout_gen.get_state())
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / len(batches) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        key = "remat" if remat else "no remat"
+        out.setdefault(key, {"ms_per_step": [], "peak_bytes_above_weights": []})
+        out[key]["ms_per_step"].append(ms)
+        out[key]["peak_bytes_above_weights"].append(peak)
+        grads[remat], gens[remat], losses[remat] = step_grads, step_gens, step_losses
+        del tr
+        torch.cuda.empty_cache()
+    worst, bitwise = 0.0, True
+    for step, (a, b) in enumerate(zip(grads[False], grads[True])):
+        for ga, gb in zip(a, b):
+            bitwise = bitwise and torch.equal(ga, gb)
+            worst = max(worst, float((ga - gb).abs().max()) / max(float(ga.abs().max()), 1e-30))
+        if not torch.equal(gens[False][step], gens[True][step]):
+            raise AssertionError(f"remat: the dropout generator differs after step {step}")
+    if not worst <= REMAT_GRAD_RTOL or losses[False] != losses[True]:
+        raise AssertionError(f"remat: gradients differ by {worst} of their largest entries, "
+                             f"losses {losses}")
+    out.update(bitwise_gradients=bitwise, max_grad_diff=worst, losses=losses[True])
+
+    # the scan path: a captured remat epoch against its loop, f32 and bf16
+    val = data.val.slice(0, B)
+    out["captured_vs_loop"] = {}
+    for cd in ("float32", "bfloat16"):
+        backbone = bf16_backbone("DyGFormer CanParl", cd, remat=True)
+        backbone.dropout = 0.1
+        tr = scan_lp_trainer(data, backbone, dev)
+        scan_run(tr, False, train, val)
+        snap = scan_snapshot(tr)
+        runs = {}
+        for captured in (False, True):
+            scan_restore(tr, snap)
+            runs[captured] = scan_run(tr, captured, train, val)
+        loop, graph = runs[False], runs[True]
+        diff = max(float((a - b).abs().max()) for a, b in zip(loop["params"], graph["params"]))
+        loss_diff = float(np.abs(np.subtract(loop["losses"], graph["losses"])).max())
+        gens_equal = all(torch.equal(a, b) for a, b in zip(loop["gens"], graph["gens"]))
+        if not (diff <= SCAN_ATOL and loss_diff <= SCAN_ATOL and gens_equal):
+            raise AssertionError(f"remat captured vs loop ({cd}): parameters {diff}, losses "
+                                 f"{loss_diff}, generators equal {gens_equal}")
+        out["captured_vs_loop"][cd] = dict(max_param_diff=diff, max_loss_diff=loss_diff,
+                                           replays=graph["replays"])
+        del tr
+        torch.cuda.empty_cache()
+    log(f"  remat at CanParl (dropout 0.1): {json.dumps(out)}")
+    return out
+
+
 MESH_MODELS = ("TGAT", "DyGFormer", "TGN")
 MESH_STEPS, MESH_BATCHES, MESH_ATOL = 5, 10, 1e-6
 MESH_TURNS = (False, True, True, False)
@@ -3522,6 +4098,10 @@ def main() -> int:
     log(f"training kernels vs plain versions (gradients within {GRAD_RTOL} of sum|terms|, "
         "window_fetch bitwise):")
     kernel_results.update(check_training_kernels(dev))
+    log(f"bf16 variants vs plain bf16 versions (within {GRAD_RTOL} of sum|terms|; the bf16 "
+        "patch projection's rounded output also within a bf16 ulp of its product and one of "
+        f"itself; a second launch bitwise equal; {card_line()}):")
+    kernel_results.update(check_bf16_kernels(dev))
     log(f"TGAT kernels vs plain versions (atol {KERNEL_ATOL}):")
     kernel_results.update(check_tgat_kernels(data, dev))
     log(f"TGAT backward kernels vs plain backwards (gradients within {GRAD_RTOL} of sum|terms|, "
@@ -3573,6 +4153,13 @@ def main() -> int:
     log("historical and inductive negatives (the quad), TGAT and TGN:")
     run_negatives(data, dev)
     log(f"  phase 5n: {time.perf_counter() - t0:.1f} s")
+    log("bf16 compute (kernel path vs plain bf16 path: probabilities within half the plain "
+        f"path's bf16-vs-f32 gap and {BF16_PROB_ATOL}, losses in lockstep within half the loss "
+        f"gap and {BF16_LOSS_ATOL}; no split-TF32 launch; captures vs loops within {SCAN_ATOL}, "
+        "their replays traced; ms f32 and bf16 in "
+        f"turns {list(BF16_TURNS)}) and DyGFormer's remat at CanParl ({card_line()}):")
+    bf16_run = run_bf16(data, dev)
+    torch.cuda.empty_cache()
     log(f"node classification and the CLI (probability tolerance {PROB_ATOL}; head steps in "
         f"lockstep: losses within {LOSS_ATOL}, gradients within {GRAD_STEP_RTOL}; fixture val "
         f"AUC floor {NODECLS_FIXTURE_AUC_FLOOR}; the four drivers for {DRIVER_MODELS}):")
@@ -3612,7 +4199,17 @@ def main() -> int:
         "gathered_attention_bwd": "dyglib_tpu/ops/pallas/gathered_attention.py:97",
         "window_attention_bwd": "dyglib_tpu/ops/pallas/window_attention.py:167",
         "phi_projection_bwd": "dyglib_tpu/ops/pallas/phi_projection.py:56",
+        "time_channel_bf16": "dyglib_tpu/ops/pallas/time_channel.py:119",
+        "time_channel_bf16_bwd": "dyglib_tpu/ops/pallas/time_channel.py:201",
+        "patch_projection_bf16": "dyglib_tpu/ops/pallas/patch_projection.py:59",
+        "patch_projection_bf16_bwd": "dyglib_tpu/ops/pallas/patch_projection.py:71",
     }
+
+    def source(kernel):
+        base = kernel.removesuffix("_bwd")
+        if base == "time_channel_bf16":  # time_channel.cu's Bf16 product
+            base = "time_channel"
+        return f"dyglib_tpu_torch/csrc/{base}.cu"
 
     def scan_launches(kernel, config):
         """The launches the replays of phase 5s made: TGAT's window and Phi
@@ -3620,6 +4217,9 @@ def main() -> int:
         every other kernel in its model's captured train epoch and eval
         sweep; none at CanParl's width (not captured)."""
         base = kernel.removesuffix("_bwd")
+        if base.endswith("_bf16"):  # phase 5b's traced bf16 replays (wikipedia)
+            traced = bf16_run["scan"]["DyGFormer wikipedia"]["scan_launches"]
+            return traced.get(kernel, 0) if config == "wikipedia" else 0
         case = {"tgn": "TGN", "wikipedia": "DyGFormer", "tgat": "TGAT"}.get(config)
         if base == "window_fetch":
             case = "DyGFormer entry fetch" if config == "wikipedia" else None
@@ -3638,6 +4238,9 @@ def main() -> int:
         if config == "tgn":
             sweep = memory_train if kernel.endswith("_bwd") else memory_eval
             return sweep["TGN"]["launches"][kernel]
+        if kernel.removesuffix("_bwd").endswith("_bf16"):  # phase 5b's bf16 sweeps
+            run = bf16_run[f"DyGFormer {config}"]
+            return run["train_launches" if kernel.endswith("_bwd") else "eval_launches"][kernel]
         if kernel in TGAT_KERNEL_CONFIG:
             return tgat_run["launches"][TGAT_KERNEL_CONFIG[kernel]][kernel]
         if kernel.removesuffix("_bwd") in TGAT_KERNEL_CONFIG:
@@ -3661,7 +4264,7 @@ def main() -> int:
         rows.append({
             "name": f"{kernel}@{config}",
             "route": "cuda",
-            "source": f"dyglib_tpu_torch/csrc/{kernel.removesuffix('_bwd')}.cu",
+            "source": source(kernel),
             "replaces": replaces[kernel],
             "launches": main_path_launches(kernel, config),
             # the node-classification path's launches (phase 5c: its first
@@ -3685,8 +4288,20 @@ def main() -> int:
                       for p in parts],
             # TGAT's yardsticks time only the K/V products (or Phi @ W), and
             # in the backward the two weight-gradient products
-            "library_partial": kernel.removesuffix("_bwd") in TGAT_KERNEL_CONFIG,
+            "library_partial": kernel.removesuffix("_bwd") in TGAT_KERNEL_CONFIG
+            or kernel in ("time_channel_bf16", "time_channel_bf16_bwd",
+                          "patch_projection_bf16_bwd"),
         })
+        if "sibling_ms" in parts[0]:  # the bf16 variants: their split-TF32 siblings' times
+            rows[-1]["split_tf32_ms"] = sum(p["sibling_ms"] for p in parts)
+            rows[-1]["rounding_flips"] = sum(p["rounding_flips"] for p in parts)
+        if ops_peak == PEAK_BF16_OPS:
+            rows[-1]["bound_note"] = (
+                f"tensor cores, one bf16 pass: {nops / 1e9:.1f} G operations, "
+                f"{nops / PEAK_BF16_OPS * 1e3:.4f} ms at 989 T/s; bytes "
+                f"{nbytes / PEAK_BYTES * 1e3:.4f} ms"
+                + (f"; {sfu / 1e6:.1f} M cosines (and sines), {sfu / PEAK_SFU_OPS * 1e3:.4f} ms "
+                   "at the SFU's 16 a clock per SM" if sfu else ""))
         if ops_peak == PEAK_TF32_OPS:
             cuda_core_ms = nops / SPLIT_TF32_PASSES / PEAK_F32_OPS * 1e3
             rows[-1]["bound_note"] = (

@@ -5,9 +5,9 @@ and choices (DyGLib's utils/load_configs.py:6-66 and :239-289), plus
 ``--device`` (default ``cuda``, resolved by ``device.resolve_device``;
 ``cpu`` runs on the CPU, as the tests do). The JAX package's scale-out
 flags build a rank grid (``runners.setup_parallelism``: one process per
-device). Its TPU flags whose feature the port lacks (``--fast_prng``,
-``--compute_dtype bfloat16``) raise ``NotImplementedError`` when set,
-never ignored.
+device). ``--compute_dtype bfloat16`` runs TGAT, CAWN and DyGFormer in
+bf16, as in the JAX package. Its TPU flag whose feature the port lacks
+(``--fast_prng``) raises ``NotImplementedError`` when set, never ignored.
 """
 from __future__ import annotations
 
@@ -111,7 +111,8 @@ def _common_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument(
         "--compute_dtype", type=str, default="float32",
         choices=["float32", "bfloat16"],
-        help="compute dtype (float32; bfloat16 is not ported: raises)",
+        help="compute dtype of TGAT, CAWN and DyGFormer (parameters stay float32; "
+        "the other models ignore it)",
     )
     parser.add_argument(
         "--show_progress", action="store_true", default=False,

@@ -3,8 +3,8 @@
 Counterpart of ``dyglib_tpu/configs/factory.py`` (the model dispatch of
 DyGLib's drivers, train_link_prediction.py:95-127): the same fields from
 the same flags, the memory models' time shifts from the train split.
-No backbone of the port computes in bfloat16: ``--compute_dtype
-bfloat16`` raises.
+``--compute_dtype`` reaches TGAT, CAWN and DyGFormer, as in the JAX
+package; the other models take it and compute in float32.
 """
 from __future__ import annotations
 
@@ -25,10 +25,6 @@ from ..models import (
 def build_backbone(args: argparse.Namespace, data: LinkPredictionData):
     m = args.model_name
     dtype = getattr(args, "compute_dtype", "float32")
-    if dtype != "float32":
-        raise NotImplementedError(
-            f"--compute_dtype {dtype} is not ported: every backbone of the port computes in "
-            "float32 (ROADMAP Queue 1 item 11)")
     if m == "TGAT":
         return TGAT(
             num_neighbors=args.num_neighbors,
@@ -37,6 +33,7 @@ def build_backbone(args: argparse.Namespace, data: LinkPredictionData):
             dropout=args.dropout,
             time_feat_dim=args.time_feat_dim,
             sample_strategy=args.sample_neighbor_strategy,
+            compute_dtype=dtype,
         )
     if m in ("JODIE", "DyRep", "TGN"):
         shifts = compute_src_dst_node_time_shifts(data.train.src, data.train.dst, data.train.ts)
@@ -89,5 +86,6 @@ def build_backbone(args: argparse.Namespace, data: LinkPredictionData):
             num_heads=args.num_heads,
             dropout=args.dropout,
             time_feat_dim=args.time_feat_dim,
+            compute_dtype=dtype,
         )
     raise ValueError(f"Wrong value for model_name {m!r}!")

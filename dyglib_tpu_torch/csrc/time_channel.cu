@@ -30,14 +30,28 @@
 // for both products, shared with the Phi projection's backward and
 // described in time_channel_bwd.cuh (here with the mask and dbias).
 //
+// The bf16 variants (a model built with compute_dtype bfloat16; the
+// time_channel_bf16_* entry points) keep the JAX kernels' math instead:
+// Phi, W and dout rounded to bf16, one mma.sync m16n8k16 pass, f32 sums
+// and f32 outputs. Both kernels are templates on their product
+// (time_products.cuh: SplitTf32 or Bf16); the bf16 forward pads each
+// slot's Dt to a multiple of 16, the mma's depth, and holds 4 features of
+// a step a thread where the split-TF32 one holds 2.
+// Bounds at CanParl (rows 19,200, K = 6400, ced 50) in bf16: the forward's
+// 12.3 G operations take 0.012 ms at 989 T/s and its 98 M cosines 0.023 ms
+// at the SFU's rate (bound by the cosines); the backward's 24.6 G
+// operations 0.025 ms and its (cosine, sine) pairs 0.047 ms.
+//
 // theta comes from phi.cuh (exact rounding of the argument); the forward's
 // cosines are cos_reduced.cuh's, cosf's bits.
 #include "cos_reduced.cuh"
 #include "patch_gemm.cuh"
 #include "phi.cuh"
 #include "time_channel_bwd.cuh"
+#include "time_products.cuh"
 
 namespace pg = dyglib::patch_gemm;
+namespace tp = dyglib::time_products;
 
 namespace {
 
@@ -63,7 +77,9 @@ struct ForwardArgs {
 
 // grid (row tiles, column tiles, K splits); dynamic shared memory: the
 // ring, then tw and tb padded to dt_pad with zeros.
+template <class Product>
 __global__ void __launch_bounds__(kFwdThreads) time_channel_fwd_kernel(const ForwardArgs a) {
+  constexpr int kF = Product::kFeatures;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* tw_s = smem + pg::kStages * kStageFloats;
@@ -99,8 +115,8 @@ __global__ void __launch_bounds__(kFwdThreads) time_channel_fwd_kernel(const For
 
   // This thread's four rows of A, (mt, h) -> m0 + warp_m + 16 mt + 8 h + g,
   // and their dt and valid at slot `slot` (the next slot's loaded ahead).
-  // The k-step walks (slot, f0) forward 8 features at a time: kp_begin is
-  // a multiple of 32 and dt_pad of 8, so no step straddles two slots.
+  // The k-step walks (slot, f0) forward kStep features at a time: kp_begin
+  // is a multiple of 32 and dt_pad of kStep, so no step straddles two slots.
   int slot = kp_begin / a.dt_pad;
   int f0 = kp_begin - slot * a.dt_pad;
   float dt_r[2][2], dt_next[2][2];
@@ -125,24 +141,24 @@ __global__ void __launch_bounds__(kFwdThreads) time_channel_fwd_kernel(const For
   const auto multiply = [&](const float* stage) {
     float part[2][pg::kNFrag][4] = {};
 #pragma unroll
-    for (int kk = 0; kk < pg::kTileK; kk += 8) {
+    for (int kk = 0; kk < pg::kTileK; kk += Product::kStep) {
       // past kp_end (a last, partial stage) Phi is 0 and W was staged 0
       const bool live = kp + kk < kp_end;
-      float tw_c[2], tb_c[2];
-      bool f_in[2];
+      float tw_c[kF], tb_c[kF];
+      bool f_in[kF];
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int f = f0 + t + 4 * c;
+      for (int c = 0; c < kF; ++c) {
+        const int f = f0 + Product::feature(t, c);
         tw_c[c] = tw_s[f], tb_c[c] = tb_s[f], f_in[c] = live && f < a.dt_dim;
       }
-      unsigned a_hi[2][4], a_lo[2][4], b_hi[pg::kNFrag][2], b_lo[pg::kNFrag][2];
-      // theta of the A fragment's elements, (mt, i) at 4 mt + i: row h =
-      // i % 2, feature c = i / 2; cosines only for an m-tile in which some
-      // lane has a valid row (a warp-wide choice: see cos_reduced)
-      float theta[8], cv[8] = {};
+      // theta of the A fragment's elements, (mt, h, c) at (2 mt + h) kF +
+      // c; cosines only for an m-tile in which some lane has a valid row
+      // (a warp-wide choice: see cos_reduced)
+      constexpr int kE = 4 * kF;
+      float theta[kE], cv[kE] = {};
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int mt = e / 4, h = e % 2, c = (e % 4) / 2;
+      for (int e = 0; e < kE; ++e) {
+        const int mt = e / (2 * kF), h = (e / kF) % 2, c = e % kF;
         theta[e] = dyglib::theta_of(dt_r[mt][h], tw_c[c], tb_c[c]);
       }
       bool need[2];
@@ -150,48 +166,19 @@ __global__ void __launch_bounds__(kFwdThreads) time_channel_fwd_kernel(const For
       for (int mt = 0; mt < 2; ++mt)
         need[mt] = live && __any_sync(0xffffffffu, valid_r[mt][0] || valid_r[mt][1]);
       if (need[0] && need[1]) {
-        dyglib::cos_reduced<8>(theta, cv);
+        dyglib::cos_reduced<kE>(theta, cv);
       } else {
-        if (need[0]) dyglib::cos_reduced<4>(theta, cv);
-        if (need[1]) dyglib::cos_reduced<4>(theta + 4, cv + 4);
+        if (need[0]) dyglib::cos_reduced<kE / 2>(theta, cv);
+        if (need[1]) dyglib::cos_reduced<kE / 2>(theta + kE / 2, cv + kE / 2);
       }
-      float phi[2][4];
+      float phi[2][2][kF];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int mt = e / 4, h = e % 2, c = (e % 4) / 2;
-        phi[mt][e % 4] = valid_r[mt][h] && f_in[c] ? cv[e] : 0.f;
+      for (int e = 0; e < kE; ++e) {
+        const int mt = e / (2 * kF), h = (e / kF) % 2, c = e % kF;
+        phi[mt][h][c] = valid_r[mt][h] && f_in[c] ? cv[e] : 0.f;
       }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const pg::Split s = pg::split_tf32(phi[mt][i]);
-          a_hi[mt][i] = s.hi, a_lo[mt][i] = s.lo;
-        }
-#pragma unroll
-      for (int nf = 0; nf < pg::kNFrag; ++nf)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const pg::Split s =
-              pg::split_tf32(stage[(nf * 8 + g) * pg::kFwdStride + kk + t + 4 * i]);
-          b_hi[nf][i] = s.hi, b_lo[nf][i] = s.lo;
-        }
-#pragma unroll
-      for (int nf = 0; nf < pg::kNFrag; ++nf)
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-          pg::mma_tf32(part[mt][nf], a_lo[mt], b_hi[nf][0], b_hi[nf][1]);
-#pragma unroll
-      for (int nf = 0; nf < pg::kNFrag; ++nf)
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-          pg::mma_tf32(part[mt][nf], a_hi[mt], b_lo[nf][0], b_lo[nf][1]);
-#pragma unroll
-      for (int nf = 0; nf < pg::kNFrag; ++nf)
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-          pg::mma_tf32(part[mt][nf], a_hi[mt], b_hi[nf][0], b_hi[nf][1]);
-      f0 += 8;
+      Product::forward_step(part, phi, stage, kk, g, t);
+      f0 += Product::kStep;
       if (f0 == a.dt_pad) {  // the next slot: its rows were loaded ahead
         f0 = 0, ++slot;
 #pragma unroll
@@ -220,55 +207,103 @@ __global__ void __launch_bounds__(kFwdThreads) time_channel_fwd_kernel(const For
                  gridDim.z == 1 ? a.bias : nullptr);
 }
 
+template <class Product>
+cudaError_t forward(const ForwardArgs& args, float* out, float* partial, int splits,
+                    cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (pg::kStages * kStageFloats + 2 * args.dt_pad);
+  cudaError_t err;
+  if (smem > 48 * 1024) {  // past the default: opt in (Dt above 2112)
+    err = cudaFuncSetAttribute(time_channel_fwd_kernel<Product>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((args.rows + kFwdTileM - 1) / kFwdTileM,
+                  (args.ced + pg::kTileN - 1) / pg::kTileN, splits);
+  time_channel_fwd_kernel<Product><<<grid, kFwdThreads, smem, stream>>>(args);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  return pg::launch_sum_partials(partial, args.bias, out, splits,
+                                 static_cast<size_t>(args.rows) * args.ced, args.ced, stream);
+}
+
+template <class Product>
+int forward_entry(const float* dt, const bool* valid, const float* tw, const float* tb,
+                  const float* w, int w_sk, int w_sn, const float* bias, float* out,
+                  float* partial, int rows, int patch, int dt_dim, int dt_pad, int ced,
+                  int k_chunk, cudaStream_t stream) {
+  if (rows == 0 || ced == 0) return 0;
+  if (dt_pad < dt_dim || dt_pad % Product::kStep != 0 || k_chunk <= 0 ||
+      k_chunk % pg::kTileK != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int splits = (patch * dt_pad + k_chunk - 1) / k_chunk;
+  const ForwardArgs args{dt, valid, tw, tb, w, bias, splits == 1 ? out : partial, rows, patch,
+                         dt_dim, dt_pad, ced, w_sk, w_sn, k_chunk};
+  return static_cast<int>(forward<Product>(args, out, partial, splits, stream));
+}
+
+template <class Product>
+int backward_entry(const float* dt, const bool* valid, const float* tw, const float* tb,
+                   const float* w, int w_sk, int w_sn, const float* dout, float* dw_ext,
+                   float* dt_grads, float* partial, float* part, int rows, int patch, int dt_dim,
+                   int dt_pad, int ced, int chunk_rows, int d_vec, cudaStream_t stream) {
+  const dyglib::time_bwd::Args args{dt,   valid, tw,     tb,     w,   dout, nullptr, nullptr,
+                                    rows, patch, dt_dim, dt_pad, ced, w_sk, w_sn, chunk_rows};
+  return static_cast<int>(dyglib::time_bwd::backward<true, 8, Product>(
+      args, dw_ext, dt_grads, partial, part, d_vec, stream));
+}
+
 }  // namespace
 
 // dt: (rows * patch) f32; valid: (rows * patch) bool; tw, tb: (dt_dim) f32;
 // w: (patch * dt_dim, ced) f32 with element strides (w_sk, w_sn); bias: (ced)
-// f32; out: (rows, ced) f32. dt_pad: dt_dim rounded up to a multiple of 8.
-// k_chunk: padded K (patch * dt_pad) per split, a multiple of 32; with
-// more than one split, partial holds (splits, rows, ced) f32.
+// f32; out: (rows, ced) f32. dt_pad: dt_dim rounded up to a multiple of 8
+// (16 for the bf16 variant). k_chunk: padded K (patch * dt_pad) per split,
+// a multiple of 32; with more than one split, partial holds (splits, rows,
+// ced) f32.
 DYGLIB_API int time_channel_forward(const float* dt, const bool* valid, const float* tw,
                                     const float* tb, const float* w, int w_sk, int w_sn,
                                     const float* bias, float* out, float* partial, int rows,
                                     int patch, int dt_dim, int dt_pad, int ced, int k_chunk,
                                     cudaStream_t stream) {
-  if (rows == 0 || ced == 0) return 0;
-  if (dt_pad < dt_dim || dt_pad % 8 != 0 || k_chunk <= 0 || k_chunk % pg::kTileK != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int splits = (patch * dt_pad + k_chunk - 1) / k_chunk;
-  const ForwardArgs args{dt, valid, tw, tb, w, bias, splits == 1 ? out : partial, rows, patch,
-                         dt_dim, dt_pad, ced, w_sk, w_sn, k_chunk};
-  const size_t smem = sizeof(float) * (pg::kStages * kStageFloats + 2 * dt_pad);
-  cudaError_t err;
-  if (smem > 48 * 1024) {  // past the default: opt in (Dt above 2112)
-    err = cudaFuncSetAttribute(time_channel_fwd_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid((rows + kFwdTileM - 1) / kFwdTileM, (ced + pg::kTileN - 1) / pg::kTileN,
-                  splits);
-  time_channel_fwd_kernel<<<grid, kFwdThreads, smem, stream>>>(args);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  return static_cast<int>(pg::launch_sum_partials(partial, bias, out, splits,
-                                                  static_cast<size_t>(rows) * ced, ced, stream));
+  return forward_entry<tp::SplitTf32>(dt, valid, tw, tb, w, w_sk, w_sn, bias, out, partial,
+                                      rows, patch, dt_dim, dt_pad, ced, k_chunk, stream);
 }
 
-// As the forward, plus dout: (rows, ced) f32. Outputs: dw_ext
-// (patch * dt_dim + 1, ced) f32 (rows 0..K-1 = dW, row K = dbias); dt_grads
-// (2, dt_dim) f32: dtw, then dtb. chunk_rows: rows per partial sum, a
-// multiple of 32; with more than one chunk, partial holds (chunks, K + 1,
-// ced) f32. part: (chunks * ceil(ced / 56) * patch, 2, dt_dim) f32. d_vec:
-// floats per copy of dout (2 or 1, the wrapper's alignment check).
+DYGLIB_API int time_channel_bf16_forward(const float* dt, const bool* valid, const float* tw,
+                                         const float* tb, const float* w, int w_sk, int w_sn,
+                                         const float* bias, float* out, float* partial, int rows,
+                                         int patch, int dt_dim, int dt_pad, int ced, int k_chunk,
+                                         cudaStream_t stream) {
+  return forward_entry<tp::Bf16>(dt, valid, tw, tb, w, w_sk, w_sn, bias, out, partial, rows,
+                                 patch, dt_dim, dt_pad, ced, k_chunk, stream);
+}
+
+// As the forward, plus dout: (rows, ced) f32. dt_pad: dt_dim rounded up to
+// a multiple of 8 (both variants). Outputs: dw_ext (patch * dt_dim + 1,
+// ced) f32 (rows 0..K-1 = dW, row K = dbias); dt_grads (2, dt_dim) f32:
+// dtw, then dtb. chunk_rows: rows per partial sum, a multiple of 32; with
+// more than one chunk, partial holds (chunks, K + 1, ced) f32. part:
+// (chunks * ceil(ced / 56) * patch, 2, dt_dim) f32. d_vec: floats per copy
+// of dout (2 or 1, the wrapper's alignment check).
 DYGLIB_API int time_channel_backward(const float* dt, const bool* valid, const float* tw,
                                      const float* tb, const float* w, int w_sk, int w_sn,
                                      const float* dout, float* dw_ext, float* dt_grads,
                                      float* partial, float* part, int rows, int patch, int dt_dim,
                                      int dt_pad, int ced, int chunk_rows, int d_vec,
                                      cudaStream_t stream) {
-  const dyglib::time_bwd::Args args{dt,   valid, tw,     tb,     w,   dout, nullptr, nullptr,
-                                    rows, patch, dt_dim, dt_pad, ced, w_sk, w_sn, chunk_rows};
-  return static_cast<int>(dyglib::time_bwd::backward<true, 8>(args, dw_ext, dt_grads,
-                                                                   partial, part, d_vec, stream));
+  return backward_entry<tp::SplitTf32>(dt, valid, tw, tb, w, w_sk, w_sn, dout, dw_ext, dt_grads,
+                                       partial, part, rows, patch, dt_dim, dt_pad, ced,
+                                       chunk_rows, d_vec, stream);
+}
+
+DYGLIB_API int time_channel_bf16_backward(const float* dt, const bool* valid, const float* tw,
+                                          const float* tb, const float* w, int w_sk, int w_sn,
+                                          const float* dout, float* dw_ext, float* dt_grads,
+                                          float* partial, float* part, int rows, int patch,
+                                          int dt_dim, int dt_pad, int ced, int chunk_rows,
+                                          int d_vec, cudaStream_t stream) {
+  return backward_entry<tp::Bf16>(dt, valid, tw, tb, w, w_sk, w_sn, dout, dw_ext, dt_grads,
+                                  partial, part, rows, patch, dt_dim, dt_pad, ced, chunk_rows,
+                                  d_vec, stream);
 }

@@ -8,7 +8,9 @@
 //       c = dPhi * -sin(theta);  dtb[f] += c;  dtw[f] += c * dt
 // in one kernel, both products in split TF32 on mma.sync as the time
 // channel's forward (patch_gemm.cuh: every operand v = hi + lo, three
-// passes lo*hi, hi*lo, hi*hi, f32 sums), dbias on the CUDA cores from the
+// passes lo*hi, hi*lo, hi*hi, f32 sums; or, for the time channel's bf16
+// variant, one bf16 pass on Phi, dout and W rounded to bf16: the Product
+// policy of time_products.cuh), dbias on the CUDA cores from the
 // same dout stages (the first entry tile's blocks; as a column of ones in
 // the product it left one warp a chunk's whole dbias product where few
 // positions are valid, and as a separate column sum it cost wikipedia's
@@ -53,6 +55,7 @@
 #include "cos_reduced.cuh"
 #include "patch_gemm.cuh"
 #include "phi.cuh"
+#include "time_products.cuh"
 #include "weight_grad.cuh"
 
 namespace dyglib {
@@ -61,26 +64,23 @@ namespace time_bwd {
 namespace pg = patch_gemm;
 
 // grid (entry tiles, column tiles, row chunks)
-// A warp owns one m16 tile of entries (16) and all 56 columns: 28 dW
-// accumulators and their fresh stage sums a thread, and 16 of dPhi, so
-// that two blocks of 8 warps fit an SM's registers (128 a thread).
-constexpr int kMT = 1;                     // m16 tiles a warp
-constexpr int kGroups = 2 * kMT;           // 8-entry groups a warp
+// A warp owns one m16 tile of entries (16, two 8-entry groups) and all 56
+// columns: 28 dW accumulators and their fresh stage sums a thread, and 16
+// of dPhi, so that two blocks of 8 warps fit an SM's registers (128 a
+// thread). The products are the Product policy's (time_products.cuh:
+// SplitTf32, or Bf16 for the bf16 variant, whose dout tile and W are
+// padded to 64 columns and whose dW step takes 16 rows).
+constexpr int kGroups = 2;                 // 8-entry groups a warp
 constexpr int kRows = pg::kTileK;          // rows a stage
-constexpr int kDStride = pg::kTileN + 12;  // dout stage [row][column], 68
-constexpr int kWStride = pg::kTileN + 4;   // W [entry][column], 60
-constexpr int kStageFloats = kRows * kDStride;
-// Both strides are 4 mod 8 floats: the fragment reads (rows g, columns t)
-// and (rows 2t + b, columns g) hit 32 distinct banks.
-static_assert(kDStride % 8 == 4 && kWStride % 8 == 4, "conflict-free fragment reads");
 
-template <int kWarps>
+template <int kWarps, class Product>
 struct Block {
   static constexpr int kThreads = 32 * kWarps;
-  static constexpr int kEntries = 16 * kMT * kWarps;  // padded K entries a block
-  // 65,536 bytes at 8 warps
+  static constexpr int kEntries = 16 * kWarps;  // padded K entries a block
+  static constexpr int kStageFloats = kRows * Product::kDStride;
+  // 65,536 bytes at 8 warps in split TF32, 73,728 in bf16
   static constexpr size_t kSmemBytes =
-      sizeof(float) * (kEntries * kWStride + pg::kStages * kStageFloats);
+      sizeof(float) * (kEntries * Product::kWStride + pg::kStages * kStageFloats);
 };
 
 struct Args {
@@ -99,9 +99,12 @@ struct Args {
 // kDVec: floats per copy of dout (2 or 1). kMasked (the time channel):
 // positions masked by valid, and dbias as dW_ext's row K (the first entry
 // tile's blocks); without it (the Phi projection) neither.
-template <int kDVec, bool kMasked, int kWarps>
-__global__ void __launch_bounds__(Block<kWarps>::kThreads, 2) time_bwd_kernel(const Args a) {
-  using B = Block<kWarps>;
+template <int kDVec, bool kMasked, int kWarps, class Product>
+__global__ void __launch_bounds__(Block<kWarps, Product>::kThreads, 2)
+    time_bwd_kernel(const Args a) {
+  using B = Block<kWarps, Product>;
+  constexpr int kCols = Product::kCols, kDStride = Product::kDStride;
+  constexpr int kWStride = Product::kWStride;
   static_assert(!kMasked || kWarps == 8, "dbias's row groups take 256 threads");
   extern __shared__ float4 smem4[];
   float* w_s = reinterpret_cast<float*>(smem4);  // (B::kEntries, kWStride)
@@ -109,24 +112,28 @@ __global__ void __launch_bounds__(Block<kWarps>::kThreads, 2) time_bwd_kernel(co
   const int k_total = a.patch * a.dt_dim;
   const int kp_end = a.patch * a.dt_pad;
   const int e0 = blockIdx.x * B::kEntries, n0 = blockIdx.y * pg::kTileN;
+  // columns past the tile's 56 (a padded tile) are staged as zeros; an
+  // unpadded tile needs no bound of its own (and holds no register for it)
+  const auto n_end = [&] { return kCols > pg::kTileN ? min(a.ced, n0 + pg::kTileN) : a.ced; };
   const int r_begin = blockIdx.z * a.chunk_rows;
   const int r_end = min(a.rows, r_begin + a.chunk_rows);
   const int tiles = (r_end - r_begin + kRows - 1) / kRows;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
 
-  // W's rows of the block's entries, zero at the padding
-  for (int i = threadIdx.x; i < B::kEntries * pg::kTileN; i += B::kThreads) {
+  // W's rows of the block's entries, zero at the padding and past the
+  // tile's 56 columns
+  for (int i = threadIdx.x; i < B::kEntries * kCols; i += B::kThreads) {
     const int e = i % B::kEntries, c = i / B::kEntries;
     const int kp = e0 + e, j = kp / a.dt_pad, f = kp - j * a.dt_pad;
-    const bool in = kp < kp_end && f < a.dt_dim && n0 + c < a.ced;
+    const bool in = kp < kp_end && f < a.dt_dim && n0 + c < n_end();
     const size_t at =
         static_cast<size_t>(j * a.dt_dim + f) * a.w_sk + static_cast<size_t>(n0 + c) * a.w_sn;
     w_s[e * kWStride + c] = in ? a.w[at] : 0.f;
   }  // read after the pipeline's first barrier
 
-  // this thread's entries, i = 2 mt + h -> we + 16 mt + 8 h + g = we + 8 i + g
-  const int wl = 16 * kMT * warp;  // the warp's first entry in the block
+  // this thread's entries, h = 0, 1 -> we + 8 h + g
+  const int wl = 16 * warp;  // the warp's first entry in the block
   const int we = e0 + wl;
   int slot[kGroups];
   bool real[kGroups];
@@ -162,11 +169,11 @@ __global__ void __launch_bounds__(Block<kWarps>::kThreads, 2) time_bwd_kernel(co
   fetch(0);
 
   const auto load = [&](int tile, float* stage) {
-    pg::stage_tile<B::kThreads, kRows, pg::kTileN, kDStride, kDVec>(
-        stage, a.dout, a.ced, r_begin + tile * kRows, r_end, n0, a.ced);
+    pg::stage_tile<B::kThreads, kRows, kCols, kDStride, kDVec>(
+        stage, a.dout, a.ced, r_begin + tile * kRows, r_end, n0, n_end());
   };
 
-  float acc[kMT][pg::kNFrag][4] = {};
+  float acc[pg::kNFrag][4] = {};
   float s_tw[kGroups] = {}, s_tb[kGroups] = {};
   // dbias, in the first entry tile's blocks: thread (bq, bc) sums column
   // bc of the stages' rows 8 bq .. 8 bq + 7 (rows past the chunk are zero)
@@ -189,117 +196,51 @@ __global__ void __launch_bounds__(Block<kWarps>::kThreads, 2) time_bwd_kernel(co
     for (int i = 0; i < kGroups; ++i) any |= vm[i];
     if (any == 0u) return;  // Phi and c are zero on all 32 rows
 
-    // dPhi (entries x rows) = W (entries x ced) dout^T, 8 rows a step nt,
-    // for the steps with a valid position
-    float dphi[4][kMT][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < pg::kTileN; kk += 8) {
-      unsigned w_hi[kMT][4], w_lo[kMT][4];
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const pg::Split sp = pg::split_tf32(
-              w_s[(wl + 16 * mt + g + 8 * (i % 2)) * kWStride + kk + t + 4 * (i / 2)]);
-          w_hi[mt][i] = sp.hi, w_lo[mt][i] = sp.lo;
-        }
-      // B(c, row) fragments, split; then the three passes, each over all
-      // steps and m-tiles (mma.sync is issued in program order: no pass
-      // waits on the one before it for the same accumulator)
-      pg::Split b[4][2];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const float* drow = stage + (8 * nt + g) * kDStride + kk + t;
-        b[nt][0] = pg::split_tf32(drow[0]), b[nt][1] = pg::split_tf32(drow[4]);
-      }
-#pragma unroll
-      for (int pass = 0; pass < 3; ++pass)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          if (((any >> (8 * nt)) & 0xffu) == 0u) continue;
-          // lo*hi, hi*lo, hi*hi
-          const unsigned b0 = pass == 1 ? b[nt][0].lo : b[nt][0].hi;
-          const unsigned b1 = pass == 1 ? b[nt][1].lo : b[nt][1].hi;
-#pragma unroll
-          for (int mt = 0; mt < kMT; ++mt)
-            pg::mma_tf32(dphi[nt][mt], pass == 0 ? w_lo[mt] : w_hi[mt], b0, b1);
-        }
-    }
+    // dPhi (16 entries x 32 rows) = W dout^T, 8 rows a step nt, for the
+    // steps with a valid position
+    float dphi[4][4] = {};
+    Product::dphi_product(dphi, w_s, stage, wl, any, g, t);
 
-    float part[kMT][pg::kNFrag][4] = {};
+    // accumulator r of step nt holds (entry g + 8 (r / 2), row 8 nt + 2t +
+    // r % 2): Phi there for dW, and dPhi's epilogue c = dPhi * -sin summed
+    // per entry
+    float part[pg::kNFrag][4] = {};
+    float phi[4][4] = {};
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
-      if (((any >> (8 * nt)) & 0xffu) == 0u) continue;
-      // theta of the thread's (row, entry) pairs, q = 4 mt + 2 b + h for
-      // row 8 nt + 2 t + b and entry i = 2 mt + h
-      float x[4 * kMT], cv[4 * kMT] = {}, sv[4 * kMT] = {}, d[4 * kMT];
-      bool v[4 * kMT];
+      // cosines and sines only for 8 rows with a valid position (a
+      // warp-wide choice: any is a ballot)
+      const bool live = ((any >> (8 * nt)) & 0xffu) != 0u;
+      float x[4], cv[4] = {}, sv[4] = {}, d[4];
+      bool v[4];
+      if (live) {
 #pragma unroll
-      for (int q = 0; q < 4 * kMT; ++q) {
-        const int mt = q / 4, b = (q / 2) % 2, i = 2 * mt + q % 2;
-        const int row = 8 * nt + 2 * t + b;
-        d[q] = __shfl_sync(0xffffffffu, d_cur[i], row);
-        v[q] = real[i] && ((vm[i] >> row) & 1u);
-        x[q] = theta_of(d[q], tw_e[i], tb_e[i]);
+        for (int r = 0; r < 4; ++r) {
+          const int h = r / 2, row = 8 * nt + 2 * t + r % 2;
+          d[r] = __shfl_sync(0xffffffffu, d_cur[h], row);
+          v[r] = real[h] && ((vm[h] >> row) & 1u);
+          x[r] = theta_of(d[r], tw_e[h], tb_e[h]);
+        }
+        sincos_reduced<4>(x, cv, sv);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) phi[nt][r] = v[r] ? cv[r] : 0.f;
       }
-      // cosines and sines only for an m-tile with a valid position in
-      // these 8 rows (a warp-wide choice: vm are ballots)
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
-        if (((vm[2 * mt] | vm[2 * mt + 1]) >> (8 * nt)) & 0xffu)
-          sincos_reduced<4>(x + 4 * mt, cv + 4 * mt, sv + 4 * mt);
-      // dW += Phi^T dout over this step's 8 rows: A(entry, row) fragments
-      unsigned a_hi[kMT][4], a_lo[kMT][4];
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
+      Product::dw_step(part, phi, stage, nt, any, g, t);
+      if (live) {
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          // register r holds (entry g + 8 (r % 2), row t + 4 (r / 2)) ->
-          // h = r % 2, b = r / 2
-          const int q = 4 * mt + 2 * (r / 2) + r % 2;
-          const pg::Split sp = pg::split_tf32(v[q] ? cv[q] : 0.f);
-          a_hi[mt][r] = sp.hi, a_lo[mt][r] = sp.lo;
+          const float c = v[r] ? dphi[nt][r] * sv[r] : 0.f;
+          s_tb[r / 2] += c;
+          s_tw[r / 2] += c * d[r];
         }
-      const float* d0 = stage + (8 * nt + 2 * t) * kDStride + g;
-      pg::Split b[pg::kNFrag][2];
-#pragma unroll
-      for (int nf = 0; nf < pg::kNFrag; ++nf)
-        b[nf][0] = pg::split_tf32(d0[8 * nf]), b[nf][1] = pg::split_tf32(d0[kDStride + 8 * nf]);
-#pragma unroll
-      for (int nf = 0; nf < pg::kNFrag; ++nf)
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt)
-          pg::mma_tf32(part[mt][nf], a_lo[mt], b[nf][0].hi, b[nf][1].hi);
-#pragma unroll
-      for (int nf = 0; nf < pg::kNFrag; ++nf)
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt)
-          pg::mma_tf32(part[mt][nf], a_hi[mt], b[nf][0].lo, b[nf][1].lo);
-#pragma unroll
-      for (int nf = 0; nf < pg::kNFrag; ++nf)
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt)
-          pg::mma_tf32(part[mt][nf], a_hi[mt], b[nf][0].hi, b[nf][1].hi);
-      // dPhi's epilogue: accumulator r of (nt, mt) holds (entry g + 8 (r /
-      // 2), row 2t + r % 2) -> h = r / 2, b = r % 2
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int q = 4 * mt + 2 * (r % 2) + r / 2, i = 2 * mt + r / 2;
-          const float c = v[q] ? dphi[nt][mt][r] * sv[q] : 0.f;
-          s_tb[i] += c;
-          s_tw[i] += c * d[q];
-        }
+      }
     }
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
+    for (int nf = 0; nf < pg::kNFrag; ++nf)
 #pragma unroll
-      for (int nf = 0; nf < pg::kNFrag; ++nf)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[mt][nf][i] += part[mt][nf][i];
+      for (int i = 0; i < 4; ++i) acc[nf][i] += part[nf][i];
   };
-  pg::pipeline<kStageFloats>(ring, tiles, load, multiply);
+  pg::pipeline<B::kStageFloats>(ring, tiles, load, multiply);
 
   // dW_ext rows: (j, f) -> j * dt_dim + f, padding none; row K = dbias, its
   // four row groups added in a fixed order
@@ -313,18 +254,18 @@ __global__ void __launch_bounds__(Block<kWarps>::kThreads, 2) time_bwd_kernel(co
       dst[static_cast<size_t>(k_total) * a.ced + n0 + bc] =
           (q[0] + q[pg::kTileN]) + (q[2 * pg::kTileN] + q[3 * pg::kTileN]);
   }
+  // accumulator of fragment nf: (entry g + 8 h, columns nf * 8 + 2t + jj)
 #pragma unroll
-  for (int i = 0; i < kGroups; ++i) {
-    const int f = we + 8 * i + g - slot[i] * a.dt_pad;
-    if (!real[i]) continue;
-    const int row = slot[i] * a.dt_dim + f;
-    const int mt = i / 2, h = i % 2;
+  for (int h = 0; h < kGroups; ++h) {
+    if (!real[h]) continue;
+    const int f = we + 8 * h + g - slot[h] * a.dt_pad;
+    const int row = slot[h] * a.dt_dim + f;
 #pragma unroll
     for (int nf = 0; nf < pg::kNFrag; ++nf)
 #pragma unroll
       for (int jj = 0; jj < 2; ++jj) {
         const int c = n0 + nf * 8 + 2 * t + jj;
-        if (c < a.ced) dst[static_cast<size_t>(row) * a.ced + c] = acc[mt][nf][2 * h + jj];
+        if (c < a.ced) dst[static_cast<size_t>(row) * a.ced + c] = acc[nf][2 * h + jj];
       }
   }
   // the quad's four lanes (t) hold one entry's sums over other rows: a
@@ -349,15 +290,16 @@ __global__ void __launch_bounds__(Block<kWarps>::kThreads, 2) time_bwd_kernel(co
 // One launch of the kernel. Above 48 KB of shared memory it opts in once,
 // at its first launch (outside any CUDA-graph capture that replays it
 // later).
-template <int kDVec, bool kMasked, int kWarps>
+template <int kDVec, bool kMasked, int kWarps, class Product>
 cudaError_t launch_kernel(dim3 grid, const Args& args, cudaStream_t stream) {
-  using B = Block<kWarps>;
+  using B = Block<kWarps, Product>;
   static const cudaError_t opt_in =
-      cudaFuncSetAttribute(time_bwd_kernel<kDVec, kMasked, kWarps>,
+      cudaFuncSetAttribute(time_bwd_kernel<kDVec, kMasked, kWarps, Product>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(B::kSmemBytes));
   if (opt_in != cudaSuccess) return opt_in;
-  time_bwd_kernel<kDVec, kMasked, kWarps><<<grid, B::kThreads, B::kSmemBytes, stream>>>(args);
+  time_bwd_kernel<kDVec, kMasked, kWarps, Product>
+      <<<grid, B::kThreads, B::kSmemBytes, stream>>>(args);
   return cudaGetLastError();
 }
 
@@ -367,7 +309,7 @@ cudaError_t launch_kernel(dim3 grid, const Args& args, cudaStream_t stream) {
 // then dtb. a.dw_dst and a.part are set here from dw_ext and part. d_vec:
 // floats per copy of dout (2 or 1, the wrapper's alignment check). With no
 // rows every gradient is zero.
-template <bool kMasked, int kWarps>
+template <bool kMasked, int kWarps, class Product = time_products::SplitTf32>
 cudaError_t backward(Args a, float* dw_ext, float* dt_grads, float* partial, float* part,
                      int d_vec, cudaStream_t stream) {
   if (a.ced == 0) return cudaSuccess;
@@ -387,10 +329,10 @@ cudaError_t backward(Args a, float* dw_ext, float* dt_grads, float* partial, flo
   const int col_tiles = (a.ced + pg::kTileN - 1) / pg::kTileN;
   a.dw_dst = chunks == 1 ? dw_ext : partial;
   a.part = part;
-  const int entries = Block<kWarps>::kEntries;
+  const int entries = Block<kWarps, Product>::kEntries;
   const dim3 grid((a.patch * a.dt_pad + entries - 1) / entries, col_tiles, chunks);
-  err = d_vec >= 2 ? launch_kernel<2, kMasked, kWarps>(grid, a, stream)
-                   : launch_kernel<1, kMasked, kWarps>(grid, a, stream);
+  err = d_vec >= 2 ? launch_kernel<2, kMasked, kWarps, Product>(grid, a, stream)
+                   : launch_kernel<1, kMasked, kWarps, Product>(grid, a, stream);
   if (err != cudaSuccess) return err;
   if (chunks > 1) {
     err = chunks <= pg::kMaxElementwisePartials

@@ -1,4 +1,4 @@
-"""Raw feature tables shared by every model.
+"""Raw feature tables shared by every model, and the compute dtypes.
 
 Counterpart of ``dyglib_tpu/models/base.py::FeatureTables``.
 """
@@ -7,6 +7,15 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype_of(name: str) -> torch.dtype:
+    """The torch dtype of a model's ``compute_dtype`` field."""
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {name!r} is not one of {sorted(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[name]
 
 
 @dataclasses.dataclass

@@ -1,7 +1,7 @@
 """CAWN: causal anonymous walk network.
 
-Counterpart of ``dyglib_tpu/models/cawn.py`` (f32), with its parameter
-names:
+Counterpart of ``dyglib_tpu/models/cawn.py`` (f32 or bf16 compute), with
+its parameter names:
 
   * ``sample`` builds the hop tables of each row's walk tree from
     ``sample_multi_hop`` (``time_interval_aware`` by default): hop st holds
@@ -24,8 +24,12 @@ CAWN is pair-aware through its position counts, which pair quad row q
 with q + B (left rows) or q - B (right rows): the trainer always gives it
 the quad [src || dst || neg_src || neg_dst]. ``compute_dtype`` "auto" is
 float32: the JAX package's bfloat16 on the TPU is a TPU measurement that
-does not carry over. No kernel runs here: the JAX model reaches no Pallas
-kernel.
+does not carry over. ``compute_dtype="bfloat16"`` rounds as the JAX model
+does: the position MLP, the walk-step features, both BiLSTMs (inputs,
+weights, the recurrent h and c), ``projection_0`` and the walk
+transformer's products in bf16; the encoders' outputs, the transformer's
+residual stream and ``projection_1`` in f32. No kernel runs here: the JAX
+model reaches no Pallas kernel.
 """
 from __future__ import annotations
 
@@ -37,8 +41,8 @@ from torch import nn
 
 from ..graph.csr import TemporalCSR
 from ..graph.sampler import check_strategy, sample_multi_hop
-from ..nn.modules import TimeEncoder, TransformerEncoder, _uniform, linear
-from .base import FeatureTables
+from ..nn.modules import TimeEncoder, TransformerEncoder, _uniform, linear, project, sigmoid
+from .base import FeatureTables, compute_dtype_of
 
 # the fused compare holds m * biggest**2 booleans; above this, the join
 FUSED_COUNT_LIMIT = 1 << 28
@@ -157,8 +161,8 @@ def walk_position_counts_join(walk_ids: torch.Tensor, hop_ids: tuple,
 
 def _lstm_cell(gates: torch.Tensor, c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     i, f, g, o = gates.chunk(4, dim=-1)
-    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-    return c_new, torch.sigmoid(o) * torch.tanh(c_new)
+    c_new = sigmoid(f) * c + sigmoid(i) * torch.tanh(g)
+    return c_new, sigmoid(o) * torch.tanh(c_new)
 
 
 class TreeBiLSTMEncoder(nn.Module):
@@ -170,10 +174,13 @@ class TreeBiLSTMEncoder(nn.Module):
     direction: ``{fwd,bwd}_wx`` (D, 4H), ``_wh`` (H, 4H), ``_b`` and
     ``_bh`` (4H,), gates [i | f | g | o], each U(+-1/sqrt(H)) as torch's
     ``nn.LSTM``; ``bwd_wh`` is never read (the backward step starts from
-    h = 0) and gets no gradient."""
+    h = 0) and gets no gradient. ``compute_dtype``: the inputs, the weights
+    (and the sum of the two biases), h and c in that dtype, the output f32."""
 
-    def __init__(self, input_dim: int, hidden_dim: int, gen: torch.Generator):
+    def __init__(self, input_dim: int, hidden_dim: int, gen: torch.Generator,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = compute_dtype
         h1 = hidden_dim // 2
         bound = h1**-0.5
         self.h1 = h1
@@ -186,8 +193,11 @@ class TreeBiLSTMEncoder(nn.Module):
             self.register_parameter(f"{prefix}_bh", nn.Parameter(_uniform((4 * h1,), bound, gen)))
 
     def forward(self, hop_x: tuple, lengths: torch.Tensor) -> torch.Tensor:
-        """hop_x[st] (M, K**st, D), lengths (M, W) -> (M, W, 2 H)."""
+        """hop_x[st] (M, K**st, D), lengths (M, W) -> (M, W, 2 H) f32."""
         m, w = lengths.shape
+        cd = self.compute_dtype
+        hop_x = [x.to(cd) for x in hop_x]
+        param = lambda name: getattr(self, name).to(cd)
 
         def select_last(hs):
             out = torch.zeros((m, w, hs[0].shape[-1]), dtype=hs[0].dtype, device=hs[0].device)
@@ -195,21 +205,21 @@ class TreeBiLSTMEncoder(nn.Module):
                 out = torch.where((lengths == st + 1)[..., None], expand_to_walks(h_st, w), out)
             return out
 
-        b_f = self.fwd_b + self.fwd_bh
+        b_f = param("fwd_b") + param("fwd_bh")
         c = torch.zeros((m, 1, self.h1), dtype=hop_x[0].dtype, device=hop_x[0].device)
         h, hs = None, []
         for x in hop_x:
-            gates = x @ self.fwd_wx + b_f
+            gates = x @ param("fwd_wx") + b_f
             if h is not None:
                 rep = x.shape[1] // h.shape[1]
                 c = torch.repeat_interleave(c, rep, dim=1)
-                gates = gates + torch.repeat_interleave(h, rep, dim=1) @ self.fwd_wh
+                gates = gates + torch.repeat_interleave(h, rep, dim=1) @ param("fwd_wh")
             c, h = _lstm_cell(gates, c)
             hs.append(h)
-        b_b = self.bwd_b + self.bwd_bh
-        hs_b = [_lstm_cell(x @ self.bwd_wx + b_b, torch.zeros_like(x[..., : self.h1]))[1]
+        b_b = param("bwd_b") + param("bwd_bh")
+        hs_b = [_lstm_cell(x @ param("bwd_wx") + b_b, torch.zeros_like(x[..., : self.h1]))[1]
                 for x in hop_x]
-        return torch.cat([select_last(hs), select_last(hs_b)], dim=-1)
+        return torch.cat([select_last(hs), select_last(hs_b)], dim=-1).float()
 
 
 class CAWNNet(nn.Module):
@@ -223,8 +233,10 @@ class CAWNNet(nn.Module):
         walk_length: int = 1,
         num_walk_heads: int = 8,
         dropout: float = 0.1,
+        compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.time_encoder = TimeEncoder(time_feat_dim)
         self.position_fc1 = linear(walk_length + 1, position_feat_dim, gen)
         self.position_fc2 = linear(position_feat_dim, position_feat_dim, gen)
@@ -232,11 +244,13 @@ class CAWNNet(nn.Module):
         attention_dim = input_dim // 2
         if attention_dim % num_walk_heads:
             attention_dim += num_walk_heads - attention_dim % num_walk_heads
-        self.feature_encoder = TreeBiLSTMEncoder(input_dim, input_dim, gen)
-        self.position_encoder = TreeBiLSTMEncoder(position_feat_dim, position_feat_dim, gen)
+        self.feature_encoder = TreeBiLSTMEncoder(input_dim, input_dim, gen, compute_dtype)
+        self.position_encoder = TreeBiLSTMEncoder(position_feat_dim, position_feat_dim, gen,
+                                                  compute_dtype)
         enc_dim = 2 * (input_dim // 2) + 2 * (position_feat_dim // 2)
         self.projection_0 = linear(enc_dim, attention_dim, gen)
-        self.walk_transformer = TransformerEncoder(attention_dim, num_walk_heads, dropout, gen)
+        self.walk_transformer = TransformerEncoder(attention_dim, num_walk_heads, dropout, gen,
+                                                   compute_dtype)
         self.projection_1 = linear(attention_dim, node_dim, gen)
 
     def forward(
@@ -248,19 +262,22 @@ class CAWNNet(nn.Module):
     ) -> torch.Tensor:
         """Embeddings (M, Dn) of the quad's rows. In train mode with dropout
         > 0, ``dropout_gen`` draws the masks."""
+        cd = self.compute_dtype
         hop_counts = hop_position_counts(inputs.hop_ids, tables.node.shape[0])
-        pos_hop = tuple(self.position_fc2(torch.relu(self.position_fc1(c))).sum(dim=-2)
-                        for c in hop_counts)
+        pos_hop = tuple(
+            project(self.position_fc2, torch.relu(project(self.position_fc1, c, cd)), cd)
+            .sum(dim=-2) for c in hop_counts)
         combined = []
         for st, pos in enumerate(pos_hop):
             dt = (inputs.query_ts[:, None] - inputs.hop_ts[st]).to(torch.float32)
             combined.append(torch.cat([
-                tables.node[inputs.hop_ids[st].long()], self.time_encoder(dt),
-                tables.edge[inputs.hop_eids[st].long()], pos], dim=-1))
+                tables.node[inputs.hop_ids[st].long()].to(cd), self.time_encoder(dt).to(cd),
+                tables.edge[inputs.hop_eids[st].long()].to(cd), pos], dim=-1))
         lengths = (inputs.walk_ids != 0).sum(dim=-1)
         x = torch.cat([self.feature_encoder(combined, lengths),
                        self.position_encoder(pos_hop, lengths)], dim=-1)
-        x = self.walk_transformer(self.projection_0(x), dropout_gen=dropout_gen)
+        x = self.walk_transformer(project(self.projection_0, x, cd).float(),
+                                  dropout_gen=dropout_gen)
         return self.projection_1(x.mean(dim=-2))
 
 
@@ -275,16 +292,16 @@ class CAWN:
     time_feat_dim: int = 100
     position_feat_dim: int = 172
     sample_strategy: str = "time_interval_aware"
-    # "auto" is float32 (the JAX package's bfloat16 is a TPU choice)
+    # "auto" is float32 (the JAX package's bfloat16 is a TPU choice), or
+    # "float32" or "bfloat16"
     compute_dtype: str = "auto"
     # the position counts pair each row with its partner
     pair_independent: ClassVar[bool] = False
 
     def __post_init__(self):
         check_strategy(self.sample_strategy)
-        if self.compute_dtype not in ("auto", "float32"):
-            raise ValueError(f"compute_dtype {self.compute_dtype!r} is not ported; "
-                             "CAWN computes in float32")
+        self._compute_dtype = compute_dtype_of(
+            "float32" if self.compute_dtype == "auto" else self.compute_dtype)
 
     def build(self, node_dim: int, edge_dim: int, gen: torch.Generator) -> CAWNNet:
         """A CAWNNet whose parameters are drawn from ``gen`` (on the CPU)."""
@@ -295,6 +312,7 @@ class CAWN:
             walk_length=self.walk_length,
             num_walk_heads=self.num_walk_heads,
             dropout=self.dropout,
+            compute_dtype=self._compute_dtype,
         )
 
     def sample(

@@ -1,8 +1,9 @@
 """DyGFormer: patched transformer over full first-hop histories with
 neighbor co-occurrence encoding.
 
-Counterpart of ``dyglib_tpu/models/dygformer.py`` (f32 compute, no
-``remat``, no TPU layout aids). The semantics are the JAX package's:
+Counterpart of ``dyglib_tpu/models/dygformer.py`` (f32 or bf16 compute,
+``remat``; not its TPU layout aids ``pad_heads`` and ``fold_patch_proj``).
+The semantics are the JAX package's:
 
   * sequence = the target node first (edge id 0, t = query time), then its
     most recent ``min(maxlen, total) - 1`` interactions in chronological
@@ -51,6 +52,28 @@ Training: in train mode the transformer's dropout draws its masks from a
 ``torch.Generator`` the caller passes (the trainer owns one, seeded from
 ``fit``'s seed), never from the global RNG.
 
+bf16 compute (``compute_dtype="bfloat16"``; parameters stay f32): the
+JAX package's roundings. The node, edge and co-occurrence channels are
+bf16 linear layers (the product rounded, then its sum with the rounded
+bias; the gathered node and edge rows cast to bf16), through the bf16
+variants of the patch
+projection and time channel kernels; the channels are stacked in f32; each
+block's LayerNorm output, projections, attention products and FFN are
+bf16, its scale, softmax and residuals f32. ``gelu_approximate`` (the
+tanh GELU) and ``dropout_impl="bf16mask"`` (``nn.modules.bf16_mask_dropout``)
+are the JAX package's fields of the same names.
+
+Remat (``remat=True``): each block runs under
+``torch.utils.checkpoint`` with a selective policy that saves the matmul
+outputs (``mm``, ``addmm``, ``bmm``: the JAX package's
+``dots_saveable``) and the dropout draws (``rand``: a recompute must not
+draw new masks or advance the generator) and recomputes the rest in the
+backward. ``preserve_rng_state=False``: the port draws from no global RNG,
+and stashing the CUDA RNG state is not legal inside a graph capture.
+Under ``sequence_axis`` the recompute repeats the block's two
+all-to-alls: a remat train step makes six a block (two forward, two in the
+recompute, two in the backward) where one without remat makes four.
+
 Entry fetch (``use_entry_fetch``, default off as in the JAX package):
 ``sample`` records where each row's node and edge features lie in
 ``csr.feat_entry`` (target row, then the recent window, one contiguous
@@ -60,16 +83,29 @@ the two give bitwise-equal tensors.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import ClassVar, NamedTuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..graph.csr import TemporalCSR
 from ..graph.sampler import window_bounds
-from ..nn.modules import LN_EPS, TimeEncoder, dropout, linear
+from ..nn.modules import (
+    LN_EPS,
+    TimeEncoder,
+    bf16_mask_dropout,
+    dropout,
+    gelu,
+    linear,
+    project,
+)
 from ..parallel.mesh import all_gather, all_to_all
 from ..ops import (
     cooccurrence_counts,
@@ -78,8 +114,9 @@ from ..ops import (
     fetch_sequence_features_plain,
     patch_projection,
     time_channel_projection,
+    time_channel_projection_plain,
 )
-from .base import FeatureTables
+from .base import FeatureTables, compute_dtype_of
 
 
 def _round_up(x: int, m: int) -> int:
@@ -114,11 +151,35 @@ class DyGFormerInputs(NamedTuple):
     entry_window: EntryWindow | None = None
 
 
-class PreLNTransformerEncoder(nn.Module):
-    """norm -> MHA -> residual; norm -> GELU FFN -> residual. No padding mask."""
+_SAVED_OPS = {torch.ops.aten.mm, torch.ops.aten.addmm, torch.ops.aten.bmm,
+              torch.ops.aten.rand}
 
-    def __init__(self, attention_dim: int, num_heads: int, dropout: float, gen: torch.Generator):
+
+def _remat_policy(ctx, op, *args, **kwargs):
+    """Save the matmul outputs and the dropout draws; recompute the rest."""
+    if op.overloadpacket in _SAVED_OPS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_remat_contexts = functools.partial(create_selective_checkpoint_contexts, _remat_policy)
+
+DROPOUT_IMPLS = {"flax": dropout, "bf16mask": bf16_mask_dropout}
+
+
+class PreLNTransformerEncoder(nn.Module):
+    """norm -> MHA -> residual; norm -> GELU FFN -> residual. No padding mask.
+
+    ``compute_dtype``, ``gelu_approximate`` and ``dropout_impl`` are the JAX
+    block's ``dtype``, ``gelu_approximate`` and ``dropout_impl``."""
+
+    def __init__(self, attention_dim: int, num_heads: int, dropout: float, gen: torch.Generator,
+                 compute_dtype: torch.dtype = torch.float32, gelu_approximate: bool = False,
+                 dropout_impl: str = "flax"):
         super().__init__()
+        self.compute_dtype = compute_dtype
+        self.gelu_approximate = gelu_approximate
+        self.dropout_fn = DROPOUT_IMPLS[dropout_impl]
         d = attention_dim
         self.num_heads = num_heads
         self.norm1 = nn.LayerNorm(d, eps=LN_EPS)
@@ -140,28 +201,29 @@ class PreLNTransformerEncoder(nn.Module):
         the attention on this rank's heads over every token, between two
         all-to-alls along ``axis`` (tokens -> heads, heads -> tokens)."""
         p = self.dropout if self.training else 0.0
-        drop = lambda y: dropout(y, p, dropout_gen)
+        drop = lambda y: self.dropout_fn(y, p, dropout_gen)
+        cd = self.compute_dtype
         b, t, d = x.shape
         hd = d // self.num_heads
-        h = self.norm1(x)
-        q = self.q_proj(h).view(b, t, self.num_heads, hd)
-        k = self.k_proj(h).view(b, t, self.num_heads, hd)
-        v = self.v_proj(h).view(b, t, self.num_heads, hd)
+        h = self.norm1(x).to(cd)
+        q = project(self.q_proj, h, cd).view(b, t, self.num_heads, hd)
+        k = project(self.k_proj, h, cd).view(b, t, self.num_heads, hd)
+        v = project(self.v_proj, h, cd).view(b, t, self.num_heads, hd)
         if seq_group is not None:
             mesh, axis = seq_group
             # (3, b, t/n, H, hd) -> (3, b, t, H/n, hd)
             q, k, v = all_to_all(torch.stack([q, k, v]), mesh, axis, "dygformer/qkv",
                                  split_dim=3, cat_dim=2).unbind(0)
-        attn = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
+        attn = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(hd)
         scores = drop(torch.softmax(attn, dim=-1))
-        hidden = torch.einsum("bhqk,bkhd->bqhd", scores, v)
+        hidden = torch.einsum("bhqk,bkhd->bqhd", scores.to(cd), v)
         if seq_group is not None:  # (b, t, H/n, hd) -> (b, t/n, H, hd)
             hidden = all_to_all(hidden, mesh, axis, "dygformer/hidden", split_dim=1, cat_dim=2)
         hidden = hidden.reshape(b, t, d)
-        x = x + drop(self.out_proj(hidden))
-        h = self.norm2(x)
-        h = F.gelu(self.ffn1(h))  # exact erf
-        return x + drop(self.ffn2(drop(h)))
+        x = x + drop(project(self.out_proj, hidden, cd).float())
+        h = self.norm2(x).to(cd)
+        h = gelu(project(self.ffn1, h, cd), self.gelu_approximate)  # exact erf by default
+        return x + drop(project(self.ffn2, drop(h), cd).float())
 
 
 class DyGFormerNet(nn.Module):
@@ -178,10 +240,16 @@ class DyGFormerNet(nn.Module):
         dropout: float = 0.1,
         use_kernels: bool = True,
         sequence_axis: str | None = None,
+        compute_dtype: torch.dtype = torch.float32,
+        remat: bool = False,
+        gelu_approximate: bool = False,
+        dropout_impl: str = "flax",
     ):
         super().__init__()
         ced = channel_embedding_dim
         self.ced = ced
+        self.compute_dtype = compute_dtype
+        self.remat = remat
         self.num_heads = num_heads
         # Ulysses: with a mesh (set by a trainer) and an axis, the joint
         # token stream is sharded over that axis inside the encoder
@@ -200,7 +268,8 @@ class DyGFormerNet(nn.Module):
         for i in range(num_layers):
             self.add_module(
                 f"transformer_{i}",
-                PreLNTransformerEncoder(4 * ced, num_heads, dropout, gen),
+                PreLNTransformerEncoder(4 * ced, num_heads, dropout, gen, compute_dtype,
+                                        gelu_approximate, dropout_impl),
             )
         self.output_layer = linear(4 * ced, node_dim, gen)
 
@@ -209,9 +278,18 @@ class DyGFormerNet(nn.Module):
         return x.reshape(m, lp // self.patch_size, self.patch_size * d)
 
     def _frozen_channel(self, lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        x = x.to(cd)
         if self.use_kernels:
-            return patch_projection(x, lin.weight.t(), lin.bias, self.patch_size)
-        return lin(self._patches(x))
+            return patch_projection(x, lin.weight.t(), lin.bias, self.patch_size, cd)
+        return project(lin, self._patches(x), cd)
+
+    def _encode(self, i: int, joint, dropout_gen, seq_group):
+        layer = getattr(self, f"transformer_{i}")
+        if not self.remat:
+            return layer(joint, dropout_gen, seq_group)
+        return checkpoint(layer, joint, dropout_gen, seq_group, use_reentrant=False,
+                          preserve_rng_state=False, context_fn=_remat_contexts)
 
     def forward(
         self,
@@ -266,7 +344,9 @@ class DyGFormerNet(nn.Module):
 
         co_l, co_r = co(cnt_l), co(cnt_r)
 
-        # ---- per-row channels (M rows, shared across pairs)
+        # ---- per-row channels (M rows, shared across pairs); in bf16 the
+        # gathered rows are cast, as the JAX package casts them
+        cd = self.compute_dtype
         if inputs.entry_window is None:
             node_feat = tables.node[seq_ids]  # (M, Lp, Dn)
             edge_feat = tables.edge[inputs.seq_eids]
@@ -278,17 +358,25 @@ class DyGFormerNet(nn.Module):
         if self.use_kernels:
             time_ch = time_channel_projection(
                 dt, valid, self.time_encoder.w.reshape(-1), self.time_encoder.b,
-                self.proj_time.weight.t(), self.proj_time.bias, self.patch_size,
+                self.proj_time.weight.t(), self.proj_time.bias, self.patch_size, cd,
             )
-        else:
+        elif cd == torch.float32:
             time_feat = torch.where(valid[..., None], self.time_encoder(dt), 0.0)
             time_ch = self.proj_time(self._patches(time_feat))
-        co_pl = self.proj_co_occurrence(self._patches(co_l))  # (2B, P, ced)
-        co_pr = self.proj_co_occurrence(self._patches(co_r))
+        else:  # the time channel kernel's bf16 math
+            time_ch = time_channel_projection_plain(
+                dt, valid, self.time_encoder.w.reshape(-1), self.time_encoder.b,
+                self.proj_time.weight.t(), self.proj_time.bias, self.patch_size, cd,
+            )
+        co_pl = project(self.proj_co_occurrence, self._patches(co_l), cd)  # (2B, P, ced)
+        co_pr = project(self.proj_co_occurrence, self._patches(co_r), cd)
 
+        # the channels stacked in f32 (bf16 channels promoted, as jnp.stack does)
         row_ch = (node_ch, edge_ch, time_ch)  # each (M, P, ced)
-        xl = torch.stack([c[li] for c in row_ch] + [co_pl], dim=2).reshape(2 * b, p, 4 * ced)
-        xr = torch.stack([c[ri] for c in row_ch] + [co_pr], dim=2).reshape(2 * b, p, 4 * ced)
+        xl = torch.stack([c[li].float() for c in row_ch] + [co_pl.float()],
+                         dim=2).reshape(2 * b, p, 4 * ced)
+        xr = torch.stack([c[ri].float() for c in row_ch] + [co_pr.float()],
+                         dim=2).reshape(2 * b, p, 4 * ced)
 
         # ---- joint src||dst attention per pair
         joint = torch.cat([xl, xr], dim=1)
@@ -302,7 +390,7 @@ class DyGFormerNet(nn.Module):
                                  f"and the {self.num_heads} heads")
             joint = joint.narrow(1, i * (t // n), t // n)
         for i in range(self.num_layers):
-            joint = getattr(self, f"transformer_{i}")(joint, dropout_gen, seq_group)
+            joint = self._encode(i, joint, dropout_gen, seq_group)
         if seq_group is not None:  # every token again, for the pooling
             joint = all_gather(joint, *seq_group, "dygformer/tokens", dim=1)
         emb_l = self.output_layer(joint[:, :p, :].mean(dim=1))
@@ -332,9 +420,24 @@ class DyGFormer:
     # None: unsharded. Its size must divide num_heads and the joint token
     # count 2 * seq_len / patch_size
     sequence_axis: str | None = None
+    # "float32" or "bfloat16" (the JAX package's field; parameters stay f32)
+    compute_dtype: str = "float32"
+    # rematerialize each block in the backward (see the module docstring)
+    remat: bool = False
+    # tanh-approximate GELU; "auto" is off: the JAX package's "auto" turns
+    # it on for its TPU timings, which do not carry over to the card
+    gelu_approximate: bool | str = "auto"
+    # "flax" (inverted dropout) or "bf16mask" (nn.modules.bf16_mask_dropout)
+    dropout_impl: str = "flax"
     # where neg_src = src the net pairs the triple [src, dst, neg_dst]
     # itself (``triple=True``): src's rows serve both pairs, exactly
     triple_expand: ClassVar[bool] = True
+
+    def __post_init__(self):
+        compute_dtype_of(self.compute_dtype)
+        if self.dropout_impl not in DROPOUT_IMPLS:
+            raise ValueError(f"dropout_impl {self.dropout_impl!r} is not one of "
+                             f"{sorted(DROPOUT_IMPLS)}")
 
     @property
     def seq_len(self) -> int:
@@ -374,6 +477,10 @@ class DyGFormer:
             dropout=self.dropout,
             use_kernels=self.use_kernels,
             sequence_axis=self.sequence_axis,
+            compute_dtype=compute_dtype_of(self.compute_dtype),
+            remat=self.remat,
+            gelu_approximate=self.gelu_approximate not in ("auto", False),
+            dropout_impl=self.dropout_impl,
         )
 
     def sample(

@@ -1,7 +1,8 @@
 """TGAT: temporal graph attention network, unrolled over sampled hops.
 
-Counterpart of ``dyglib_tpu/models/tgat.py`` (f32 compute, the ``recent``
-and ``uniform`` strategies). The multi-hop neighborhood is sampled once into fixed-shape hop
+Counterpart of ``dyglib_tpu/models/tgat.py`` (f32 or bf16 compute, the
+``recent`` and ``uniform`` strategies; ``compute_dtype`` "auto" is f32, where
+the JAX package's "auto" picks bf16 on its TPU timings). The multi-hop neighborhood is sampled once into fixed-shape hop
 tensors (hop h: (B, K**h)) and the layers are evaluated bottom-up:
 
     feats^0[h] = raw_node_features[hop_ids[h]]
@@ -41,7 +42,7 @@ from torch import nn
 from ..graph.csr import TemporalCSR
 from ..graph.sampler import check_strategy, fetch_entry_windows, sample_multi_hop
 from ..nn.modules import MergeLayer, TemporalMultiHeadAttention, TimeEncoder
-from .base import FeatureTables
+from .base import FeatureTables, compute_dtype_of
 
 
 class TGATInputs(NamedTuple):
@@ -82,6 +83,7 @@ class TGATNet(nn.Module):
         use_gathered_kernel: bool = False,
         use_phi_fusion: bool = False,
         use_kernels: bool = True,
+        compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.num_layers = num_layers
@@ -95,7 +97,7 @@ class TGATNet(nn.Module):
                 f"temporal_conv_{l}",
                 TemporalMultiHeadAttention(
                     node_dim, edge_dim, time_feat_dim, num_heads, dropout, gen,
-                    use_pallas=use_pallas,
+                    use_pallas=use_pallas, compute_dtype=compute_dtype,
                 ),
             )
             self.add_module(
@@ -198,6 +200,9 @@ class TGAT:
     use_gathered_attention: bool | str = "auto"
     # an explicit choice: it takes the place of the attention kernels
     use_phi_fusion: bool | str = "auto"
+    # "auto" (float32 on the card), "float32" or "bfloat16": the attention
+    # layers' compute dtype (the merge layers stay f32, as in the JAX package)
+    compute_dtype: str = "auto"
     # ask the trainer for csr.feat_entry (window fetches of hop features)
     wants_entry_features: bool = False
     # embeddings depend only on (node, time): the trainer embeds the triple
@@ -209,6 +214,8 @@ class TGAT:
 
     def __post_init__(self):
         check_strategy(self.sample_strategy)
+        self._compute_dtype = compute_dtype_of(
+            "float32" if self.compute_dtype == "auto" else self.compute_dtype)
         if self.sample_strategy == "time_interval_aware":
             # no configuration pairs TGAT with CAWN's strategy; the port
             # keeps it to CAWN (ROADMAP.md)
@@ -247,6 +254,7 @@ class TGAT:
             use_gathered_kernel=self._gathered_kernel,
             use_phi_fusion=self._phi_fusion,
             use_kernels=self.use_kernels,
+            compute_dtype=self._compute_dtype,
         )
 
     def sample(

@@ -11,6 +11,9 @@ from an explicit ``torch.Generator`` so a seed fixes the whole model:
     weight and bias U(+-1/sqrt(fan_in)) (the JAX package's ``TorchLinear``);
     ``xavier=True`` gives ``nn.init.xavier_uniform_`` (attention in/out
     projections), ``zero_bias=True`` a zero bias, ``bias=False`` none;
+  * ``project``: an ``nn.Linear`` applied in a compute dtype as the JAX
+    package's ``TorchLinear(dtype=...)`` applies it (bf16: the product
+    rounded, then its sum with the rounded bias); parameters stay f32;
   * ``TimeEncoder``: cos(t * w + b) with w the fixed spectrum
     1/10**linspace(0, 9, Dt), stored (1, Dt), and b = 0; ``trainable=False``
     (GraphMixer) freezes both: they stay in the state dict, with
@@ -23,10 +26,11 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .. import ops
-from ..ops._attention import attend
+from ..ops._attention import NEG, attend
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default
 
@@ -54,6 +58,47 @@ def linear(
     return lin
 
 
+def project(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``lin(x)`` computed in ``dtype``, as the JAX package's
+    ``TorchLinear(dtype=dtype)`` computes it: x and the weight rounded to
+    ``dtype``, their product (f32 sums) rounded to ``dtype``, then its sum
+    with the bias rounded to ``dtype``, a ``dtype`` result. float32 is
+    ``lin(x)`` itself. Gradients reach the f32 parameters through the
+    casts."""
+    if dtype == torch.float32:
+        return lin(x)
+    y = x.to(dtype) @ lin.weight.t().to(dtype)
+    return y if lin.bias is None else y + lin.bias.to(dtype)
+
+
+def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
+    """GELU (exact erf, or the tanh form): ``F.gelu`` in f32; in a low
+    dtype the JAX package's ``nn.gelu`` formula, one rounded op at a time
+    (0.5 x erfc(-x sqrt(1/2)), or x 0.5 (1 + tanh(sqrt(2/pi) (x + 0.044715
+    x^3))), its constants rounded to the dtype), as XLA evaluates it."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh" if approximate else "none")
+    c = lambda v: _rounded(v, x.dtype)
+    if approximate:
+        cube = c(0.044715) * (x * x * x)
+        return x * (c(0.5) * (c(1.0) + torch.tanh(c(math.sqrt(2 / math.pi)) * (x + cube))))
+    return c(0.5) * x * torch.erfc(-x * c(math.sqrt(0.5)))
+
+
+def _rounded(v: float, dtype: torch.dtype) -> float:
+    """The Python float of v rounded to ``dtype`` (computed on the host: a
+    device tensor would be a copy, which a CUDA graph capture refuses)."""
+    return float(torch.tensor(v, dtype=dtype))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``torch.sigmoid`` in f32; in a low dtype 1 / (1 + exp(-x)), one
+    rounded op at a time, as XLA evaluates the JAX package's sigmoid."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1 / (1 + torch.exp(-x))
+
+
 def dropout(x: torch.Tensor, p: float, gen: torch.Generator | None) -> torch.Tensor:
     """Inverted dropout with masks drawn from ``gen`` (keep w.p. 1 - p)."""
     if p == 0.0:
@@ -62,6 +107,20 @@ def dropout(x: torch.Tensor, p: float, gen: torch.Generator | None) -> torch.Ten
         raise ValueError("dropout in train mode needs a torch.Generator (dropout_gen)")
     keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - p
     return x * keep / (1.0 - p)
+
+
+def bf16_mask_dropout(x: torch.Tensor, p: float, gen: torch.Generator | None) -> torch.Tensor:
+    """The JAX package's ``_bf16_mask_dropout`` (``dropout_impl="bf16mask"``):
+    x times a bf16 mask of 0 or 1 / (1 - p), the scale rounded to bf16, so
+    that the saved operand is 2 bytes an element. The same distribution
+    as ``dropout`` (keep w.p. 1 - p), drawn from ``gen``; a bf16 x stays
+    bf16, an f32 x f32."""
+    if p == 0.0:
+        return x
+    if gen is None:
+        raise ValueError("dropout in train mode needs a torch.Generator (dropout_gen)")
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - p
+    return x * (keep.to(torch.bfloat16) * _rounded(1.0 / (1.0 - p), torch.bfloat16))
 
 
 def time_encoder_spectrum(time_dim: int) -> np.ndarray:
@@ -207,13 +266,22 @@ class TemporalMultiHeadAttention(nn.Module):
     kernels' pre-scaled ``keep`` mask, and on residual_fc's output.
     Returns (out (M, Dq), scores (M, H, K) after dropout, or None on the
     gathered and window branches, as in the JAX module).
+
+    ``compute_dtype`` (bfloat16: the JAX module's ``dtype``) rounds as the
+    JAX module does: the query, its projection, the kv rows, key and value
+    and the attention-weighted sum in bf16 (logits and softmax in f32), then
+    residual_fc in bf16 and the LayerNorm in f32. The kernels take the
+    query projection in f32, as the JAX module casts it, and keep their f32
+    math (the JAX kernels round their operands to bf16 inside).
     """
 
     def __init__(
         self, node_dim: int, edge_dim: int, time_dim: int, num_heads: int, dropout: float,
         gen: torch.Generator, use_pallas: bool = False,
+        compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        self.compute_dtype = compute_dtype
         query_dim = node_dim + time_dim
         kv_dim = node_dim + edge_dim + time_dim
         if query_dim % num_heads:
@@ -243,9 +311,9 @@ class TemporalMultiHeadAttention(nn.Module):
         dropout_gen: torch.Generator | None = None,
     ) -> tuple[torch.Tensor, torch.Tensor | None]:
         p = self.dropout if self.training else 0.0
-        heads = self.num_heads
-        query = residual = torch.cat([node_features, node_time_features], dim=-1)
-        q = self.query_projection(query)
+        heads, cd = self.num_heads, self.compute_dtype
+        query = residual = torch.cat([node_features, node_time_features], dim=-1).to(cd)
+        q = project(self.query_projection, query, cd)
         m, k = neighbor_mask.shape
         mask = neighbor_mask.to(torch.float32)
         keep = _keep_mask((m, heads, k), p, dropout_gen, q.device)
@@ -254,37 +322,62 @@ class TemporalMultiHeadAttention(nn.Module):
         if gathered is not None:
             feat_n, feat_e, dt, (tw, tb) = gathered
             f = ops.gathered_attention if use_kernels else ops.gathered_attention_plain
-            out = f(q, feat_n.detach(), feat_e.detach(), dt, mask, keep, (tw.reshape(-1), tb),
-                    (wk, wv), heads)
+            out = f(q.float(), feat_n.detach(), feat_e.detach(), dt, mask, keep,
+                    (tw.reshape(-1), tb), (wk, wv), heads)
         elif window is not None:
             starts, dt, table, (tw, tb) = window
             f = ops.window_attention if use_kernels else ops.window_attention_plain
-            out = f(q, starts, dt, mask, keep, table.detach(), tw.reshape(-1), tb, (wk, wv), heads)
+            out = f(q.float(), starts, dt, mask, keep, table.detach(), tw.reshape(-1), tb,
+                    (wk, wv), heads)
         elif time_fused is not None:
+            # key = feat @ Wk[:Df] (in cd) + Phi(dt) @ Wk[Df:] (f32), rounded to
+            # cd: the JAX module's order
             dt, (tw, tb) = time_fused
             feat = torch.cat([neighbor_node_features, neighbor_edge_features], dim=-1)
             d_feat = feat.shape[-1]
-            feat = feat.reshape(m * k, d_feat)
+            feat = feat.reshape(m * k, d_feat).to(cd)
             proj = ops.phi_projection if use_kernels else ops.phi_projection_plain
             dt, tw = dt.reshape(-1), tw.reshape(-1)
-            key = feat @ wk[:d_feat] + proj(dt, tw, tb, wk[d_feat:])
-            val = feat @ wv[:d_feat] + proj(dt, tw, tb, wv[d_feat:])
-            out, scores = attend(
-                q, key.view(m, k, -1), val.view(m, k, -1), mask, keep, heads
-            )
+            key = ((feat @ wk[:d_feat].to(cd)).float() + proj(dt, tw, tb, wk[d_feat:])).to(cd)
+            val = ((feat @ wv[:d_feat].to(cd)).float() + proj(dt, tw, tb, wv[d_feat:])).to(cd)
+            out, scores = self._attend(q, key.view(m, k, -1), val.view(m, k, -1), neighbor_mask,
+                                       keep)
         elif self.use_pallas:
             f = ops.temporal_attention if use_kernels else ops.temporal_attention_plain
-            out, scores = f(q, neighbor_node_features, neighbor_edge_features,
-                            neighbor_time_features, mask, keep, wk, wv, heads)
+            out, scores = f(q.float(), neighbor_node_features.float(),
+                            neighbor_edge_features.float(), neighbor_time_features.float(),
+                            mask, keep, wk, wv, heads)
         else:
             kv = torch.cat(
                 [neighbor_node_features, neighbor_edge_features, neighbor_time_features], dim=-1
-            )
-            out, scores = attend(
-                q, self.key_projection(kv), self.value_projection(kv), mask, keep, heads
-            )
-        out = dropout(self.residual_fc(out), p, dropout_gen)
-        return self.layer_norm(out + residual), scores
+            ).to(cd)
+            out, scores = self._attend(q, project(self.key_projection, kv, cd),
+                                       project(self.value_projection, kv, cd), neighbor_mask, keep)
+        out = dropout(project(self.residual_fc, out.to(cd), cd), p, dropout_gen)
+        return self.layer_norm((out + residual).float()), scores
+
+    def _attend(self, q, key, val, neighbor_mask, keep):
+        """The plain single-query attention: f32 as ``ops._attention.attend``
+        computes it, a low compute dtype as the JAX module does."""
+        if self.compute_dtype == torch.float32:
+            return attend(q, key, val, neighbor_mask.to(torch.float32), keep, self.num_heads)
+        return _attend_lowp(q, key, val, neighbor_mask, keep, self.num_heads)
+
+
+def _attend_lowp(q, key, val, mask, keep, num_heads: int):
+    """Single-query attention as the JAX module computes it in a low
+    compute dtype: q (M, Dq), key and val (M, K, Dq) in that dtype; logits
+    in it, then f32 for the scale, the -1e10 pad logit and the softmax;
+    the scores times ``keep`` (M, H, K); their weighted sum of val in the
+    low dtype. -> (out (M, Dq), scores (M, H, K) f32)."""
+    m, k, dq = key.shape
+    hd = dq // num_heads
+    kh = key.view(m, k, num_heads, hd).transpose(1, 2)  # (M, H, K, hd)
+    logits = torch.matmul(q.view(m, num_heads, 1, hd), kh.transpose(-1, -2)).float() * hd**-0.5
+    logits = torch.where(mask[:, None, None, :], logits, NEG)
+    scores = torch.softmax(logits, dim=-1) * keep[:, :, None, :]  # (M, H, 1, K)
+    out = torch.matmul(scores.to(key.dtype), val.view(m, k, num_heads, hd).transpose(1, 2))
+    return out.reshape(m, dq), scores[:, :, 0, :]
 
 
 class TransformerEncoder(nn.Module):
@@ -302,11 +395,16 @@ class TransformerEncoder(nn.Module):
     Padded keys (``mask`` False) get the logit -1e10, so an all-padded row
     attends uniformly instead of giving NaN. Dropout (train mode) draws
     from ``dropout_gen``. DyGFormer's pre-LN block is another module
-    (``models/dygformer.py::PreLNTransformerEncoder``).
+    (``models/dygformer.py::PreLNTransformerEncoder``). ``compute_dtype``
+    (the JAX module's ``dtype``): the projections, the attention's products
+    and the FFN in that dtype, logits, softmax, residuals and LayerNorms in
+    f32, as the JAX module rounds them.
     """
 
-    def __init__(self, attention_dim: int, num_heads: int, dropout: float, gen: torch.Generator):
+    def __init__(self, attention_dim: int, num_heads: int, dropout: float, gen: torch.Generator,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = compute_dtype
         d = attention_dim
         if d % num_heads:
             raise ValueError(f"attention width {d} does not split into {num_heads} heads")
@@ -336,16 +434,16 @@ class TransformerEncoder(nn.Module):
         p = self.dropout if self.training else 0.0
         drop = lambda y: dropout(y, p, dropout_gen)
         b, tq, d = query.shape
-        tk, heads = key.shape[1], self.num_heads
+        tk, heads, cd = key.shape[1], self.num_heads, self.compute_dtype
         hd = d // heads
-        q = self.q_proj(query).view(b, tq, heads, hd)
-        k = self.k_proj(key).view(b, tk, heads, hd)
-        v = self.v_proj(value).view(b, tk, heads, hd)
-        attn = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
+        q = project(self.q_proj, query, cd).view(b, tq, heads, hd)
+        k = project(self.k_proj, key, cd).view(b, tk, heads, hd)
+        v = project(self.v_proj, value, cd).view(b, tk, heads, hd)
+        attn = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(hd)
         if mask is not None:
             attn = torch.where(mask[:, None, None, :], attn, -1e10)
         scores = drop(torch.softmax(attn, dim=-1))
-        hidden = torch.einsum("bhqk,bkhd->bqhd", scores, v).reshape(b, tq, d)
-        x = self.norm1(query + drop(self.out_proj(hidden)))
-        ffn = self.ffn2(drop(torch.relu(self.ffn1(x))))
+        hidden = torch.einsum("bhqk,bkhd->bqhd", scores.to(cd), v).reshape(b, tq, d)
+        x = self.norm1(query + drop(project(self.out_proj, hidden, cd).float()))
+        ffn = project(self.ffn2, drop(torch.relu(project(self.ffn1, x, cd))), cd).float()
         return self.norm2(x + drop(ffn))

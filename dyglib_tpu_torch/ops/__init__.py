@@ -16,6 +16,8 @@ from .gathered_attention import (
     gathered_attention_backward_plain,
     gathered_attention_plain,
 )
+from .patch_projection import BF16_BACKWARD as _PATCH_BF16_BACKWARD
+from .patch_projection import BF16_FORWARD as _PATCH_BF16_FORWARD
 from .patch_projection import (
     patch_projection,
     patch_projection_backward,
@@ -34,6 +36,8 @@ from .temporal_attention import (
     temporal_attention_backward_plain,
     temporal_attention_plain,
 )
+from .time_channel import BF16_BACKWARD as _TIME_BF16_BACKWARD
+from .time_channel import BF16_FORWARD as _TIME_BF16_FORWARD
 from .time_channel import (
     time_channel_backward,
     time_channel_backward_plain,
@@ -48,7 +52,8 @@ from .window_attention import (
 )
 from .window_fetch import fetch_sequence_features, fetch_sequence_features_plain
 
-# kernel name -> its wrapper
+# kernel name -> its wrapper (the bf16 variants, picked by the wrappers'
+# compute_dtype: their launch counters)
 KERNELS = {
     "time_channel": time_channel_projection,
     "time_channel_bwd": time_channel_backward,
@@ -64,6 +69,10 @@ KERNELS = {
     "window_attention_bwd": window_attention_backward,
     "phi_projection": phi_projection,
     "phi_projection_bwd": phi_projection_backward,
+    "time_channel_bf16": _TIME_BF16_FORWARD,
+    "time_channel_bf16_bwd": _TIME_BF16_BACKWARD,
+    "patch_projection_bf16": _PATCH_BF16_FORWARD,
+    "patch_projection_bf16_bwd": _PATCH_BF16_BACKWARD,
 }
 
 

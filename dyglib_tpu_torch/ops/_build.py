@@ -25,6 +25,7 @@ BUILD_DIR = PACKAGE_DIR / "build"
 KERNEL_SOURCES = (
     "time_channel", "cooccurrence", "patch_projection", "window_fetch",
     "temporal_attention", "gathered_attention", "window_attention", "phi_projection",
+    "patch_projection_bf16",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -120,6 +121,14 @@ def weight_grad_chunk_rows(rows: int, k_total: int, n: int) -> int:
     chunks = max(1, -(-_FULL_CARD_BLOCKS // tiles))
     chunk = -(-max(1, -(-rows // chunks)) // TILE_ROWS) * TILE_ROWS
     return max(chunk, -(-rows // 65535))
+
+
+class LaunchCounter:
+    """The launch counts of a kernel variant that has no wrapper of its own
+    (one picked by an argument of another's wrapper), for ``count_launch``."""
+
+    def __init__(self):
+        self.launches = self.captured = 0
 
 
 def count_launch(wrapper) -> None:

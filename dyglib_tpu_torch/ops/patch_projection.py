@@ -38,6 +38,18 @@ backward its rows (``backward_chunk_rows``), into partial sums that this
 wrapper allocates and a second pass adds in a fixed order, so two runs
 give identical bits.
 
+The bf16 variant (``compute_dtype=torch.bfloat16``, a DyGFormer built
+with ``compute_dtype="bfloat16"``; ``csrc/patch_projection_bf16.cu``):
+the same tiles, ring and splits with one bf16 mma.sync m16n8k16 pass
+(``csrc/bf16_mma.cuh``), the JAX kernels' math (bf16 x and W, f32 sums).
+x is bf16 (half the bytes: 423 MB at CanParl, 0.126 ms) and the output is
+bf16, rounded as the JAX package's bf16 frozen channel rounds it
+(``TorchLinear(dtype=bfloat16)``: the product to bf16, then its sum with
+the bias rounded to bf16); the backward reads bf16 x and the bf16 dout
+and returns f32 dW and dbias. Its launches count apart, under
+``patch_projection_bf16`` and ``patch_projection_bf16_bwd`` in
+``ops.launch_counts()``.
+
 Left on the table: x could be gathered straight from the feature tables
 inside the kernel instead of from a gathered (M, Lp, D) copy; a
 warp-specialised TMA + wgmma pipeline would spend fewer instructions per
@@ -53,6 +65,9 @@ from ._plan import STAGES, TILE_K, TILE_N, best_plan, sm_count
 _NAME = "patch_projection"
 _ARGTYPES = [_build.P] * 2 + [_build.I] * 2 + [_build.P] * 3 + [_build.I] * 7 + [_build.P]
 _BWD_ARGTYPES = [_build.P] * 4 + [_build.I] * 6 + [_build.P]
+_BF16_NAME = "patch_projection_bf16"
+# the bf16 variant's launches (it has no wrapper of its own)
+BF16_FORWARD, BF16_BACKWARD = _build.LaunchCounter(), _build.LaunchCounter()
 # csrc/patch_gemm.cuh: the mma rows a block may own (4 or 2 warps of 32;
 # x rows in the forward, K entries in the backward, which takes 128 only:
 # at the wikipedia shapes 64 measured faster in the forward and slower in
@@ -70,6 +85,16 @@ def copy_floats(t: torch.Tensor, row_stride: int) -> int:
         if row_stride % v == 0 and t.data_ptr() % (4 * v) == 0:
             return v
     raise ValueError("the kernel reads f32 rows: the tensor is not 4-byte aligned")
+
+
+def copy_values(t: torch.Tensor, row_stride: int) -> int:
+    """bf16 values per copy of ``t``'s rows (row stride in elements): 8, 4
+    or 2 by cp.async, the widest whose byte size divides both the row
+    stride and the address; 1 (a plain load) where neither allows 4 bytes."""
+    for v in (8, 4, 2):
+        if row_stride % v == 0 and t.data_ptr() % (2 * v) == 0:
+            return v
+    return 1
 
 
 def forward_plan(rows: int, k: int, ced: int, sms: int) -> tuple[int, int]:
@@ -99,18 +124,26 @@ def patch_projection_plain(
     bias: torch.Tensor,
     patch: int,
     compute_dtype: torch.dtype = torch.float32,
+    round_output: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch version, with the JAX signature.
 
     ``compute_dtype=torch.bfloat16`` rounds the matmul operands to bf16 and
     accumulates in f32, the math of the JAX oracle
-    ``patch_projection_reference``.
+    ``patch_projection_reference``; with ``round_output`` it also rounds
+    as the bf16 variant does (the JAX package's bf16 frozen channel): the
+    product to bf16, then its sum with the bias rounded to bf16, a bf16
+    result.
     """
     m, lp, _ = x.shape
     xf = _flat(x, patch, compute_dtype)
     if compute_dtype != torch.float32:
         w = w.to(compute_dtype).float()
-    return (xf @ w + bias).reshape(m, lp // patch, w.shape[-1])
+    if round_output:
+        out = (xf @ w).to(compute_dtype) + bias.to(compute_dtype)
+    else:
+        out = xf @ w + bias
+    return out.reshape(m, lp // patch, w.shape[-1])
 
 
 def patch_projection_backward_plain(
@@ -125,27 +158,38 @@ def patch_projection_backward_plain(
     math of the JAX kernel's ``_bwd_kernel``; dbias sums dout in f32.
     """
     g = dout.reshape(-1, dout.shape[-1])
+    if compute_dtype != torch.float32:  # the bf16 variant's dout is bf16: f32 sums
+        g = g.float()
     gm = g if compute_dtype == torch.float32 else g.to(compute_dtype).float()
     return _flat(x, patch, compute_dtype).t() @ gm, g.sum(0)
 
 
-def _check(x, w, bias, patch):
+def _check(x, w, bias, patch, x_dtype):
     m, lp, d = x.shape
     ced = w.shape[-1]
     if patch < 1 or lp % patch:
         raise ValueError(f"sequence length {lp} is not a multiple of patch {patch}")
     f32, dev = torch.float32, x.device
-    _build.require(x, "x", f32, (m, lp, d), dev)
+    _build.require(x, "x", x_dtype, (m, lp, d), dev)
     _build.require(bias, "bias", f32, (ced,), dev)
     return _build.require_weight(w, "w", f32, (patch * d, ced), dev)
 
 
-def _forward_kernel(x, w, bias, patch):
-    w_sk, w_sn = _check(x, w, bias, patch)
+def _check_compute_dtype(compute_dtype):
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"patch_projection: compute dtype {compute_dtype} is not float32 or "
+                         "bfloat16")
+
+
+def _forward_kernel(x, w, bias, patch, compute_dtype):
+    """The split-TF32 forward kernel (f32 x and output), or in bf16 the
+    bf16 variant's (bf16 x and output)."""
+    bf16, dtype = compute_dtype == torch.bfloat16, compute_dtype
+    w_sk, w_sn = _check(x, w, bias, patch, dtype)
     m, lp, d = x.shape
     ced = w.shape[-1]
     rows, k = m * (lp // patch), patch * d
-    out = torch.empty((rows, ced), dtype=torch.float32, device=x.device)
+    out = torch.empty((rows, ced), dtype=dtype, device=x.device)
     tile_m, k_chunk = forward_plan(rows, k, ced, sm_count(x.device))
     splits = -(-k // k_chunk)
     partial = (torch.empty((splits, rows, ced), dtype=torch.float32, device=x.device)
@@ -153,83 +197,104 @@ def _forward_kernel(x, w, bias, patch):
     # W: K-major (nn.Linear's weight.t()) is copied in rows of K, a
     # row-major W float by float, transposed (w_vec 0)
     w_vec = copy_floats(w, w_sn) if w_sk == 1 else 0
-    lib = _build.load(_NAME, "patch_projection_forward", _ARGTYPES)
-    rc = lib.patch_projection_forward(
+    name, entry, wrapper, x_vec = (
+        (_BF16_NAME, "patch_projection_bf16_forward", BF16_FORWARD, copy_values(x, k)) if bf16
+        else (_NAME, "patch_projection_forward", patch_projection, copy_floats(x, k)))
+    lib = _build.load(name, entry, _ARGTYPES)
+    rc = getattr(lib, entry)(
         x.data_ptr(), w.data_ptr(), w_sk, w_sn, bias.data_ptr(), out.data_ptr(),
         None if partial is None else partial.data_ptr(), rows, k, ced, tile_m, k_chunk,
-        copy_floats(x, k), w_vec, torch.cuda.current_stream(x.device).cuda_stream,
+        x_vec, w_vec, torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _build.check(lib, rc, _NAME)
-    _build.count_launch(patch_projection)
+    _build.check(lib, rc, name)
+    _build.count_launch(wrapper)
     return out.view(m, lp // patch, ced)
 
 
-def patch_projection_backward(
-    x: torch.Tensor, dout: torch.Tensor, patch: int
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """x (M, Lp, D) f32, dout (M, Lp // patch, ced) f32 ->
-    (dW (patch*D, ced), dbias (ced,)).
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
-    """
-    if x.device.type == "cpu":
-        return patch_projection_backward_plain(x, dout, patch)
-    if x.device.type != "cuda":
-        raise ValueError(f"patch_projection_backward: unsupported device {x.device}")
+def _backward_kernel(x, dout, patch, compute_dtype):
+    """The split-TF32 backward kernel (f32 x and dout), or in bf16 the bf16
+    variant's (bf16 x and dout); f32 gradients either way."""
     m, lp, d = x.shape
     if patch < 1 or lp % patch:
         raise ValueError(f"sequence length {lp} is not a multiple of patch {patch}")
     rows, k = m * (lp // patch), patch * d
     ced = dout.shape[-1]
     f32, dev = torch.float32, x.device
-    _build.require(x, "x", f32, (m, lp, d), dev)
-    _build.require(dout, "dout", f32, (m, lp // patch, ced), dev)
+    bf16, dtype = compute_dtype == torch.bfloat16, compute_dtype
+    _build.require(x, "x", dtype, (m, lp, d), dev)
+    _build.require(dout, "dout", dtype, (m, lp // patch, ced), dev)
     if (k + 1) * ced >= 2**31:
         raise ValueError(f"dW has {(k + 1) * ced} elements; the kernels index with int32")
     chunk = backward_chunk_rows(rows, k, ced, sm_count(dev))
     chunks = -(-rows // chunk)
     dw_ext = torch.empty((k + 1, ced), dtype=f32, device=dev)
     partial = torch.empty((chunks, k + 1, ced), dtype=f32, device=dev) if chunks > 1 else None
-    lib = _build.load(_NAME, "patch_projection_backward", _BWD_ARGTYPES)
-    rc = lib.patch_projection_backward(
+    vec = copy_values if bf16 else copy_floats
+    name, entry, wrapper = (
+        (_BF16_NAME, "patch_projection_bf16_backward", BF16_BACKWARD) if bf16
+        else (_NAME, "patch_projection_backward", patch_projection_backward))
+    lib = _build.load(name, entry, _BWD_ARGTYPES)
+    rc = getattr(lib, entry)(
         x.data_ptr(), dout.data_ptr(), dw_ext.data_ptr(),
         None if partial is None else partial.data_ptr(), rows, k, ced, chunk,
-        copy_floats(x, k), copy_floats(dout, ced), torch.cuda.current_stream(dev).cuda_stream,
+        vec(x, k), vec(dout, ced), torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check(lib, rc, f"{_NAME} backward")
-    _build.count_launch(patch_projection_backward)
+    _build.check(lib, rc, f"{name} backward")
+    _build.count_launch(wrapper)
     return dw_ext[:k], dw_ext[k]
+
+
+def patch_projection_backward(
+    x: torch.Tensor, dout: torch.Tensor, patch: int,
+    compute_dtype: torch.dtype = torch.float32,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (M, Lp, D) f32, dout (M, Lp // patch, ced) f32 ->
+    (dW (patch*D, ced), dbias (ced,)); ``compute_dtype=torch.bfloat16``:
+    the bf16 variant's, x and dout bf16, dW and dbias f32 sums.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    """
+    _check_compute_dtype(compute_dtype)
+    if x.device.type == "cpu":
+        return patch_projection_backward_plain(x, dout, patch, compute_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"patch_projection_backward: unsupported device {x.device}")
+    return _backward_kernel(x, dout, patch, compute_dtype)
 
 
 class _PatchProjection(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, bias, patch):
-        ctx.patch = patch
+    def forward(ctx, x, w, bias, patch, compute_dtype):
+        ctx.patch, ctx.compute_dtype = patch, compute_dtype
         ctx.save_for_backward(x)
         if x.device.type == "cpu":
-            return patch_projection_plain(x, w, bias, patch)
-        return _forward_kernel(x, w, bias, patch)
+            return patch_projection_plain(x, w, bias, patch, compute_dtype,
+                                          round_output=compute_dtype == torch.bfloat16)
+        return _forward_kernel(x, w, bias, patch, compute_dtype)
 
     @staticmethod
     def backward(ctx, dout):
         (x,) = ctx.saved_tensors
-        dw, dbias = patch_projection_backward(x, dout.contiguous(), ctx.patch)
-        return None, dw, dbias, None
+        dw, dbias = patch_projection_backward(x, dout.contiguous(), ctx.patch, ctx.compute_dtype)
+        return None, dw, dbias, None, None
 
 
 def patch_projection(
-    x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, patch: int
+    x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, patch: int,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """x (M, Lp, D) f32; w (patch*D, ced); bias (ced,) -> (M, Lp // patch, ced).
 
     ``w`` may be row-major or the transpose of nn.Linear's (ced, patch*D)
     weight; the kernel reads either in place. Differentiable in ``w`` and
     ``bias`` (not in ``x``). CPU tensors take the plain versions; CUDA
-    tensors launch the kernels.
+    tensors launch the kernels. ``compute_dtype=torch.bfloat16`` takes the
+    bf16 variant: x bf16, a bf16 output (see the module docstring).
     """
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"patch_projection: unsupported device {x.device}")
-    return _PatchProjection.apply(x, w, bias, patch)
+    _check_compute_dtype(compute_dtype)
+    return _PatchProjection.apply(x, w, bias, patch, compute_dtype)
 
 
 patch_projection.launches = patch_projection.captured = 0

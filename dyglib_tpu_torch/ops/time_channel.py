@@ -46,6 +46,19 @@ CanParl the mma.sync products alone take ~0.35 ms and the cosines ~0.19
 more (PERF.md), 7x the bound; wgmma with Phi staged through shared memory,
 or fewer registers for more warps an SM, are the next steps.
 
+The bf16 variants (``compute_dtype=torch.bfloat16``, a DyGFormer built
+with ``compute_dtype="bfloat16"``) are the same kernels on another product
+(``csrc/time_products.cuh``): the JAX kernels' math, Phi, W (and dout in
+the backward) rounded to bf16 with f32 sums, in one bf16 mma.sync
+m16n8k16 pass where the f32 kernels take three TF32 ones; Phi is computed
+as above, each patch slot padded to a multiple of 16 in the forward. The
+output and the gradients are f32, as the JAX kernel's. Bounds at CanParl:
+the forward's 12.3 G operations take 0.012 ms at 989 T/s, its cosines
+0.023 ms (bound by the cosines); the backward's 24.6 G operations 0.025
+ms, its (cosine, sine) pairs 0.047 ms. Their launches count apart, under
+``time_channel_bf16`` and ``time_channel_bf16_bwd`` in
+``ops.launch_counts()``.
+
 The backward (``csrc/time_channel_bwd.cuh``, which the Phi projection's
 backward shares without the mask and dbias) is one kernel for both of its
 products, dW_ext = [Phi | 1]^T dout and dPhi = dout W^T, in the same split
@@ -78,6 +91,10 @@ TILE_M, BWD_ENTRIES, DT_STEP = 128, 128, 8
 # shared memory one block may take on an H100
 _SMEM_LIMIT = 232_448
 _BWD_ARGTYPES = [_build.P] * 5 + [_build.I] * 2 + [_build.P] * 5 + [_build.I] * 7 + [_build.P]
+# the bf16 forward's patch slots: Dt padded to the bf16 mma's depth
+BF16_DT_STEP = 16
+# the bf16 variants' launches (they have no wrapper of their own)
+BF16_FORWARD, BF16_BACKWARD = _build.LaunchCounter(), _build.LaunchCounter()
 
 
 def _theta(dt, tw, tb):
@@ -159,51 +176,62 @@ def _check(dt, valid, tw, tb, w, patch):
     return _build.require_weight(w, "w", f32, (patch * dt_dim, ced), dev)
 
 
-def padded_dt(dt_dim: int) -> int:
+def padded_dt(dt_dim: int, step: int = DT_STEP) -> int:
     """A patch slot's features in the forward kernel: Dt rounded up to a
-    multiple of the mma k-step, so that no k-step straddles two slots."""
-    return -(-dt_dim // DT_STEP) * DT_STEP
+    multiple of the mma k-step (``BF16_DT_STEP`` in the bf16 variant), so
+    that no k-step straddles two slots."""
+    return -(-dt_dim // step) * step
 
 
-def forward_plan(rows: int, patch: int, dt_dim: int, ced: int, sms: int) -> int:
-    """Padded K (patch * padded_dt(dt_dim)) per split of the forward, a
-    multiple of TILE_K; the forward runs ceil(padded K / it) splits. The
+def forward_plan(rows: int, patch: int, dt_dim: int, ced: int, sms: int,
+                 step: int = DT_STEP) -> int:
+    """Padded K (patch * padded_dt(dt_dim, step)) per split of the forward,
+    a multiple of TILE_K; the forward runs ceil(padded K / it) splits. The
     split that least loads the busiest SM, by the patch projection's cost
     model (``ops/_plan.py::best_plan``, 128-row blocks): a
     block's stages plus the ring's fill, and the partial sums' traffic."""
-    depth = max(1, -(-patch * padded_dt(dt_dim) // TILE_K))
+    depth = max(1, -(-patch * padded_dt(dt_dim, step) // TILE_K))
     _, per = best_plan(max(rows, 1), ced, depth, rows * ced, sms, (TILE_M,))
     return per * TILE_K
 
 
-def forward_smem_bytes(dt_dim: int) -> int:
+def forward_smem_bytes(dt_dim: int, step: int = DT_STEP) -> int:
     """Dynamic shared memory of a forward block: the ring of W stages
     (TILE_N columns x TILE_K + 4 floats) and tw, tb padded."""
-    return 4 * (STAGES * TILE_N * (TILE_K + 4) + 2 * padded_dt(dt_dim))
+    return 4 * (STAGES * TILE_N * (TILE_K + 4) + 2 * padded_dt(dt_dim, step))
 
 
-def _forward_kernel(dt, valid, tw, tb, w, bias, patch):
+def _check_compute_dtype(compute_dtype):
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"time_channel: compute dtype {compute_dtype} is not float32 or "
+                         "bfloat16")
+
+
+def _forward_kernel(dt, valid, tw, tb, w, bias, patch, compute_dtype):
     w_sk, w_sn = _check(dt, valid, tw, tb, w, patch)
     m, l = dt.shape
     dt_dim, ced, dev = tw.shape[0], w.shape[-1], dt.device
     _build.require(bias, "bias", torch.float32, (ced,), dev)
-    if forward_smem_bytes(dt_dim) > _SMEM_LIMIT:
+    bf16 = compute_dtype == torch.bfloat16
+    step = BF16_DT_STEP if bf16 else DT_STEP
+    if forward_smem_bytes(dt_dim, step) > _SMEM_LIMIT:
         raise ValueError(f"Dt = {dt_dim}: tw and tb do not fit one block's shared memory")
     rows = m * (l // patch)
     out = torch.empty((rows, ced), dtype=torch.float32, device=dev)
-    dt_pad = padded_dt(dt_dim)
-    k_chunk = forward_plan(rows, patch, dt_dim, ced, sm_count(dev))
+    dt_pad = padded_dt(dt_dim, step)
+    k_chunk = forward_plan(rows, patch, dt_dim, ced, sm_count(dev), step)
     splits = -(-patch * dt_pad // k_chunk)
     partial = (torch.empty((splits, rows, ced), dtype=torch.float32, device=dev)
                if splits > 1 and rows > 0 else None)
-    lib = _build.load(_NAME, "time_channel_forward", _ARGTYPES)
-    rc = lib.time_channel_forward(
+    entry = "time_channel_bf16_forward" if bf16 else "time_channel_forward"
+    lib = _build.load(_NAME, entry, _ARGTYPES)
+    rc = getattr(lib, entry)(
         dt.data_ptr(), valid.data_ptr(), tw.data_ptr(), tb.data_ptr(), w.data_ptr(), w_sk,
         w_sn, bias.data_ptr(), out.data_ptr(), None if partial is None else partial.data_ptr(),
         rows, patch, dt_dim, dt_pad, ced, k_chunk, torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check(lib, rc, _NAME)
-    _build.count_launch(time_channel_projection)
+    _build.check(lib, rc, entry)
+    _build.count_launch(BF16_FORWARD if bf16 else time_channel_projection)
     return out.view(m, l // patch, ced)
 
 
@@ -229,16 +257,26 @@ def time_channel_backward(
     w: torch.Tensor,
     dout: torch.Tensor,
     patch: int,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The forward's arguments (no bias) and dout (M, L // patch, ced) f32
-    -> (dtw (Dt,), dtb (Dt,), dW (patch*Dt, ced), dbias (ced,)).
+    -> (dtw (Dt,), dtb (Dt,), dW (patch*Dt, ced), dbias (ced,));
+    ``compute_dtype=torch.bfloat16``: the bf16 variant's (Phi, dout and W
+    rounded to bf16 for both products; dtw, dtb and dbias f32 sums).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
+    _check_compute_dtype(compute_dtype)
     if dt.device.type == "cpu":
-        return time_channel_backward_plain(dt, valid, tw, tb, w, dout, patch)
+        return time_channel_backward_plain(dt, valid, tw, tb, w, dout, patch, compute_dtype)
     if dt.device.type != "cuda":
         raise ValueError(f"time_channel_backward: unsupported device {dt.device}")
+    return _backward_kernel(dt, valid, tw, tb, w, dout, patch, compute_dtype)
+
+
+def _backward_kernel(dt, valid, tw, tb, w, dout, patch, compute_dtype):
+    """Both variants take dt_pad to a multiple of 8 and plan their chunks
+    alike."""
     w_sk, w_sn = _check(dt, valid, tw, tb, w, patch)
     m, l = dt.shape
     dt_dim, ced = tw.shape[0], w.shape[-1]
@@ -255,35 +293,37 @@ def time_channel_backward(
     dw_ext, dt_grads = new(k + 1, ced), new(2, dt_dim)
     partial = new(chunks, k + 1, ced) if chunks > 1 else None
     part = new(chunks * col_tiles * patch, 2, dt_dim)  # dtw's and dtb's sums
-    lib = _build.load(_NAME, "time_channel_backward", _BWD_ARGTYPES)
-    rc = lib.time_channel_backward(
+    bf16 = compute_dtype == torch.bfloat16
+    entry = "time_channel_bf16_backward" if bf16 else "time_channel_backward"
+    lib = _build.load(_NAME, entry, _BWD_ARGTYPES)
+    rc = getattr(lib, entry)(
         dt.data_ptr(), valid.data_ptr(), tw.data_ptr(), tb.data_ptr(), w.data_ptr(), w_sk,
         w_sn, dout.data_ptr(), dw_ext.data_ptr(), dt_grads.data_ptr(),
         None if partial is None else partial.data_ptr(), part.data_ptr(), rows, patch, dt_dim,
         padded_dt(dt_dim), ced, chunk, copy_floats(dout, ced),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check(lib, rc, f"{_NAME} backward")
-    _build.count_launch(time_channel_backward)
+    _build.check(lib, rc, entry)
+    _build.count_launch(BF16_BACKWARD if bf16 else time_channel_backward)
     return dt_grads[0], dt_grads[1], dw_ext[:k], dw_ext[k]
 
 
 class _TimeChannel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, dt, valid, tw, tb, w, bias, patch):
-        ctx.patch = patch
+    def forward(ctx, dt, valid, tw, tb, w, bias, patch, compute_dtype):
+        ctx.patch, ctx.compute_dtype = patch, compute_dtype
         ctx.save_for_backward(dt, valid, tw, tb, w)
         if dt.device.type == "cpu":
-            return time_channel_projection_plain(dt, valid, tw, tb, w, bias, patch)
-        return _forward_kernel(dt, valid, tw, tb, w, bias, patch)
+            return time_channel_projection_plain(dt, valid, tw, tb, w, bias, patch, compute_dtype)
+        return _forward_kernel(dt, valid, tw, tb, w, bias, patch, compute_dtype)
 
     @staticmethod
     def backward(ctx, dout):
         dt, valid, tw, tb, w = ctx.saved_tensors
         dtw, dtb, dw, dbias = time_channel_backward(
-            dt, valid, tw, tb, w, dout.contiguous(), ctx.patch
+            dt, valid, tw, tb, w, dout.contiguous(), ctx.patch, ctx.compute_dtype
         )
-        return None, None, dtw, dtb, dw, dbias, None
+        return None, None, dtw, dtb, dw, dbias, None, None
 
 
 def time_channel_projection(
@@ -294,6 +334,7 @@ def time_channel_projection(
     w: torch.Tensor,
     bias: torch.Tensor,
     patch: int,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """dt (M, L) f32, valid (M, L) bool; tw, tb (Dt,); w (patch*Dt, ced);
     bias (ced,) -> (M, L // patch, ced) f32.
@@ -301,11 +342,12 @@ def time_channel_projection(
     ``w`` may be row-major or the transpose of nn.Linear's (ced, patch*Dt)
     weight; the kernels read either in place. Differentiable in tw, tb, w
     and bias. CPU tensors take the plain versions; CUDA tensors launch the
-    kernels.
+    kernels. ``compute_dtype=torch.bfloat16`` takes the bf16 variants.
     """
     if dt.device.type not in ("cpu", "cuda"):
         raise ValueError(f"time_channel_projection: unsupported device {dt.device}")
-    return _TimeChannel.apply(dt, valid, tw, tb, w, bias, patch)
+    _check_compute_dtype(compute_dtype)
+    return _TimeChannel.apply(dt, valid, tw, tb, w, bias, patch, compute_dtype)
 
 
 time_channel_projection.launches = time_channel_projection.captured = 0

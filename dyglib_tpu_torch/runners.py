@@ -22,9 +22,9 @@ when the parallelism flags ask for one (``setup_parallelism``): one
 process per device, ``--num_processes``, ``--process_id`` and
 ``--coordinator_address`` (rank 0's host:port) on each; only the lead
 rank writes results, checkpoints and logs. The node-classification
-drivers run on one device, as the JAX package's do. Flags of the JAX
-package whose feature the port lacks raise ``NotImplementedError``
-(``--fast_prng``; ``build_backbone`` for ``--compute_dtype``).
+drivers run on one device, as the JAX package's do. ``--compute_dtype``
+goes to ``build_backbone``; the JAX package's ``--fast_prng``, whose
+feature the port lacks, raises ``NotImplementedError``.
 """
 from __future__ import annotations
 

@@ -145,8 +145,12 @@ def test_trainer_embeds_the_quad(sides, port_data):
     for (p1, n1), (p2, n2) in zip(first, second):
         np.testing.assert_array_equal(p1, p2)
         np.testing.assert_array_equal(n1, n2)
-    with pytest.raises(ValueError, match="float32"):
-        CAWN(compute_dtype="bfloat16")
+    net = CAWN(compute_dtype="bfloat16").build(172, 172, torch.Generator().manual_seed(0))
+    assert net.compute_dtype == net.walk_transformer.compute_dtype == torch.bfloat16
+    assert net.feature_encoder.compute_dtype == torch.bfloat16
+    assert CAWN().build(172, 172, torch.Generator()).compute_dtype == torch.float32
+    with pytest.raises(ValueError, match="compute_dtype"):
+        CAWN(compute_dtype="float16")
 
 
 @pytest.mark.slow

@@ -6,9 +6,12 @@
   * ``build_backbone`` gives each model the JAX factory's fields (the
     memory models' time shifts included); the aggregate over runs (sample
     std) and the saved results JSON equal the JAX runner's;
-  * each flag whose feature the port lacks (``--compute_dtype bfloat16``,
-    ``--fast_prng``) raises ``NotImplementedError`` when set, and the
-    default ``--device cuda`` raises without a card;
+  * the flag whose feature the port lacks (``--fast_prng``) raises
+    ``NotImplementedError`` when set, and the default ``--device cuda``
+    raises without a card;
+  * ``--compute_dtype bfloat16`` runs the four drivers for TGAT and
+    DyGFormer on bf16 backbones, and the models that compute in f32 only
+    (JODIE, DyRep, TGN, TCL, GraphMixer) ignore it, as the JAX factory does;
   * ``--show_progress`` writes each train step's loss line to stderr;
   * ``--scan_epochs`` trains one epoch through the two training drivers
     on the scanned path;
@@ -152,7 +155,6 @@ def test_aggregate_and_results_match_jax(tmp_path, monkeypatch):
 # the parallelism flags are accepted since the port runs over rank grids
 # (tests/test_torch_parallel_cli.py)
 UNPORTED_FLAGS = [
-    ["--compute_dtype", "bfloat16"],
     ["--fast_prng"],
 ]
 
@@ -169,6 +171,51 @@ def test_unported_flags_raise(synthetic_dataset, tmp_path, monkeypatch, flag):
         with pytest.raises(NotImplementedError, match="not ported|no counterpart"):
             run(get_node_classification_args(argv))
     assert not os.path.exists("saved_models")
+
+
+@pytest.mark.parametrize("model,extra", [
+    ("TGAT", ["--num_neighbors", "5", "--num_layers", "1"]),
+    ("DyGFormer", ["--max_input_sequence_length", "16", "--patch_size", "2", "--num_layers", "1",
+                   "--channel_embedding_dim", "16"]),
+])
+def test_compute_dtype_bfloat16_runs_the_four_drivers(synthetic_dataset, tmp_path, monkeypatch,
+                                                      capsys, model, extra):
+    monkeypatch.chdir(tmp_path)
+    built = []
+
+    def spy(args, data):
+        built.append(build_backbone(args, data))
+        return built[-1]
+
+    monkeypatch.setattr(runners, "build_backbone", spy)
+    argv = _argv(synthetic_dataset, "--model_name", model, *extra, "--device", "cpu",
+                 "--compute_dtype", "bfloat16")
+    train_link_prediction.main(argv)
+    evaluate_link_prediction.main(argv)
+    train_node_classification.main(argv)
+    evaluate_node_classification.main(argv)
+    assert len(built) == 4 and all(b.compute_dtype == "bfloat16" for b in built)
+    lines = capsys.readouterr().out.splitlines()
+    tests = [float(line.split(":")[1].split("±")[0]) for line in lines
+             if line.startswith("test ")]
+    assert len(tests) == 6 and all(0.0 <= v <= 1.0 for v in tests)
+
+
+@pytest.mark.parametrize("model", ["JODIE", "DyRep", "TGN", "TCL", "GraphMixer"])
+def test_compute_dtype_is_ignored_where_the_jax_factory_ignores_it(link_data, synthetic_dataset,
+                                                                   model):
+    data = get_link_prediction_data("synthetic", data_root=synthetic_dataset)
+    argv = ["--model_name", model, "--dataset_name", "wikipedia", "--load_best_configs"]
+    bf16 = argv + ["--compute_dtype", "bfloat16"]
+    ours, plain = (build_backbone(get_link_prediction_args(a), data) for a in (bf16, argv))
+    ref = jax_build_backbone(jax_link_args(bf16), link_data)
+    assert not hasattr(ours, "compute_dtype") and not hasattr(ref, "compute_dtype")
+    for f in dataclasses.fields(ours):
+        got, want = getattr(ours, f.name), getattr(plain, f.name)
+        if f.name == "time_shifts":
+            assert tuple(got) == tuple(want)
+        else:
+            assert got == want, f.name
 
 
 def test_default_device_is_cuda(synthetic_dataset, tmp_path, monkeypatch):

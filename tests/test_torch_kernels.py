@@ -163,7 +163,8 @@ def test_launch_counters_reset():
         "patch_projection_bwd": 0, "window_fetch": 0, "temporal_attention": 0,
         "temporal_attention_bwd": 0, "gathered_attention": 0, "gathered_attention_bwd": 0,
         "window_attention": 0, "window_attention_bwd": 0, "phi_projection": 0,
-        "phi_projection_bwd": 0,
+        "phi_projection_bwd": 0, "time_channel_bf16": 0, "time_channel_bf16_bwd": 0,
+        "patch_projection_bf16": 0, "patch_projection_bf16_bwd": 0,
     }
 
 

@@ -272,6 +272,49 @@ def ulysses_checks(rank, world) -> dict:
     return out
 
 
+@one_thread
+def remat_step(mesh=None, remat: bool = False, compute_dtype: str = "float32") -> dict:
+    """One train step of a 2-layer DyGFormer at dropout 0.1 (Ulysses over
+    the model axis under ``mesh``) from the seed-0 parameters on the first
+    seeded batch: its loss, the parameter gradients, the dropout
+    generator's state after it and the eval-mode quad embeddings before it."""
+    from dyglib_tpu_torch.graph import NegativeEdgeSampler
+    from dyglib_tpu_torch.models import DyGFormer
+    from dyglib_tpu_torch.train import LinkPredictionTrainer, TrainConfig
+
+    data = fixture_data()
+    backbone = DyGFormer(max_input_sequence_length=16, patch_size=2, num_layers=2, dropout=0.1,
+                         sequence_axis=None if mesh is None else "model", remat=remat,
+                         compute_dtype=compute_dtype)
+    tr = LinkPredictionTrainer(backbone, data, TrainConfig(learning_rate=1e-3), device="cpu",
+                               mesh=mesh)
+    tr.train_neg = NegativeEdgeSampler(data.train.src, data.train.dst, seed=3)
+    tr.init_params(0)
+    embeddings = quad_embeddings(tr)
+    loss, _ = tr.train_step(seeded_batches(tr, 1)[0])
+    return {"loss": float(loss), "embeddings": embeddings,
+            "grads": {k: p.grad.numpy().copy() for k, p in tr.model.named_parameters()
+                      if p.grad is not None},
+            "generator": tr.dropout_gen.get_state().numpy()}
+
+
+def remat_ulysses_checks(rank, world) -> dict:
+    """``remat_step`` with and without remat, in f32 and bf16, with the
+    joint tokens sharded over a model axis of all the ranks, and each
+    step's collective counts."""
+    from dyglib_tpu_torch.parallel import collective_counts, make_mesh, reset_collective_counts
+
+    mesh = make_mesh(world, model_parallelism=world)
+    out = {}
+    for remat in (False, True):
+        for cd in ("float32", "bfloat16"):
+            reset_collective_counts()
+            res = remat_step(mesh, remat, cd)
+            res["collectives"] = collective_counts()
+            out[(remat, cd)] = res
+    return out
+
+
 def setup_cases(rank, world, cases, data_root) -> list:
     """``runners.setup_parallelism`` on each flag list (this rank's
     ``--process_id`` substituted for RANK): the mesh's shape (None for no
