@@ -57,10 +57,12 @@ and prints no result):
      sum of |terms|; the bf16 patch projection's output, rounded to bf16
      twice, also within a bf16 ulp of its product and one of itself, the
      entries past GRAD_RTOL counted and held under 1 in 1000), a second
-     launch bitwise equal; times of the variant, its split-TF32 sibling,
-     the plain version and the library call (#3: torch.addmm in bf16;
-     #1, #1b, #3b: the bf16 torch.mm(s) on a precomputed Phi or x, partial);
-     bounds at 989 T/s in bf16, the bytes (x read as bf16), or the SFU;
+     launch bitwise equal; the forwards of #1 and #3 on wgmma (#3 reads x
+     in place where TMA takes its rows: CanParl; from a copy in padded
+     rows elsewhere: the 32/1 shape), the launch counters checked; times
+     of the variant, its split-TF32 sibling, the plain version and the library call (#3: torch.addmm in bf16; #1, #1b,
+     #3b: the bf16 torch.mm(s) on a precomputed Phi or x, partial); bounds
+     at 989 T/s in bf16, the bytes (x read as bf16), or the SFU;
   4. TGAT evaluation on the first val batches, one set of weights in four
      configurations (plain versions; default kernels: gathered attention
      at layer 1, fused attention at layer 2; window attention with the
@@ -73,7 +75,10 @@ and prints no result):
      batches vs the port's CPU path; ms per eval batch for each;
   4b. DyGFormer evaluation, for each configuration: zero the launch counters, run
      evaluate on the val batches through the kernels, read the counters
-     (every forward kernel must have launched), check the probabilities
+     (every forward kernel of the path must have launched: the time channel
+     and the co-occurrence counts, and at patch > 1 only, as in the JAX
+     package, the patch projection; at patch 1 it must not), check the
+     probabilities
      are finite and the metrics in range; hold one batch's embeddings
      through the kernels to those through the plain versions; run the same
      batches in turns, plain, plain, kernels, and require every sweep's
@@ -180,7 +185,8 @@ and prints no result):
      ``build_backbone``, backbone and head from seed 0: the first 20 val
      batches (TGN from the memory after the last 20 train batches), plain
      and kernel paths in turns P, K, K, P, counters zeroed just before each
-     sweep and read just after (DyGFormer #1 x1, #2 x2, #3 x2 a batch; TGAT
+     sweep and read just after (DyGFormer #1 x1, #2 x2 a batch, at patch 1
+     no #3; TGAT
      #6 x2, #5 x1; TGN #5 x1; the plain path none), probabilities within
      PROB_ATOL of the first plain sweep, the two kernel sweeps bitwise
      equal, DyGFormer's first batches against the port's CPU path; then 5
@@ -262,7 +268,10 @@ and prints no result):
      launches (the bf16 variants: phase 5b's DyGFormer sweeps; their rows
      also carry their split-TF32 siblings' ms), where phase 5c runs it its node-classification launches
      over 20 eval batches, its launches by phase 5s's replays, and its
-     launches on phase 5d's mesh path), then the device JSON line.
+     launches on phase 5d's mesh path; a kernel measured at a shape that
+     no path runs it at (the patch projection's at 32/1) lists those
+     numbers under "isolated" in its main-path row), then the device JSON
+     line.
 """
 import dataclasses
 import json
@@ -337,9 +346,18 @@ CONFIGS = (  # (name, maxlen, patch, val batches driven, train steps driven)
     ("CanParl", 2048, 64, 10, 5),
 )
 CED, DT_DIM, FEAT = 50, 100, 172
-# the kernels of the evaluation path (the training path adds the backward
-# kernels, and window_fetch with the entry fetch)
-EVAL_KERNELS = ("time_channel", "cooccurrence", "patch_projection")
+def dygformer_kernels(patch: int, train: bool = False, bf16: bool = False) -> list:
+    """The kernels a DyGFormer evaluation batch launches (with ``train``, a
+    train step: their backward kernels too; window_fetch comes with the entry
+    fetch): the time channel and the co-occurrence counts at every patch
+    size, the frozen channels' patch projection only at patch > 1, as in the
+    JAX package (``dyglib_tpu/models/dygformer.py``: its patch kernel only
+    where ``patch_size > 1``); ``bf16``: the bf16 variants."""
+    sfx = "_bf16" if bf16 else ""
+    fwd = [f"time_channel{sfx}", "cooccurrence"] + ([f"patch_projection{sfx}"] if patch > 1
+                                                     else [])
+    bwd = [f"time_channel{sfx}_bwd"] + ([f"patch_projection{sfx}_bwd"] if patch > 1 else [])
+    return fwd + bwd if train else fwd
 # TGAT at its published widths (best_configs.py: K = 20 neighbours, 2
 # layers; 2 heads, Dt = 100, features 172), evaluated on the first val
 # batches in four configurations: (TGAT kwargs, use_kernels, the kernels
@@ -425,7 +443,7 @@ NEW_FIT = {
 # backbone and head from seed 0: the forward kernels an eval batch and a head
 # step launch (the frozen backbone launches no backward kernel)
 NODECLS_MODELS = {
-    "DyGFormer": {"time_channel": 1, "cooccurrence": 2, "patch_projection": 2},
+    "DyGFormer": {"time_channel": 1, "cooccurrence": 2},  # patch 1: no patch projection
     "TGAT": {"gathered_attention": 2, "temporal_attention": 1},
     "TGN": {"temporal_attention": 1},
 }
@@ -466,9 +484,9 @@ TRACE_KERNELS = {
     "cooccurrence": r"cooccurrence_(pairs|table)_kernel",
     "patch_projection": r"patch_forward_kernel",
     "patch_projection_bwd": r"patch_backward_kernel",
-    "time_channel_bf16": r"time_channel_fwd_kernel<.*Bf16",
+    "time_channel_bf16": r"time_channel_bf16_fwd_kernel",
     "time_channel_bf16_bwd": r"time_bwd_kernel<\d+, true, \d+, .*Bf16",
-    "patch_projection_bf16": r"patch_forward_bf16_kernel",
+    "patch_projection_bf16": r"patch_forward_wgmma_kernel",
     "patch_projection_bf16_bwd": r"patch_backward_bf16_kernel",
     "window_fetch": r"window_fetch_kernel",
     "temporal_attention": r"\battention_query_kernel<.*KvLoader",
@@ -830,11 +848,17 @@ def check_bf16_kernels(dev) -> dict:
     side of a rounding boundary), a second launch bitwise equal; times of
     the variant, its split-TF32 sibling, the plain version and the library
     call; bounds at 989 T/s (bf16) or the SFU."""
+    import importlib
+
     import torch
 
     from dyglib_tpu_torch import ops
     from dyglib_tpu_torch.nn.modules import time_encoder_spectrum
 
+    from dyglib_tpu_torch.ops._plan import sm_count
+
+    pp = importlib.import_module("dyglib_tpu_torch.ops.patch_projection")
+    tc = importlib.import_module("dyglib_tpu_torch.ops.time_channel")
     bf16 = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(2468)
     m = 3 * B
@@ -865,6 +889,11 @@ def check_bf16_kernels(dev) -> dict:
         w = ((torch.rand((CED, k), device=dev, generator=gen) * 2 - 1) * k**-0.5).t()
         bias = (torch.rand(CED, device=dev, generator=gen) * 2 - 1) * k**-0.5
         args = (dt, valid, tw, tb, w, bias, patch)
+        # W converted in the blocks where a split is two stages (wikipedia),
+        # else packed once and streamed by TMA (CanParl): both kernels run here
+        plan = tc.wgmma_forward_plan(rows, patch, DT_DIM, CED, sm_count(dev))
+        if tc.resident_weight(plan) != (config == "wikipedia"):
+            raise AssertionError(f"time_channel_bf16@{config}: W's staging for splits of {plan}")
         out = ops.time_channel_projection(*args, compute_dtype=bf16)
         again = ops.time_channel_projection(*args, compute_dtype=bf16)
         ref = ops.time_channel_projection_plain(*args, compute_dtype=bf16)
@@ -936,8 +965,18 @@ def check_bf16_kernels(dev) -> dict:
         k = patch * FEAT
         w = ((torch.rand((CED, k), device=dev, generator=gen) * 2 - 1) * k**-0.5).t()
         bias = (torch.rand(CED, device=dev, generator=gen) * 2 - 1) * k**-0.5
+        # the wgmma forward at both shapes: x read in place where TMA takes
+        # its rows (patch * D values a multiple of 8: CanParl), else copied
+        # to padded rows (32/1)
+        fwd_name = "patch_projection_bf16"
+        if pp.tma_accepts(k, x.data_ptr()) != (config == "CanParl"):
+            raise AssertionError(f"patch_projection_bf16@{config}: TMA's rule for rows of {k}")
+        ops.reset_launch_counts()
         out = ops.patch_projection(x, w, bias, patch, compute_dtype=bf16)
         again = ops.patch_projection(x, w, bias, patch, compute_dtype=bf16)
+        if {n: c for n, c in ops.launch_counts().items() if c} != {fwd_name: 2}:
+            raise AssertionError(f"patch_projection_bf16@{config}: launched "
+                                 f"{ops.launch_counts()}, expected {fwd_name} twice")
         ref = ops.patch_projection_plain(x, w, bias, patch, bf16, round_output=True)
         x2, w16, b16 = x.view(rows, k), w.to(bf16), bias.to(bf16)
         prod = (x2.float() @ w16.float()).view(out.shape)
@@ -958,7 +997,7 @@ def check_bf16_kernels(dev) -> dict:
         del prod, terms, diff, beyond, allowed, out, again, ref
         x32 = x.float()
         record(
-            ("patch_projection_bf16", config), f"M{m} Lp{lp} D{FEAT} patch{patch}", err, rel,
+            (fwd_name, config), f"M{m} Lp{lp} D{FEAT} patch{patch}", err, rel,
             cuda_ms(lambda: ops.patch_projection(x, w, bias, patch, compute_dtype=bf16), iters),
             cuda_ms(lambda: ops.patch_projection(x32, w, bias, patch), iters),
             cuda_ms(lambda: ops.patch_projection_plain(x, w, bias, patch, bf16, round_output=True),
@@ -1343,9 +1382,11 @@ def run_config(data, config, maxlen, patch, n_batches, dev, cpu_reference: bool)
 
     # the main path: counters zeroed just before, read just after
     launches, kernel_s, (losses, metrics, probs) = sweep(True)
-    missing = [k for k in EVAL_KERNELS if launches[k] == 0]
+    missing = [k for k in dygformer_kernels(patch) if launches[k] == 0]
     if missing:
         raise AssertionError(f"{config}: kernels never launched on the main path: {missing}")
+    if patch == 1 and launches["patch_projection"]:
+        raise AssertionError(f"{config}: the patch projection launched at patch 1")
     if len(probs) != n_batches:
         raise AssertionError(f"{config}: {len(probs)} batches, expected {n_batches}")
     for pos, neg in probs:
@@ -2223,11 +2264,12 @@ def run_training(data, config, maxlen, patch, n_steps, dev) -> dict:
 
     # the main path: counters zeroed just before, read just after
     launches, k_ms, k_losses, k_params, k_finite = sweep(True, fetch_main)
-    path_kernels = [*EVAL_KERNELS, "time_channel_bwd", "patch_projection_bwd"] + (
-        ["window_fetch"] if fetch_main else [])
+    path_kernels = dygformer_kernels(patch, train=True) + (["window_fetch"] if fetch_main else [])
     missing = [k for k in path_kernels if launches[k] == 0]
     if missing:
         raise AssertionError(f"{config} training: kernels never launched: {missing}")
+    if patch == 1 and (launches["patch_projection"] or launches["patch_projection_bwd"]):
+        raise AssertionError(f"{config} training: the patch projection launched at patch 1")
     if not k_finite or not np.isfinite(k_losses).all():
         raise AssertionError(f"{config} training: a gradient or loss is not finite")
     def drift(losses, what):
@@ -3433,10 +3475,13 @@ BF16_LOSS_ATOL = 1e-3
 # (name, val batches, train steps)
 BF16_PATHS = (("DyGFormer wikipedia", 20, 5), ("DyGFormer CanParl", 5, 3), ("TGAT", 20, 5),
               ("CAWN", 5, 3))
-# each path's bf16 kernels; none of the split-TF32 variants may launch there
+# each path's bf16 kernels (forward, backward); none of the split-TF32
+# variants may launch there
 BF16_PATH_KERNELS = {
-    "DyGFormer": (("time_channel_bf16", "patch_projection_bf16", "cooccurrence"),
-                  ("time_channel_bf16_bwd", "patch_projection_bf16_bwd")),
+    "DyGFormer wikipedia": (tuple(dygformer_kernels(1, bf16=True)),
+                            tuple(dygformer_kernels(1, True, True)[2:])),
+    "DyGFormer CanParl": (tuple(dygformer_kernels(64, bf16=True)),
+                          tuple(dygformer_kernels(64, True, True)[3:])),
     "TGAT": (("gathered_attention", "temporal_attention"),
              ("gathered_attention_bwd", "temporal_attention_bwd")),
     "CAWN": ((), ()),
@@ -3488,9 +3533,12 @@ def bf16_trainers(data, name, dev):
 def check_bf16_launches(name, what, counts, kernels) -> None:
     missing = [k for k in kernels if counts.get(k, 0) == 0]
     split = {k: counts[k] for k in SPLIT_TF32_KERNELS if counts.get(k, 0)}
+    if name == "DyGFormer wikipedia":  # patch 1: no patch projection at all
+        split.update({k: counts[k] for k in ("patch_projection_bf16", "patch_projection_bf16_bwd")
+                      if counts.get(k, 0)})
     if missing or split:
         raise AssertionError(f"{name} bf16 {what}: bf16 kernels not launched {missing}, "
-                             f"split-TF32 kernels launched {split}")
+                             f"split-TF32 or patch kernels launched {split}")
 
 
 def run_bf16_path(data, name, n_batches, n_steps, dev) -> dict:
@@ -3501,8 +3549,7 @@ def run_bf16_path(data, name, n_batches, n_steps, dev) -> dict:
 
     from dyglib_tpu_torch import ops
 
-    family = name.split()[0]
-    fwd_kernels, bwd_kernels = BF16_PATH_KERNELS[family]
+    fwd_kernels, bwd_kernels = BF16_PATH_KERNELS[name]
     trs = bf16_trainers(data, name, dev)
     tr = trs["bfloat16"]
     stream = data.val.slice(0, n_batches * B)
@@ -3635,7 +3682,7 @@ def bf16_scan_times(data, dev) -> dict:
                for cd in ("float32", "bfloat16")}
         runs = {cd: (lambda c, tr=tr: scan_run(tr, c, train, val)) for cd, tr in trs.items()}
         res = scan_compare(f"{name} bf16", trs["bfloat16"], runs["bfloat16"], timed=False)
-        fwd, bwd = BF16_PATH_KERNELS[name.split()[0]]
+        fwd, bwd = BF16_PATH_KERNELS[name]
         check_bf16_launches(name, "captured scan", res["scan_launches"], fwd + bwd)
         snaps = {"bfloat16": scan_snapshot(trs["bfloat16"])}
         tr = trs["float32"]  # its capture, from one snapshot after a first loop run
@@ -3760,8 +3807,7 @@ MESH_TURNS = (False, True, True, False)
 MESH_KERNELS = {
     "TGAT": ("gathered_attention", "temporal_attention", "gathered_attention_bwd",
              "temporal_attention_bwd"),
-    "DyGFormer": ("time_channel", "cooccurrence", "patch_projection", "time_channel_bwd",
-                  "patch_projection_bwd"),
+    "DyGFormer": tuple(dygformer_kernels(1, train=True)),  # 32/1: no patch projection
     "TGN": ("temporal_attention", "temporal_attention_bwd"),
 }
 # scan epochs under the mesh: TGAT default at dropout 0, captured against
@@ -4204,6 +4250,17 @@ def main() -> int:
         "patch_projection_bf16": "dyglib_tpu/ops/pallas/patch_projection.py:59",
         "patch_projection_bf16_bwd": "dyglib_tpu/ops/pallas/patch_projection.py:71",
     }
+    # rows whose library yardstick computes only part of the function (the
+    # products without the rest: on a precomputed Phi, the K/V or weight
+    # gradient mm's, or an index_select that does not split the node and
+    # edge columns); the others time one call computing all of it
+    partial_library = {
+        "time_channel_bwd", "patch_projection_bwd", "window_fetch", "phi_projection",
+        "phi_projection_bwd", "time_channel_bf16", "time_channel_bf16_bwd",
+        "patch_projection_bf16_bwd", "temporal_attention", "temporal_attention_bwd",
+        "gathered_attention", "gathered_attention_bwd", "window_attention",
+        "window_attention_bwd",
+    }
 
     def source(kernel):
         base = kernel.removesuffix("_bwd")
@@ -4286,11 +4343,7 @@ def main() -> int:
             # each part's own times (TGAT's backwards: hop 0 and hop 1)
             "parts": [{k: p[k] for k in ("part", "ms", "plain_ms", "library_ms")}
                       for p in parts],
-            # TGAT's yardsticks time only the K/V products (or Phi @ W), and
-            # in the backward the two weight-gradient products
-            "library_partial": kernel.removesuffix("_bwd") in TGAT_KERNEL_CONFIG
-            or kernel in ("time_channel_bf16", "time_channel_bf16_bwd",
-                          "patch_projection_bf16_bwd"),
+            "library_partial": kernel in partial_library,
         })
         if "sibling_ms" in parts[0]:  # the bf16 variants: their split-TF32 siblings' times
             rows[-1]["split_tf32_ms"] = sum(p["sibling_ms"] for p in parts)
@@ -4312,6 +4365,20 @@ def main() -> int:
                    "at the SFU's 16 a clock per SM" if sfu else "")
                 + f"; on the f32 CUDA cores the same product would be bound at "
                 f"{cuda_core_ms:.4f} ms")
+    # The patch projection's kernels run on the main paths at patch > 1 only
+    # (CanParl: DyGFormer 32/1 runs no patch projection); each is also held
+    # to its plain version in isolation at the 32/1 shape. Such a row, with
+    # no launch on any path, goes into its kernel's main-path row as
+    # "isolated".
+    counted = ("launches", "node_classification_launches", "scan_launches", "mesh_launches")
+    by_name = {row["name"]: row for row in rows}
+    for row in [r for r in rows if not any(r[k] for k in counted)]:
+        kernel, config = row["name"].split("@")
+        host = by_name.get(f"{kernel}@CanParl")
+        if host is None or host is row or not host["launches"]:
+            raise AssertionError(f"{row['name']}: no launch on any path, and no main-path row")
+        host.setdefault("isolated", []).append({k: v for k, v in row.items() if k not in counted})
+        rows.remove(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -155,30 +155,6 @@ __device__ __forceinline__ unsigned short linear_out(float product, float bias) 
   return to_bits(round(product) + round(bias));
 }
 
-// pg::store_tile for a bf16 output: a warp's 32 x 56 accumulators, each
-// rounded with its column's bias by linear_out.
-__device__ __forceinline__ void store_tile(const float (&acc)[2][pg::kNFrag][4],
-                                           unsigned short* dst, size_t ld, int row0, int row_end,
-                                           int col0, int col_end,
-                                           const float* __restrict__ bias) {
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = row0 + mt * 16 + g + half * 8;
-      if (r >= row_end) continue;
-#pragma unroll
-      for (int nf = 0; nf < pg::kNFrag; ++nf)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int c = col0 + nf * 8 + 2 * t + j;
-          if (c < col_end) dst[r * ld + c] = linear_out(acc[mt][nf][half * 2 + j], bias[c]);
-        }
-    }
-}
-
 // out[i] = linear_out(partial[0][i] + partial[1][i] + ... (in that order),
 // bias[i % ced]): pg::sum_partials_kernel for a bf16 output.
 __global__ void __launch_bounds__(256)

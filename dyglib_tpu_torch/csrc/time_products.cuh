@@ -1,21 +1,24 @@
-// The products of the time channel's kernels (time_channel.cu's forward,
-// time_channel_bwd.cuh's backward), one policy per arithmetic; the kernels
-// are templates on it and keep everything else (the blocks, the W ring,
-// Phi in registers with cos_reduced.cuh's cosines, the backward's
+// The products of the time channel's kernels (time_channel.cu's split-TF32
+// forward, time_channel_bwd.cuh's backward), one policy per arithmetic; the
+// kernels are templates on it and keep everything else (the blocks, the W
+// ring, Phi in registers with cos_reduced.cuh's cosines, the backward's
 // Phi/-sin pairing and the fixed-order partial sums):
 //   SplitTf32: f32-exact. mma.sync m16n8k8 in split TF32 as the patch
 //     projection (patch_gemm.cuh): every operand v = hi + lo, three passes
 //     lo*hi, hi*lo, hi*hi, f32 sums. The f32 model's kernels.
 //   Bf16: the JAX kernels' math (dyglib_tpu/ops/pallas/time_channel.py):
 //     Phi, W and dout rounded to bf16, one mma.sync m16n8k16 pass
-//     (bf16_mma.cuh), f32 sums. A model built with compute_dtype bfloat16.
-// Each policy gives:
-//   kStep: the forward's k-step (8 or 16): a patch slot's Dt features are
-//     padded to a multiple of it, so that no step straddles two slots;
+//     (bf16_mma.cuh), f32 sums. The backward of a model built with
+//     compute_dtype bfloat16 (its forward is time_channel.cu's wgmma
+//     kernel).
+// SplitTf32 gives the forward:
+//   kStep: its k-step (8): a patch slot's Dt features are padded to a
+//     multiple of it, so that no step straddles two slots;
 //   kFeatures, feature(t, c): the features of a step that thread (g, t)'s
 //     A fragment holds, c < kFeatures (for each of its 4 rows);
 //   forward_step: one k-step of Phi (phi[mt][h][c], rows 16 mt + 8 h + g)
 //     times a W stage [column][k], added to part;
+// and both give the backward:
 //   kCols, kDStride, kWStride: the backward's dout tile width (56 padded
 //     to the step; zero past 56), its stage's row stride and W's;
 //   dphi_product: dPhi (16 entries x 32 rows, 8 rows a step nt) = W dout^T
@@ -138,39 +141,13 @@ struct SplitTf32 {
 };
 
 struct Bf16 {
-  static constexpr int kStep = bf16::kStep, kFeatures = 4;
+  static constexpr int kStep = bf16::kStep;     // the mma's depth
   static constexpr int kCols = 64;              // the 56 columns padded to 4 steps
   static constexpr int kDStride = kCols + 8;    // 72
   static constexpr int kWStride = kCols + 8;    // 72
   // 8 mod 32 floats: the 8-byte pair reads (row g, column 2t) hit distinct
   // banks in each half warp
   static_assert(kDStride % 32 == 8 && kWStride % 32 == 8, "conflict-free pair reads");
-
-  // c = 2 q + j -> 2t + j + 8 q
-  __device__ static int feature(int t, int c) { return 2 * t + c % 2 + 8 * (c / 2); }
-
-  __device__ static void forward_step(float (&part)[2][pg::kNFrag][4],
-                                      const float (&phi)[2][2][kFeatures], const float* stage,
-                                      int kk, int g, int t) {
-    // register i of m-tile mt: row h = i % 2, features (2t, 2t + 1) + 8 (i / 2)
-    unsigned a[2][4], b[pg::kNFrag][2];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[mt][i] = bf16::pack(phi[mt][i % 2][2 * (i / 2)], phi[mt][i % 2][2 * (i / 2) + 1]);
-#pragma unroll
-    for (int nf = 0; nf < pg::kNFrag; ++nf)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float* p = stage + (nf * 8 + g) * pg::kFwdStride + kk + 2 * t + 8 * i;
-        b[nf][i] = bf16::pack(p[0], p[1]);
-      }
-#pragma unroll
-    for (int nf = 0; nf < pg::kNFrag; ++nf)
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) bf16::mma(part[mt][nf], a[mt], b[nf][0], b[nf][1]);
-  }
 
   __device__ static void dphi_product(float (&dphi)[4][4], const float* w_s, const float* stage,
                                       int wl, unsigned any, int g, int t) {

@@ -38,8 +38,10 @@ backward kernels too, behind ``torch.autograd.Function``s. With
 launch the kernels on CUDA tensors and take their plain versions on CPU
 tensors; ``use_kernels=False`` calls the plain PyTorch versions on any
 device. ``sample`` launches no kernel, so the net's flag is the one
-switch. Unlike the JAX package, the patch kernel also runs
-at patch 1 (it is then a plain projection of the gathered rows).
+switch. As in the JAX package, the frozen channels take the patch kernel
+only at patch > 1: at patch 1 the channel is a plain linear of the
+gathered rows (``project``), in either dtype; the time channel and the
+co-occurrence counts keep their kernels at every patch size.
 
 Ulysses (``sequence_axis``, under a trainer's mesh): the channel
 projections run on whole sequences; then each rank of the axis keeps its
@@ -280,7 +282,9 @@ class DyGFormerNet(nn.Module):
     def _frozen_channel(self, lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype
         x = x.to(cd)
-        if self.use_kernels:
+        # the JAX package's rule (dyglib_tpu/models/dygformer.py: the patch
+        # kernel only at patch > 1): at patch 1 the channel is a linear
+        if self.use_kernels and self.patch_size > 1:
             return patch_projection(x, lin.weight.t(), lin.bias, self.patch_size, cd)
         return project(lin, self._patches(x), cd)
 

@@ -1,10 +1,13 @@
-"""How the split-TF32 GEMM kernels (``csrc/patch_gemm.cuh``) split their
-reduction: shared by the patch projection and the time channel's forward.
+"""How the GEMM kernels split their reduction: the mma.sync kernels
+(``csrc/patch_gemm.cuh``: the split-TF32 forwards of the patch projection
+and the time channel, and both backwards, f32 and bf16) by ``best_plan``;
+the bf16 forwards on wgmma (``csrc/wgmma.cuh``) by their own rules, next
+to their wrappers.
 
 Their blocks own TILE_N columns (ced padded to n8 fragments) and stream
-TILE_K-deep stages through a ring of STAGES; a reduction deeper than fills
-the card is split into partial sums that a second pass adds in a fixed
-order.
+stages (TILE_K deep, or WGMMA_STAGE_K) through a ring of STAGES; a
+reduction deeper than fills the card is split into partial sums that a
+second pass adds in a fixed order.
 """
 from __future__ import annotations
 
@@ -15,6 +18,9 @@ import torch
 # csrc/patch_gemm.cuh: a block's columns, the depth of one stage, the
 # stages of the ring
 TILE_N, TILE_K, STAGES = 56, 32, 4
+# csrc/wgmma.cuh: the depth of one stage of the wgmma kernels' rings (64
+# bf16 values, one 128-byte swizzled row; their rings are STAGES deep too)
+WGMMA_STAGE_K = 64
 _GRID_Z_LIMIT = 65535
 
 

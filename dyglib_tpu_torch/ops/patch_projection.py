@@ -39,35 +39,49 @@ wrapper allocates and a second pass adds in a fixed order, so two runs
 give identical bits.
 
 The bf16 variant (``compute_dtype=torch.bfloat16``, a DyGFormer built
-with ``compute_dtype="bfloat16"``; ``csrc/patch_projection_bf16.cu``):
-the same tiles, ring and splits with one bf16 mma.sync m16n8k16 pass
-(``csrc/bf16_mma.cuh``), the JAX kernels' math (bf16 x and W, f32 sums).
-x is bf16 (half the bytes: 423 MB at CanParl, 0.126 ms) and the output is
-bf16, rounded as the JAX package's bf16 frozen channel rounds it
+with ``compute_dtype="bfloat16"``; ``csrc/patch_projection_bf16.cu``),
+the JAX kernels' math (bf16 x and W, f32 sums). x is bf16 (half the
+bytes: 423 MB at CanParl, 0.126 ms) and the output is bf16, rounded as
+the JAX package's bf16 frozen channel rounds it
 (``TorchLinear(dtype=bfloat16)``: the product to bf16, then its sum with
-the bias rounded to bf16); the backward reads bf16 x and the bf16 dout
-and returns f32 dW and dbias. Its launches count apart, under
-``patch_projection_bf16`` and ``patch_projection_bf16_bwd`` in
+the bias rounded to bf16). Its forward runs on Hopper's asynchronous
+units: W converted to bf16 once a launch, one producer warp streaming x
+and W by TMA into a ring, two consumer warpgroups on wgmma
+(``csrc/wgmma.cuh``), blocks of 256 rows, K split by
+``wgmma_forward_plan``. TMA reads x in place where its row stride (patch
+* D values) is a multiple of 8 and its address of 16 bytes
+(``tma_accepts``); for other shapes (patch 1 or an odd patch at D = 172)
+``tma_rows`` copies x into rows padded to a multiple of 8 first. The
+backward is the split-TF32 kernels' design (tiles, ring and splits) with
+one bf16 mma.sync m16n8k16 pass (``csrc/bf16_mma.cuh``): it reads bf16 x
+and the bf16 dout and returns f32 dW and dbias. Their launches count
+under ``patch_projection_bf16`` and ``patch_projection_bf16_bwd`` in
 ``ops.launch_counts()``.
 
+DyGFormer calls this projection only at patch > 1, as the JAX package
+does; at patch 1 its frozen channels are a linear layer.
+
 Left on the table: x could be gathered straight from the feature tables
-inside the kernel instead of from a gathered (M, Lp, D) copy; a
-warp-specialised TMA + wgmma pipeline would spend fewer instructions per
-byte than mma.sync with fragments loaded one register at a time.
+inside the kernel instead of from a gathered (M, Lp, D) copy.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-from ._plan import STAGES, TILE_K, TILE_N, best_plan, sm_count
+from ._plan import STAGES, TILE_K, TILE_N, WGMMA_STAGE_K, best_plan, sm_count
 
 _NAME = "patch_projection"
 _ARGTYPES = [_build.P] * 2 + [_build.I] * 2 + [_build.P] * 3 + [_build.I] * 7 + [_build.P]
 _BWD_ARGTYPES = [_build.P] * 4 + [_build.I] * 6 + [_build.P]
+_BF16_ARGTYPES = ([_build.P, _build.I, _build.P] + [_build.I] * 2 + [_build.P] * 4
+                  + [_build.I] * 4 + [_build.P])
 _BF16_NAME = "patch_projection_bf16"
 # the bf16 variant's launches (it has no wrapper of its own)
 BF16_FORWARD, BF16_BACKWARD = _build.LaunchCounter(), _build.LaunchCounter()
+# csrc/patch_projection_bf16.cu: the wgmma forward's block rows (two
+# warpgroups of two m64 tiles); its 165 KB ring leaves one block an SM
+WGMMA_TILE_M, WGMMA_BLOCKS_PER_SM = 256, 1
 # csrc/patch_gemm.cuh: the mma rows a block may own (4 or 2 warps of 32;
 # x rows in the forward, K entries in the backward, which takes 128 only:
 # at the wikipedia shapes 64 measured faster in the forward and slower in
@@ -110,6 +124,47 @@ def backward_chunk_rows(rows: int, k: int, ced: int, sms: int) -> int:
     multiple of TILE_K; it runs ceil(rows / them) chunks."""
     _, per = best_plan(k + 1, ced, max(1, -(-rows // TILE_K)), (k + 1) * ced, sms, BWD_TILE_MS)
     return per * TILE_K
+
+
+def tma_accepts(k: int, address: int) -> bool:
+    """Whether TMA reads x in place (rows of ``k`` bf16 values from
+    ``address``): its row stride and base address must be multiples of 16
+    bytes."""
+    return k % 8 == 0 and address % 16 == 0
+
+
+def tma_rows(x2: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """(rows, k) bf16 ``x2`` as the bf16 forward's tensor map reads it:
+    (x2, k) where TMA takes it in place, else a copy in rows padded to a
+    multiple of 8 values and that row stride. The padding stays unwritten:
+    the map's extent is k, and TMA reads zeros past it."""
+    rows, k = x2.shape
+    if tma_accepts(k, x2.data_ptr()):
+        return x2, k
+    ld = -(-k // 8) * 8
+    padded = torch.empty((rows, ld), dtype=x2.dtype, device=x2.device)
+    padded[:, :k].copy_(x2)
+    return padded, ld
+
+
+def wgmma_forward_plan(rows: int, k: int, ced: int, sms: int) -> int:
+    """K per split of the wgmma forward, a multiple of WGMMA_STAGE_K; it
+    runs ceil(k / it) splits: the fewest whose blocks stream x on at least
+    half the card's SMs. The kernel is bound by the bytes, which every SM
+    shares: 75 blocks on 132 SMs (CanParl, one split) stream x at 79% of
+    the bytes bound, and more splits only add partial sums
+    (scripts/kernel_turns.py --sweep, PERF.md)."""
+    tiles = -(-max(rows, 1) // WGMMA_TILE_M) * -(-ced // TILE_N)
+    depth = max(1, -(-k // WGMMA_STAGE_K))
+    splits = min(depth, -(-sms * WGMMA_BLOCKS_PER_SM // (2 * tiles)))
+    return -(-depth // splits) * WGMMA_STAGE_K
+
+
+def packed_weight_shape(ced: int, k_padded: int) -> tuple[int, int]:
+    """The bf16 W^T scratch that the wgmma forwards pack once a launch
+    (``csrc/wgmma.cuh::pack_weight``): ced padded to whole column tiles,
+    the (padded) K to whole stages."""
+    return -(-ced // TILE_N) * TILE_N, -(-k_padded // WGMMA_STAGE_K) * WGMMA_STAGE_K
 
 
 def _flat(x: torch.Tensor, patch: int, compute_dtype: torch.dtype) -> torch.Tensor:
@@ -181,15 +236,44 @@ def _check_compute_dtype(compute_dtype):
                          "bfloat16")
 
 
+def _forward_wgmma(x, w, bias, patch, k_chunk=None, w_strides=None):
+    """The bf16 forward on wgmma (x bf16); ``k_chunk`` overrides the plan's
+    split (a multiple of WGMMA_STAGE_K), ``w_strides`` are W's from a
+    caller that has checked the arguments."""
+    w_sk, w_sn = w_strides or _check(x, w, bias, patch, torch.bfloat16)
+    m, lp, d = x.shape
+    ced, dev = w.shape[-1], x.device
+    rows, k = m * (lp // patch), patch * d
+    xt, x_ld = tma_rows(x.view(rows, k))
+    out = torch.empty((rows, ced), dtype=torch.bfloat16, device=dev)
+    if k_chunk is None:
+        k_chunk = wgmma_forward_plan(rows, k, ced, sm_count(dev))
+    splits = -(-k // k_chunk)
+    partial = (torch.empty((splits, rows, ced), dtype=torch.float32, device=dev)
+               if splits > 1 else None)
+    w16 = torch.empty(packed_weight_shape(ced, k), dtype=torch.bfloat16, device=dev)
+    entry = "patch_projection_bf16_forward"
+    lib = _build.load(_BF16_NAME, entry, _BF16_ARGTYPES)
+    rc = getattr(lib, entry)(
+        xt.data_ptr(), x_ld, w.data_ptr(), w_sk, w_sn, bias.data_ptr(), out.data_ptr(),
+        None if partial is None else partial.data_ptr(), w16.data_ptr(), rows, k, ced, k_chunk,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(lib, rc, entry)
+    _build.count_launch(BF16_FORWARD)
+    return out.view(m, lp // patch, ced)
+
+
 def _forward_kernel(x, w, bias, patch, compute_dtype):
     """The split-TF32 forward kernel (f32 x and output), or in bf16 the
-    bf16 variant's (bf16 x and output)."""
-    bf16, dtype = compute_dtype == torch.bfloat16, compute_dtype
-    w_sk, w_sn = _check(x, w, bias, patch, dtype)
+    bf16 variant's on wgmma (bf16 x and output)."""
+    w_sk, w_sn = _check(x, w, bias, patch, compute_dtype)
+    if compute_dtype == torch.bfloat16:
+        return _forward_wgmma(x, w, bias, patch, w_strides=(w_sk, w_sn))
     m, lp, d = x.shape
     ced = w.shape[-1]
     rows, k = m * (lp // patch), patch * d
-    out = torch.empty((rows, ced), dtype=dtype, device=x.device)
+    out = torch.empty((rows, ced), dtype=torch.float32, device=x.device)
     tile_m, k_chunk = forward_plan(rows, k, ced, sm_count(x.device))
     splits = -(-k // k_chunk)
     partial = (torch.empty((splits, rows, ced), dtype=torch.float32, device=x.device)
@@ -197,17 +281,15 @@ def _forward_kernel(x, w, bias, patch, compute_dtype):
     # W: K-major (nn.Linear's weight.t()) is copied in rows of K, a
     # row-major W float by float, transposed (w_vec 0)
     w_vec = copy_floats(w, w_sn) if w_sk == 1 else 0
-    name, entry, wrapper, x_vec = (
-        (_BF16_NAME, "patch_projection_bf16_forward", BF16_FORWARD, copy_values(x, k)) if bf16
-        else (_NAME, "patch_projection_forward", patch_projection, copy_floats(x, k)))
-    lib = _build.load(name, entry, _ARGTYPES)
+    entry = "patch_projection_forward"
+    lib = _build.load(_NAME, entry, _ARGTYPES)
     rc = getattr(lib, entry)(
         x.data_ptr(), w.data_ptr(), w_sk, w_sn, bias.data_ptr(), out.data_ptr(),
         None if partial is None else partial.data_ptr(), rows, k, ced, tile_m, k_chunk,
-        x_vec, w_vec, torch.cuda.current_stream(x.device).cuda_stream,
+        copy_floats(x, k), w_vec, torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _build.check(lib, rc, name)
-    _build.count_launch(wrapper)
+    _build.check(lib, rc, _NAME)
+    _build.count_launch(patch_projection)
     return out.view(m, lp // patch, ced)
 
 

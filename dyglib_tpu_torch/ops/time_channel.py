@@ -47,17 +47,24 @@ more (PERF.md), 7x the bound; wgmma with Phi staged through shared memory,
 or fewer registers for more warps an SM, are the next steps.
 
 The bf16 variants (``compute_dtype=torch.bfloat16``, a DyGFormer built
-with ``compute_dtype="bfloat16"``) are the same kernels on another product
-(``csrc/time_products.cuh``): the JAX kernels' math, Phi, W (and dout in
-the backward) rounded to bf16 with f32 sums, in one bf16 mma.sync
-m16n8k16 pass where the f32 kernels take three TF32 ones; Phi is computed
-as above, each patch slot padded to a multiple of 16 in the forward. The
-output and the gradients are f32, as the JAX kernel's. Bounds at CanParl:
-the forward's 12.3 G operations take 0.012 ms at 989 T/s, its cosines
-0.023 ms (bound by the cosines); the backward's 24.6 G operations 0.025
-ms, its (cosine, sine) pairs 0.047 ms. Their launches count apart, under
-``time_channel_bf16`` and ``time_channel_bf16_bwd`` in
-``ops.launch_counts()``.
+with ``compute_dtype="bfloat16"``) keep the JAX kernels' math: Phi, W (and
+dout in the backward) rounded to bf16 with f32 sums; the output and the
+gradients are f32, as the JAX kernel's. The backward is the same kernel
+on another product (``csrc/time_products.cuh``: one bf16 mma.sync
+m16n8k16 pass where the f32 kernel takes three TF32 ones). The forward is
+its own kernel on Hopper's asynchronous units (``csrc/time_channel.cu``,
+``csrc/wgmma.cuh``): W converted to bf16 once a launch and streamed by
+TMA (where a split is two stages at most, ``resident_weight``, each block
+converts its W into its ring instead: wikipedia's one launch), Phi
+computed in registers straight into wgmma's A fragment (A from registers)
+while the previous k-step's wgmma runs; each patch slot padded to a
+multiple of 16 (BF16_DT_STEP), K split by ``wgmma_forward_plan``.
+Bounds at CanParl: the forward's 12.3 G operations take 0.012 ms at 989
+T/s, its cosines 0.023 ms at the SFU's rate (bound by the cosines, which
+here are cos_reduced's instructions on the CUDA cores: PERF.md gives that
+floor too); the backward's 24.6 G operations 0.025 ms, its (cosine, sine)
+pairs 0.047 ms. Their launches count apart, under ``time_channel_bf16``
+and ``time_channel_bf16_bwd`` in ``ops.launch_counts()``.
 
 The backward (``csrc/time_channel_bwd.cuh``, which the Phi projection's
 backward shares without the mask and dbias) is one kernel for both of its
@@ -76,14 +83,17 @@ trigonometry on the FMA pipes.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
-from ._plan import STAGES, TILE_K, TILE_N, best_plan, sm_count
-from .patch_projection import copy_floats
+from ._plan import _GRID_Z_LIMIT, STAGES, TILE_K, TILE_N, WGMMA_STAGE_K, best_plan, sm_count
+from .patch_projection import copy_floats, packed_weight_shape
 
 _NAME = "time_channel"
 _ARGTYPES = [_build.P] * 5 + [_build.I] * 2 + [_build.P] * 3 + [_build.I] * 6 + [_build.P]
+_BF16_ARGTYPES = [_build.P] * 5 + [_build.I] * 2 + [_build.P] * 4 + [_build.I] * 6 + [_build.P]
 # csrc/time_channel.cu: rows of a forward block, padded K entries of a
 # backward block, and the mma k-step to which each patch slot's Dt
 # features are padded
@@ -95,6 +105,16 @@ _BWD_ARGTYPES = [_build.P] * 5 + [_build.I] * 2 + [_build.P] * 5 + [_build.I] * 
 BF16_DT_STEP = 16
 # the bf16 variants' launches (they have no wrapper of their own)
 BF16_FORWARD, BF16_BACKWARD = _build.LaunchCounter(), _build.LaunchCounter()
+# csrc/time_channel.cu: the bf16 forward's block rows (two warpgroups of 64)
+# and its blocks on an SM (288 threads of at most 112 registers)
+BF16_TILE_M, BF16_BLOCKS_PER_SM = 128, 2
+# the wgmma forward's split plan in units of one 64-deep stage of a block
+# (8,192 cosines): a split's partial sums (rows * ced f32 written and read
+# back) cost this many stages a MB; with it the plan picks 5 splits at
+# CanParl, where the card's sweep is flat from 5 to 7
+# (scripts/kernel_turns.py --sweep, PERF.md). Fitted at CanParl alone: at
+# wikipedia's two stages one split wins for any weight
+_BF16_SPLIT_STAGES_PER_MB = 0.15
 
 
 def _theta(dt, tw, tb):
@@ -195,10 +215,65 @@ def forward_plan(rows: int, patch: int, dt_dim: int, ced: int, sms: int,
     return per * TILE_K
 
 
+@functools.lru_cache(maxsize=256)
+def wgmma_split(out_tiles: int, depth: int, slots: int, split_cost: float) -> int:
+    """Stages per split of the bf16 forward: ``out_tiles`` blocks reduce
+    over ``depth`` stages, ``slots`` blocks are resident on the card at
+    once. The count that least loads the busiest slot: its waves of units
+    (``per`` stages plus the ring's fill of STAGES - 1, a stage the unit
+    of cost), plus ``split_cost`` stages for each split where there is
+    more than one (the partial sums written and read back). Ties go to
+    fewer splits.
+
+    Unlike the patch projection's plan (``patch_projection.py::
+    wgmma_forward_plan``), which only spreads x's bytes over enough SMs,
+    this one counts waves: the time channel's work is its cosines, which
+    each block computes for its own rows and K, so a split that adds a wave
+    adds its time, while the patch projection's blocks share one memory
+    bound that more blocks do not raise."""
+    best = None
+    for splits in range(1, min(depth, _GRID_Z_LIMIT) + 1):
+        per = -(-depth // splits)
+        if -(-depth // per) != splits:  # the same split as a smaller count
+            continue
+        waves = -(-(out_tiles * splits) // slots)
+        cost = waves * (per + STAGES - 1) + (splits * split_cost if splits > 1 else 0.0)
+        if best is None or cost < best[0]:
+            best = (cost, per)
+    return best[1]
+
+
+def wgmma_forward_plan(rows: int, patch: int, dt_dim: int, ced: int, sms: int) -> int:
+    """Padded K (patch * padded_dt(dt_dim, BF16_DT_STEP)) per split of the
+    bf16 forward on wgmma, a multiple of WGMMA_STAGE_K; it runs ceil(padded
+    K / it) splits. ``wgmma_split`` in stages of a block (its cosines are
+    the work), a split's partial sums (rows * ced f32, written and read
+    back) weighed by _BF16_SPLIT_STAGES_PER_MB."""
+    kp = patch * padded_dt(dt_dim, BF16_DT_STEP)
+    tiles = -(-max(rows, 1) // BF16_TILE_M) * -(-ced // TILE_N)
+    return WGMMA_STAGE_K * wgmma_split(
+        tiles, max(1, -(-kp // WGMMA_STAGE_K)), sms * BF16_BLOCKS_PER_SM,
+        _BF16_SPLIT_STAGES_PER_MB * rows * ced * 8 / 1e6)
+
+
+def resident_weight(k_chunk: int) -> bool:
+    """Whether the bf16 forward's blocks convert their share of W into
+    their ring themselves (a split of two stages at most: wikipedia's 112
+    padded K), so that the wrapper packs no bf16 W^T and launches one
+    kernel (``csrc/time_channel.cu``, ``kResident``)."""
+    return k_chunk <= 2 * WGMMA_STAGE_K
+
+
 def forward_smem_bytes(dt_dim: int, step: int = DT_STEP) -> int:
     """Dynamic shared memory of a forward block: the ring of W stages
-    (TILE_N columns x TILE_K + 4 floats) and tw, tb padded."""
-    return 4 * (STAGES * TILE_N * (TILE_K + 4) + 2 * padded_dt(dt_dim, step))
+    (TILE_N columns x TILE_K + 4 floats) and tw, tb padded; the bf16
+    forward's (``step`` BF16_DT_STEP): its alignment slack, ring of bf16 W
+    boxes and barriers, and each step's largest |tw| and |tb|
+    (``csrc/time_channel.cu::bf16_forward_smem``)."""
+    dt_pad = padded_dt(dt_dim, step)
+    if step == BF16_DT_STEP:  # and each k16 step's largest |tw| and |tb|
+        return 1024 + STAGES * 8192 + 2 * STAGES * 8 + 4 * 2 * (dt_pad + dt_pad // step)
+    return 4 * STAGES * TILE_N * (TILE_K + 4) + 4 * 2 * dt_pad
 
 
 def _check_compute_dtype(compute_dtype):
@@ -217,13 +292,15 @@ def _forward_kernel(dt, valid, tw, tb, w, bias, patch, compute_dtype):
     if forward_smem_bytes(dt_dim, step) > _SMEM_LIMIT:
         raise ValueError(f"Dt = {dt_dim}: tw and tb do not fit one block's shared memory")
     rows = m * (l // patch)
-    out = torch.empty((rows, ced), dtype=torch.float32, device=dev)
     dt_pad = padded_dt(dt_dim, step)
+    if bf16:
+        return _forward_bf16(dt, valid, tw, tb, w, bias, patch, (w_sk, w_sn))
+    out = torch.empty((rows, ced), dtype=torch.float32, device=dev)
     k_chunk = forward_plan(rows, patch, dt_dim, ced, sm_count(dev), step)
     splits = -(-patch * dt_pad // k_chunk)
     partial = (torch.empty((splits, rows, ced), dtype=torch.float32, device=dev)
                if splits > 1 and rows > 0 else None)
-    entry = "time_channel_bf16_forward" if bf16 else "time_channel_forward"
+    entry = "time_channel_forward"
     lib = _build.load(_NAME, entry, _ARGTYPES)
     rc = getattr(lib, entry)(
         dt.data_ptr(), valid.data_ptr(), tw.data_ptr(), tb.data_ptr(), w.data_ptr(), w_sk,
@@ -231,7 +308,34 @@ def _forward_kernel(dt, valid, tw, tb, w, bias, patch, compute_dtype):
         rows, patch, dt_dim, dt_pad, ced, k_chunk, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, entry)
-    _build.count_launch(BF16_FORWARD if bf16 else time_channel_projection)
+    _build.count_launch(time_channel_projection)
+    return out.view(m, l // patch, ced)
+
+
+def _forward_bf16(dt, valid, tw, tb, w, bias, patch, w_strides, k_chunk=None):
+    """The bf16 forward on wgmma; the arguments checked by the caller.
+    ``k_chunk`` overrides the plan's split (a multiple of WGMMA_STAGE_K)."""
+    m, l = dt.shape
+    dt_dim, ced, dev = tw.shape[0], w.shape[-1], dt.device
+    rows, dt_pad = m * (l // patch), padded_dt(dt_dim, BF16_DT_STEP)
+    if k_chunk is None:
+        k_chunk = wgmma_forward_plan(rows, patch, dt_dim, ced, sm_count(dev))
+    splits = -(-patch * dt_pad // k_chunk)
+    partial = (torch.empty((splits, rows, ced), dtype=torch.float32, device=dev)
+               if splits > 1 and rows > 0 else None)
+    out = torch.empty((rows, ced), dtype=torch.float32, device=dev)
+    w16 = (None if resident_weight(k_chunk) else
+           torch.empty(packed_weight_shape(ced, patch * dt_pad), dtype=torch.bfloat16, device=dev))
+    entry = "time_channel_bf16_forward"
+    lib = _build.load(_NAME, entry, _BF16_ARGTYPES)
+    rc = getattr(lib, entry)(
+        dt.data_ptr(), valid.data_ptr(), tw.data_ptr(), tb.data_ptr(), w.data_ptr(), *w_strides,
+        bias.data_ptr(), out.data_ptr(), None if partial is None else partial.data_ptr(),
+        None if w16 is None else w16.data_ptr(), rows, patch, dt_dim, dt_pad, ced, k_chunk,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(lib, rc, entry)
+    _build.count_launch(BF16_FORWARD)
     return out.view(m, l // patch, ced)
 
 

@@ -1,22 +1,30 @@
 """The bf16 variants of the time channel (#1, #1b) and the patch projection
 (#3, #3b), on the CPU.
 
-The CUDA kernels (csrc/time_channel.cu's bf16 entry points on
-csrc/time_products.cuh's Bf16 product, csrc/patch_projection_bf16.cu)
-run only on the card, where chip_smoke.py holds them to their plain
-versions. Here their arithmetic is emulated step by step: operands rounded
-to bf16 (to nearest even, as cvt.rn.bf16x2.f32 and torch's .to(bfloat16)),
-each 16-deep mma.sync step's products summed in f32, each 32-deep stage's
-steps summed into fresh registers and added to the running sum, the
-wrapper's splits of the reduction added in order; the patch projection's
-output then rounded as TorchLinear(dtype=bfloat16) rounds: the sum to
-bf16, plus the bias rounded to bf16, rounded again. The emulations are held
+The CUDA kernels (csrc/time_channel.cu's bf16 entry points, the forward on
+wgmma and the backward on csrc/time_products.cuh's Bf16 product;
+csrc/patch_projection_bf16.cu, the forward on wgmma and the backward on
+mma.sync) run only on the card, where chip_smoke.py holds them to their
+plain versions. Here their arithmetic is emulated step by step: operands
+rounded to bf16 (to nearest even, as cvt.rn.bf16x2.f32 and torch's
+.to(bfloat16)), each 16-deep step's products summed in f32, each stage's
+steps summed into fresh registers and added to the running sum (32-deep
+stages on mma.sync, 64-deep in the patch projection's wgmma forward; the
+time channel's wgmma forward sums a whole split's steps on the tensor
+cores), the wrapper's splits of the reduction added in order; the patch
+projection's output then rounded as TorchLinear(dtype=bfloat16) rounds:
+the sum to bf16, plus the bias rounded to bf16, rounded again. The
+emulations are held
 
   * to the plain bf16 versions (the wrappers' CPU path): 1e-5 of each
     output's or gradient's largest entry (the same bf16 operands, f32 sums
-    in another order); the rounded patch projection equal but for outputs
-    that sit on a bf16 rounding boundary, which a last-bit difference of
-    the f32 sum may move by one bf16 ulp (at most 1 in 200 here);
+    in another order); the rounded patch projection one rounding at a
+    time: the product rounded to bf16 equal but for products that sit on
+    a bf16 rounding boundary (at most 1 in 200 here), which a last-bit
+    difference of the f32 sum may move by one bf16 ulp, and each output
+    exactly TorchLinear's second rounding of its rounded product (the sum
+    with the rounded bias, rounded), so that outputs differ only where
+    their products' roundings do (at most 1 in 200);
   * to the JAX package's Pallas kernels in interpret mode (bf16 operands,
     f32 sums; the time channel's always, the patch projection's the bf16
     model's math): atol 2e-4, the JAX package's own kernel-vs-oracle
@@ -28,7 +36,9 @@ bf16, plus the bias rounded to bf16, rounded again. The emulations are held
     the other side of a boundary).
 
 Also the wrappers' helpers: ``copy_values`` (bf16 values a cp.async copy),
-the bf16 forward's slots padded to 16 and its plan.
+the bf16 forward's slots padded to 16, the plans, TMA's rule for x's rows
+and the padded copy where it fails, the packed bf16 W^T and the time
+forward's choice to convert W in its blocks.
 """
 import importlib
 
@@ -46,7 +56,9 @@ from dyglib_tpu_torch import ops
 pp = importlib.import_module("dyglib_tpu_torch.ops.patch_projection")
 tc = importlib.import_module("dyglib_tpu_torch.ops.time_channel")
 H100_SMS = 132
-STAGE, STEP = 32, 16  # the kernels' stage depth (TILE_K) and the bf16 mma's depth
+# the stage depth of the mma.sync backwards (TILE_K) and of the wgmma
+# forwards (WGMMA_STAGE_K), and the bf16 mma's depth
+STAGE, WGMMA_STAGE, STEP = 32, 64, 16
 BF16 = torch.bfloat16
 
 
@@ -55,25 +67,25 @@ def rb(t: torch.Tensor) -> torch.Tensor:
     return t.to(BF16).float()
 
 
-def mma_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def mma_matmul(a: torch.Tensor, b: torch.Tensor, stage: int = STAGE) -> torch.Tensor:
     """a (R, K) @ b (K, N), operands already bf16 values, as a block sums
-    it: 16-deep steps summed into a 32-deep stage's sum, stages added to
-    the running sum."""
+    it: 16-deep steps summed into a ``stage``-deep stage's sum, stages added
+    to the running sum."""
     acc = torch.zeros((a.shape[0], b.shape[1]))
-    for k0 in range(0, a.shape[1], STAGE):
+    for k0 in range(0, a.shape[1], stage):
         part = torch.zeros_like(acc)
-        for s in range(k0, min(k0 + STAGE, a.shape[1]), STEP):
+        for s in range(k0, min(k0 + stage, a.shape[1]), STEP):
             part = part + a[:, s : s + STEP] @ b[s : s + STEP]
         acc = acc + part
     return acc
 
 
-def split_sum(a, b, chunk):
+def split_sum(a, b, chunk, stage: int = STAGE):
     """The reduction split into chunks of ``chunk`` (the wrapper's plan),
     each chunk's mma_matmul, the partial sums added in order."""
     out = None
     for k0 in range(0, a.shape[1], chunk):
-        part = mma_matmul(a[:, k0 : k0 + chunk], b[k0 : k0 + chunk])
+        part = mma_matmul(a[:, k0 : k0 + chunk], b[k0 : k0 + chunk], stage)
         out = part if out is None else out + part
     return out
 
@@ -98,8 +110,8 @@ def emulated_patch_sum(x, w, patch):
     """The forward kernel's f32 sum before its epilogue (rows, ced)."""
     m, lp, d = x.shape
     rows, k = m * (lp // patch), patch * d
-    _, chunk = pp.forward_plan(rows, k, w.shape[1], H100_SMS)
-    return split_sum(x.reshape(rows, k), rb(w), chunk)
+    chunk = pp.wgmma_forward_plan(rows, k, w.shape[1], H100_SMS)
+    return split_sum(x.reshape(rows, k), rb(w), chunk, WGMMA_STAGE)
 
 
 def emulated_patch_forward(x, w, bias, patch):
@@ -134,15 +146,24 @@ def test_emulated_patch_forward_matches_plain_and_jax(seed, m, lp, d, patch, ced
     assert ops.KERNELS["patch_projection_bf16"].launches == before  # CPU: the plain version
     assert plain.dtype == BF16 and plain.shape == emu.shape == (m, lp // patch, ced)
     plain = plain.float()
-    off = (emu != plain).float().mean().item()
-    assert off <= 1 / 200 and ((emu - plain).abs() <= bf16_ulp(plain)).all()
+    # the first rounding, the product's: one bf16 ulp at most, where the f32
+    # sums' last bits put them on two sides of a boundary
+    product = emulated_patch_sum(x, w, patch).reshape(emu.shape)
+    plain_product = ops.patch_projection_plain(x.to(BF16), w, torch.zeros_like(b), patch, BF16)
+    p_emu, p_plain = rb(product), rb(plain_product)
+    off = (p_emu != p_plain).float().mean().item()
+    assert off <= 1 / 200 and ((p_emu - p_plain).abs() <= bf16_ulp(p_plain)).all()
+    # the second, TorchLinear's: the rounded product plus the rounded bias,
+    # rounded; exact for both, so the outputs differ only where the products did
+    second = lambda p: (p.to(BF16) + b.to(BF16)).float()
+    assert torch.equal(emu, second(p_emu)) and torch.equal(plain, second(p_plain))
+    assert (emu != plain).float().mean().item() <= off
     # the JAX bf16 model's frozen channel: TorchLinear(bfloat16) on the patches
     lin = TorchLinear(ced, dtype=jnp.bfloat16)
     flat = jnp.asarray(x.numpy()).reshape(m * (lp // patch), patch * d)
     want = np.asarray(lin.apply({"params": {"kernel": jnp.asarray(w.numpy()),
                                             "bias": jnp.asarray(b.numpy())}}, flat),
                       np.float32).reshape(emu.shape)
-    product = emulated_patch_sum(x, w, patch).reshape(emu.shape)
     one_each = (bf16_ulp(product) + bf16_ulp(torch.from_numpy(want))).numpy()
     assert (np.abs(emu.numpy() - want) <= one_each).all()
     # the Pallas kernel (interpret mode): the same sum, the bias added in f32
@@ -227,8 +248,8 @@ def emulated_time_forward(dt, valid, tw, tb, w, bias, patch):
     dt_dim, ced = tw.shape[0], w.shape[1]
     phi, _ = _phi(dt, valid, tw, tb, patch)
     a, bw = _padded(rb(phi), rb(w), patch, dt_dim, tc.BF16_DT_STEP)
-    chunk = tc.forward_plan(a.shape[0], patch, dt_dim, ced, H100_SMS, tc.BF16_DT_STEP)
-    return (split_sum(a, bw, chunk) + bias).reshape(m, l // patch, ced)
+    chunk = tc.wgmma_forward_plan(a.shape[0], patch, dt_dim, ced, H100_SMS)
+    return (split_sum(a, bw, chunk, chunk) + bias).reshape(m, l // patch, ced)
 
 
 def emulated_time_backward(dt, valid, tw, tb, w, dout, patch):
@@ -314,5 +335,103 @@ def test_bf16_slots_are_padded_to_the_mma_depth(dt_dim, want):
                                                    (7, 4, 6, 9)])
 def test_bf16_forward_plan_is_whole_stages_and_covers_k(rows, patch, dt_dim, ced):
     kp = patch * tc.padded_dt(dt_dim, tc.BF16_DT_STEP)
-    chunk = tc.forward_plan(rows, patch, dt_dim, ced, H100_SMS, tc.BF16_DT_STEP)
-    assert chunk % STAGE == 0 and 0 < chunk and -(-kp // chunk) * chunk >= kp
+    chunk = tc.wgmma_forward_plan(rows, patch, dt_dim, ced, H100_SMS)
+    assert chunk % WGMMA_STAGE == 0 and 0 < chunk and -(-kp // chunk) * chunk >= kp
+    assert -(-kp // chunk) == 1 or -(-kp // chunk) * chunk - kp < chunk  # no empty split
+
+
+@pytest.mark.parametrize("rows,k,ced", [(19200, 11008, 50), (19200, 344, 50), (12, 192, 10),
+                                        (5, 64, 130)])
+def test_wgmma_patch_plan_is_whole_stages_and_covers_k(rows, k, ced):
+    chunk = pp.wgmma_forward_plan(rows, k, ced, H100_SMS)
+    assert chunk % WGMMA_STAGE == 0 and 0 < chunk and -(-k // chunk) * chunk >= k
+    assert -(-k // chunk) == 1 or -(-k // chunk) * chunk - k < chunk
+
+
+def test_wgmma_split_weighs_waves_against_partial_sums():
+    """A reduction that fills the card stays whole; one whose blocks fill a
+    fraction of it is split; heavy partial sums push back toward one
+    split; ties go to fewer splits."""
+    assert tc.wgmma_split(264, 100, 132, 0.0) == 100  # two waves either way: whole
+    per = tc.wgmma_split(75, 172, 132, 0.0)
+    assert per < 172 and -(-172 // per) > 1
+    assert tc.wgmma_split(75, 172, 132, 1e9) == 172
+    assert tc.wgmma_split(1, 1, 132, 0.0) == 1
+
+
+@pytest.mark.parametrize("rows,patch,dt_dim,ced,resident", [
+    (19200, 1, 100, 50, True),  # wikipedia: 112 padded K, one split of two stages
+    (19200, 64, 100, 50, False),  # CanParl: splits of 23 stages
+    (5 * 32, 64, 100, 50, True),  # a few rows: one-stage splits
+    (19200, 8, 100, 50, False),  # 896 padded K in one split
+])
+def test_time_forward_converts_w_in_its_blocks_where_a_split_is_small(
+        rows, patch, dt_dim, ced, resident):
+    """The bf16 time forward packs no W^T (no scratch, no second launch)
+    where each split's W is two stages at most, which its blocks convert."""
+    chunk = tc.wgmma_forward_plan(rows, patch, dt_dim, ced, H100_SMS)
+    assert tc.resident_weight(chunk) is resident
+    assert resident == (chunk <= 2 * WGMMA_STAGE)
+
+
+@pytest.mark.parametrize("k,address,want", [(11008, 0, True), (11008, 16, True), (172, 0, False),
+                                            (344, 0, True), (516, 0, False), (11008, 8, False),
+                                            (192, 2, False)])
+def test_tma_accepts_rows_of_16_byte_multiples(k, address, want):
+    """TMA's rule for x (rows of k bf16 values): the row stride (2k bytes)
+    and the base address multiples of 16. Patch 3 at D = 172 (516) and
+    patch 1 (172) are copied to padded rows; patch 2 (344) and 64 are read
+    in place."""
+    assert pp.tma_accepts(k, address) is want
+
+
+@pytest.mark.parametrize("k,offset,copied", [(344, 0, False), (172, 0, True), (21, 0, True),
+                                             (48, 1, True), (48, 8, False)])
+def test_tma_rows_pads_what_tma_refuses(k, offset, copied):
+    """x as the bf16 forward's tensor map reads it: in place where TMA
+    takes its rows, else a copy whose row stride is a multiple of 8 values
+    and whose first k values of each row are x's."""
+    rows = 5
+    base = torch.arange(rows * k + 16, dtype=torch.float32).to(BF16)
+    assert base.data_ptr() % 16 == 0
+    x2 = base[offset : offset + rows * k].view(rows, k)
+    xt, ld = pp.tma_rows(x2)
+    assert (xt.data_ptr() != x2.data_ptr()) is copied
+    assert ld % 8 == 0 and k <= ld < k + 8 and xt.stride() == (ld, 1)
+    assert xt.data_ptr() % 16 == 0 and pp.tma_accepts(ld, xt.data_ptr())
+    assert torch.equal(xt[:, :k], x2)
+
+
+def pack_weight_emulated(w, slot_in, slot_out, k_total, n_rows, ld):
+    """csrc/wgmma.cuh::pack_weight's index map, in numpy: (n_rows, ld) bf16
+    values, W[k, n] at kp = j * slot_out + f for k = j * slot_in + f."""
+    out = np.zeros((n_rows, ld), np.float32)
+    for kp in range(ld):
+        j, f = divmod(kp, slot_out)
+        k = j * slot_in + f
+        if f < slot_in and k < k_total:
+            out[: w.shape[1], kp] = rb(torch.from_numpy(w[k])).numpy()
+    return out
+
+
+@pytest.mark.parametrize("patch,dt_dim,ced", [(4, 6, 9), (1, 100, 50), (3, 16, 60)])
+def test_packed_weight_is_the_padded_bf16_transpose(patch, dt_dim, ced):
+    """The wgmma forwards' W scratch: ced padded to column tiles of 56, the
+    padded K to stages of 64; the time channel's slots padded from Dt to
+    16, each value W's rounded to bf16, zeros elsewhere; the patch
+    projection's one slot of K values."""
+    w = np.random.RandomState(patch).randn(patch * dt_dim, ced).astype(np.float32)
+    dt_pad = tc.padded_dt(dt_dim, tc.BF16_DT_STEP)
+    n_pad, kp_pad = pp.packed_weight_shape(ced, patch * dt_pad)
+    assert n_pad % 56 == 0 and n_pad >= ced > n_pad - 56
+    assert kp_pad % WGMMA_STAGE == 0 and kp_pad >= patch * dt_pad > kp_pad - WGMMA_STAGE
+    packed = pack_weight_emulated(w, dt_dim, dt_pad, patch * dt_dim, n_pad, kp_pad)
+    _, bw = _padded(torch.zeros((1, patch * dt_dim)), rb(torch.from_numpy(w)), patch, dt_dim,
+                    tc.BF16_DT_STEP)
+    np.testing.assert_array_equal(packed[:ced, : patch * dt_pad], bw.t().numpy())
+    assert not packed[ced:].any() and not packed[:, patch * dt_pad :].any()
+    k = patch * dt_dim
+    n_pad, k_pad = pp.packed_weight_shape(ced, k)
+    one_slot = pack_weight_emulated(w, k, k, k, n_pad, k_pad)
+    np.testing.assert_array_equal(one_slot[:ced, :k], rb(torch.from_numpy(w)).numpy().T)
+    assert not one_slot[ced:].any() and not one_slot[:, k:].any()

@@ -21,7 +21,10 @@ position masked, theta past 2^40 and Dt 1 to 128; the attention
 backwards at K 1, 33 and 96, with every query masked, and with one head
 and four; the attention kernels at TGN's and DyRep's shape (M = 600, K =
 10); the memory models' launches per eval batch and train step; the
-reduced cosine and sine bit for bit against torch.cos and torch.sin.
+reduced cosine and sine bit for bit against torch.cos and torch.sin; the
+bf16 forwards (the patch projection's choice of kernel by shape and
+address, ced 1 to 130, K split in many, no rows and one row; the time
+channel's Dt padding 1 to 101, every row masked).
 
 Tolerances: time_channel and patch_projection atol 1e-4 (both sides are
 f32; they differ only in the order of the f32 sums, K <= 11,008 products
@@ -183,6 +186,105 @@ def test_patch_projection_kernel_matches_plain(
     assert out.shape == ref.shape == (m, lp // patch, ced)
     assert torch.equal(out, again)
     torch.testing.assert_close(out, ref, atol=ATOL * scale, rtol=0)
+
+
+# the bf16 forwards (compute_dtype bfloat16), both on wgmma: the patch
+# projection reads x in place where TMA takes its rows (patch * D a
+# multiple of 8, x 16-byte aligned), else from a copy in padded rows. (seed,
+# M, Lp, D, patch, ced, misaligned): misaligned reads x 2 bytes past a
+# 16-byte boundary (TMA refuses the address)
+BF16_PATCH_CASES = [
+    (20, 5, 16, 12, 4, 9, False),  # K = 48: wgmma, one ragged K stage, ced 9
+    (21, 3, 512, 172, 64, 50, False),  # K = 11008, 24 rows: many K splits
+    (22, 130, 16, 172, 2, 130, False),  # K = 344, 1040 rows (ragged in 256), ced 130
+    (23, 9, 15, 7, 3, 50, False),  # K = 21: padded rows
+    (24, 40, 32, 172, 1, 57, False),  # K = 172 (patch 1's rows): padded rows, ced 57
+    (25, 4, 16, 12, 4, 50, True),  # K = 48 but x 2-byte aligned: padded rows
+    (26, 0, 8, 16, 2, 50, False),  # no rows
+    (27, 1, 64, 172, 64, 50, False),  # one row at K = 11008
+]
+# (seed, M, L, patch, Dt, ced, dt scale, masked rows)
+BF16_TIME_CASES = [
+    (30, 7, 12, 4, 6, 9, 1e2, 0),  # Dt 6 padded to 16, ced 9
+    (31, 5, 2048, 64, 100, 50, 1e6, 0),  # CanParl's widths, 5 rows: K split
+    (32, 9, 64, 8, 101, 130, 1e8, 0),  # Dt 101 (112), three column tiles, theta past 1e5
+    (33, 40, 32, 1, 1, 1, 1e6, 0),  # Dt 1, ced 1
+    (34, 12, 128, 64, 100, 50, 1e6, 12),  # every row masked: the bias
+    (35, 0, 64, 8, 100, 50, 1e6, 0),  # no rows
+    (36, 1, 32, 1, 100, 50, 1e6, 0),  # one row
+    (37, 20, 64, 8, 8, 50, 1e6, 5),  # Dt 8: each slot's upper 8 features padding
+    (38, 600, 256, 8, 100, 50, 1e6, 0),  # 19,200 rows: one split of 896 padded K
+    (39, 100, 2048, 64, 100, 50, 1e6, 3),  # 3,200 rows of CanParl's K: splits of 768
+]
+GRAD_RTOL = 3e-5  # chip_smoke.py's share of sum|terms|
+
+
+def _bf16_ulp(v):
+    return torch.ldexp(torch.ones_like(v, dtype=torch.float32), torch.frexp(v.float()).exponent - 8)
+
+
+@pytest.mark.parametrize("seed,m,lp,d,patch,ced,misaligned", BF16_PATCH_CASES)
+def test_bf16_patch_forward_kernels_match_plain(dev, seed, m, lp, d, patch, ced, misaligned):
+    """The bf16 patch forward on wgmma, x in place or copied to padded rows
+    by shape and address, within GRAD_RTOL of sum|terms| plus one bf16 ulp
+    of the product and one of the output (two roundings), a second launch
+    bitwise equal."""
+    import importlib
+
+    pp = importlib.import_module("dyglib_tpu_torch.ops.patch_projection")
+    rng = np.random.RandomState(seed)
+    k, bf16 = patch * d, torch.bfloat16
+    n = m * lp * d
+    flat = torch.zeros(n + 16, dtype=bf16, device=dev)
+    x = flat[1 : 1 + n] if misaligned else flat[:n]
+    x = x.view(m, lp, d)
+    x.copy_(torch.from_numpy(rng.randn(m, lp, d).astype(np.float32)).to(dev))
+    w, bias = _on(dev, (rng.randn(k, ced) * k**-0.5).astype(np.float32),
+                  rng.randn(ced).astype(np.float32))
+    w = w.t().contiguous().t()  # nn.Linear's layout, as the model passes it
+    xt, ld = pp.tma_rows(x.view(-1, k))
+    assert (xt.data_ptr() == x.data_ptr()) == (k % 8 == 0 and not misaligned) and ld % 8 == 0
+    ops.reset_launch_counts()
+    out = ops.patch_projection(x, w, bias, patch, compute_dtype=bf16)
+    again = ops.patch_projection(x, w, bias, patch, compute_dtype=bf16)
+    assert {c: v for c, v in ops.launch_counts().items() if v} == {"patch_projection_bf16": 2}
+    ref = ops.patch_projection_plain(x, w, bias, patch, bf16, round_output=True)
+    x2, w16 = x.reshape(-1, k).float(), w.to(bf16).float()
+    prod = (x2 @ w16).view(out.shape)
+    terms = (x2.abs() @ w16.abs() + bias.abs()).view(out.shape)
+    torch.cuda.synchronize()
+    assert out.dtype == bf16 and out.shape == ref.shape == (m, lp // patch, ced)
+    assert torch.equal(out, again)
+    diff = (out.float() - ref.float()).abs()
+    assert bool((diff <= GRAD_RTOL * terms + _bf16_ulp(prod) + _bf16_ulp(ref)).all())
+    assert int((diff > GRAD_RTOL * terms).sum()) <= max(1, out.numel() // 1000)
+
+
+@pytest.mark.parametrize("seed,m,l,patch,dt_dim,ced,scale,masked", BF16_TIME_CASES)
+def test_bf16_time_forward_kernel_matches_plain(dev, seed, m, l, patch, dt_dim, ced, scale,
+                                                masked):
+    """The bf16 time-channel forward on wgmma (W converted in its blocks or
+    packed and streamed by TMA: both run here) within GRAD_RTOL of its
+    plain bf16 version's sum|terms|, a second launch bitwise equal, the
+    bias where every position is masked."""
+    dt, valid, tw, tb, w, bias = _time_inputs(dev, seed, m, l, patch, dt_dim, ced, scale,
+                                              masked_rows=masked)
+    bf16 = torch.bfloat16
+    args = (dt, valid, tw, tb, w.t().contiguous().t(), bias, patch)
+    ops.reset_launch_counts()
+    out = ops.time_channel_projection(*args, compute_dtype=bf16)
+    again = ops.time_channel_projection(*args, compute_dtype=bf16)
+    assert {c: v for c, v in ops.launch_counts().items() if v} == {"time_channel_bf16": 2}
+    ref = ops.time_channel_projection_plain(*args, compute_dtype=bf16)
+    phi = torch.where(valid[..., None], torch.cos(dt[..., None] * tw + tb), 0.0)
+    phi16 = phi.to(bf16).float().reshape(-1, patch * dt_dim)
+    terms = (phi16.abs() @ w.to(bf16).float().abs() + bias.abs()).view(out.shape)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == ref.shape == (m, l // patch, ced)
+    assert torch.equal(out, again)
+    assert bool(((out - ref).abs() <= GRAD_RTOL * terms).all())
+    if masked:
+        assert torch.equal(out[:masked], bias.expand(masked, l // patch, ced))
 
 
 # (seed, R, Lq, Lk, id range)

@@ -122,3 +122,87 @@ def test_forward_matches_jax(env, models, triple, use_kernels):
         out = net(tt, t_in, triple=triple).numpy()
     assert out.shape == ref.shape == (4 * b, 172)
     np.testing.assert_allclose(out, ref, atol=ATOL)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["eval", "train"])
+@pytest.mark.parametrize("patch", [1, 4])
+def test_frozen_channels_take_the_patch_kernel_only_above_patch_1(monkeypatch, compute_dtype,
+                                                                  mode, patch):
+    """The JAX package's rule (``dyglib_tpu/models/dygformer.py``: its patch
+    kernel only at patch > 1): with ``use_kernels`` the port's DyGFormer calls
+    the patch-projection wrapper for the node and edge channels at patch 4,
+    never at patch 1, where the channel is a linear (the plain path's, bit for
+    bit); the time channel's wrapper runs at both, in f32 and bf16, in an
+    eval forward and in a train step."""
+    import dyglib_tpu_torch.models.dygformer as dyg_module
+
+    calls = {"patch_projection": 0, "time_channel_projection": 0}
+    for name in calls:
+        real = getattr(dyg_module, name)
+
+        def spy(*args, _real=real, _name=name, **kwargs):
+            calls[_name] += 1
+            return _real(*args, **kwargs)
+
+        monkeypatch.setattr(dyg_module, name, spy)
+    rng = np.random.RandomState(3)
+    m, lp, feat, n_nodes, n_edges = 3 * 4, 8, 12, 30, 60
+    seq_ids = rng.randint(1, n_nodes, (m, lp)).astype(np.int32)
+    seq_ids[:, 5:] = 0
+    inputs = DyGFormerInputs(*(torch.from_numpy(a) for a in (
+        seq_ids, np.where(seq_ids > 0, rng.randint(1, n_edges, (m, lp)), 0).astype(np.int32),
+        rng.randint(0, 1000, (m, lp)).astype(np.int32), np.full(m, 2000, np.int32))))
+    node, edge = rng.randn(n_nodes, feat), rng.randn(n_edges, feat)
+    node[0] = edge[0] = 0.0
+    tables = FeatureTables(torch.from_numpy(node.astype(np.float32)),
+                           torch.from_numpy(edge.astype(np.float32)))
+    outs = {}
+    for use_kernels in (True, False):
+        net = DyGFormer(max_input_sequence_length=lp, patch_size=patch, channel_embedding_dim=8,
+                        time_feat_dim=8, num_layers=1, dropout=0.1, compute_dtype=compute_dtype,
+                        use_kernels=use_kernels).build(feat, feat, torch.Generator().manual_seed(0))
+        before = dict(calls)
+        if mode == "eval":
+            with torch.no_grad():
+                out = net.eval()(tables, inputs, triple=True)
+        else:
+            out = net.train()(tables, inputs, triple=True,
+                              dropout_gen=torch.Generator().manual_seed(5))
+            out.float().sum().backward()
+            assert all(p.grad is not None for p in net.parameters() if p.requires_grad)
+        launched = {k: calls[k] - before[k] for k in calls}
+        if use_kernels:
+            assert launched == {"patch_projection": 0 if patch == 1 else 2,
+                                "time_channel_projection": 1}
+        else:
+            assert launched == {"patch_projection": 0, "time_channel_projection": 0}
+        outs[use_kernels] = out.detach()
+    if patch == 1:
+        torch.testing.assert_close(outs[True], outs[False], rtol=0, atol=0)
+
+
+def test_chip_smoke_expects_no_patch_kernel_at_patch_1():
+    """chip_smoke.py's launch expectations follow the same rule: DyGFormer
+    32/1 (wikipedia, the node-class and mesh backbone) launches the time
+    channel and the co-occurrence counts and no patch projection, CanParl
+    (patch 64) all three and their backwards, in f32 and bf16."""
+    import importlib.util
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.dygformer_kernels(1) == ["time_channel", "cooccurrence"]
+    assert smoke.dygformer_kernels(1, train=True) == ["time_channel", "cooccurrence",
+                                                      "time_channel_bwd"]
+    assert smoke.dygformer_kernels(64, train=True, bf16=True) == [
+        "time_channel_bf16", "cooccurrence", "patch_projection_bf16", "time_channel_bf16_bwd",
+        "patch_projection_bf16_bwd"]
+    assert "patch_projection" not in smoke.NODECLS_MODELS["DyGFormer"]
+    assert not any("patch" in k for k in smoke.MESH_KERNELS["DyGFormer"])
+    fwd, bwd = smoke.BF16_PATH_KERNELS["DyGFormer wikipedia"]
+    assert not any("patch" in k for k in fwd + bwd)
+    fwd, bwd = smoke.BF16_PATH_KERNELS["DyGFormer CanParl"]
+    assert "patch_projection_bf16" in fwd and "patch_projection_bf16_bwd" in bwd
