@@ -485,7 +485,7 @@ TRACE_KERNELS = {
     "patch_projection": r"patch_forward_kernel",
     "patch_projection_bwd": r"patch_backward_kernel",
     "time_channel_bf16": r"time_channel_bf16_fwd_kernel",
-    "time_channel_bf16_bwd": r"time_bwd_kernel<\d+, true, \d+, .*Bf16",
+    "time_channel_bf16_bwd": r"time_bwd_bf16::bf16_bwd_kernel<",
     "patch_projection_bf16": r"patch_forward_wgmma_kernel",
     "patch_projection_bf16_bwd": r"patch_backward_bf16_kernel",
     "window_fetch": r"window_fetch_kernel",
@@ -4263,8 +4263,10 @@ def main() -> int:
     }
 
     def source(kernel):
+        if kernel == "time_channel_bf16_bwd":  # its own header, built into time_channel.cu
+            return "dyglib_tpu_torch/csrc/time_channel_bf16_bwd.cuh"
         base = kernel.removesuffix("_bwd")
-        if base == "time_channel_bf16":  # time_channel.cu's Bf16 product
+        if base == "time_channel_bf16":  # time_channel.cu's wgmma forward
             base = "time_channel"
         return f"dyglib_tpu_torch/csrc/{base}.cu"
 

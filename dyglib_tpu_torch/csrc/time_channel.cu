@@ -34,9 +34,13 @@
 // time_channel_bf16_* entry points) keep the JAX kernels' math instead:
 // Phi, W and dout rounded to bf16, f32 sums and f32 outputs, each patch
 // slot's Dt padded to a multiple of 16 in the forward.
-//   * The backward is the same kernel on another product
-//     (time_channel_bwd.cuh on time_products.cuh's Bf16: one mma.sync
-//     m16n8k16 pass).
+//   * The backward is a kernel of its own on wgmma
+//     (time_channel_bf16_bwd.cuh): 128 entries of K a block on the M side
+//     of both products, dPhi^T = W dout^T from shared memory, whose
+//     accumulators are the register A fragment of dW = Phi^T dout (Phi and
+//     -sin from one theta), and one bf16 dout tile, converted by a
+//     producer warp, read K-major by the first product and MN-major by
+//     the second.
 //   * The forward is its own kernel on Hopper's asynchronous units
 //     (wgmma.cuh). W is converted to bf16 once a launch
 //     (wgmma::pack_weight: W^T, each slot's features padded with zeros),
@@ -74,6 +78,7 @@
 #include "cos_reduced.cuh"
 #include "patch_gemm.cuh"
 #include "phi.cuh"
+#include "time_channel_bf16_bwd.cuh"
 #include "time_channel_bwd.cuh"
 #include "time_products.cuh"
 #include "wgmma.cuh"
@@ -512,17 +517,6 @@ __global__ void __launch_bounds__(kBfThreads, 2)
             [&](size_t i, int c, float v) { dst[i] = one ? v + a.bias[c] : v; });
 }
 
-template <class Product>
-int backward_entry(const float* dt, const bool* valid, const float* tw, const float* tb,
-                   const float* w, int w_sk, int w_sn, const float* dout, float* dw_ext,
-                   float* dt_grads, float* partial, float* part, int rows, int patch, int dt_dim,
-                   int dt_pad, int ced, int chunk_rows, int d_vec, cudaStream_t stream) {
-  const dyglib::time_bwd::Args args{dt,   valid, tw,     tb,     w,   dout, nullptr, nullptr,
-                                    rows, patch, dt_dim, dt_pad, ced, w_sk, w_sn, chunk_rows};
-  return static_cast<int>(dyglib::time_bwd::backward<true, 8, Product>(
-      args, dw_ext, dt_grads, partial, part, d_vec, stream));
-}
-
 }  // namespace
 
 // dt: (rows * patch) f32; valid: (rows * patch) bool; tw, tb: (dt_dim) f32;
@@ -591,30 +585,38 @@ DYGLIB_API int time_channel_bf16_forward(const float* dt, const bool* valid, con
 }
 
 // As the forward, plus dout: (rows, ced) f32. dt_pad: dt_dim rounded up to
-// a multiple of 8 (both variants). Outputs: dw_ext (patch * dt_dim + 1,
-// ced) f32 (rows 0..K-1 = dW, row K = dbias); dt_grads (2, dt_dim) f32:
-// dtw, then dtb. chunk_rows: rows per partial sum, a multiple of 32; with
-// more than one chunk, partial holds (chunks, K + 1, ced) f32. part:
-// (chunks * ceil(ced / 56) * patch, 2, dt_dim) f32. d_vec: floats per copy
-// of dout (2 or 1, the wrapper's alignment check).
+// a multiple of 8. Outputs: dw_ext (patch * dt_dim + 1, ced) f32 (rows
+// 0..K-1 = dW, row K = dbias); dt_grads (2, dt_dim) f32: dtw, then dtb.
+// chunk_rows: rows per partial sum, a multiple of 32; with more than one
+// chunk, partial holds (chunks, K + 1, ced) f32. part: (chunks * ceil(ced /
+// 56) * patch, 2, dt_dim) f32. d_vec: floats per copy of dout (2 or 1, the
+// wrapper's alignment check).
 DYGLIB_API int time_channel_backward(const float* dt, const bool* valid, const float* tw,
                                      const float* tb, const float* w, int w_sk, int w_sn,
                                      const float* dout, float* dw_ext, float* dt_grads,
                                      float* partial, float* part, int rows, int patch, int dt_dim,
                                      int dt_pad, int ced, int chunk_rows, int d_vec,
                                      cudaStream_t stream) {
-  return backward_entry<tp::SplitTf32>(dt, valid, tw, tb, w, w_sk, w_sn, dout, dw_ext, dt_grads,
-                                       partial, part, rows, patch, dt_dim, dt_pad, ced,
-                                       chunk_rows, d_vec, stream);
+  const dyglib::time_bwd::Args args{dt,   valid, tw,     tb,     w,   dout, nullptr, nullptr,
+                                    rows, patch, dt_dim, dt_pad, ced, w_sk, w_sn, chunk_rows};
+  return static_cast<int>(dyglib::time_bwd::backward<true, 8>(args, dw_ext, dt_grads, partial,
+                                                              part, d_vec, stream));
 }
 
+// The bf16 backward (#1b', time_channel_bf16_bwd.cuh): the arguments of
+// time_channel_backward, with dt_pad the kernel's entry layout (each patch
+// slot's Dt features dt_pad apart: dt_dim itself, or dt_dim padded where
+// 128 entries would span more than 8 slots), chunk_rows a multiple of 64,
+// and part (chunks * ceil(ced / 64) * patch, 2, dt_dim) f32.
 DYGLIB_API int time_channel_bf16_backward(const float* dt, const bool* valid, const float* tw,
                                           const float* tb, const float* w, int w_sk, int w_sn,
                                           const float* dout, float* dw_ext, float* dt_grads,
                                           float* partial, float* part, int rows, int patch,
                                           int dt_dim, int dt_pad, int ced, int chunk_rows,
                                           int d_vec, cudaStream_t stream) {
-  return backward_entry<tp::Bf16>(dt, valid, tw, tb, w, w_sk, w_sn, dout, dw_ext, dt_grads,
-                                  partial, part, rows, patch, dt_dim, dt_pad, ced, chunk_rows,
-                                  d_vec, stream);
+  const dyglib::time_bwd_bf16::Args args{dt,     valid,  tw,  tb,   w,    dout,      nullptr,
+                                         nullptr, rows,  patch, dt_dim, dt_pad, ced, w_sk,
+                                         w_sn,   chunk_rows};
+  return static_cast<int>(
+      dyglib::time_bwd_bf16::backward(args, dw_ext, dt_grads, partial, part, d_vec, stream));
 }

@@ -8,9 +8,9 @@
 //       c = dPhi * -sin(theta);  dtb[f] += c;  dtw[f] += c * dt
 // in one kernel, both products in split TF32 on mma.sync as the time
 // channel's forward (patch_gemm.cuh: every operand v = hi + lo, three
-// passes lo*hi, hi*lo, hi*hi, f32 sums; or, for the time channel's bf16
-// variant, one bf16 pass on Phi, dout and W rounded to bf16: the Product
-// policy of time_products.cuh), dbias on the CUDA cores from the
+// passes lo*hi, hi*lo, hi*hi, f32 sums: the Product policy of
+// time_products.cuh; the bf16 variant is time_channel_bf16_bwd.cuh's own
+// kernel on wgmma), dbias on the CUDA cores from the
 // same dout stages (the first entry tile's blocks; as a column of ones in
 // the product it left one warp a chunk's whole dbias product where few
 // positions are valid, and as a separate column sum it cost wikipedia's
@@ -67,9 +67,8 @@ namespace pg = patch_gemm;
 // A warp owns one m16 tile of entries (16, two 8-entry groups) and all 56
 // columns: 28 dW accumulators and their fresh stage sums a thread, and 16
 // of dPhi, so that two blocks of 8 warps fit an SM's registers (128 a
-// thread). The products are the Product policy's (time_products.cuh:
-// SplitTf32, or Bf16 for the bf16 variant, whose dout tile and W are
-// padded to 64 columns and whose dW step takes 16 rows).
+// thread). The products are the Product policy's (time_products.cuh's
+// SplitTf32).
 constexpr int kGroups = 2;                 // 8-entry groups a warp
 constexpr int kRows = pg::kTileK;          // rows a stage
 
@@ -78,7 +77,7 @@ struct Block {
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int kEntries = 16 * kWarps;  // padded K entries a block
   static constexpr int kStageFloats = kRows * Product::kDStride;
-  // 65,536 bytes at 8 warps in split TF32, 73,728 in bf16
+  // 65,536 bytes at 8 warps
   static constexpr size_t kSmemBytes =
       sizeof(float) * (kEntries * Product::kWStride + pg::kStages * kStageFloats);
 };
@@ -103,7 +102,7 @@ template <int kDVec, bool kMasked, int kWarps, class Product>
 __global__ void __launch_bounds__(Block<kWarps, Product>::kThreads, 2)
     time_bwd_kernel(const Args a) {
   using B = Block<kWarps, Product>;
-  constexpr int kCols = Product::kCols, kDStride = Product::kDStride;
+  constexpr int kCols = pg::kTileN, kDStride = Product::kDStride;
   constexpr int kWStride = Product::kWStride;
   static_assert(!kMasked || kWarps == 8, "dbias's row groups take 256 threads");
   extern __shared__ float4 smem4[];
@@ -112,9 +111,6 @@ __global__ void __launch_bounds__(Block<kWarps, Product>::kThreads, 2)
   const int k_total = a.patch * a.dt_dim;
   const int kp_end = a.patch * a.dt_pad;
   const int e0 = blockIdx.x * B::kEntries, n0 = blockIdx.y * pg::kTileN;
-  // columns past the tile's 56 (a padded tile) are staged as zeros; an
-  // unpadded tile needs no bound of its own (and holds no register for it)
-  const auto n_end = [&] { return kCols > pg::kTileN ? min(a.ced, n0 + pg::kTileN) : a.ced; };
   const int r_begin = blockIdx.z * a.chunk_rows;
   const int r_end = min(a.rows, r_begin + a.chunk_rows);
   const int tiles = (r_end - r_begin + kRows - 1) / kRows;
@@ -126,7 +122,7 @@ __global__ void __launch_bounds__(Block<kWarps, Product>::kThreads, 2)
   for (int i = threadIdx.x; i < B::kEntries * kCols; i += B::kThreads) {
     const int e = i % B::kEntries, c = i / B::kEntries;
     const int kp = e0 + e, j = kp / a.dt_pad, f = kp - j * a.dt_pad;
-    const bool in = kp < kp_end && f < a.dt_dim && n0 + c < n_end();
+    const bool in = kp < kp_end && f < a.dt_dim && n0 + c < a.ced;
     const size_t at =
         static_cast<size_t>(j * a.dt_dim + f) * a.w_sk + static_cast<size_t>(n0 + c) * a.w_sn;
     w_s[e * kWStride + c] = in ? a.w[at] : 0.f;
@@ -170,7 +166,7 @@ __global__ void __launch_bounds__(Block<kWarps, Product>::kThreads, 2)
 
   const auto load = [&](int tile, float* stage) {
     pg::stage_tile<B::kThreads, kRows, kCols, kDStride, kDVec>(
-        stage, a.dout, a.ced, r_begin + tile * kRows, r_end, n0, n_end());
+        stage, a.dout, a.ced, r_begin + tile * kRows, r_end, n0, a.ced);
   };
 
   float acc[pg::kNFrag][4] = {};

@@ -257,9 +257,10 @@ __device__ __forceinline__ void wait() {
 
 // keeps the compiler from moving the accumulators' reads and writes across
 // an asynchronous wgmma's start or its wait
-__device__ __forceinline__ void hold(float (&d)[kAcc]) {
+template <int kN>
+__device__ __forceinline__ void hold(float (&d)[kN]) {
 #pragma unroll
-  for (int i = 0; i < kAcc; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d = (scale_d ? d : 0) + A (64 x 16, shared memory) B (16 x 56)
@@ -295,10 +296,81 @@ __device__ __forceinline__ void mma_rs(float (&d)[kAcc], const unsigned (&a)[4],
 
 // acc += part, on the CUDA cores (to nearest): each stage's products sum in
 // fresh accumulators, as the mma.sync kernels' (patch_gemm.cuh says why)
-__device__ __forceinline__ void add(float (&acc)[kAcc], const float (&part)[kAcc]) {
+template <int kN>
+__device__ __forceinline__ void add(float (&acc)[kN], const float (&part)[kN]) {
 #pragma unroll
-  for (int i = 0; i < kAcc; ++i) acc[i] += part[i];
+  for (int i = 0; i < kN; ++i) acc[i] += part[i];
 }
+
+// ---- m64n64: the time channel's bf16 backward (time_channel_bf16_bwd.cuh),
+// whose tiles are 64 entries by a 64-wide stage: its 64 rows (dPhi) or its
+// 64 columns (dW). The accumulators of (row 16 w + g + 8 (q / 2), column
+// 8 j + 2t + q % 2) are d[4 j + q], j < 8, as m64n56's.
+
+constexpr int kAcc64 = 32;  // f32 accumulators a thread for m64n64
+
+// MN-major operand in the 128-byte swizzle: rows of 128 bytes, each one k
+// index of 64 consecutive n values; 8-row (8-k) groups 1024 bytes apart
+// (the base 1024-byte aligned). With n 64, one 128-byte row spans the
+// whole operand, so only the 8-k groups' offset matters; it is set in both
+// offset fields. The k16 step i of a stage is the descriptor + 128 i (16
+// rows, 2048 bytes further, in 16-byte units).
+__device__ __forceinline__ uint64_t desc_mn_sw128(const void* tile) {
+  return static_cast<uint64_t>((smem_u32(tile) & 0x3FFFF) >> 4) | (uint64_t{1024 >> 4} << 16) |
+         (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
+}
+
+// The m64n64 accumulators as asm operands: read and written (kAdd: d +=
+// A B) or written only (d = A B: the first step of a fresh sum, so that
+// the registers are free before it)
+#define DYGLIB_WG_ACC64(c)                                                                  \
+  c(d[0]), c(d[1]), c(d[2]), c(d[3]), c(d[4]), c(d[5]), c(d[6]), c(d[7]), c(d[8]), c(d[9]), \
+      c(d[10]), c(d[11]), c(d[12]), c(d[13]), c(d[14]), c(d[15]), c(d[16]), c(d[17]),       \
+      c(d[18]), c(d[19]), c(d[20]), c(d[21]), c(d[22]), c(d[23]), c(d[24]), c(d[25]),       \
+      c(d[26]), c(d[27]), c(d[28]), c(d[29]), c(d[30]), c(d[31])
+#define DYGLIB_WG_D64                                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+
+// d = (kAdd ? d : 0) + A (64 x 16) B (16 x 64), both from shared memory,
+// K-major
+template <bool kAdd>
+__device__ __forceinline__ void mma_ss64(float (&d)[kAcc64], uint64_t a, uint64_t b) {
+  if constexpr (kAdd)
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DYGLIB_WG_D64
+                 "%32, %33, p, 1, 1, 0, 0;\n}\n"
+                 : DYGLIB_WG_ACC64("+f")
+                 : "l"(a), "l"(b), "r"(1));
+  else
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DYGLIB_WG_D64
+                 "%32, %33, p, 1, 1, 0, 0;\n}\n"
+                 : DYGLIB_WG_ACC64("=f")
+                 : "l"(a), "l"(b), "r"(0));
+}
+
+// d = (kAdd ? d : 0) + A (registers, four packed bf16 pairs a thread) B
+// (16 x 64, shared memory, MN-major: imm-trans-b 1)
+template <bool kAdd>
+__device__ __forceinline__ void mma_rs64_mn(float (&d)[kAcc64], const unsigned (&a)[4],
+                                            uint64_t b) {
+  if constexpr (kAdd)
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DYGLIB_WG_D64
+                 "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+                 : DYGLIB_WG_ACC64("+f")
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  else
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DYGLIB_WG_D64
+                 "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+                 : DYGLIB_WG_ACC64("=f")
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
+}
+
+#undef DYGLIB_WG_D64
+#undef DYGLIB_WG_ACC64
 
 // A warpgroup's 64 x 56 accumulators to dst rows row0 + 0..63 (below
 // row_end), columns col0 + 0..55 (below col_end): put(pointer offset,

@@ -49,10 +49,19 @@ or fewer registers for more warps an SM, are the next steps.
 The bf16 variants (``compute_dtype=torch.bfloat16``, a DyGFormer built
 with ``compute_dtype="bfloat16"``) keep the JAX kernels' math: Phi, W (and
 dout in the backward) rounded to bf16 with f32 sums; the output and the
-gradients are f32, as the JAX kernel's. The backward is the same kernel
-on another product (``csrc/time_products.cuh``: one bf16 mma.sync
-m16n8k16 pass where the f32 kernel takes three TF32 ones). The forward is
-its own kernel on Hopper's asynchronous units (``csrc/time_channel.cu``,
+gradients are f32, as the JAX kernel's. Both are kernels of their own on
+Hopper's wgmma. The backward (``csrc/time_channel_bf16_bwd.cuh``) puts a
+block's 128 entries of K on the M side of both products: dPhi^T (64
+entries x 64 rows a warpgroup) = W dout^T from shared memory, whose
+accumulators are, pair for pair, the register A fragment of dW = Phi^T
+dout, so one theta gives -sin for c and cos for Phi packed into A; one
+bf16 dout tile (a producer warpgroup converts the f32 rows into the
+128-byte swizzle, a stage ahead) is read K-major by the first product and
+MN-major by the second; each block takes cosf's fast path, or the double
+reduction where its bound needs it, for all its warps. Entries are
+unpadded (``bf16_entry_pad``), rows chunked by ``wgmma_backward_plan``;
+three launches a call as before (the kernel and the two fixed-order sums).
+The forward (``csrc/time_channel.cu``,
 ``csrc/wgmma.cuh``): W converted to bf16 once a launch and streamed by
 TMA (where a split is two stages at most, ``resident_weight``, each block
 converts its W into its ring instead: wikipedia's one launch), Phi
@@ -62,11 +71,14 @@ multiple of 16 (BF16_DT_STEP), K split by ``wgmma_forward_plan``.
 Bounds at CanParl: the forward's 12.3 G operations take 0.012 ms at 989
 T/s, its cosines 0.023 ms at the SFU's rate (bound by the cosines, which
 here are cos_reduced's instructions on the CUDA cores: PERF.md gives that
-floor too); the backward's 24.6 G operations 0.025 ms, its (cosine, sine)
-pairs 0.047 ms. Their launches count apart, under ``time_channel_bf16``
-and ``time_channel_bf16_bwd`` in ``ops.launch_counts()``.
+floor too); the backward's 24.6 G operations 0.025 ms, its 98 M (cosine,
+sine) pairs 0.047 ms at the SFU's rate (K unpadded: the bound's entry
+count is the plain version's), and what the card spends is the CUDA
+cores' instructions per (entry, row) pair (``scripts/time_bwd_split.py``
+counts them). Their launches count apart, under ``time_channel_bf16`` and
+``time_channel_bf16_bwd`` in ``ops.launch_counts()``.
 
-The backward (``csrc/time_channel_bwd.cuh``, which the Phi projection's
+The f32 backward (``csrc/time_channel_bwd.cuh``, which the Phi projection's
 backward shares without the mask and dbias) is one kernel for both of its
 products, dW_ext = [Phi | 1]^T dout and dPhi = dout W^T, in the same split
 TF32: a block owns 128 padded K entries and reduces over a chunk of rows
@@ -105,6 +117,14 @@ _BWD_ARGTYPES = [_build.P] * 5 + [_build.I] * 2 + [_build.P] * 5 + [_build.I] * 
 BF16_DT_STEP = 16
 # the bf16 variants' launches (they have no wrapper of their own)
 BF16_FORWARD, BF16_BACKWARD = _build.LaunchCounter(), _build.LaunchCounter()
+# csrc/time_channel_bf16_bwd.cuh: a block's K entries, rows a stage,
+# columns a tile, the patch slots its entries may span, and its blocks on
+# an SM (384 threads of up to 168 registers)
+BF16_BWD_ENTRIES, BF16_BWD_ROWS, BF16_BWD_COLS, BF16_BWD_MAX_SLOTS = 128, 64, 64, 8
+BF16_BWD_BLOCKS_PER_SM = 1
+# the bf16 backward's chunk plan: a chunk's partial sums ((K + 1) * ced f32
+# written and read back) cost this many 64-row stages of a block a MB
+_BF16_BWD_CHUNK_STAGES_PER_MB = 0.15
 # csrc/time_channel.cu: the bf16 forward's block rows (two warpgroups of 64)
 # and its blocks on an SM (288 threads of at most 112 registers)
 BF16_TILE_M, BF16_BLOCKS_PER_SM = 128, 2
@@ -353,6 +373,32 @@ def backward_chunk_rows(rows: int, patch: int, dt_dim: int, ced: int, sms: int) 
     return per * TILE_K
 
 
+def bf16_entry_pad(dt_dim: int) -> int:
+    """The bf16 backward's entry layout: each patch slot's Dt features
+    this many entries apart. Unpadded (Dt itself) where a block's
+    BF16_BWD_ENTRIES entries span at most BF16_BWD_MAX_SLOTS slots (Dt >=
+    19); below that, Dt padded to a multiple of 16 (16 or 32), whose slots
+    a block spans evenly."""
+    if (BF16_BWD_ENTRIES - 1) // dt_dim + 2 <= BF16_BWD_MAX_SLOTS:
+        return dt_dim
+    return padded_dt(dt_dim, BF16_DT_STEP)
+
+
+def wgmma_backward_plan(rows: int, patch: int, dt_dim: int, ced: int, sms: int,
+                        dt_pad: int | None = None) -> int:
+    """Rows per chunk of the bf16 backward, a multiple of BF16_BWD_ROWS;
+    it runs ceil(rows / them) chunks. ``wgmma_split`` over its blocks
+    (entry tiles x 64-column tiles) and 64-row stages, one block an SM, a
+    chunk's partial sums ((K + 1) * ced f32 written and read back) weighed
+    by _BF16_BWD_CHUNK_STAGES_PER_MB."""
+    dt_pad = bf16_entry_pad(dt_dim) if dt_pad is None else dt_pad
+    tiles = -(-patch * dt_pad // BF16_BWD_ENTRIES) * -(-ced // BF16_BWD_COLS)
+    stages = max(1, -(-rows // BF16_BWD_ROWS))
+    partial_mb = (patch * dt_dim + 1) * ced * 8 / 1e6
+    return BF16_BWD_ROWS * wgmma_split(tiles, stages, sms * BF16_BWD_BLOCKS_PER_SM,
+                                       _BF16_BWD_CHUNK_STAGES_PER_MB * partial_mb)
+
+
 def time_channel_backward(
     dt: torch.Tensor,
     valid: torch.Tensor,
@@ -379,36 +425,59 @@ def time_channel_backward(
 
 
 def _backward_kernel(dt, valid, tw, tb, w, dout, patch, compute_dtype):
-    """Both variants take dt_pad to a multiple of 8 and plan their chunks
-    alike."""
     w_sk, w_sn = _check(dt, valid, tw, tb, w, patch)
     m, l = dt.shape
     dt_dim, ced = tw.shape[0], w.shape[-1]
     if dt_dim < 1:
         raise ValueError("time_channel_backward: the kernel takes at least one time feature")
-    rows, k = m * (l // patch), patch * dt_dim
-    f32, dev = torch.float32, dt.device
-    _build.require(dout, "dout", f32, (m, l // patch, ced), dev)
+    k = patch * dt_dim
+    _build.require(dout, "dout", torch.float32, (m, l // patch, ced), dt.device)
     if (k + 1) * ced >= 2**31:
         raise ValueError(f"dW has {(k + 1) * ced} elements; the kernels index with int32")
-    chunk = backward_chunk_rows(rows, patch, dt_dim, ced, sm_count(dev))
-    chunks, col_tiles = max(1, -(-rows // chunk)), max(1, -(-ced // TILE_N))
+    if compute_dtype == torch.bfloat16:
+        return _backward_bf16(dt, valid, tw, tb, w, dout, patch, (w_sk, w_sn))
+    rows = m * (l // patch)
+    chunk = backward_chunk_rows(rows, patch, dt_dim, ced, sm_count(dt.device))
+    return _launch_backward("time_channel_backward", time_channel_backward, dt, valid, tw, tb,
+                            w, (w_sk, w_sn), dout, patch, padded_dt(dt_dim), chunk, TILE_N)
+
+
+def _backward_bf16(dt, valid, tw, tb, w, dout, patch, w_strides, chunk_rows=None, dt_pad=None):
+    """The bf16 backward on wgmma; the arguments checked by the caller.
+    ``chunk_rows`` (a multiple of BF16_BWD_ROWS) and ``dt_pad`` (at least
+    Dt, spanning at most BF16_BWD_MAX_SLOTS slots a block) override the
+    plan's."""
+    m, l = dt.shape
+    dt_dim, ced = tw.shape[0], w.shape[-1]
+    dt_pad = bf16_entry_pad(dt_dim) if dt_pad is None else dt_pad
+    if chunk_rows is None:
+        chunk_rows = wgmma_backward_plan(m * (l // patch), patch, dt_dim, ced,
+                                         sm_count(dt.device), dt_pad)
+    return _launch_backward("time_channel_bf16_backward", BF16_BACKWARD, dt, valid, tw, tb, w,
+                            w_strides, dout, patch, dt_pad, chunk_rows, BF16_BWD_COLS)
+
+
+def _launch_backward(entry, counter, dt, valid, tw, tb, w, w_strides, dout, patch, dt_pad,
+                     chunk, tile_cols):
+    """One backward entry point: its scratch (the row chunks' partial dW,
+    the dtw and dtb sums per chunk, column tile and slot) and its launch."""
+    m, l = dt.shape
+    dt_dim, ced, f32, dev = tw.shape[0], w.shape[-1], torch.float32, dt.device
+    rows, k = m * (l // patch), patch * dt_dim
+    chunks, col_tiles = max(1, -(-rows // chunk)), max(1, -(-ced // tile_cols))
     new = lambda *shape: torch.empty(shape, dtype=f32, device=dev)
     dw_ext, dt_grads = new(k + 1, ced), new(2, dt_dim)
     partial = new(chunks, k + 1, ced) if chunks > 1 else None
     part = new(chunks * col_tiles * patch, 2, dt_dim)  # dtw's and dtb's sums
-    bf16 = compute_dtype == torch.bfloat16
-    entry = "time_channel_bf16_backward" if bf16 else "time_channel_backward"
     lib = _build.load(_NAME, entry, _BWD_ARGTYPES)
     rc = getattr(lib, entry)(
-        dt.data_ptr(), valid.data_ptr(), tw.data_ptr(), tb.data_ptr(), w.data_ptr(), w_sk,
-        w_sn, dout.data_ptr(), dw_ext.data_ptr(), dt_grads.data_ptr(),
+        dt.data_ptr(), valid.data_ptr(), tw.data_ptr(), tb.data_ptr(), w.data_ptr(), *w_strides,
+        dout.data_ptr(), dw_ext.data_ptr(), dt_grads.data_ptr(),
         None if partial is None else partial.data_ptr(), part.data_ptr(), rows, patch, dt_dim,
-        padded_dt(dt_dim), ced, chunk, copy_floats(dout, ced),
-        torch.cuda.current_stream(dev).cuda_stream,
+        dt_pad, ced, chunk, copy_floats(dout, ced), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, entry)
-    _build.count_launch(BF16_BACKWARD if bf16 else time_channel_backward)
+    _build.count_launch(counter)
     return dt_grads[0], dt_grads[1], dw_ext[:k], dw_ext[k]
 
 

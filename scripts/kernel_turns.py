@@ -14,29 +14,32 @@ of 2048, patch 64; Dt 100, D 172, ced 50):
     patch projection) at both shapes and #8b (the Phi projection's
     backward, 240,000 rows, dq 272): every output saved to ``FILE.pt``
     with the kernel's ms;
-  * the bf16 forwards #1' and #3' at both shapes: ms, each held to its
-    plain bf16 version (the largest difference as a share of sum|terms|,
-    and for #3' the outputs past that share: one-ulp rounding flips) and
-    a second launch bitwise equal; which launch counters moved.
+  * the bf16 forwards #1' and #3' and the bf16 time-channel backward #1b'
+    at both shapes: ms, each held to its plain bf16 version (the largest
+    difference as a share of sum|terms|, per gradient for #1b', and for
+    #3' the outputs past that share: one-ulp rounding flips) and a second
+    launch bitwise equal; which launch counters moved.
 Times are CUDA-event medians of 5 repeats of back-to-back calls (the bf16
-forwards' ``device_ms`` also by the replay of a CUDA graph of those calls,
+kernels' ``device_ms`` also by the replay of a CUDA graph of those calls,
 without the host's work between them). With
 ``--compare`` it prints, per f32 output, whether it equals OTHER's bit for
 bit, and both trees' times of every kernel; it exits 1 if an f32 output
 differs or a bf16 check fails. Run it for two checkouts in one call, in
 turns (parent, change, change, parent), to compare their times on one
 card. ``--sweep`` also times the wgmma forwards at CanParl at each K split
-of ``SWEEP_SPLITS`` (the tree must have them); ``--only`` keeps the named
+of ``SWEEP_SPLITS``, and the wgmma backward at CanParl at each entry
+layout of ``SWEEP_PADS`` and row chunk count of ``SWEEP_CHUNKS`` (the tree
+must have them); ``--only`` keeps the named
 entries (e.g. ``bf16_time_channel@CanParl``), ``--libs`` builds only the
 named libraries, ``--build-log`` keeps nvcc's output (ptxas's register
 and spill report of every kernel).
 
-``--interleave OTHER_DIR`` times #1' at the wikipedia shape only, the
-wrapper of ``DIR``'s package and of OTHER_DIR's (imported under a second
-name, each with its own build) in one process, ``--rounds`` rounds, the
-order swapped each round: the wrapper's CUDA-event ms (host-bound there)
-and the device ms of a CUDA graph of its calls, per round, then how many
-rounds DIR's was the faster and both medians. One process spares the
+``--interleave OTHER_DIR`` times #1' and #1b' at the wikipedia shape only,
+the wrapper of ``DIR``'s package and of OTHER_DIR's (imported under a
+second name, each with its own build) in one process, ``--rounds`` rounds,
+the order swapped each round: the wrapper's CUDA-event ms (host-bound
+there) and the device ms of a CUDA graph of its calls, per round, then
+how many rounds DIR's was the faster and both medians. One process spares the
 pairs the variance between processes (core placement, clocks).
 """
 from __future__ import annotations
@@ -49,6 +52,8 @@ import sys
 
 GRAD_RTOL = 3e-5  # chip_smoke.py's share of sum|terms|
 SWEEP_SPLITS = (1, 2, 3, 4, 5, 6, 7, 8, 11, 14)
+SWEEP_PADS = (100, 104, 112)  # the backward's entry layouts at Dt 100
+SWEEP_CHUNKS = (2, 3, 4, 5, 6, 8, 10, 13, 20)
 CONFIGS = (("wikipedia", 32, 1), ("CanParl", 2048, 64))
 
 
@@ -131,6 +136,48 @@ def run(only, sweep: bool) -> tuple[dict, dict]:
         entry["ok"] = entry["ok"] and entry["repeat_equal"]
         return entry
 
+    def check_bwd(dt, valid, tw, tb, w, dout, patch, iters):
+        """#1b' held to the plain bf16 backward: each gradient's largest
+        difference as a share of its sum|terms| (the terms in bf16
+        operands), a second launch bitwise equal; ms, launches, device ms,
+        the device kernels of one call."""
+        args = (dt, valid, tw, tb, w, dout, patch)
+        fn = lambda: ops.time_channel_backward(*args, compute_dtype=bf16)
+        got, again = fn(), fn()
+        want = ops.time_channel_backward_plain(*args, compute_dtype=bf16)
+        rows, k = dout.shape[0] * dout.shape[1], w.shape[0]
+        theta = dt[..., None] * tw + tb
+        g16 = dout.reshape(rows, -1).to(bf16).float().abs()
+        phi16 = torch.where(valid[..., None], torch.cos(theta), 0.0).to(bf16).float()
+        common = torch.where(valid[..., None], (g16 @ w.to(bf16).float().abs().t()).reshape(
+            theta.shape) * torch.sin(theta).abs(), 0.0)
+        terms = ((common * dt[..., None].abs()).sum((0, 1)), common.sum((0, 1)),
+                 phi16.abs().reshape(rows, k).t() @ g16, dout.reshape(rows, -1).abs().sum(0))
+        torch.cuda.synchronize()
+        rel = [float(((a - b).abs() / t.clamp_min(1e-30)).max()) for a, b, t in
+               zip(got, want, terms)]
+        entry = dict(max_abs_err=max(float((a - b).abs().max()) for a, b in zip(got, want)),
+                     rel=max(rel), rel_each=rel,
+                     repeat_equal=all(torch.equal(a, b) for a, b in zip(got, again)))
+        entry["ok"] = entry["rel"] <= GRAD_RTOL and entry["repeat_equal"]
+        del got, again, want, theta, g16, phi16, common, terms
+        entry.update(ms=cuda_ms(fn, iters // 2), launches=counted(fn),
+                     device_ms=graph_ms(fn, iters // 2), device_kernels=device_kernels(fn))
+        return entry
+
+    def device_kernels(fn):
+        """The device kernels one call launches, by name (a torch.profiler
+        trace of one call after a warm one)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return [e.name[:60] for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+
     def counted(fn):
         ops.reset_launch_counts()
         fn()
@@ -181,6 +228,21 @@ def run(only, sweep: bool) -> tuple[dict, dict]:
                     go = lambda: tc._forward_bf16(dt, valid, tw, tb, w, bias, patch, strides,
                                                   k_chunk=chunk)
                     entry["sweep"][s] = cuda_ms(go, iters)
+        name = f"bf16_time_channel_bwd@{config}"
+        if want(name):
+            b16[name] = check_bwd(dt, valid, tw, tb, w, dout, patch, iters)
+            if sweep and config == "CanParl":
+                tc = importlib.import_module("dyglib_tpu_torch.ops.time_channel")
+                strides = (w.stride(0), w.stride(1))
+                go = lambda **kw: lambda: tc._backward_bf16(dt, valid, tw, tb, w, dout, patch,
+                                                            strides, **kw)
+                b16[name]["sweep_pads"] = {p: cuda_ms(go(dt_pad=p), iters // 2)
+                                           for p in SWEEP_PADS}
+                b16[name]["plan_chunks"] = -(-rows // tc.wgmma_backward_plan(rows, patch, dt_dim,
+                                                                             ced, 132))
+                b16[name]["sweep_chunks"] = {
+                    c: cuda_ms(go(chunk_rows=-(-(-(-rows // c)) // 64) * 64), iters // 2)
+                    for c in SWEEP_CHUNKS}
         del dt, valid, w, bias, dout, args
         torch.cuda.empty_cache()
 
@@ -251,7 +313,8 @@ def load_package(repo: str, name: str):
 
 
 def interleave(other: str, rounds: int) -> dict:
-    """#1' at wikipedia: this tree's wrapper and ``other``'s in turns."""
+    """#1' and #1b' at wikipedia: this tree's wrappers and ``other``'s in
+    turns."""
     import importlib
 
     import torch
@@ -274,21 +337,28 @@ def interleave(other: str, rounds: int) -> dict:
     w = ((torch.rand((ced, k), device=dev, generator=gen) * 2 - 1) * k**-0.5).t()
     bias = (torch.rand(ced, device=dev, generator=gen) * 2 - 1) * k**-0.5
     args = (dt, valid, tw, tb, w, bias, patch)
-    fns = {tree: (lambda o=o: o.time_channel_projection(*args, compute_dtype=torch.bfloat16))
-           for tree, o in (("here", ops), ("other", other_ops))}
+    dout = 1e-3 * torch.randn((m, lp // patch, ced), device=dev, generator=gen)
+    bargs = (dt, valid, tw, tb, w, dout, patch)
+    bf16 = torch.bfloat16
+    fns = {(kernel, tree): fn for tree, o in (("here", ops), ("other", other_ops))
+           for kernel, fn in (
+               ("forward", lambda o=o: o.time_channel_projection(*args, compute_dtype=bf16)),
+               ("backward", lambda o=o: o.time_channel_backward(*bargs, compute_dtype=bf16)))}
     per_round = []
     for r in range(rounds):
         order = ("here", "other") if r % 2 == 0 else ("other", "here")
-        per_round.append({tree: {"ms": cuda_ms(fns[tree], 200), "device_ms": graph_ms(fns[tree], 200)}
-                          for tree in order})
+        per_round.append({f"{kernel} {tree}": {"ms": cuda_ms(fns[kernel, tree], 200),
+                                               "device_ms": graph_ms(fns[kernel, tree], 200)}
+                          for kernel in ("forward", "backward") for tree in order})
         print(f"round {r} {json.dumps(per_round[-1])}", flush=True)
     summary = {}
-    for key in ("ms", "device_ms"):
-        here = [p["here"][key] for p in per_round]
-        there = [p["other"][key] for p in per_round]
-        summary[key] = {"here_faster": sum(a < b for a, b in zip(here, there)),
-                        "rounds": rounds, "here_median": statistics.median(here),
-                        "other_median": statistics.median(there)}
+    for kernel in ("forward", "backward"):
+        for key in ("ms", "device_ms"):
+            here = [p[f"{kernel} here"][key] for p in per_round]
+            there = [p[f"{kernel} other"][key] for p in per_round]
+            summary[f"{kernel} {key}"] = {
+                "here_faster": sum(a < b for a, b in zip(here, there)), "rounds": rounds,
+                "here_median": statistics.median(here), "other_median": statistics.median(there)}
     return summary
 
 
@@ -296,7 +366,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--repo", required=True, help="checkout whose dyglib_tpu_torch to run")
     ap.add_argument("--out", help="file to save the outputs and times to")
-    ap.add_argument("--interleave", help="another checkout: #1' at wikipedia in turns with it")
+    ap.add_argument("--interleave",
+                    help="another checkout: #1' and #1b' at wikipedia in turns with it")
     ap.add_argument("--rounds", type=int, default=10, help="rounds of --interleave")
     ap.add_argument("--compare", help="outputs of another checkout, to compare bit for bit")
     ap.add_argument("--sweep", action="store_true", help="time the wgmma forwards' K splits")

@@ -1,17 +1,19 @@
 """The bf16 variants of the time channel (#1, #1b) and the patch projection
 (#3, #3b), on the CPU.
 
-The CUDA kernels (csrc/time_channel.cu's bf16 entry points, the forward on
-wgmma and the backward on csrc/time_products.cuh's Bf16 product;
+The CUDA kernels (csrc/time_channel.cu's bf16 entry points, the forward
+and csrc/time_channel_bf16_bwd.cuh's backward, both on wgmma;
 csrc/patch_projection_bf16.cu, the forward on wgmma and the backward on
 mma.sync) run only on the card, where chip_smoke.py holds them to their
 plain versions. Here their arithmetic is emulated step by step: operands
 rounded to bf16 (to nearest even, as cvt.rn.bf16x2.f32 and torch's
 .to(bfloat16)), each 16-deep step's products summed in f32, each stage's
 steps summed into fresh registers and added to the running sum (32-deep
-stages on mma.sync, 64-deep in the patch projection's wgmma forward; the
-time channel's wgmma forward sums a whole split's steps on the tensor
-cores), the wrapper's splits of the reduction added in order; the patch
+stages on mma.sync, 64-deep in the patch projection's wgmma forward and
+the time channel's wgmma backward, whose dPhi is one 64-column stage a
+column tile; the time channel's wgmma forward sums a whole split's steps
+on the tensor cores), the wrapper's splits of the reduction added in
+order, the time backward's entries laid out as its wrapper lays them; the patch
 projection's output then rounded as TorchLinear(dtype=bfloat16) rounds:
 the sum to bf16, plus the bias rounded to bf16, rounded again. The
 emulations are held
@@ -36,8 +38,9 @@ emulations are held
     the other side of a boundary).
 
 Also the wrappers' helpers: ``copy_values`` (bf16 values a cp.async copy),
-the bf16 forward's slots padded to 16, the plans, TMA's rule for x's rows
-and the padded copy where it fails, the packed bf16 W^T and the time
+the bf16 forward's slots padded to 16, the plans (the time backward's row
+chunks among them), the time backward's entry layout, TMA's rule for x's
+rows and the padded copy where it fails, the packed bf16 W^T and the time
 forward's choice to convert W in its blocks.
 """
 import importlib
@@ -253,22 +256,33 @@ def emulated_time_forward(dt, valid, tw, tb, w, bias, patch):
 
 
 def emulated_time_backward(dt, valid, tw, tb, w, dout, patch):
-    """(dtw, dtb, dW, dbias): dW = Phi^T dout over 32-row stages of 16-row
-    steps, dPhi = dout W^T over ced padded to 64 in 16-deep steps, both on
-    bf16 operands; c = dPhi * -sin summed in f32; dbias = sum of f32 dout."""
+    """(dtw, dtb, dW, dbias) as the wgmma backward sums them, on bf16 Phi,
+    dout and W: the K entries laid out at bf16_entry_pad(Dt) apart in each
+    patch slot (padded entries zero); per 64-column tile of dout (ced
+    padded with zeros), dPhi^T = W_tile dout_tile^T in 16-deep steps (one
+    stage) and c = where(valid, dPhi * -sin), the tiles' c added; dW =
+    Phi^T dout over the plan's row chunks, each a run of 64-row stages of
+    16-row steps, each stage into a fresh sum, the chunks added in order;
+    dbias = the sum of the f32 dout."""
     m, l = dt.shape
     dt_dim, ced = tw.shape[0], w.shape[1]
     rows, k = m * (l // patch), patch * dt_dim
+    dt_pad, cols = tc.bf16_entry_pad(dt_dim), tc.BF16_BWD_COLS
     phi, theta = _phi(dt, valid, tw, tb, patch)
     g = dout.reshape(rows, ced)
-    g64 = torch.zeros((rows, 64 * -(-ced // 56)))
-    g64[:, :ced] = rb(g)
-    w64 = torch.zeros((k, g64.shape[1]))
-    w64[:, :ced] = rb(w)
-    chunk = tc.backward_chunk_rows(rows, patch, dt_dim, ced, H100_SMS)
-    dw = split_sum(rb(phi).t(), rb(g), chunk)
-    dphi = mma_matmul(g64, w64.t()).reshape(m, l, dt_dim)
-    common = torch.where(valid[..., None], dphi * -torch.sin(theta), 0.0)
+    a, bw = _padded(rb(phi), rb(w), patch, dt_dim, dt_pad)  # (rows, entries), (entries, ced)
+    g_pad = torch.zeros((rows, cols * -(-ced // cols)))
+    g_pad[:, :ced] = rb(g)
+    w_pad = torch.zeros((bw.shape[0], g_pad.shape[1]))
+    w_pad[:, :ced] = bw
+    common = 0.0
+    for c0 in range(0, g_pad.shape[1], cols):
+        dphi_t = mma_matmul(w_pad[:, c0 : c0 + cols], g_pad[:, c0 : c0 + cols].t(), WGMMA_STAGE)
+        dphi = dphi_t.t().reshape(rows, patch, dt_pad)[..., :dt_dim].reshape(m, l, dt_dim)
+        common = common + torch.where(valid[..., None], dphi * -torch.sin(theta), 0.0)
+    chunk = tc.wgmma_backward_plan(rows, patch, dt_dim, ced, H100_SMS)
+    dw = split_sum(a.t(), rb(g), chunk, WGMMA_STAGE)
+    dw = dw.reshape(patch, dt_pad, ced)[:, :dt_dim].reshape(k, ced)
     return (common * dt[..., None]).sum((0, 1)), common.sum((0, 1)), dw, g.sum(0)
 
 
@@ -338,6 +352,48 @@ def test_bf16_forward_plan_is_whole_stages_and_covers_k(rows, patch, dt_dim, ced
     chunk = tc.wgmma_forward_plan(rows, patch, dt_dim, ced, H100_SMS)
     assert chunk % WGMMA_STAGE == 0 and 0 < chunk and -(-kp // chunk) * chunk >= kp
     assert -(-kp // chunk) == 1 or -(-kp // chunk) * chunk - kp < chunk  # no empty split
+
+
+@pytest.mark.parametrize("rows,patch,dt_dim,ced,one_chunk", [
+    (19200, 64, 100, 50, False),  # CanParl: 50 entry tiles, 300 stages
+    (19200, 1, 100, 50, False),  # wikipedia: one entry tile
+    (7, 4, 6, 9, True),  # one stage
+    (19200, 132, 128, 50, True),  # 132 entry tiles: one chunk fills the card
+    (64 * 70000, 1, 100, 50, False),  # more stages than the grid's z takes chunks
+])
+def test_bf16_backward_plan_is_whole_stages_and_covers_rows(rows, patch, dt_dim, ced, one_chunk):
+    """The bf16 time backward's row chunks: whole 64-row stages, every row
+    covered with no empty chunk, at most the grid's z limit of chunks, and
+    one chunk where its blocks already fill the card or the rows are one
+    stage."""
+    chunk = tc.wgmma_backward_plan(rows, patch, dt_dim, ced, H100_SMS)
+    chunks = -(-rows // chunk)
+    assert chunk % tc.BF16_BWD_ROWS == 0 and 0 < chunk and chunks * chunk >= rows
+    assert chunks == 1 or chunks * chunk - rows < chunk
+    assert chunks <= 65535
+    assert (chunks == 1) is one_chunk
+
+
+def slots_bound(dt_pad):
+    """csrc/time_channel_bf16_bwd.cuh::slots_bound, which the kernel's entry
+    point checks against its 8 slots a block."""
+    e = tc.BF16_BWD_ENTRIES
+    return e // dt_pad if e % dt_pad == 0 else (e - 1) // dt_pad + 2
+
+
+@pytest.mark.parametrize("dt_dim,want", [(100, 100), (19, 19), (18, 32), (6, 16), (1, 16),
+                                         (101, 101), (128, 128)])
+def test_bf16_backward_entries_are_unpadded_where_a_block_spans_few_slots(dt_dim, want):
+    """The bf16 time backward lays each slot's Dt features out unpadded
+    where a block's 128 entries span at most 8 slots, else padded to 16:
+    either way within the kernel's 8 slots a block, whose bound is every
+    block's span counted."""
+    assert tc.bf16_entry_pad(dt_dim) == want
+    assert slots_bound(want) <= tc.BF16_BWD_MAX_SLOTS
+    # every block's span: entries e0 .. e0 + 127 at slots e // want
+    spans = {(e0 + tc.BF16_BWD_ENTRIES - 1) // want - e0 // want + 1
+             for e0 in range(0, 64 * want * tc.BF16_BWD_ENTRIES, tc.BF16_BWD_ENTRIES)}
+    assert max(spans) == slots_bound(want)
 
 
 @pytest.mark.parametrize("rows,k,ced", [(19200, 11008, 50), (19200, 344, 50), (12, 192, 10),

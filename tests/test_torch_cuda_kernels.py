@@ -24,7 +24,10 @@ and four; the attention kernels at TGN's and DyRep's shape (M = 600, K =
 reduced cosine and sine bit for bit against torch.cos and torch.sin; the
 bf16 forwards (the patch projection's choice of kernel by shape and
 address, ced 1 to 130, K split in many, no rows and one row; the time
-channel's Dt padding 1 to 101, every row masked).
+channel's Dt padding 1 to 101, every row masked) and the bf16 time-channel
+backward (0, 1, 63, 65 and 129 rows, ced 1 to 130, Dt 1, 6, 100 and 101,
+patch 1 to 64, every position masked, theta past 105615 and 2^40, both
+weight layouts).
 
 Tolerances: time_channel and patch_projection atol 1e-4 (both sides are
 f32; they differ only in the order of the f32 sums, K <= 11,008 products
@@ -391,7 +394,7 @@ extern "C" __global__ void cosine(const float* x, float* y, int n, int mode) {
   dyglib::cos_reduced<4>(x + 4 * i, y + 4 * i);
 }
 extern "C" int run(const float* x, float* y, int n, int mode) {
-  const int threads = mode == 0 ? n : n / 4;
+  const int threads = mode == 1 ? n / 4 : n;
   cosine<<<(threads + 255) / 256, 256>>>(x, y, n, mode);
   return static_cast<int>(cudaDeviceSynchronize());
 }
@@ -431,15 +434,22 @@ def test_reduced_cosine_is_torch_cos_bit_for_bit(dev, tmp_path):
 _SINE_PROBE = r"""
 #include "cos_reduced.cuh"
 // c[i], s[i] = cos(x[i]), -sin(x[i]) as the backward kernels take them:
-// per element by the path its size allows (mode 0), or four arguments a
-// thread through the warp-wide choice of sincos_reduced<4> (mode 1; n a
-// multiple of 4 * 32)
+// per element by the path its size allows (mode 0; mode 2: each polynomial
+// evaluated once, sincos_quadrants, as the bf16 backward does), or four
+// arguments a thread through the warp-wide choice of sincos_reduced<4>
+// (mode 1; n a multiple of 4 * 32)
 extern "C" __global__ void sine(const float* x, float* c, float* s, int n, int mode) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (mode == 0) {
+  if (mode != 1) {
     if (i >= n) return;
     const float v = x[i];
-    if (fabsf(v) < dyglib::kSmallLimit) {
+    if (mode == 2 && fabsf(v) < dyglib::kReducedLimit) {
+      float r;
+      int q;
+      dyglib::reduce_small(v, r, q);
+      if (!(fabsf(v) < dyglib::kSmallLimit)) dyglib::reduce_large(v, r, q);
+      dyglib::sincos_quadrants(r, q, c[i], s[i]);
+    } else if (fabsf(v) < dyglib::kSmallLimit) {
       dyglib::sincos_small(v, c[i], s[i]);
     } else if (fabsf(v) < dyglib::kReducedLimit) {
       dyglib::sincos_large(v, c[i], s[i]);
@@ -454,7 +464,7 @@ extern "C" __global__ void sine(const float* x, float* c, float* s, int n, int m
   dyglib::sincos_reduced<4>(x + 4 * i, c + 4 * i, s + 4 * i);
 }
 extern "C" int run(const float* x, float* c, float* s, int n, int mode) {
-  const int threads = mode == 0 ? n : n / 4;
+  const int threads = mode == 1 ? n / 4 : n;
   sine<<<(threads + 255) / 256, 256>>>(x, c, s, n, mode);
   return static_cast<int>(cudaDeviceSynchronize());
 }
@@ -466,8 +476,9 @@ def test_reduced_sine_is_torch_sin_bit_for_bit(dev, tmp_path):
     card (the library's sinf and cosf, the plain backward's): -(-sin) and
     cos equal in every bit, on each path and through the warp-wide choice,
     for |x| from 0 to 1e9 (both sides of the fast range at 105615) and
-    past 2^40, and nan at inf and nan. The sine is the cosine's kernel one
-    quadrant lower, as the library builds sinf."""
+    past 2^40, and nan at inf and nan; also the paths that evaluate each
+    polynomial once for both (the bf16 backward's). The sine is the
+    cosine's kernel one quadrant lower, as the library builds sinf."""
     import ctypes
     import subprocess
 
@@ -486,7 +497,7 @@ def test_reduced_sine_is_torch_sin_bit_for_bit(dev, tmp_path):
     x = torch.cat(parts + [-p for p in parts])
     x[:4] = torch.tensor([float("inf"), float("-inf"), float("nan"), 105615.0])
     want_sin, want_cos = torch.sin(x), torch.cos(x)
-    for mode in (0, 1):
+    for mode in (0, 1, 2):
         c, ms = torch.empty_like(x), torch.empty_like(x)
         assert lib.run(x.data_ptr(), c.data_ptr(), ms.data_ptr(), x.numel(), mode) == 0
         assert torch.equal(-ms[4:], want_sin[4:])
@@ -533,14 +544,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
 GRAD_RTOL = 3e-5
 
 
-def _abs_terms_time(dt, valid, tw, tb, w, dout, patch):
-    """Per-entry sums of |terms| of the four time-channel gradients."""
+def _abs_terms_time(dt, valid, tw, tb, w, dout, patch, rounded=False):
+    """Per-entry sums of |terms| of the four time-channel gradients
+    (``rounded``: of the bf16 variant's products, Phi, dout and W rounded to
+    bf16; dbias's terms stay the f32 dout's)."""
     theta = dt[..., None] * tw + tb
     mask = valid[..., None]
     phi = torch.where(mask, torch.cos(theta).abs(), 0.0).reshape(-1, w.shape[0])
     g = dout.reshape(-1, dout.shape[-1]).abs()
+    g_sum = g.sum(0)
+    if rounded:
+        phi, g, w = (t.to(torch.bfloat16).float() for t in (phi, g, w))
     common = torch.where(mask, (g @ w.abs().t()).reshape(theta.shape) * torch.sin(theta).abs(), 0.0)
-    return ((common * dt[..., None].abs()).sum((0, 1)), common.sum((0, 1)), phi.t() @ g, g.sum(0))
+    return ((common * dt[..., None].abs()).sum((0, 1)), common.sum((0, 1)), phi.t() @ g, g_sum)
 
 
 def _assert_grads_close(got, want, terms, names):
@@ -626,6 +642,54 @@ def test_time_channel_backward_kernel_edges(dev, seed, m, l, patch, dt_dim, ced,
         assert torch.equal(a, b)
         assert torch.isfinite(a).all()
     _assert_grads_close(got, want, _abs_terms_time(*args), ("dtw", "dtb", "dW", "dbias"))
+    if masked >= m:
+        assert not got[0].any() and not got[1].any() and not got[2].any()
+
+
+# the bf16 backward's edges (csrc/time_channel_bf16_bwd.cuh): 1, 63, 65
+# and 129 rows (partial 64-row stages), ced 56, 57 and 65 (a second 64-column
+# tile at 65), Dt 6 and 1 (entries padded to 16) and 101 (unpadded), patch
+# 1, 4 and 64, every position masked, theta past 105615 (the double
+# reduction) and past 2^40 (sincosf). (seed, M, L, patch, Dt, ced, dt
+# scale, masked rows)
+BF16_TIME_BWD_EDGES = [
+    (50, 1, 1, 1, 100, 50, 1e6, 0),  # one row, patch 1
+    (51, 63, 4, 4, 100, 56, 1e6, 0),  # 63 rows, ced 56
+    (52, 65, 64, 64, 100, 57, 1e6, 0),  # 65 rows of K = 6400, ced 57
+    (53, 129, 4, 4, 6, 65, 1e6, 0),  # 129 rows, Dt 6, two column tiles
+    (54, 13, 64, 64, 101, 9, 1e8, 0),  # Dt 101 unpadded, theta past 105615
+    (55, 30, 16, 4, 1, 1, 1e6, 0),  # Dt 1, ced 1, patch 4
+    (56, 10, 128, 64, 100, 50, 1e6, 10),  # every position masked
+    (57, 9, 256, 8, 100, 50, 1e13, 0),  # theta past 2^40
+]
+
+
+@pytest.mark.parametrize("layout", ["rows", "linear"])
+@pytest.mark.parametrize("seed,m,l,patch,dt_dim,ced,scale,masked",
+                         BF16_TIME_CASES + BF16_TIME_BWD_EDGES)
+def test_bf16_time_backward_kernel_matches_plain(dev, seed, m, l, patch, dt_dim, ced, scale,
+                                                 masked, layout):
+    """The bf16 time-channel backward on wgmma within GRAD_RTOL of each
+    gradient's sum|terms| (its bf16 operands') from its plain bf16
+    version, a second launch bitwise equal, zero dW, dtw and dtb where
+    every position is masked."""
+    dt, valid, tw, tb, w, _ = _time_inputs(dev, seed, m, l, patch, dt_dim, ced, scale,
+                                           masked_rows=masked)
+    dout = torch.from_numpy(
+        np.random.RandomState(seed + 1).randn(m, l // patch, ced).astype(np.float32)).to(dev)
+    bf16 = torch.bfloat16
+    args = (dt, valid, tw, tb, _layout(w, layout), dout, patch)
+    ops.reset_launch_counts()
+    got = ops.time_channel_backward(*args, compute_dtype=bf16)
+    again = ops.time_channel_backward(*args, compute_dtype=bf16)
+    assert {c: v for c, v in ops.launch_counts().items() if v} == {"time_channel_bf16_bwd": 2}
+    want = ops.time_channel_backward_plain(*args, compute_dtype=bf16)
+    terms = _abs_terms_time(*args, rounded=True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+        assert torch.isfinite(a).all()
+    _assert_grads_close(got, want, terms, ("dtw", "dtb", "dW", "dbias"))
     if masked >= m:
         assert not got[0].any() and not got[1].any() and not got[2].any()
 
