@@ -113,9 +113,17 @@ and prints no result):
      gradient, so both take the same branch: kernel_side), and one
      lockstep step at dropout 0.1 (the same dropout_gen seed for both
      paths: the keep masks go through the backward kernels);
-  5u. TGAT with the uniform strategy (default kernels): a few train steps
-     (its kernels launch, forward and backward), then two evaluate sweeps
-     over the first val batches with identical probabilities;
+  5u, 5i. TGAT with the uniform strategy, then with the
+     time_interval_aware strategy (default kernels, the trainers' time
+     scaling factor 1e-6, dropout 0), each: #5, #5b, #6 and #6b on
+     a batch it samples, against their plain versions as in phase 3 (the
+     forwards within KERNEL_ATOL, the backwards within GRAD_RTOL of sum|terms|,
+     second launches bitwise equal; times); 5 train steps (#6 and #6b twice
+     a step, #5 and #5b once; finite losses and gradients); the kernel and
+     plain paths in lockstep as in 5t (one sampling seed a step for both);
+     the first 20 val batches twice (bitwise equal), through the plain path
+     (within PROB_ATOL) and in bf16 (phase 5b's limit); ms a train step and
+     an eval batch against recent's (both on the default kernels) in turns;
   5m. TGN, DyRep and JODIE (time shifts from the train split), each: the
      first 20 val batches from the memory after the last 20 train batches,
      plain and kernel paths in turns (four sweeps each): counters zeroed
@@ -203,7 +211,11 @@ and prints no result):
      training (1 epoch), evaluation under historical negatives,
      node-class training (2 epochs) and evaluation; the artifacts in
      DyGLib's layout, every aggregate finite and in [0, 1], each driver's
-     wall seconds;
+     wall seconds; link-prediction training for TGAT (K = 20, 2 layers)
+     under ``--sample_neighbor_strategy time_interval_aware``. TGAT's head
+     under time_interval_aware too ("TGAT tia": the same checks as TGAT's,
+     the plain path of each lockstep head step drawing the step's
+     neighbors);
   5s. scan epochs as CUDA graphs (``TrainConfig(scan_epochs=True)``, no
      sequence buckets, dropout 0, train negatives seeded 13): for each path
      a train epoch then an eval sweep from the state it leaves, once by the
@@ -223,7 +235,8 @@ and prints no result):
      epoch (10 train batches) and eval sweep (20 val batches), each then
      timed in turns loop, graph, graph, loop (medians of ms per train step
      and eval batch); TGAT under ``uniform`` (the sampling generators
-     registered with the graphs) over 5 and 5 batches; TGAT window (#7,
+     registered with the graphs) over 5 and 5 batches, and under
+     ``time_interval_aware`` the same; TGAT window (#7,
      #7b), Phi fusion (#8, #8b) and DyGFormer's entry fetch (#4) one
      replay each; DyRep, JODIE, GraphMixer, TCL and CAWN two replays each.
      TGAT under ``uniform`` again: eval sweeps with salts 0, 2 and 0 through
@@ -267,8 +280,10 @@ and prints no result):
   7. print one JSON line of kernel numbers (each row with its main-path
      launches (the bf16 variants: phase 5b's DyGFormer sweeps; their rows
      also carry their split-TF32 siblings' ms), where phase 5c runs it its node-classification launches
-     over 20 eval batches, its launches by phase 5s's replays, and its
-     launches on phase 5d's mesh path; a kernel measured at a shape that
+     over 20 eval batches, its launches by phase 5s's replays, its
+     launches on phase 5d's mesh path, and its launches in phase 5i's
+     train steps and first eval sweep (TGAT's rows also carry phase 5i's
+     errors and times on time_interval_aware's draws); a kernel measured at a shape that
      no path runs it at (the patch projection's at 32/1) lists those
      numbers under "isolated" in its main-path row), then the device JSON
      line.
@@ -379,6 +394,19 @@ TGAT_KERNEL_CONFIG = {"temporal_attention": "default", "gathered_attention": "de
 # TGAT training: the last train batches, dropout 0 (and one lockstep step at
 # the published dropout)
 TGAT_TRAIN_STEPS, TGAT_DROPOUT = 5, 0.1
+# TGAT under the stochastic strategies (phases 5u: uniform, 5i:
+# time_interval_aware, at the trainers' time scaling factor, TrainConfig's
+# as the JAX package's): train steps and val batches of their sweeps; ms
+# against recent's in turns (False: recent, True: the strategy; both on the
+# default kernels)
+TIA = "time_interval_aware"
+TIA_ALPHA = 1e-6
+SAMPLED_STEPS, SAMPLED_BATCHES = 5, 20
+SAMPLED_TURNS = (False, True, True, False)
+# the launches of a train step, and of a val batch
+SAMPLED_TRAIN_LAUNCHES = {"gathered_attention": 2, "gathered_attention_bwd": 2,
+                          "temporal_attention": 1, "temporal_attention_bwd": 1}
+SAMPLED_EVAL_LAUNCHES = {"gathered_attention": 2, "temporal_attention": 1}
 
 
 # TGN, DyRep and JODIE at their published widths (bench.py:94-100: TGN and
@@ -441,11 +469,13 @@ NEW_FIT = {
 # (load_node_classification_best_configs: DyGFormer 32/1 with 2 layers, TGAT
 # K = 20 with 2 layers, TGN K = 10 with 1 layer; all "recent", dropout 0.1),
 # backbone and head from seed 0: the forward kernels an eval batch and a head
-# step launch (the frozen backbone launches no backward kernel)
+# step launch (the frozen backbone launches no backward kernel); "TGAT tia":
+# TGAT's widths under time_interval_aware
 NODECLS_MODELS = {
     "DyGFormer": {"time_channel": 1, "cooccurrence": 2},  # patch 1: no patch projection
     "TGAT": {"gathered_attention": 2, "temporal_attention": 1},
     "TGN": {"temporal_attention": 1},
+    "TGAT tia": {"gathered_attention": 2, "temporal_attention": 1},
 }
 # the kernel rows whose configuration is each model's node-class width
 NODECLS_KERNEL_ROWS = {"wikipedia": "DyGFormer", "tgat": "TGAT", "tgn": "TGN"}
@@ -1039,10 +1069,12 @@ def check_bf16_kernels(dev) -> dict:
     return results
 
 
-def tgat_batch(data, dev):
+def tgat_batch(data, dev, strategy="recent"):
     """TGAT at its published widths (weights from seed 0, on the card) and
     the hop tensors of the first val batch's triple, sampled from the full
-    stream's CSR with its entry table: (net, tables, csr, inputs)."""
+    stream's CSR: under ``recent`` with its entry table (windows); under a
+    stochastic strategy drawn from a seeded generator (``time_interval_aware``
+    on the CSR's weights at TIA_ALPHA): (net, tables, csr, inputs)."""
     import numpy as np
     import torch
 
@@ -1051,20 +1083,28 @@ def tgat_batch(data, dev):
     from dyglib_tpu_torch.models import TGAT, FeatureTables
 
     tgat = TGAT(num_neighbors=TGAT_K, num_layers=2, num_heads=2, time_feat_dim=DT_DIM,
-                wants_entry_features=True)
+                wants_entry_features=True, sample_strategy=strategy)
     net = tgat.build(FEAT, FEAT, torch.Generator().manual_seed(0)).to(dev).eval()
     feats = (data.node_raw_features, data.edge_raw_features)
-    csr = build_temporal_csr(data.full, num_nodes=data.num_nodes, device=dev, feat_entry_of=feats)
+    gen = None
+    if strategy == "recent":
+        csr = build_temporal_csr(data.full, num_nodes=data.num_nodes, device=dev,
+                                 feat_entry_of=feats)
+    else:
+        csr = build_temporal_csr(data.full, num_nodes=data.num_nodes, device=dev,
+                                 with_tia=strategy == TIA, time_scaling_factor=TIA_ALPHA)
+        gen = torch.Generator(device=dev).manual_seed(3)
     tables = FeatureTables(*(torch.from_numpy(f).to(dev) for f in feats))
     rng = np.random.RandomState(0)
     ids = np.concatenate([data.val.src[:B], data.val.dst[:B],
                           rng.randint(1, data.num_nodes, B)]).astype(np.int32)
     ts = np.tile(time_keys(data.val.ts[:B]), 3).astype(np.int32)
-    inputs = tgat.sample(csr, torch.from_numpy(ids).to(dev), torch.from_numpy(ts).to(dev))
+    inputs = tgat.sample(csr, torch.from_numpy(ids).to(dev), torch.from_numpy(ts).to(dev),
+                         gen=gen)
     return net, tables, csr, inputs
 
 
-def check_tgat_kernels(data, dev) -> dict:
+def check_tgat_kernels(data, dev, strategy="recent") -> dict:
     """Phase 3, TGAT's four attention kernels, at the shapes TGAT's
     evaluation gives them (the B = 200 triple: M0 = 600 queries, K = 20):
     temporal attention at layer 2 (M = 600), gathered and window attention
@@ -1074,12 +1114,15 @@ def check_tgat_kernels(data, dev) -> dict:
     windows) and the seed-0 weights. Each attention forward and the Phi
     projection launched twice must give bitwise equal outputs. The library yardstick is partial: the plain path's two
     K/V torch.mm's on the materialized kv (for the Phi projection, torch.mm
-    on a precomputed Phi), timed alone."""
+    on a precomputed Phi), timed alone. Under a stochastic strategy
+    (phases 5u, 5i) the temporal and gathered attention only, on its
+    draws, keyed "tgat_<strategy>"."""
     import torch
 
     from dyglib_tpu_torch import ops
 
-    net, tables, csr, inputs = tgat_batch(data, dev)
+    config = "tgat" if strategy == "recent" else f"tgat_{strategy}"
+    net, tables, csr, inputs = tgat_batch(data, dev, strategy)
     conv = net.temporal_conv_0
     heads, k = conv.num_heads, TGAT_K
     tw, tb = net.time_encoder.w.detach().reshape(-1), net.time_encoder.b.detach()
@@ -1102,7 +1145,7 @@ def check_tgat_kernels(data, dev) -> dict:
         entry = dict(part=part, max_abs_err=err, ms=cuda_ms(fn, iters, 3),
                      plain_ms=cuda_ms(plain, iters, 3), library_ms=cuda_ms(lib, iters, 3),
                      bytes=nbytes, ops=nops, ops_peak=ops_peak, sfu_ops=sfu)
-        results.setdefault((kernel, "tgat"), {"parts": []})["parts"].append(entry)
+        results.setdefault((kernel, config), {"parts": []})["parts"].append(entry)
         what = "Phi @ W mm" if kernel == "phi_projection" else "K/V mm's"
         b_ms, b_by = bound_ms(nbytes, nops, ops_peak)
         log(f"  {kernel:<20} {part:<26} err {err:.3g}  kernel {entry['ms']:.4f} ms  "
@@ -1121,10 +1164,10 @@ def check_tgat_kernels(data, dev) -> dict:
         want = outputs(plain)
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError(f"{kernel}@tgat: two launches differ")
+            raise AssertionError(f"{kernel}@{config}: two launches differ")
         err = max((g - w).abs().max().item() for g, w in zip(got, want))
         if not (all(g.shape == w.shape for g, w in zip(got, want)) and err <= KERNEL_ATOL):
-            raise AssertionError(f"{kernel}@tgat: max abs err {err} > {KERNEL_ATOL}")
+            raise AssertionError(f"{kernel}@{config}: max abs err {err} > {KERNEL_ATOL}")
         return err
 
     with torch.inference_mode():
@@ -1164,6 +1207,9 @@ def check_tgat_kernels(data, dev) -> dict:
                lambda: ops.gathered_attention(*args), lambda: ops.gathered_attention_plain(*args),
                lib, nbytes, fwd_ops(m) + theta_ops, 5)
 
+        if strategy != "recent":  # the window and Phi kernels: recent's paths
+            return results
+
         starts = inputs.hop_win_start[1].reshape(-1)
         args = (q3, starts, dt, mask, keep, csr.feat_entry, tw, tb, (wk, wv), heads)
         err = compare("window_attention", lambda: ops.window_attention(*args),
@@ -1198,7 +1244,7 @@ def check_tgat_kernels(data, dev) -> dict:
     return results
 
 
-def check_tgat_backward_kernels(data, dev) -> dict:
+def check_tgat_backward_kernels(data, dev, strategy="recent") -> dict:
     """Phase 3, TGAT's four backward kernels at the shapes TGAT's training
     gives them (the B = 200 triple, K = 20, dropout keep masks at p = 0.1):
     temporal attention at layer 2 (M = 600), gathered and window attention
@@ -1209,13 +1255,16 @@ def check_tgat_backward_kernels(data, dev) -> dict:
     weight-gradient torch.mm's on the materialized kv and dkey / dval (for
     the Phi projection, Phi^T @ dout and dout @ w^T on a precomputed Phi),
     timed alone; the port never calls them. Bounds count the operations
-    the function needs, reassociated as the kernels compute it."""
+    the function needs, reassociated as the kernels compute it. Under a
+    stochastic strategy (phases 5u, 5i) the temporal and gathered
+    attention only, on its draws, keyed "tgat_<strategy>"."""
     import torch
 
     from dyglib_tpu_torch import ops
     from dyglib_tpu_torch.ops import _attention
 
-    net, tables, csr, inputs = tgat_batch(data, dev)
+    config = "tgat" if strategy == "recent" else f"tgat_{strategy}"
+    net, tables, csr, inputs = tgat_batch(data, dev, strategy)
     conv = net.temporal_conv_0
     heads, k = conv.num_heads, TGAT_K
     tw, tb = net.time_encoder.w.detach().reshape(-1), net.time_encoder.b.detach()
@@ -1247,18 +1296,19 @@ def check_tgat_backward_kernels(data, dev) -> dict:
         terms = plain(*args, abs_terms=True)
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError(f"{kernel}@tgat {part}: two launches differ")
+            raise AssertionError(f"{kernel}@{config} {part}: two launches differ")
         if not all(torch.isfinite(a).all() for a in got):
-            raise AssertionError(f"{kernel}@tgat {part}: a gradient is not finite")
+            raise AssertionError(f"{kernel}@{config} {part}: a gradient is not finite")
         err, rel = grad_errors(got, want, terms)
         if not rel <= GRAD_RTOL:
-            raise AssertionError(f"{kernel}@tgat {part}: error {rel} of sum|terms| > {GRAD_RTOL}")
+            raise AssertionError(f"{kernel}@{config} {part}: error {rel} of sum|terms| > "
+                                 f"{GRAD_RTOL}")
         del got, again, want, terms
         entry = dict(part=part, max_abs_err=err, ms=cuda_ms(lambda: bwd(*args), iters, 3),
                      plain_ms=cuda_ms(lambda: plain(*args), iters, 3),
                      library_ms=cuda_ms(lib, iters, 3), bytes=nbytes, ops=nops,
                      ops_peak=ops_peak, sfu_ops=sfu)
-        results.setdefault((kernel, "tgat"), {"parts": []})["parts"].append(entry)
+        results.setdefault((kernel, config), {"parts": []})["parts"].append(entry)
         b_ms, b_by = bound_ms(nbytes, nops, ops_peak)
         log(f"  {kernel:<24} {part:<24} err {err:.3g} ({rel:.3g} of sum|terms|)  kernel "
             f"{entry['ms']:.4f} ms  plain {entry['plain_ms']:.4f} ms  library (partial: weight "
@@ -1307,15 +1357,19 @@ def check_tgat_backward_kernels(data, dev) -> dict:
                   ops.gathered_attention_backward_plain, args, lib,
                   small(m) + 4 * (m * k * (2 * FEAT + 1) + 4 * DT_DIM),
                   bwd_ops(m, DT_DIM, DT_DIM), iters)
-            starts = inputs.hop_win_start[h].reshape(-1)
-            n_valid = int(mask.sum())
-            args = (q3, starts, dt, mask, keep, csr.feat_entry, tw, tb, (wk, wv), dout, heads)
-            check("window_attention_bwd", f"{part} valid rows {n_valid}",
-                  ops.window_attention_backward, ops.window_attention_backward_plain, args, lib,
-                  small(m) + 4 * (n_valid * 2 * FEAT + m * k + 4 * DT_DIM + m),
-                  bwd_ops(m, DT_DIM, DT_DIM) + m * k * 2 * FEAT, iters)
+            if strategy == "recent":  # windows exist under recent only
+                starts = inputs.hop_win_start[h].reshape(-1)
+                n_valid = int(mask.sum())
+                args = (q3, starts, dt, mask, keep, csr.feat_entry, tw, tb, (wk, wv), dout,
+                        heads)
+                check("window_attention_bwd", f"{part} valid rows {n_valid}",
+                      ops.window_attention_backward, ops.window_attention_backward_plain, args,
+                      lib, small(m) + 4 * (n_valid * 2 * FEAT + m * k + 4 * DT_DIM + m),
+                      bwd_ops(m, DT_DIM, DT_DIM) + m * k * 2 * FEAT, iters)
             del feat_n, feat_e, kv, lib, args
             torch.cuda.empty_cache()
+        if strategy != "recent":  # the Phi kernels: recent's paths
+            return results
 
         # ---- Phi projection, R = 12,000 and 240,000 (hop 0's and hop 1's
         # deltas), Wk's Phi rows; both products on the tensor cores in three
@@ -1595,9 +1649,9 @@ def tgat_lockstep(tr, params, batches, dropout: float, align: bool = True,
     lockstep: at every step both paths' loss and gradients from the same
     parameters (the kernel path's trajectory; a memory model's from the
     kernel path's memory, committed after each step), the
-    dropout generator reseeded the same way for both, then the kernel
-    path's optimizer step. A parameter the loss does not reach has no
-    gradient on either path. Returns the largest loss difference
+    dropout generator (and a stochastic strategy's sampling generator)
+    reseeded the same way for both, then the kernel path's optimizer step.
+    A parameter the loss does not reach has no gradient on either path. Returns the largest loss difference
     (``loss_diff``), the largest gradient error as a share of its tensor's
     largest entry (``grad_err``; the time encoder's frequencies left to
     phase 3's sum-of-|terms| check), the tensor where it fell (``worst``),
@@ -1658,7 +1712,9 @@ def tgat_lockstep(tr, params, batches, dropout: float, align: bool = True,
                         kernel_acts[r], calls[r] = [], 0
                 tr.model.use_kernels = use_kernels
                 tr.dropout_gen.manual_seed(1000 + step)
-                inputs = tr._sample(tr.train_csr, arrays, "dedup", bucket)
+                if tr.sample_gen is not None:  # both paths draw the same neighbors
+                    tr.sample_gen.manual_seed(2000 + step)
+                inputs = tr._sample(tr.train_csr, arrays, "dedup", bucket, tr.sample_gen)
                 if state is None:
                     embs = tr._embed(inputs, "dedup", tr.dropout_gen)
                 else:
@@ -1791,10 +1847,17 @@ def run_tgat_training(data, dev) -> dict:
     return result
 
 
-def run_tgat_uniform(data, dev, n_steps: int = 3, n_batches: int = 5) -> dict:
-    """Phase 5u: TGAT under the uniform strategy (default kernels) trains a
-    few steps through its kernels and evaluates the first val batches twice
-    with identical probabilities."""
+def run_tgat_sampled(data, dev, strategy) -> dict:
+    """Phases 5u and 5i: TGAT under a stochastic ``strategy`` at the
+    published widths (default kernels, dropout 0, seed-0 weights). #5, #5b,
+    #6 and #6b on a batch it samples against their plain versions (phase
+    3's limits); SAMPLED_STEPS train steps (launches a step, finite losses
+    and gradients); the kernel path against the plain path in lockstep
+    (one sampling seed a step for both; at dropout 0 and, one step,
+    TGAT_DROPOUT); the first SAMPLED_BATCHES val batches twice (bitwise
+    equal), through the plain path (within PROB_ATOL) and in bf16 (phase
+    5b's limit); then ms a train step and an eval batch against recent's,
+    in SAMPLED_TURNS."""
     import numpy as np
     import torch
 
@@ -1802,29 +1865,118 @@ def run_tgat_uniform(data, dev, n_steps: int = 3, n_batches: int = 5) -> dict:
     from dyglib_tpu_torch.models import TGAT
     from dyglib_tpu_torch.train import LinkPredictionTrainer, TrainConfig
 
-    tr = LinkPredictionTrainer(
-        TGAT(num_neighbors=TGAT_K, num_layers=2, num_heads=2, time_feat_dim=DT_DIM,
-             sample_strategy="uniform"),
-        data, TrainConfig(batch_size=B, learning_rate=TRAIN_LR), device=dev)
-    tr.init_params(0)
-    n = data.train.num_interactions
-    batches = list(tr.train_batches(data.train.slice(n - n_steps * B, n)))
-    ops.reset_launch_counts()
-    losses = [float(tr.train_step(arrays, bucket)[0]) for _, arrays, bucket in batches]
+    t0 = time.perf_counter()
+    kernels = check_tgat_kernels(data, dev, strategy)
+    kernels.update(check_tgat_backward_kernels(data, dev, strategy))
+    torch.cuda.empty_cache()
+
+    def trainer(sample_strategy, params=None, **kw):
+        tr = LinkPredictionTrainer(
+            TGAT(num_neighbors=TGAT_K, num_layers=2, num_heads=2, time_feat_dim=DT_DIM,
+                 dropout=0.0, sample_strategy=sample_strategy, **kw),
+            data, TrainConfig(batch_size=B, learning_rate=TRAIN_LR, time_scaling_factor=TIA_ALPHA),
+            device=dev)
+        tr.init_params(0)
+        if params is not None:
+            tr.load_params(params)
+        tr.evaluate(data.val.slice(0, B), tr.val_neg)  # warm-up: allocator, cuBLAS
+        return tr
+
+    name = f"TGAT {strategy}"
+    tr = trainer(strategy)
+    if ((tr.full_csr.tia_cew is not None) != (strategy == TIA)
+            or tr.full_csr.feat_entry is not None or tr._layout() != "dedup"):
+        raise AssertionError(f"{name}: the trainer's CSR or layout is not the strategy's")
+    # a copy: the state dicts share the live weights, which training moves
+    params = {part: {n: v.clone() for n, v in sd.items()} for part, sd in tr.state_dicts().items()}
+    batches = tgat_train_batches(data, tr, SAMPLED_STEPS)
+    stream = data.val.slice(0, SAMPLED_BATCHES * B)
+
+    # the main path: train steps, then an eval sweep, each with the counters
+    # zeroed just before and read just after
     torch.cuda.synchronize()
-    counts = {k: v for k, v in ops.launch_counts().items() if v}
-    want = {"gathered_attention": 2, "gathered_attention_bwd": 2, "temporal_attention": 1,
-            "temporal_attention_bwd": 1}
-    if counts != {k: v * n_steps for k, v in want.items()} or not np.isfinite(losses).all():
-        raise AssertionError(f"TGAT uniform training: launched {counts}, losses {losses}")
-    stream = data.val.slice(0, n_batches * B)
-    (_, m1, p1), (_, _, p2) = (tr.evaluate(stream, tr.val_neg) for _ in range(2))
-    diff = max_prob_diff(p1, p2)
-    if diff != 0.0 or len(p1) != n_batches:
-        raise AssertionError(f"TGAT uniform: two evaluate sweeps differ by {diff}")
-    result = dict(train_losses=losses, train_launches=counts, eval_batches=n_batches,
-                  eval_sweep_diff=diff, metrics=tr.mean_metrics(m1))
+    ops.reset_launch_counts()
+    losses = [float(tr.train_step(arrays, bucket)[0]) for arrays, bucket in batches]
+    torch.cuda.synchronize()
+    train_launches = nonzero_launches()
+    finite = all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                 for mod in (tr.model, tr.head) for p in mod.parameters())
+    if train_launches != {k: v * SAMPLED_STEPS for k, v in SAMPLED_TRAIN_LAUNCHES.items()}:
+        raise AssertionError(f"{name} training: launched {train_launches}, expected "
+                             f"{SAMPLED_TRAIN_LAUNCHES} a step")
+    if not finite or not np.isfinite(losses).all():
+        raise AssertionError(f"{name} training: losses {losses}, every gradient finite: {finite}")
+    tr.load_params(params)
+    ops.reset_launch_counts()
+    _, metrics, probs = tr.evaluate(stream, tr.val_neg)
+    torch.cuda.synchronize()
+    eval_launches = nonzero_launches()
+    if eval_launches != {k: v * SAMPLED_BATCHES for k, v in SAMPLED_EVAL_LAUNCHES.items()}:
+        raise AssertionError(f"{name} evaluation: launched {eval_launches}, expected "
+                             f"{SAMPLED_EVAL_LAUNCHES} a batch")
+    if len(probs) != SAMPLED_BATCHES or not all(
+            np.isfinite(p).all() and np.isfinite(q).all() and p.shape == q.shape == (B,)
+            for p, q in probs):
+        raise AssertionError(f"{name}: probabilities malformed or not finite")
+    mean = tr.mean_metrics(metrics)
+    if not all(0.0 <= v <= 1.0 for v in mean.values()):
+        raise AssertionError(f"{name}: metrics out of range {mean}")
+    repeat = max_prob_diff(probs, tr.evaluate(stream, tr.val_neg)[2])
+    tr.model.use_kernels = False  # the same draws: the eval generator is re-seeded a sweep
+    plain = tr.evaluate(stream, tr.val_neg)[2]
+    tr.model.use_kernels = True
+    plain_diff = max_prob_diff(probs, plain)
+    if repeat != 0.0 or not plain_diff <= PROB_ATOL:
+        raise AssertionError(f"{name}: two eval sweeps differ by {repeat}, kernel vs plain "
+                             f"by {plain_diff} (limit {PROB_ATOL})")
+    lockstep = check_tgat_lockstep(tgat_lockstep(tr, params, batches, 0.0), name, 0.0)
+    dropped = check_tgat_lockstep(tgat_lockstep(tr, params, batches[-1:], TGAT_DROPOUT),
+                                  name, TGAT_DROPOUT)
+
+    # bf16: the same draws through the kernels and the plain path, each
+    # against the f32 kernel path
+    tr.init_params(0)  # the lockstep left its net at TGAT_DROPOUT
+    tr.load_params(params)
+    bf = trainer(strategy, params, compute_dtype="bfloat16")
+    probs_bf = bf.evaluate(stream, bf.val_neg)[2]
+    bf.model.use_kernels = False
+    plain_bf = bf.evaluate(stream, bf.val_neg)[2]
+    bf16 = dict(max_prob_diff_vs_plain=max_prob_diff(probs_bf, plain_bf),
+                bf16_vs_f32_prob_gap=max_prob_diff(probs_bf, probs),
+                plain_bf16_vs_f32_prob_gap=max_prob_diff(plain_bf, probs))
+    bf16["prob_limit"] = check_bf16_gap(name, bf16["max_prob_diff_vs_plain"],
+                                        bf16["bf16_vs_f32_prob_gap"],
+                                        bf16["plain_bf16_vs_f32_prob_gap"])
+    del bf
+
+    # ms a train step and an eval batch, against recent's, in turns
+    trs = {True: tr, False: trainer("recent", params)}
+    ms = {turn: {"train_step": [], "eval_batch": []} for turn in trs}
+    for turn in SAMPLED_TURNS:
+        t = trs[turn]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for arrays, bucket in batches:
+            t.train_step(arrays, bucket)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        t.evaluate(stream, t.val_neg)
+        torch.cuda.synchronize()
+        ms[turn]["train_step"].append((t2 - t1) / len(batches) * 1e3)
+        ms[turn]["eval_batch"].append((time.perf_counter() - t2) / SAMPLED_BATCHES * 1e3)
+    result = dict(
+        kernels={f"{k}@{c}": max(p["max_abs_err"] for p in v["parts"])
+                 for (k, c), v in kernels.items()},
+        steps=len(batches), train_losses=losses, train_launches=train_launches,
+        eval_batches=SAMPLED_BATCHES, eval_launches=eval_launches, metrics=mean,
+        eval_sweep_diff=repeat, max_prob_diff_vs_plain=plain_diff,
+        lockstep_dropout0=lockstep, lockstep_dropout01_one_step=dropped, bf16=bf16,
+        ms_in_turns={strategy: ms[True], "recent": ms[False]}, card=card_line(),
+        seconds=time.perf_counter() - t0)
+    del trs, tr
+    torch.cuda.empty_cache()
     log(f"  {json.dumps(result)}")
+    result["kernel_parts"] = kernels
     return result
 
 
@@ -2690,15 +2842,18 @@ def nonzero_launches() -> dict:
 def nodecls_trainer(data, nc, name, dev):
     """A node-classification trainer of ``name`` at its published wikipedia
     widths, built as the CLI builds it (``get_node_classification_args`` with
-    ``--load_best_configs``, ``build_backbone``), backbone weights and head
-    from seed 0, head dropout 0."""
+    ``--load_best_configs``, ``build_backbone``; "TGAT tia": then
+    ``time_interval_aware``), backbone weights and head from seed 0, head
+    dropout 0."""
     import torch
 
     from dyglib_tpu_torch.configs import build_backbone, get_node_classification_args
     from dyglib_tpu_torch.train import NodeClassificationTrainer, TrainConfig
 
     args = get_node_classification_args(
-        ["--model_name", name, "--dataset_name", "wikipedia", "--load_best_configs"])
+        ["--model_name", name.split()[0], "--dataset_name", "wikipedia", "--load_best_configs"])
+    if name == "TGAT tia":  # the best configs set recent
+        args.sample_neighbor_strategy = TIA
     backbone = build_backbone(args, data)
     params = backbone.build(FEAT, FEAT, torch.Generator().manual_seed(0)).state_dict()
     tr = NodeClassificationTrainer(
@@ -2826,9 +2981,13 @@ def run_nodecls_training(tr, nc, name) -> dict:
         labels = torch.from_numpy(b.label.astype(np.float32)).to(tr.device)
         tr.model.use_kernels = False
         tr.head.train()
-        emb, _ = tr._src_embeddings(arrays, state)
+        # a stochastic strategy: the plain path draws what the step will draw
+        drawn = None if tr.sample_gen is None else tr.sample_gen.get_state()
+        emb, _ = tr._src_embeddings(arrays, state, tr.sample_gen)
         plain_loss, _ = tr.head_loss(emb, labels, arrays[4])
         plain_grads = torch.autograd.grad(plain_loss, list(head.values()))
+        if drawn is not None:
+            tr.sample_gen.set_state(drawn)
         tr.model.use_kernels = True
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2961,9 +3120,46 @@ def run_drivers(root) -> dict:
                 raise AssertionError(f"{model} drivers: missing {missing}, logs {logs}")
             log(f"  {model} drivers: wall seconds {json.dumps(seconds)}")
             results[model] = seconds
+        results["TGAT tia"] = run_tia_driver()
     finally:
         os.chdir(cwd)
     return results
+
+
+def run_tia_driver() -> dict:
+    """Phase 5c, link-prediction training (1 run, 1 epoch) by its driver for
+    TGAT at its published widths under ``--sample_neighbor_strategy
+    time_interval_aware`` (no ``--load_best_configs``: TGAT's set recent),
+    in the working directory run_drivers prepared: the backbone the driver
+    built samples under the strategy, the artifacts are in DyGLib's
+    layout and every aggregate is finite and in [0, 1]."""
+    import numpy as np
+
+    from dyglib_tpu_torch import runners
+    from dyglib_tpu_torch.cli import train_link_prediction
+
+    built, build = [], runners.build_backbone
+    runners.build_backbone = lambda args, data: built.append(build(args, data)) or built[-1]
+    try:
+        t0 = time.perf_counter()
+        aggregate = train_link_prediction.main(
+            ["--model_name", "TGAT", "--dataset_name", "synthetic", "--data_root",
+             "processed_data", "--num_runs", "1", "--num_epochs", "1", "--num_neighbors",
+             str(TGAT_K), "--num_layers", "2", "--sample_neighbor_strategy", TIA])
+        seconds = time.perf_counter() - t0
+    finally:
+        runners.build_backbone = build
+    values = [mean for split in aggregate.values() for mean, _ in split.values()]
+    if not values or not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in values):
+        raise AssertionError(f"TGAT tia train_link_prediction: aggregate out of range {aggregate}")
+    if len(built) != 1 or built[0].sample_strategy != TIA:
+        raise AssertionError(f"TGAT tia driver: built {built}")
+    run = "saved_models/TGAT/synthetic/TGAT_seed0/TGAT_seed0.pkl"
+    results = "saved_results/TGAT/synthetic/TGAT_seed0.json"
+    if not (os.path.isfile(run) and os.path.isfile(results)):
+        raise AssertionError("TGAT tia driver: its checkpoint or results file is missing")
+    log(f"  TGAT time_interval_aware train_link_prediction: wall seconds {seconds:.1f}")
+    return {"train_link_prediction": seconds}
 
 
 def run_node_classification(data, dev) -> dict:
@@ -3255,6 +3451,7 @@ def run_scan_epochs(data, dev) -> dict:
         ("TGAT", tgat(), (SCAN_TRAIN_BATCHES, SCAN_EVAL_BATCHES), True),
         ("TGN", memory("TGN"), (SCAN_TRAIN_BATCHES, SCAN_EVAL_BATCHES), True),
         ("TGAT uniform", tgat(sample_strategy="uniform"), (5, 5), False),
+        ("TGAT tia", tgat(sample_strategy=TIA), (5, 5), False),
         ("TGAT window", tgat(wants_entry_features=True), SCAN_ONE_REPLAY, False),
         ("TGAT Phi fusion", tgat(use_phi_fusion=True), SCAN_ONE_REPLAY, False),
         ("DyGFormer entry fetch", dygformer(use_entry_fetch=True), SCAN_ONE_REPLAY, False),
@@ -3597,13 +3794,7 @@ def run_bf16_path(data, name, n_batches, n_steps, dev) -> dict:
         plain_gap = max_prob_diff(plain, probs32)
     else:  # the CPU, on the card's draws of the first batch's walks
         plain_diff, plain_gap = cawn_cpu_diff(tr, data, dev), gap
-    limit = min(BF16_PROB_ATOL, plain_gap / 2)
-    if not plain_diff <= limit:
-        raise AssertionError(f"{name} bf16: kernel vs plain probabilities differ by {plain_diff} "
-                             f"> {limit} (the plain path's bf16-vs-f32 gap {plain_gap})")
-    if not gap >= plain_gap / 2:
-        raise AssertionError(f"{name} bf16: the kernel path's bf16-vs-f32 gap {gap} is under "
-                             f"half the plain path's {plain_gap}")
+    limit = check_bf16_gap(name, plain_diff, gap, plain_gap)
 
     # training: the main path, then the kernel and plain paths in lockstep
     _, train_losses, train_launches = train(tr)
@@ -3637,6 +3828,21 @@ def run_bf16_path(data, name, n_batches, n_steps, dev) -> dict:
     log(f"  {json.dumps(result)}")
     torch.cuda.empty_cache()
     return result
+
+
+def check_bf16_gap(name, plain_diff, gap, plain_gap) -> float:
+    """Raise unless the bf16 kernel path's probabilities lie within half
+    the plain bf16 path's bf16-vs-f32 gap ``plain_gap`` of the plain path's
+    (``plain_diff``; BF16_PROB_ATOL at most) and its own gap ``gap`` is at
+    least half the plain path's. Returns the limit."""
+    limit = min(BF16_PROB_ATOL, plain_gap / 2)
+    if not plain_diff <= limit:
+        raise AssertionError(f"{name} bf16: kernel vs plain probabilities differ by {plain_diff} "
+                             f"> {limit} (the plain path's bf16-vs-f32 gap {plain_gap})")
+    if not gap >= plain_gap / 2:
+        raise AssertionError(f"{name} bf16: the kernel path's bf16-vs-f32 gap {gap} is under "
+                             f"half the plain path's {plain_gap}")
+    return limit
 
 
 def bf16_lockstep(tr, stream) -> float:
@@ -4177,9 +4383,15 @@ def main() -> int:
     log(f"TGAT training path ({TGAT_TRAIN_STEPS} steps a sweep; lockstep as above, and one "
         f"step at dropout {TGAT_DROPOUT}):")
     tgat_train = run_tgat_training(data, dev)
-    log("TGAT with the uniform strategy:")
-    run_tgat_uniform(data, dev)
-    torch.cuda.empty_cache()
+    sampled = {}
+    for strategy in ("uniform", TIA):
+        log(f"TGAT with the {strategy} strategy (#5, #5b, #6, #6b on its draws against their "
+            f"plain versions as above; {SAMPLED_STEPS} train steps; lockstep as above; "
+            f"{SAMPLED_BATCHES} val batches twice, bitwise equal; bf16 within phase 5b's "
+            f"limit; ms against recent in turns "
+            f"{[strategy if t else 'recent' for t in SAMPLED_TURNS]}; {card_line()}):")
+        sampled[strategy] = run_tgat_sampled(data, dev, strategy)
+    tia_run = sampled[TIA]
     log(f"memory models' evaluation path (probability tolerance {PROB_ATOL}; final memory "
         f"bitwise equal, DyRep's within {MEMORY_GAP_RTOL} of max|memory|):")
     memory_eval = {name: run_memory_eval(data, name, dev) for name in MEMORY_MODELS}
@@ -4332,6 +4544,11 @@ def main() -> int:
                 NODECLS_KERNEL_ROWS.get(config), {}).get("launches", {}).get(kernel, 0),
             # launches made by replays of captured graphs (phase 5s)
             "scan_launches": scan_launches(kernel, config),
+            # TGAT under time_interval_aware (phase 5i: its train steps and
+            # its first eval sweep)
+            "time_interval_aware_launches": (
+                tia_run["train_launches"].get(kernel, 0) + tia_run["eval_launches"].get(kernel, 0)
+                if config == "tgat" else 0),
             # the launches of the (1, 1) mesh path (phase 5d: its train steps
             # and val batches; 0 where the configuration is not driven there)
             "mesh_launches": dist_run.get(NODECLS_KERNEL_ROWS.get(config), {}).get(
@@ -4347,6 +4564,13 @@ def main() -> int:
                       for p in parts],
             "library_partial": kernel in partial_library,
         })
+        tia = tia_run["kernel_parts"].get((kernel, f"tgat_{TIA}")) if config == "tgat" else None
+        if tia is not None:  # the kernel on time_interval_aware's draws (phase 5i)
+            rows[-1]["time_interval_aware"] = {
+                "max_abs_err": max(p["max_abs_err"] for p in tia["parts"]),
+                "ms": sum(p["ms"] for p in tia["parts"]),
+                "plain_ms": sum(p["plain_ms"] for p in tia["parts"]),
+                "parts": [{k: p[k] for k in ("part", "ms", "plain_ms")} for p in tia["parts"]]}
         if "sibling_ms" in parts[0]:  # the bf16 variants: their split-TF32 siblings' times
             rows[-1]["split_tf32_ms"] = sum(p["sibling_ms"] for p in parts)
             rows[-1]["rounding_flips"] = sum(p["rounding_flips"] for p in parts)
@@ -4372,7 +4596,8 @@ def main() -> int:
     # to its plain version in isolation at the 32/1 shape. Such a row, with
     # no launch on any path, goes into its kernel's main-path row as
     # "isolated".
-    counted = ("launches", "node_classification_launches", "scan_launches", "mesh_launches")
+    counted = ("launches", "node_classification_launches", "scan_launches", "mesh_launches",
+               "time_interval_aware_launches")
     by_name = {row["name"]: row for row in rows}
     for row in [r for r in rows if not any(r[k] for k in counted)]:
         kernel, config = row["name"].split("@")

@@ -1,7 +1,8 @@
 """TGAT: temporal graph attention network, unrolled over sampled hops.
 
 Counterpart of ``dyglib_tpu/models/tgat.py`` (f32 or bf16 compute, the
-``recent`` and ``uniform`` strategies; ``compute_dtype`` "auto" is f32, where
+``recent``, ``uniform`` and ``time_interval_aware`` strategies;
+``compute_dtype`` "auto" is f32, where
 the JAX package's "auto" picks bf16 on its TPU timings). The multi-hop neighborhood is sampled once into fixed-shape hop
 tensors (hop h: (B, K**h)) and the layers are evaluated bottom-up:
 
@@ -27,9 +28,9 @@ and take the plain versions on CPU tensors; ``use_kernels=False`` calls the
 plain versions on any device. ``sample`` launches no kernel. Each kernel
 is a ``torch.autograd.Function`` whose backward launches its backward
 kernel, so TGAT trains on the card through the same kernels it evaluates
-with. The window kernel runs only under ``recent`` (a ``uniform`` draw is
-no contiguous window); ``uniform`` draws its neighbors from the
-``torch.Generator`` its caller passes to ``sample``.
+with. The window kernel runs only under ``recent`` (a stochastic draw is
+no contiguous window); ``uniform`` and ``time_interval_aware`` draw their
+neighbors from the ``torch.Generator`` its caller passes to ``sample``.
 """
 from __future__ import annotations
 
@@ -216,11 +217,6 @@ class TGAT:
         check_strategy(self.sample_strategy)
         self._compute_dtype = compute_dtype_of(
             "float32" if self.compute_dtype == "auto" else self.compute_dtype)
-        if self.sample_strategy == "time_interval_aware":
-            # no configuration pairs TGAT with CAWN's strategy; the port
-            # keeps it to CAWN (ROADMAP.md)
-            raise ValueError("TGAT under 'time_interval_aware' is not ported; use 'recent' or "
-                             "'uniform'")
         # windows of feat_entry exist only under recent (JAX tgat.py:243-246)
         self._window_kernel = (
             _resolve(self.use_window_attention, self.wants_entry_features)
@@ -263,8 +259,9 @@ class TGAT:
     ) -> TGATInputs:
         """The hop tensors of queries (ids, ts); under ``recent`` with
         ``csr.feat_entry`` the hop features too, and with the window kernel
-        each hop's windows. ``uniform`` draws from ``gen`` (on the CSR's
-        device)."""
+        each hop's windows. ``uniform`` and ``time_interval_aware`` (on a
+        CSR built with ``with_tia=True``) draw from ``gen`` (on the CSR's
+        device), hop after hop."""
         k = self.num_neighbors
         b = ids.shape[0]
         ids, ts = ids.to(torch.int32), ts.to(torch.int32)

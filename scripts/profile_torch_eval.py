@@ -7,6 +7,7 @@
                                           [--mode eval|train] [--batches 10]
                                           [--negatives random|historical|inductive]
                                           [--configs NAMES] [--scan] [--mesh]
+                                          [--strategy recent|uniform|time_interval_aware]
                                           [--repo DIR]
 
 Same setting as chip_smoke.py (synthetic wikipedia-scale stream, seed 1;
@@ -16,7 +17,11 @@ TGAT: the published widths (K = 20, 2 layers, 2 heads, Dt = 100), the
 default kernel path (gathered attention at layer 1, fused attention at
 layer 2; in training their backward kernels too), the plain path and the
 Phi fusion (``use_phi_fusion=True``: the Phi projection's kernels, two a
-convolution). TGN, DyRep, JODIE: the published widths (TGN and DyRep K =
+convolution), each under ``--strategy`` (``recent`` by default;
+``uniform`` and ``time_interval_aware`` draw from the trainer's
+generators, and their ``train/sample`` and ``eval/sample`` ranges hold the
+draws: time_interval_aware's bisection on ``csr.tia_cew``, at the
+trainers' time scaling factor 1e-6). TGN, DyRep, JODIE: the published widths (TGN and DyRep K =
 10, 1 layer, 2 heads; memory 172, Dt = 100; time shifts from the train
 split), the kernel path (TGN's and DyRep's temporal attention kernel) and
 the plain path, each sweep from an empty memory. GraphMixer, TCL and CAWN:
@@ -225,6 +230,8 @@ def profile_node_classification(args, data, synced) -> int:
                                         data.node_raw_features)
     cli = get_node_classification_args(["--model_name", name, "--dataset_name", "wikipedia",
                                         "--load_best_configs"])
+    if name == "TGAT":
+        cli.sample_neighbor_strategy = args.strategy
     backbone = build_backbone(cli, data)
     params = backbone.build(nc.node_raw_features.shape[1], nc.edge_raw_features.shape[1],
                             torch.Generator().manual_seed(0)).state_dict()
@@ -257,6 +264,7 @@ def profile_node_classification(args, data, synced) -> int:
             host_ms.append((time.perf_counter() - t0) * 1e3 / args.batches)
         out = {"config": config, "task": args.task, "mode": args.mode,
                "batches": args.batches, "use_kernels": path == "kernels", "scan": args.scan,
+               "strategy": backbone.sample_strategy,
                "repo": os.path.abspath(args.repo), "ms_per_batch": host_ms}
         out.update(device_profile(run, args.scan))
         print(json.dumps(out), flush=True)
@@ -283,6 +291,8 @@ def main() -> int:
                         help="tree whose dyglib_tpu_torch is run (default: this checkout)")
     parser.add_argument("--mesh", action="store_true",
                         help="run the trainers on the (1, 1) mesh of a one-rank NCCL group")
+    parser.add_argument("--strategy", choices=("recent", "uniform", "time_interval_aware"),
+                        default="recent", help="TGAT's neighbor sample strategy")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_eval: needs a CUDA card", file=sys.stderr)
@@ -312,7 +322,8 @@ def main() -> int:
     if args.task == "node_classification":
         return profile_node_classification(args, data, synced)
     if args.model == "tgat":
-        runs = [(name, TGAT(**kw), use_kernels, False) for name, kw, use_kernels in TGAT_CONFIGS]
+        runs = [(name, TGAT(sample_strategy=args.strategy, **kw), use_kernels, False)
+                for name, kw, use_kernels in TGAT_CONFIGS]
     elif args.model in MEMORY_MODELS:
         name = MEMORY_MODELS[args.model]
         shifts = compute_src_dst_node_time_shifts(data.train.src, data.train.dst, data.train.ts)
@@ -362,6 +373,7 @@ def main() -> int:
             host_ms.append((time.perf_counter() - t0) * 1e3 / args.batches)
         out = {"config": config, "mode": args.mode, "batches": args.batches,
                "negatives": args.negatives,
+               "strategy": getattr(backbone, "sample_strategy", None),
                "use_kernels": use_kernels, "entry_fetch": fetch, "scan": args.scan,
                "mesh": args.mesh,
                "repo": os.path.abspath(args.repo), "ms_per_batch": host_ms}

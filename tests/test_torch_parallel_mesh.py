@@ -7,10 +7,10 @@ the same without a mesh. As ``tests/test_mesh_training.py`` holds the JAX
 mesh to the single device: per-batch losses within rtol 2e-3 / atol 2e-4,
 val AP within 2e-2. The cases:
 
-  * data axis 2: JODIE and TGAT, and TGAT under ``uniform`` sampling (every
-    rank draws for the global batch from the same generator and keeps its
-    rows, so the seed-0 parameters' val probabilities match too, within
-    1e-5);
+  * data axis 2: JODIE and TGAT, and TGAT under ``uniform`` and
+    ``time_interval_aware`` sampling (every rank draws for the global batch
+    from the same generator and keeps its rows, so the seed-0 parameters'
+    val probabilities match too, within 1e-5);
   * model axis 2: TGAT (feature tables sharded by columns, gathered rows
     feeding the gathered-attention kernel's plain version);
   * the scan path under the mesh (``train_epoch_scanned``,
@@ -28,7 +28,7 @@ import pytest
 import torch_dist
 
 FAST = [("JODIE", 1, False), ("TGAT", 1, False), ("TGAT-uniform", 1, False),
-        ("TGAT", 2, False), ("TGAT", 1, True)]
+        ("TGAT-tia", 1, False), ("TGAT", 2, False), ("TGAT", 1, True)]
 SLOW = ["TGN", "DyRep", "CAWN", "TCL", "GraphMixer", "DyGFormer"]
 
 
@@ -64,11 +64,15 @@ def test_mesh_matches_single_process(two_ranks, single, case):
 
 
 def test_uniform_sampling_draws_as_one_process(two_ranks, single):
-    ref = _single(single, "TGAT-uniform")
-    # under the same parameters (training drifts them by reduction order)
-    got = two_ranks[0][("TGAT-uniform", 1, False)]["init_val_probs"]
-    for a, b in zip(got, ref["init_val_probs"]):
-        np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)
+    """``uniform`` and ``time_interval_aware``: the two ranks draw the
+    global batch's neighbors as one process does."""
+    for name in ("TGAT-uniform", "TGAT-tia"):
+        ref = _single(single, name)
+        # under the same parameters (training drifts them by reduction order)
+        got = two_ranks[0][(name, 1, False)]["init_val_probs"]
+        assert len(got) == len(ref["init_val_probs"]) > 0
+        for a, b in zip(got, ref["init_val_probs"]):
+            np.testing.assert_allclose(a, b, atol=1e-5, rtol=0, err_msg=name)
 
 
 def test_scan_under_mesh_matches_its_loop(two_ranks):

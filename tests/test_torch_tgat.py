@@ -173,14 +173,13 @@ def test_fetch_entry_windows_bitwise_equal(small):
 
 
 @pytest.mark.parametrize("strategy", ["uniform", "time_interval_aware"])
-def test_sample_strategies_other_than_recent_raise(small, strategy):
-    """``time_interval_aware`` (CAWN's) still raises; ``uniform`` samples,
-    and raises only when no generator is given to draw from."""
-    _, _, csr, _, ids, ts = small
-    if strategy == "time_interval_aware":
-        with pytest.raises(ValueError, match="not ported"):
-            TGAT(sample_strategy=strategy)
-        return
+def test_stochastic_strategies_sample_and_raise_only_without_a_generator(small, strategy):
+    """``uniform`` and ``time_interval_aware`` sample (no entry windows: the
+    gathered kernel takes layer 1), and raise only when no generator is
+    given to draw from."""
+    data, _, csr, _, ids, ts = small
+    if strategy == "time_interval_aware":  # its draws search csr.tia_cew
+        csr = build_temporal_csr(data.full, num_nodes=data.num_nodes, with_tia=True)
     tgat = TGAT(num_neighbors=K, num_layers=L, time_feat_dim=DT, sample_strategy=strategy,
                 wants_entry_features=True)
     assert not tgat._window_kernel and tgat._gathered_kernel  # no windows under uniform

@@ -101,6 +101,8 @@ def backbone(name: str):
         "TGAT": lambda: TGAT(num_neighbors=4, num_layers=2, dropout=0.0),
         "TGAT-uniform": lambda: TGAT(num_neighbors=4, num_layers=2, dropout=0.0,
                                      sample_strategy="uniform"),
+        "TGAT-tia": lambda: TGAT(num_neighbors=4, num_layers=2, dropout=0.0,
+                                 sample_strategy="time_interval_aware"),
         "TGN": lambda: MemoryModel("TGN", num_neighbors=4, num_layers=1, dropout=0.0),
         "DyRep": lambda: MemoryModel("DyRep", num_neighbors=4, num_layers=1, dropout=0.0),
         "JODIE": lambda: MemoryModel("JODIE", dropout=0.0),
