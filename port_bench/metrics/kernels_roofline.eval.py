@@ -1,0 +1,8 @@
+"""The port's kernel functions in a eval step: their least time (bytes at 3.35 TB/s or products at 165 T/s, work from work/) over their device time in the trace."""
+from port_bench import trace
+
+LAYER = "kernels: ops and csrc"
+UNIT = "%"
+MOVES = "eval_edges_per_s"
+PHASE = "eval"
+read = trace.kernels_roofline

@@ -1,0 +1,8 @@
+"""The model's products a eval step (work/step_<model>.py) over the traced window's time a step and the configuration's peak (67 TF/s float32)."""
+from port_bench import trace
+
+LAYER = "device, whole step"
+UNIT = "%"
+MOVES = "eval_edges_per_s"
+PHASE = "eval"
+read = trace.mfu
