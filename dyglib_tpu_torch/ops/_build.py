@@ -25,7 +25,7 @@ BUILD_DIR = PACKAGE_DIR / "build"
 KERNEL_SOURCES = (
     "time_channel", "cooccurrence", "patch_projection", "window_fetch",
     "temporal_attention", "gathered_attention", "window_attention", "phi_projection",
-    "patch_projection_bf16",
+    "patch_projection_bf16", "marks",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

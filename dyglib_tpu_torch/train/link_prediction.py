@@ -92,7 +92,12 @@ Each train step's phases are ``torch.profiler`` ranges (``train/sample``,
 model, ``train/optimizer``) and each eval batch's too (``eval/staging``,
 ``eval/sample``, ``eval/forward``, ``eval/head``, ``eval/commit``,
 ``eval/metrics``), so a profiler trace of the real loops breaks their time
-down (``scripts/profile_torch_eval.py``).
+down (``scripts/profile_torch_eval.py``). A step's ranges are
+``phases.phase``: a captured step also marks each phase with a kernel, so
+the replays of a scanned sweep split their device time by the same names.
+A scanned sweep runs in five ranges of its own, ``<p>/negatives``,
+``<p>/staging``, ``<p>/replays``, ``<p>/read_back`` and ``<p>/scoring``
+(``p``: ``train`` or ``eval``), which name its host time.
 """
 from __future__ import annotations
 
@@ -137,6 +142,7 @@ from ..utils.tensorboard import SummaryWriter
 from .checkpoints import load_checkpoint, save_checkpoint, to_cpu, to_device
 from .early_stopping import EarlyStopping
 from .metrics import link_prediction_metrics
+from .phases import phase
 from .step_graph import StepGraphs, eval_generator, stack_columns
 
 # the JAX package's byte budget for the entry-ordered feature table (and
@@ -539,18 +545,18 @@ class LinkPredictionTrainer:
         layout = self._layout()
         self.model.train()
         self.head.train()
-        with record_function("train/sample"):
+        with phase("train/sample"):
             garrays, (arrays, denom) = arrays, self._shard(arrays)
             valid = arrays[6]
             inputs = self._sample_rows(self.train_csr, garrays, arrays, layout, bucket,
                                        self.sample_gen)
-        with record_function("train/forward"):
+        with phase("train/forward"):
             if self.has_state:
                 embs, raw = self._embed_memory(inputs, state, layout, self.dropout_gen)
             else:
                 embs = self._embed(inputs, layout, self.dropout_gen)
             loss, (pos_logit, neg_logit) = self._head_loss(embs, valid, denom)
-        with record_function("train/backward"):
+        with phase("train/backward"):
             self.optimizer.zero_grad(set_to_none=True)
             if self.mesh is not None and self.mesh.model_size > 1:
                 # the model axis's ranks each compute the whole loss: a
@@ -561,9 +567,9 @@ class LinkPredictionTrainer:
             if self.mesh is not None:
                 self._reduce_grads()
         if self.has_state:
-            with record_function("train/commit"):  # the parameters before the step
+            with phase("train/commit"):  # the parameters before the step
                 state = self._commit(state, garrays, raw.detach(), valid.shape[0])
-        with record_function("train/optimizer"):
+        with phase("train/optimizer"):
             self.optimizer.step()
         loss, probs = self._global(loss.detach(), torch.sigmoid(pos_logit).detach(),
                                    torch.sigmoid(neg_logit).detach(), garrays[0].shape[0])
@@ -585,22 +591,22 @@ class LinkPredictionTrainer:
         layout = self._layout(neg_src_is_src)
         self.model.eval()
         self.head.eval()
-        with record_function("eval/sample"):
+        with phase("eval/sample"):
             garrays, (arrays, denom) = arrays, self._shard(arrays)
             valid = arrays[6]
             inputs = self._sample_rows(csr, garrays, arrays, layout, bucket, gen)
-        with record_function("eval/forward"):
+        with phase("eval/forward"):
             if self.has_state:
                 embs, raw = self._embed_memory(inputs, state, layout)
             else:
                 embs = self._embed(inputs, layout)
-        with record_function("eval/head"):
+        with phase("eval/head"):
             loss, (pos_logit, neg_logit) = self._head_loss(embs, valid, denom)
             loss, probs = self._global(loss, torch.sigmoid(pos_logit), torch.sigmoid(neg_logit),
                                        garrays[0].shape[0])
         if not self.has_state:
             return loss, probs
-        with record_function("eval/commit"):
+        with phase("eval/commit"):
             return loss, probs, self._commit(state, garrays, raw, valid.shape[0])
 
     # ---------------------------------------------------------------- loops
@@ -738,20 +744,26 @@ class LinkPredictionTrainer:
         once for the epoch; no resume checkpoint is written. Same returns
         as ``train_epoch``."""
         self._require_params()
-        if self.has_state and state is None:
-            state = self.init_state()
-        staged = [(b, b.src, neg_dst) for b, neg_dst in self._train_negatives(stream)]
-        clocks = self._clocks(state)
 
         def step(arrays, st):
             return self._packed(self.train_step(arrays, None, st))
 
         gens = [g for g in (self.dropout_gen, self.sample_gen) if g is not None]
-        (loss, pos, neg), state = self.graphs.scan(("train",), step, self._stack(staged), state,
-                                                   gens)
-        self._check_order(clocks, state, f"epoch {epoch} (scan)")
-        losses, pos, neg = loss.tolist(), pos.cpu().numpy(), neg.cpu().numpy()
-        metrics = [self._batch_metrics((pos[i], neg[i]), b) for i, (b, _, _) in enumerate(staged)]
+        with record_function("train/negatives"):
+            staged = [(b, b.src, neg_dst) for b, neg_dst in self._train_negatives(stream)]
+        with record_function("train/staging"):
+            if self.has_state and state is None:
+                state = self.init_state()
+            clocks = self._clocks(state)
+            xs = self._stack(staged)
+        with record_function("train/replays"):
+            (loss, pos, neg), state = self.graphs.scan(("train",), step, xs, state, gens)
+        with record_function("train/read_back"):  # waits for the device
+            losses, pos, neg = loss.tolist(), pos.cpu().numpy(), neg.cpu().numpy()
+        with record_function("train/scoring"):
+            self._check_order(clocks, state, f"epoch {epoch} (scan)")
+            metrics = [self._batch_metrics((pos[i], neg[i]), b)
+                       for i, (b, _, _) in enumerate(staged)]
         return (losses, metrics, state) if self.has_state else (losses, metrics)
 
     def _write_resume(self, epoch: int, next_batch: int, state) -> None:
@@ -851,18 +863,24 @@ class LinkPredictionTrainer:
                                 if self._stochastic else None)
         batches = self._eval_negatives(stream, neg_sampler, random_negs)
         if scanned:
-            staged = list(batches)
 
             def step(arrays, st):
                 return self._packed(self.eval_step(self.full_csr, arrays, None, gen, st,
                                                    neg_src_is_src=random_negs))
 
             key = ("eval", self._layout(random_negs), id(self.full_csr))
-            (loss, pos, neg), state = self.graphs.scan(
-                key, step, self._stack(staged), state, [gen] if gen is not None else [])
-            losses, pos, neg = loss.tolist(), pos.cpu().numpy(), neg.cpu().numpy()
-            probs = [(pos[i], neg[i]) for i in range(len(staged))]
-            metrics = [self._batch_metrics(p, b) for p, (b, _, _) in zip(probs, staged)]
+            with record_function("eval/negatives"):
+                staged = list(batches)
+            with record_function("eval/staging"):
+                xs = self._stack(staged)
+            with record_function("eval/replays"):
+                (loss, pos, neg), state = self.graphs.scan(
+                    key, step, xs, state, [gen] if gen is not None else [])
+            with record_function("eval/read_back"):  # waits for the device
+                losses, pos, neg = loss.tolist(), pos.cpu().numpy(), neg.cpu().numpy()
+            with record_function("eval/scoring"):
+                probs = [(pos[i], neg[i]) for i in range(len(staged))]
+                metrics = [self._batch_metrics(p, b) for p, (b, _, _) in zip(probs, staged)]
             return (losses, metrics, probs, state) if self.has_state else (losses, metrics, probs)
         losses, metrics, probs = [], [], []
         for _ in range(-(-stream.num_interactions // self.cfg.batch_size)):

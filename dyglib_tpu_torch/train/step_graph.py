@@ -13,10 +13,11 @@ replay instead of some hundreds of launches.
   * Warm-up: the first call of a key runs eagerly on the capture stream.
     It is a real step of the sweep, so nothing is computed twice
     or thrown away: it makes what a step creates lazily (the optimizer's
-    state, the kernels' libraries, cuBLAS's workspace on that stream, the
-    gradients' first allocation) before the capture, which must not
-    allocate outside its pool or touch the host. The call that captures
-    then replays the graph once for its own batch (a capture runs nothing).
+    state, the kernels' libraries and the phase marks' (``phases.py``),
+    cuBLAS's workspace on that stream, the gradients' first allocation)
+    before the capture, which must not allocate outside its pool or touch
+    the host. The call that captures then replays the graph once for its
+    own batch (a capture runs nothing).
   * Generators: each generator the step draws from (dropout, neighbour
     sampling) is registered with its graph. A replay draws what the eager
     step would have drawn and advances the generator by as much (PyTorch's
@@ -31,6 +32,11 @@ replay instead of some hundreds of launches.
     (``ops.captured_counts``); ``run`` reads what each capture recorded
     and ``launches()`` multiplies it by the graph's replays. The wrappers'
     ``launches`` count what ran eagerly.
+  * Phase marks: a captured step launches the mark kernel of each of its
+    phases (``phases.phase``) and, after its last operation, the one that
+    closes it (``phases.end_step``), so that a profiler trace of the
+    replays splits each one's device time by phase. They are no wrapper's
+    launches.
 
 On a device other than ``cuda`` (the CPU tests) nothing is captured: every
 call runs eagerly, the same staged loop. A capture or replay that fails
@@ -45,6 +51,7 @@ import torch
 
 from .. import ops
 from ..utils.rng import eval_seed
+from . import phases
 
 
 def stack_columns(rows, device) -> tuple[torch.Tensor, ...]:
@@ -118,6 +125,7 @@ class StepGraphs:
         if not self.capture:
             return fn(*args)
         if key not in self._entries:  # the warm-up step
+            phases.load()
             self._entries[key] = _Entry()
             return self._on_stream(fn, args)
         e = self._entries[key]
@@ -148,6 +156,7 @@ class StepGraphs:
         self._stream.wait_stream(cur)
         with torch.cuda.graph(graph, stream=self._stream):
             e.static_out = fn(*e.static_in)
+            phases.end_step()
         cur.wait_stream(self._stream)
         after = ops.captured_counts()
         e.per_replay = {k: after[k] - before[k] for k in after if after[k] != before[k]}

@@ -45,8 +45,12 @@ path instead (``TrainConfig(scan_epochs=True)``, no sequence buckets:
 ``train_epoch_scanned`` and ``evaluate(scanned=True)``, every step after a
 sweep's first a CUDA graph replay; the warm-up is one whole sweep, so the
 graphs are captured before the timing and the trace): a replay opens no
-profiler range, so its JSON line has no per-range times, only the ms a
-batch, the device busy share and the top kernels. ``--mesh`` runs the
+profiler range, so its step ranges' device ms a batch come from the phase
+marks each replay runs (``dyglib_tpu_torch/train/phases.py``: a range from
+its mark's start to the next mark's start, the last to the step's end
+mark), under the loop's range names, and the sweep's own spans
+(``<p>/negatives``, ``<p>/staging``, ``<p>/replays``, ``<p>/read_back``,
+``<p>/scoring``) give their host and device ms a sweep. ``--mesh`` runs the
 link-prediction trainers on the (1, 1) mesh of a one-rank NCCL process
 group (``dyglib_tpu_torch.parallel``): each collective is its own range,
 ``mesh/<call site>``, inside the loop's ranges. ``--repo`` names the tree whose
@@ -152,9 +156,27 @@ def phase_device_ms(prof) -> dict[str, float]:
     return out
 
 
+def mark_device_ms(prof) -> dict[str, float]:
+    """Device ms a replayed step in each of the loop's ranges that has a
+    phase mark: from the range's mark to the next mark of its replay."""
+    from torch.autograd import DeviceType
+
+    from dyglib_tpu_torch.train import phases
+
+    ranges = {phases.kernel_name(m): m for m in phases.MARKS}
+    marks = sorted((e.start_ns(), ranges[e.name()]) for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA and e.name() in ranges)
+    total, count = {}, {}
+    for (t, name), (t_next, _) in zip(marks, marks[1:]):
+        if name != phases.STEP_END:
+            total[name] = total.get(name, 0.0) + (t_next - t) / 1e6
+            count[name] = count.get(name, 0) + 1
+    return {name: total[name] / count[name] for name in total}
+
+
 def device_profile(run, scanned: bool = False) -> dict:
     """Trace ``run()`` (which ends in a synchronize); ``scanned``: graph
-    replays, which open no range."""
+    replays, whose ranges come from their phase marks."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -198,6 +220,14 @@ def device_profile(run, scanned: bool = False) -> dict:
                            "ranges")
     if not scanned and not any(device_ms.values()):
         raise RuntimeError("no device time could be tied to a range's launches")
+    if scanned:  # the ranges that open once a sweep, and the replays' marks
+        marked = mark_device_ms(prof)
+        if not marked:
+            raise RuntimeError("the trace holds no phase mark of a replay")
+        phases = {**{k: {"host_ms_per_sweep": v["host_ms_per_batch"],
+                         "device_ms_per_sweep": v["device_ms_per_batch"]}
+                     for k, v in phases.items()},
+                  **{k: {"device_ms_per_batch": ms} for k, ms in marked.items()}}
     kernels = sorted(
         (e for e in rows if e.device_type == cuda and not is_span(e.key)), key=self_dev,
         reverse=True,
