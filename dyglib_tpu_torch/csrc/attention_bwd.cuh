@@ -23,9 +23,9 @@
 //
 // about 16 G operations at hop 1. Launches, in order, all on the caller's
 // stream:
-//   1. head_project_kernel: qk and gv (the shared f32 tile, tiled_gemm.cuh;
-//      both per-head products live in attention_core.cuh, shared with the
-//      forward);
+//   1. head_project_kernel: qk and gv (the split-TF32 tensor-core tile,
+//      head_gemm.cuh; both per-head products live in attention_core.cuh,
+//      shared with the forward);
 //   2. attention_bwd_query_kernel: one block of 256 threads per query
 //      stages its K kv rows and its qk, gv rows once, all by asynchronous
 //      copies in flight together (16 bytes each where the widths allow),
@@ -42,12 +42,14 @@
 //      rows get no gradient);
 //   3. head_combine_kernel: dq3 = Ak Wk_h (the tile);
 //   4. head_weight_grad_kernel + strided_sum, twice: dWk and dWv, summed
-//      over row chunks into scratch and then in a fixed order (the
-//      deterministic two-pass reduction of weight_grad.cuh, no atomics);
+//      over row chunks (the tile again) into scratch and then in a fixed
+//      order (the deterministic two-pass reduction of weight_grad.cuh, no
+//      atomics);
 //   5. KvGrad::finish: the gathered and window kernels' dtw, dtb, summed
 //      over queries in a fixed order (strided_sum: a block a feature).
-// Every sum has a fixed order: two runs give bit-identical gradients. f32
-// on CUDA cores throughout.
+// Every sum has a fixed order: two runs give bit-identical gradients. The
+// per-head products run on the tensor cores in split TF32 (f32-accurate),
+// the rest in f32 on the CUDA cores.
 //
 // What bounds the query kernel: at TGAT's layer 1, hop 1 (12,000 queries
 // of 20 rows of 444) it reads ~330 MB of kv rows and ~170 MB of qk, gv, ak
@@ -95,51 +97,33 @@ struct AttentionBwdParams {
   int dq;
   int heads;
   float scale;
+  int project_rows;  // rows a block of head_project, head_combine and head_weight_grad takes
+  int combine_rows;  // (ops/_plan.py::head_plan)
+  int grad_rows;
   int chunk_rows;
-};
-
-// A(i, k) = p[k * ld + i]: the transpose of a row-major (rows, ld) block,
-// consecutive i consecutive addresses.
-struct TransposedLoader {
-  static constexpr bool k_fast = false;
-  const float* __restrict__ p;
-  int ld;
-
-  __device__ __forceinline__ float operator()(int i, int k) const {
-    return p[static_cast<size_t>(k) * ld + i];
-  }
 };
 
 // blockIdx.z = chunk * heads + h: partial[chunk, c, h hd + d] = sum over the
 // chunk's rows r of a[r, h, c] x[r, h hd + d] (a = ak with x = q3 for dWk,
-// av with dout for dWv).
-__global__ void __launch_bounds__(kThreads)
+// av with dout for dWv; head_gemm.cuh: 32 kWarpsM rows of kv_dim and 72
+// columns a block, both operands staged [r][...]).
+template <int kWarpsM, int kVec>
+__global__ void __launch_bounds__(128)
     head_weight_grad_kernel(const float* __restrict__ a, const float* __restrict__ x,
                             float* __restrict__ partial, int m, int kv_dim, int dq, int heads,
                             int chunk_rows) {
+  namespace hg = head_gemm;
+  extern __shared__ float4 head_smem[];
+  float* smem = reinterpret_cast<float*>(head_smem);
   const int chunk = blockIdx.z / heads;
   const int h = blockIdx.z - chunk * heads;
   const int hd = dq / heads;
   const int r_begin = chunk * chunk_rows;
   const int r_end = min(m, r_begin + chunk_rows);
-  const int row0 = blockIdx.x * kBM;
-  const int col0 = blockIdx.y * kBN;
-  float acc[kTM][kTN];
-  gemm_tile<kBRowMajor>(TransposedLoader{a + static_cast<size_t>(h) * kv_dim, heads * kv_dim},
-                        x + h * hd, dq, 1, kv_dim, hd, r_begin, r_end, row0, col0, acc);
-  float* out = partial + static_cast<size_t>(chunk) * kv_dim * dq;
-  const int ty = threadIdx.x / kThreadCols;
-  const int tx = threadIdx.x % kThreadCols;
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int c = row0 + ty + i * kThreadRows;
-    if (c >= kv_dim) continue;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int d = col0 + tx + j * kThreadCols;
-      if (d < hd) out[static_cast<size_t>(c) * dq + h * hd + d] = acc[i][j];
-    }
-  }
+  hg::product<kWarpsM, hg::kHeadNF, false, false, kVec>(
+      smem, {a + static_cast<size_t>(h) * kv_dim, heads * kv_dim}, kv_dim, {x + h * hd, dq}, hd,
+      r_begin, r_end, blockIdx.x * 32 * kWarpsM, blockIdx.y * 8 * hg::kHeadNF,
+      partial + static_cast<size_t>(chunk) * kv_dim * dq + h * hd, dq);
 }
 
 // Shared memory of one query's block, in floats: kv rows (k, kv_dim), qk and
@@ -301,13 +285,10 @@ template <class ALoader, class KvGrad>
 cudaError_t launch_attention_backward(const ALoader& load_a, const KvGrad& kv_grad,
                                       const AttentionBwdParams& p, cudaStream_t stream) {
   const int hd = p.dq / p.heads;
-  const unsigned row_tiles = static_cast<unsigned>((p.m + kBM - 1) / kBM);
   // 1. qk, gv
-  head_project_kernel<<<dim3(row_tiles, (p.kv_dim + kBN - 1) / kBN, 2 * p.heads), kThreads, 0,
-                        stream>>>(HeadOperand{p.q3, p.wk, p.wk_sk, p.wk_sn, p.qk},
-                                  HeadOperand{p.dout, p.wv, p.wv_sk, p.wv_sn, p.gv}, p.m, p.kv_dim,
-                                  p.dq, p.heads);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_head_project(HeadOperand{p.q3, p.wk, p.wk_sk, p.wk_sn, p.qk},
+                                        HeadOperand{p.dout, p.wv, p.wv_sk, p.wv_sn, p.gv}, p.m,
+                                        p.kv_dim, p.dq, p.heads, p.project_rows, stream);
   if (err != cudaSuccess) return err;
   // 2. per query
   const size_t smem =
@@ -322,21 +303,25 @@ cudaError_t launch_attention_backward(const ALoader& load_a, const KvGrad& kv_gr
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // 3. dq3
-  head_combine_kernel<<<dim3(row_tiles, (hd + kBN - 1) / kBN, p.heads), kThreads, 0, stream>>>(
-      HeadOperand{p.ak, p.wk, p.wk_sk, p.wk_sn, p.dq3}, p.m, p.kv_dim, p.dq, p.heads);
-  err = cudaGetLastError();
+  err = launch_head_combine(HeadOperand{p.ak, p.wk, p.wk_sk, p.wk_sn, p.dq3}, p.m, p.kv_dim, p.dq,
+                            p.heads, p.combine_rows, stream);
   if (err != cudaSuccess) return err;
   // 4. dWk, dWv: chunk partial sums, then a fixed-order sum (the second
   // pass reads the scratch before the next first pass writes it: one stream)
   const int chunks = (p.m + p.chunk_rows - 1) / p.chunk_rows;
-  const dim3 wgrid((p.kv_dim + kBM - 1) / kBM, (hd + kBN - 1) / kBN, chunks * p.heads);
   const float* pairs[2][2] = {{p.ak, p.q3}, {p.av, p.dout}};
   float* dws[2] = {p.dwk, p.dwv};
   for (int i = 0; i < 2; ++i) {
-    head_weight_grad_kernel<<<wgrid, kThreads, 0, stream>>>(pairs[i][0], pairs[i][1], p.partial,
-                                                            p.m, p.kv_dim, p.dq, p.heads,
-                                                            p.chunk_rows);
-    err = cudaGetLastError();
+    const bool vec = head_gemm::vector_copies(p.kv_dim, hd, {pairs[i][0], pairs[i][1]});
+    err = head_gemm::dispatch(p.grad_rows, vec, [&](auto warps, auto v) {
+      constexpr int kW = decltype(warps)::value, kV = decltype(v)::value;
+      const dim3 grid((p.kv_dim + 32 * kW - 1) / (32 * kW),
+                      (hd + 8 * head_gemm::kHeadNF - 1) / (8 * head_gemm::kHeadNF),
+                      chunks * p.heads);
+      return head_gemm::launch<head_weight_grad_kernel<kW, kV>>(
+          grid, head_gemm::smem_bytes<kW, head_gemm::kHeadNF, false>(), stream, pairs[i][0],
+          pairs[i][1], p.partial, p.m, p.kv_dim, p.dq, p.heads, p.chunk_rows);
+    });
     if (err != cudaSuccess) return err;
     err = launch_strided_sum(p.partial, dws[i], chunks, p.kv_dim * p.dq, stream);
     if (err != cudaSuccess) return err;
@@ -382,11 +367,13 @@ inline AttentionBwdParams attention_bwd_params(
     const float* q3, const float* mask, const float* keep, const float* wk, int wk_sk, int wk_sn,
     const float* wv, int wv_sk, int wv_sn, const float* dout, const float* dscores,
     float* scratch, float* partial, float* dq3, float* dwk, float* dwv, int m, int k, int kv_dim,
-    int dq, int heads, float scale, int chunk_rows) {
+    int dq, int heads, float scale, int project_rows, int combine_rows, int grad_rows,
+    int chunk_rows) {
   const size_t part = static_cast<size_t>(m) * heads * kv_dim;
   return AttentionBwdParams{q3, mask, keep, wk, wk_sk, wk_sn, wv, wv_sk, wv_sn, dout, dscores,
                             scratch, scratch + part, scratch + 2 * part, scratch + 3 * part,
-                            partial, dq3, dwk, dwv, m, k, kv_dim, dq, heads, scale, chunk_rows};
+                            partial, dq3, dwk, dwv, m, k, kv_dim, dq, heads, scale, project_rows,
+                            combine_rows, grad_rows, chunk_rows};
 }
 
 // KvGrad of the gathered and window kernels: dPhi = the last dt_dim columns

@@ -20,7 +20,8 @@
 //
 // about 6.7 G operations at hop 1, where the ~330 MB of kv rows read are
 // the bound. Three launches, in order, on the caller's stream:
-//   1. head_project_kernel: qk (the shared f32 tile, tiled_gemm.cuh);
+//   1. head_project_kernel: qk (the split-TF32 tensor-core tile,
+//      head_gemm.cuh);
 //   2. attention_query_kernel: one block per query stages its K kv rows
 //      once, through the loader (asynchronous copies all in flight
 //      together, 16 bytes each where the widths allow; each Phi cosine
@@ -31,8 +32,10 @@
 //      Av (one thread per (head, column), neighbors in order);
 //   3. head_combine_kernel: out = Av Wv_h (the tile).
 // Every sum has a fixed order and there are no atomics: two runs give
-// bit-identical outputs. f32 on CUDA cores. The pad logit is -1e10, not
-// -inf: an all-padded row attends uniformly, as the plain version does.
+// bit-identical outputs. The per-head products run on the tensor cores in
+// split TF32 (f32-accurate), the query kernel in f32 on the CUDA cores.
+// The pad logit is -1e10, not -inf: an all-padded row attends uniformly,
+// as the plain version does.
 //
 // The two per-head products serve the backward too (attention_bwd.cuh).
 #pragma once
@@ -40,9 +43,9 @@
 #include <cstdint>
 
 #include "cos_reduced.cuh"
+#include "head_gemm.cuh"
 #include "patch_gemm.cuh"
 #include "phi.cuh"
-#include "tiled_gemm.cuh"
 
 namespace dyglib {
 
@@ -62,57 +65,90 @@ struct HeadOperand {
 
 // blockIdx.z = which * heads + h, over a (which 0) and b (which 1); a grid
 // of heads z-blocks computes a alone. x (m, dq) ->
-// out[(r * heads + h) * kv_dim + c] = sum_d x[r, h hd + d] W[c, h hd + d].
-__global__ void __launch_bounds__(kThreads)
+// out[(r * heads + h) * kv_dim + c] = sum_d x[r, h hd + d] W[c, h hd + d]
+// (head_gemm.cuh: 32 kWarpsM rows and 56 columns a block).
+template <int kWarpsM, int kVec>
+__global__ void __launch_bounds__(128)
     head_project_kernel(HeadOperand a, HeadOperand b, int m, int kv_dim, int dq, int heads) {
+  namespace hg = head_gemm;
+  extern __shared__ float4 head_smem[];
+  float* smem = reinterpret_cast<float*>(head_smem);
   const int which = blockIdx.z / heads;
   const int h = blockIdx.z - which * heads;
   const HeadOperand p = which ? b : a;
   const int hd = dq / heads;
-  const int row0 = blockIdx.x * kBM;
-  const int col0 = blockIdx.y * kBN;
-  float acc[kTM][kTN];
-  // B(d, c) = W[c, h hd + d]: W's strides, swapped
-  gemm_tile<kBByStrides>(RowMajorLoader{p.x + h * hd, dq}, p.w + static_cast<size_t>(h) * hd * p.sn,
-                         p.sn, p.sk, m, kv_dim, 0, hd, row0, col0, acc);
-  const int ty = threadIdx.x / kThreadCols;
-  const int tx = threadIdx.x % kThreadCols;
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int r = row0 + ty + i * kThreadRows;
-    if (r >= m) continue;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int c = col0 + tx + j * kThreadCols;
-      if (c < kv_dim) p.out[(static_cast<size_t>(r) * heads + h) * kv_dim + c] = acc[i][j];
-    }
-  }
+  const int row0 = blockIdx.x * 32 * kWarpsM;
+  const int col0 = blockIdx.y * 8 * hg::kProjectNF;
+  const hg::Operand x{p.x + h * hd, dq};
+  float* out = p.out + static_cast<size_t>(h) * kv_dim;
+  const size_t ld = static_cast<size_t>(heads) * kv_dim;
+  // B(d, c) = W[c sk + (h hd + d) sn]: d fast in W's rows (sn 1), c fast in
+  // nn.Linear's transposed weight (sk 1)
+  if (p.sn == 1)
+    hg::product<kWarpsM, hg::kProjectNF, true, true, kVec>(
+        smem, x, m, {p.w + h * hd, p.sk}, kv_dim, 0, hd, row0, col0, out, ld);
+  else
+    hg::product<kWarpsM, hg::kProjectNF, true, false, kVec>(
+        smem, x, m, {p.w + static_cast<size_t>(h) * hd * p.sn, p.sn}, kv_dim, 0, hd, row0, col0,
+        out, ld);
 }
 
 // blockIdx.z = h: x (m, heads, kv_dim) ->
-// out[r, h hd + d] = sum_c x[r, h, c] W[c, h hd + d], out (m, dq).
-__global__ void __launch_bounds__(kThreads)
+// out[r, h hd + d] = sum_c x[r, h, c] W[c, h hd + d], out (m, dq)
+// (head_gemm.cuh: 32 kWarpsM rows and 72 columns a block).
+template <int kWarpsM, int kVec>
+__global__ void __launch_bounds__(128)
     head_combine_kernel(HeadOperand p, int m, int kv_dim, int dq, int heads) {
+  namespace hg = head_gemm;
+  extern __shared__ float4 head_smem[];
+  float* smem = reinterpret_cast<float*>(head_smem);
   const int h = blockIdx.z;
   const int hd = dq / heads;
-  const int row0 = blockIdx.x * kBM;
-  const int col0 = blockIdx.y * kBN;
-  float acc[kTM][kTN];
-  gemm_tile<kBByStrides>(RowMajorLoader{p.x + static_cast<size_t>(h) * kv_dim, heads * kv_dim},
-                         p.w + static_cast<size_t>(h) * hd * p.sn, p.sk, p.sn, m, hd, 0, kv_dim,
-                         row0, col0, acc);
-  const int ty = threadIdx.x / kThreadCols;
-  const int tx = threadIdx.x % kThreadCols;
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int r = row0 + ty + i * kThreadRows;
-    if (r >= m) continue;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int d = col0 + tx + j * kThreadCols;
-      if (d < hd) p.out[static_cast<size_t>(r) * dq + h * hd + d] = acc[i][j];
-    }
-  }
+  const int row0 = blockIdx.x * 32 * kWarpsM;
+  const int col0 = blockIdx.y * 8 * hg::kHeadNF;
+  const hg::Operand x{p.x + static_cast<size_t>(h) * kv_dim, heads * kv_dim};
+  const float* w = p.w + static_cast<size_t>(h) * hd * p.sn;
+  // B(c, d) = W[c sk + (h hd + d) sn]: c fast in nn.Linear's transposed
+  // weight (sk 1), d fast in W's rows (sn 1)
+  if (p.sk == 1)
+    hg::product<kWarpsM, hg::kHeadNF, true, true, kVec>(smem, x, m, {w, p.sn}, hd, 0, kv_dim,
+                                                        row0, col0, p.out + h * hd, dq);
+  else
+    hg::product<kWarpsM, hg::kHeadNF, true, false, kVec>(smem, x, m, {w, p.sk}, hd, 0, kv_dim,
+                                                         row0, col0, p.out + h * hd, dq);
+}
+
+// Launch head_project_kernel over a and, where b.x is not null, b, in
+// blocks of `rows` rows.
+inline cudaError_t launch_head_project(const HeadOperand& a, const HeadOperand& b, int m,
+                                       int kv_dim, int dq, int heads, int rows,
+                                       cudaStream_t stream) {
+  const int hd = dq / heads;
+  const int z = (b.x != nullptr ? 2 : 1) * heads;
+  const bool vec = head_gemm::vector_copies(kv_dim, hd, {a.x, a.w, b.x, b.w});
+  return head_gemm::dispatch(rows, vec, [&](auto warps, auto v) {
+    constexpr int kW = decltype(warps)::value, kV = decltype(v)::value;
+    const dim3 grid((m + 32 * kW - 1) / (32 * kW),
+                    (kv_dim + 8 * head_gemm::kProjectNF - 1) / (8 * head_gemm::kProjectNF), z);
+    return head_gemm::launch<head_project_kernel<kW, kV>>(
+        grid, head_gemm::smem_bytes<kW, head_gemm::kProjectNF, true>(), stream, a, b, m, kv_dim,
+        dq, heads);
+  });
+}
+
+// Launch head_combine_kernel in blocks of `rows` rows.
+inline cudaError_t launch_head_combine(const HeadOperand& p, int m, int kv_dim, int dq, int heads,
+                                       int rows, cudaStream_t stream) {
+  const int hd = dq / heads;
+  const bool vec = head_gemm::vector_copies(kv_dim, hd, {p.x, p.w});
+  return head_gemm::dispatch(rows, vec, [&](auto warps, auto v) {
+    constexpr int kW = decltype(warps)::value, kV = decltype(v)::value;
+    const dim3 grid((m + 32 * kW - 1) / (32 * kW),
+                    (hd + 8 * head_gemm::kHeadNF - 1) / (8 * head_gemm::kHeadNF), heads);
+    return head_gemm::launch<head_combine_kernel<kW, kV>>(
+        grid, head_gemm::smem_bytes<kW, head_gemm::kHeadNF, true>(), stream, p, m, kv_dim, dq,
+        heads);
+  });
 }
 
 // dst[j * ld + c] = src[j * w + c] for rows x w floats, by asynchronous
@@ -214,6 +250,8 @@ struct AttentionParams {
   int dq;
   int heads;
   float scale;                     // (dq / heads) ** -0.5
+  int project_rows;                // rows a block of head_project and head_combine takes
+  int combine_rows;                // (ops/_plan.py::head_plan)
 };
 
 // AttentionParams over the wrapper's scratch (2, m, heads, kv_dim): qk, av.
@@ -221,10 +259,12 @@ inline AttentionParams attention_params(const float* q3, const float* mask, cons
                                         const float* wk, int wk_sk, int wk_sn, const float* wv,
                                         int wv_sk, int wv_sn, float* scratch, float* out,
                                         float* scores, int m, int k, int kv_dim, int dq,
-                                        int heads, float scale) {
+                                        int heads, float scale, int project_rows,
+                                        int combine_rows) {
   const size_t part = static_cast<size_t>(m) * heads * kv_dim;
-  return AttentionParams{q3,  mask,   keep, wk, wk_sk,  wk_sn, wv,    wv_sk, wv_sn, scratch,
-                         scratch + part, out, scores, m, k, kv_dim, dq, heads, scale};
+  return AttentionParams{q3, mask, keep, wk, wk_sk, wk_sn, wv, wv_sk, wv_sn, scratch,
+                         scratch + part, out, scores, m, k, kv_dim, dq, heads, scale,
+                         project_rows, combine_rows};
 }
 
 // Shared memory of one query's forward block, in floats: kv rows (k,
@@ -320,13 +360,10 @@ template <class Loader>
 cudaError_t launch_attention_forward(const Loader& loader, const AttentionParams& p,
                                      cudaStream_t stream) {
   if (p.m == 0 || p.dq == 0) return cudaSuccess;
-  const int hd = p.dq / p.heads;
-  const unsigned row_tiles = static_cast<unsigned>((p.m + kBM - 1) / kBM);
   // 1. qk
-  head_project_kernel<<<dim3(row_tiles, (p.kv_dim + kBN - 1) / kBN, p.heads), kThreads, 0,
-                        stream>>>(HeadOperand{p.q3, p.wk, p.wk_sk, p.wk_sn, p.qk}, HeadOperand{},
-                                  p.m, p.kv_dim, p.dq, p.heads);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_head_project(HeadOperand{p.q3, p.wk, p.wk_sk, p.wk_sn, p.qk},
+                                        HeadOperand{}, p.m, p.kv_dim, p.dq, p.heads,
+                                        p.project_rows, stream);
   if (err != cudaSuccess) return err;
   // 2. per query: weights, scores, Av
   const size_t smem = sizeof(float) * attention_fwd_smem_floats(p.k, p.kv_dim, p.heads);
@@ -340,9 +377,8 @@ cudaError_t launch_attention_forward(const Loader& loader, const AttentionParams
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // 3. out
-  head_combine_kernel<<<dim3(row_tiles, (hd + kBN - 1) / kBN, p.heads), kThreads, 0, stream>>>(
-      HeadOperand{p.av, p.wv, p.wv_sk, p.wv_sn, p.out}, p.m, p.kv_dim, p.dq, p.heads);
-  return cudaGetLastError();
+  return launch_head_combine(HeadOperand{p.av, p.wv, p.wv_sk, p.wv_sn, p.out}, p.m, p.kv_dim,
+                             p.dq, p.heads, p.combine_rows, stream);
 }
 
 }  // namespace dyglib

@@ -58,10 +58,11 @@ DYGLIB_API int gathered_attention_forward(const float* q3, const float* feat_n,
                                           const float* wk, int wk_sk, int wk_sn, const float* wv,
                                           int wv_sk, int wv_sn, float* scratch, float* out, int m,
                                           int k, int dn, int de, int dt_dim, int dq, int heads,
-                                          float scale, cudaStream_t stream) {
-  const dyglib::AttentionParams p =
-      dyglib::attention_params(q3, mask, keep, wk, wk_sk, wk_sn, wv, wv_sk, wv_sn, scratch, out,
-                               nullptr, m, k, dn + de + dt_dim, dq, heads, scale);
+                                          float scale, int project_rows, int combine_rows,
+                                          cudaStream_t stream) {
+  const dyglib::AttentionParams p = dyglib::attention_params(
+      q3, mask, keep, wk, wk_sk, wk_sn, wv, wv_sk, wv_sn, scratch, out, nullptr, m, k,
+      dn + de + dt_dim, dq, heads, scale, project_rows, combine_rows);
   return static_cast<int>(dyglib::launch_attention_forward(
       GatheredLoader{feat_n, feat_e, dt, tw, tb, dn, de}, p, stream));
 }
@@ -69,16 +70,19 @@ DYGLIB_API int gathered_attention_forward(const float* q3, const float* feat_n,
 // As the forward, plus dout: (m, dq). Outputs: dq3 (m, dq); dwk, dwv
 // (dn + de + dt_dim, dq); dt_grads (2, dt_dim): dtw, then dtb. Scratch:
 // (4, m, heads, dn + de + dt_dim), partial (ceil(m / chunk_rows), dn + de +
-// dt_dim, dq), part (m, 2, dt_dim). All f32; m > 0.
+// dt_dim, dq), part (m, 2, dt_dim). All f32; m > 0. The plan as
+// temporal_attention_backward's.
 DYGLIB_API int gathered_attention_backward(
     const float* q3, const float* feat_n, const float* feat_e, const float* dt, const float* tw,
     const float* tb, const float* mask, const float* keep, const float* wk, int wk_sk, int wk_sn,
     const float* wv, int wv_sk, int wv_sn, const float* dout, float* scratch, float* partial,
-    float* part, float* dq3, float* dwk, float* dwv, float* dt_grads, int m, int k, int dn, int de, int dt_dim, int dq, int heads, float scale, int chunk_rows,
-    cudaStream_t stream) {
+    float* part, float* dq3, float* dwk, float* dwv, float* dt_grads, int m, int k, int dn,
+    int de, int dt_dim, int dq, int heads, float scale, int project_rows, int combine_rows,
+    int grad_rows, int chunk_rows, cudaStream_t stream) {
   const dyglib::AttentionBwdParams p = dyglib::attention_bwd_params(
       q3, mask, keep, wk, wk_sk, wk_sn, wv, wv_sk, wv_sn, dout, nullptr, scratch, partial, dq3,
-      dwk, dwv, m, k, dn + de + dt_dim, dq, heads, scale, chunk_rows);
+      dwk, dwv, m, k, dn + de + dt_dim, dq, heads, scale, project_rows, combine_rows, grad_rows,
+      chunk_rows);
   return static_cast<int>(dyglib::launch_attention_backward(
       GatheredLoader{feat_n, feat_e, dt, tw, tb, dn, de},
       dyglib::PhiParamGrad{dt, part, dt_grads, dt_dim}, p, stream));

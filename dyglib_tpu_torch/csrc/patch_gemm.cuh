@@ -189,78 +189,83 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// One stage's products for this warp, kTileK deep, added to acc. The A
-// fragment of m16 block mt holds (row g, col t), (g + 8, t), (g, t + 4),
-// (g + 8, t + 4); the B fragment (row t, col g), (t + 4, g); g = lane / 4,
-// t = lane % 4. a_at(mt, row, k) and b_at(nf, k, col) return
-// shared-memory values. Each 8-deep step splits all its fragments first,
-// then issues the 14 lo*hi products, the 14 hi*lo, the 14 hi*hi: 14
-// independent products between two that chain on one accumulator.
+// One stage's products for this warp over its first `depth` k (all
+// kTileK by default; an 8-deep step that starts at or past depth is
+// skipped), added to acc: kMF m16 blocks by kNF n8 blocks of mma tiles. The A fragment of m16 block mt
+// holds (row g, col t), (g + 8, t), (g, t + 4), (g + 8, t + 4); the B
+// fragment (row t, col g), (t + 4, g); g = lane / 4, t = lane % 4.
+// a_at(mt, row, k) and b_at(nf, k, col) return shared-memory values. Each
+// 8-deep step splits all its fragments first, then issues the kMF kNF
+// lo*hi products, the kMF kNF hi*lo, the kMF kNF hi*hi (14 each for the
+// patch projection's 2 x 7): independent products between two that chain
+// on one accumulator.
 // The tensor cores' f32 accumulation rounds toward zero, an error that
 // grows with every add and always has the same sign; so a stage's 12
 // products per output sum into fresh registers, and those are added to acc
 // on the CUDA cores, rounded to nearest.
-template <class AAt, class BAt>
+template <class AAt, class BAt, int kMF, int kNF>
 __device__ __forceinline__ void multiply_stage(const AAt& a_at, const BAt& b_at,
-                                               float (&acc)[2][kNFrag][4]) {
+                                               float (&acc)[kMF][kNF][4], int depth = kTileK) {
   const int lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  float part[2][kNFrag][4] = {};
+  float part[kMF][kNF][4] = {};
 #pragma unroll
   for (int kk = 0; kk < kTileK; kk += 8) {
-    unsigned a_hi[2][4], a_lo[2][4], b_hi[kNFrag][2], b_lo[kNFrag][2];
+    if (kk >= depth) break;
+    unsigned a_hi[kMF][4], a_lo[kMF][4], b_hi[kNF][2], b_lo[kNF][2];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < kMF; ++mt)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const Split s = split_tf32(a_at(mt, g + 8 * (i % 2), kk + t + 4 * (i / 2)));
         a_hi[mt][i] = s.hi, a_lo[mt][i] = s.lo;
       }
 #pragma unroll
-    for (int nf = 0; nf < kNFrag; ++nf)
+    for (int nf = 0; nf < kNF; ++nf)
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const Split s = split_tf32(b_at(nf, kk + t + 4 * i, g));
         b_hi[nf][i] = s.hi, b_lo[nf][i] = s.lo;
       }
 #pragma unroll
-    for (int nf = 0; nf < kNFrag; ++nf)
+    for (int nf = 0; nf < kNF; ++nf)
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) mma_tf32(part[mt][nf], a_lo[mt], b_hi[nf][0], b_hi[nf][1]);
+      for (int mt = 0; mt < kMF; ++mt) mma_tf32(part[mt][nf], a_lo[mt], b_hi[nf][0], b_hi[nf][1]);
 #pragma unroll
-    for (int nf = 0; nf < kNFrag; ++nf)
+    for (int nf = 0; nf < kNF; ++nf)
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) mma_tf32(part[mt][nf], a_hi[mt], b_lo[nf][0], b_lo[nf][1]);
+      for (int mt = 0; mt < kMF; ++mt) mma_tf32(part[mt][nf], a_hi[mt], b_lo[nf][0], b_lo[nf][1]);
 #pragma unroll
-    for (int nf = 0; nf < kNFrag; ++nf)
+    for (int nf = 0; nf < kNF; ++nf)
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) mma_tf32(part[mt][nf], a_hi[mt], b_hi[nf][0], b_hi[nf][1]);
+      for (int mt = 0; mt < kMF; ++mt) mma_tf32(part[mt][nf], a_hi[mt], b_hi[nf][0], b_hi[nf][1]);
   }
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < kMF; ++mt)
 #pragma unroll
-    for (int nf = 0; nf < kNFrag; ++nf)
+    for (int nf = 0; nf < kNF; ++nf)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[mt][nf][i] += part[mt][nf][i];
 }
 
-// Runs the ring over `tiles` stages: load(tile, stage_floats) issues one
-// stage's copies, multiply(stage_floats) consumes it.
-template <int kStageFloats, class Load, class Multiply>
+// Runs a ring of kRing stages over `tiles` stages: load(tile,
+// stage_floats) issues one stage's copies, multiply(stage_floats) consumes
+// it.
+template <int kStageFloats, int kRing = kStages, class Load, class Multiply>
 __device__ __forceinline__ void pipeline(float* smem, int tiles, const Load& load,
                                          const Multiply& multiply) {
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
+  for (int s = 0; s < kRing - 1; ++s) {
     if (s < tiles) load(s, smem + s * kStageFloats);
     commit_copies();
   }
   for (int t = 0; t < tiles; ++t) {
-    wait_copies<kStages - 2>();  // stage t has landed (this thread's copies)
-    __syncthreads();             // ... and every thread's; stage t - 1 is consumed
-    const int next = t + kStages - 1;
-    if (next < tiles) load(next, smem + (next % kStages) * kStageFloats);
+    wait_copies<kRing - 2>();  // stage t has landed (this thread's copies)
+    __syncthreads();           // ... and every thread's; stage t - 1 is consumed
+    const int next = t + kRing - 1;
+    if (next < tiles) load(next, smem + (next % kRing) * kStageFloats);
     commit_copies();
-    multiply(smem + (t % kStages) * kStageFloats);
+    multiply(smem + (t % kRing) * kStageFloats);
   }
   wait_copies<0>();
 }

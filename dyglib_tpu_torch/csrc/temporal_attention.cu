@@ -45,15 +45,18 @@ struct KvLoader {
 // q3: (m, dq); nbr, edge, phi: (m, k, dn / de / dt); mask: (m, k); keep:
 // (m, heads, k); wk, wv: (dn + de + dt, dq) by element strides; scratch:
 // (2, m, heads, dn + de + dt); out: (m, dq); scores: (m, heads, k). All f32.
+// project_rows, combine_rows: the rows a block of the per-head products
+// takes (ops/_plan.py::head_plan).
 DYGLIB_API int temporal_attention_forward(const float* q3, const float* nbr, const float* edge,
                                           const float* phi, const float* mask, const float* keep,
                                           const float* wk, int wk_sk, int wk_sn, const float* wv,
                                           int wv_sk, int wv_sn, float* scratch, float* out,
                                           float* scores, int m, int k, int dn, int de, int dt,
-                                          int dq, int heads, float scale, cudaStream_t stream) {
-  const dyglib::AttentionParams p =
-      dyglib::attention_params(q3, mask, keep, wk, wk_sk, wk_sn, wv, wv_sk, wv_sn, scratch, out,
-                               scores, m, k, dn + de + dt, dq, heads, scale);
+                                          int dq, int heads, float scale, int project_rows,
+                                          int combine_rows, cudaStream_t stream) {
+  const dyglib::AttentionParams p = dyglib::attention_params(
+      q3, mask, keep, wk, wk_sk, wk_sn, wv, wv_sk, wv_sn, scratch, out, scores, m, k,
+      dn + de + dt, dq, heads, scale, project_rows, combine_rows);
   return static_cast<int>(
       dyglib::launch_attention_forward(KvLoader{nbr, edge, phi, dn, de, dt}, p, stream));
 }
@@ -61,16 +64,19 @@ DYGLIB_API int temporal_attention_forward(const float* q3, const float* nbr, con
 // As the forward, plus dout: (m, dq); dscores: (m, heads, k) or null.
 // Outputs: dq3 (m, dq); dnbr, dedge, dphi (m, k, dn / de / dt); dwk, dwv
 // (dn + de + dt, dq). Scratch: (4, m, heads, dn + de + dt) and partial
-// (ceil(m / chunk_rows), dn + de + dt, dq). All f32; m > 0.
+// (ceil(m / chunk_rows), dn + de + dt, dq). All f32; m > 0. The plan:
+// project_rows, combine_rows, grad_rows and chunk_rows (ops/_plan.py).
 DYGLIB_API int temporal_attention_backward(
     const float* q3, const float* nbr, const float* edge, const float* phi, const float* mask,
     const float* keep, const float* wk, int wk_sk, int wk_sn, const float* wv, int wv_sk,
     int wv_sn, const float* dout, const float* dscores, float* scratch, float* partial,
     float* dq3, float* dnbr, float* dedge, float* dphi, float* dwk, float* dwv, int m, int k,
-    int dn, int de, int dt, int dq, int heads, float scale, int chunk_rows, cudaStream_t stream) {
+    int dn, int de, int dt, int dq, int heads, float scale, int project_rows, int combine_rows,
+    int grad_rows, int chunk_rows, cudaStream_t stream) {
   const dyglib::AttentionBwdParams p = dyglib::attention_bwd_params(
       q3, mask, keep, wk, wk_sk, wk_sn, wv, wv_sk, wv_sn, dout, dscores, scratch, partial, dq3,
-      dwk, dwv, m, k, dn + de + dt, dq, heads, scale, chunk_rows);
+      dwk, dwv, m, k, dn + de + dt, dq, heads, scale, project_rows, combine_rows, grad_rows,
+      chunk_rows);
   return static_cast<int>(dyglib::launch_attention_backward(
       KvLoader{nbr, edge, phi, dn, de, dt}, dyglib::KvPartsGrad{dnbr, dedge, dphi, dn, de, dt}, p,
       stream));

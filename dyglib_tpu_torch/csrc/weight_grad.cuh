@@ -9,8 +9,7 @@
 // bit-identical gradients. Its users: the time channel's and the Phi
 // projection's backward (time_channel_bwd.cuh), the patch projection's
 // (patch_projection.cu) and the attention backward's weight gradients
-// (attention_bwd.cuh, whose chunks ops/_build.py weight_grad_chunk_rows
-// sizes).
+// (attention_bwd.cuh, whose chunks ops/_plan.py head_plan sizes).
 #pragma once
 
 #include "common.cuh"

@@ -65,10 +65,10 @@ DYGLIB_API int window_attention_forward(const float* q3, const float* table, con
                                         int wk_sk, int wk_sn, const float* wv, int wv_sk,
                                         int wv_sn, float* scratch, float* out, int m, int k,
                                         int width, int dt_dim, int dq, int heads, float scale,
-                                        cudaStream_t stream) {
-  const dyglib::AttentionParams p =
-      dyglib::attention_params(q3, mask, keep, wk, wk_sk, wk_sn, wv, wv_sk, wv_sn, scratch, out,
-                               nullptr, m, k, width + dt_dim, dq, heads, scale);
+                                        int project_rows, int combine_rows, cudaStream_t stream) {
+  const dyglib::AttentionParams p = dyglib::attention_params(
+      q3, mask, keep, wk, wk_sk, wk_sn, wv, wv_sk, wv_sn, scratch, out, nullptr, m, k,
+      width + dt_dim, dq, heads, scale, project_rows, combine_rows);
   return static_cast<int>(dyglib::launch_attention_forward(
       WindowLoader{table, starts, mask, dt, tw, tb, width}, p, stream));
 }
@@ -76,16 +76,19 @@ DYGLIB_API int window_attention_forward(const float* q3, const float* table, con
 // As the forward, plus dout: (m, dq). Outputs: dq3 (m, dq); dwk, dwv
 // (width + dt_dim, dq); dt_grads (2, dt_dim): dtw, then dtb. Scratch: (4,
 // m, heads, width + dt_dim), partial (ceil(m / chunk_rows), width + dt_dim,
-// dq), part (m, 2, dt_dim). All f32 but starts; m > 0.
+// dq), part (m, 2, dt_dim). All f32 but starts; m > 0. The plan as
+// temporal_attention_backward's.
 DYGLIB_API int window_attention_backward(
     const float* q3, const float* table, const int* starts, const float* dt, const float* tw,
     const float* tb, const float* mask, const float* keep, const float* wk, int wk_sk, int wk_sn,
     const float* wv, int wv_sk, int wv_sn, const float* dout, float* scratch, float* partial,
     float* part, float* dq3, float* dwk, float* dwv, float* dt_grads, int m, int k, int width,
-    int dt_dim, int dq, int heads, float scale, int chunk_rows, cudaStream_t stream) {
+    int dt_dim, int dq, int heads, float scale, int project_rows, int combine_rows,
+    int grad_rows, int chunk_rows, cudaStream_t stream) {
   const dyglib::AttentionBwdParams p = dyglib::attention_bwd_params(
       q3, mask, keep, wk, wk_sk, wk_sn, wv, wv_sk, wv_sn, dout, nullptr, scratch, partial, dq3,
-      dwk, dwv, m, k, width + dt_dim, dq, heads, scale, chunk_rows);
+      dwk, dwv, m, k, width + dt_dim, dq, heads, scale, project_rows, combine_rows, grad_rows,
+      chunk_rows);
   return static_cast<int>(dyglib::launch_attention_backward(
       WindowLoader{table, starts, mask, dt, tw, tb, width},
       dyglib::PhiParamGrad{dt, part, dt_grads, dt_dim}, p, stream));

@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, _plan
 
 NEG = -1e10  # pad logit
 # shared memory one block may use on the H100: a query's block stages its K
@@ -192,14 +192,27 @@ def forward_scratch(m: int, kv_dim: int, num_heads: int, device) -> torch.Tensor
     return torch.empty((2, m, num_heads, kv_dim), dtype=torch.float32, device=device)
 
 
+def _sms(device) -> int:
+    # a CPU caller runs the plain version and launches nothing: it plans for an H100
+    device = torch.device(device)
+    return _plan.sm_count(device) if device.type == "cuda" else _plan.H100_SMS
+
+
+def forward_plan(m: int, kv_dim: int, dq: int, num_heads: int, device) -> tuple[int, int]:
+    """The rows a block of the forward's head_project and head_combine
+    takes on ``device`` (``_plan.head_plan``)."""
+    return _plan.head_plan(m, kv_dim, dq, num_heads, _sms(device), backward=False)
+
+
 def backward_scratch(m: int, k: int, kv_dim: int, dq: int, num_heads: int, device,
                      sin_cols: int = 0):
     """The backward kernels' scratch: qk, gv, ak, av (4, M, H, Dkv) and the
     weight gradients' per-chunk partial sums (chunks, Dkv, Dq); returns
-    (scratch, partial, chunk_rows). Raises if a query's kv rows (and its
-    ``sin_cols`` Phi columns' sines) do not fit one block's shared memory."""
+    (scratch, partial, plan), the plan ``_plan.head_plan``'s (project,
+    combine and weight-gradient rows, chunk rows). Raises if a query's kv
+    rows (and its ``sin_cols`` Phi columns' sines) do not fit one block's
+    shared memory."""
     check_shared_memory(k, kv_dim, num_heads, backward=True, sin_cols=sin_cols)
-    # the weight-gradient grid's z runs over (chunk, head): at most 65535
-    chunk = max(_build.weight_grad_chunk_rows(m, kv_dim, dq), -(-m * num_heads // 65535))
+    plan = _plan.head_plan(m, kv_dim, dq, num_heads, _sms(device), backward=True)
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=device)
-    return new(4, m, num_heads, kv_dim), new(max(1, -(-m // chunk)), kv_dim, dq), chunk
+    return new(4, m, num_heads, kv_dim), new(max(1, -(-m // plan[-1])), kv_dim, dq), plan

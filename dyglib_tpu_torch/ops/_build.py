@@ -35,11 +35,6 @@ NVCC_FLAGS = (
 _libs: dict[str, ctypes.CDLL] = {}
 _declared: set[tuple[str, str]] = set()
 _lock = threading.Lock()
-# output rows of one GEMM tile (csrc/tiled_gemm.cuh kBM): per-tile scratch
-# that a wrapper allocates is sized by it
-TILE_ROWS = 64
-# blocks that fill one H100 (132 SMs, ~8 resident 256-thread blocks each)
-_FULL_CARD_BLOCKS = 8 * 132
 
 
 def nvcc_path() -> str:
@@ -111,16 +106,6 @@ def load(name: str, entry: str, argtypes: list) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
             _declared.add((name, entry))
     return lib
-
-
-def weight_grad_chunk_rows(rows: int, k_total: int, n: int) -> int:
-    """Rows per partial sum of a weight gradient (csrc/weight_grad.cuh):
-    enough row chunks that its first pass fills the card, each a whole
-    number of tiles, and at most 65535 chunks (the grid's z limit)."""
-    tiles = -(-(k_total + 1) // TILE_ROWS) * -(-n // TILE_ROWS)
-    chunks = max(1, -(-_FULL_CARD_BLOCKS // tiles))
-    chunk = -(-max(1, -(-rows // chunks)) // TILE_ROWS) * TILE_ROWS
-    return max(chunk, -(-rows // 65535))
 
 
 class LaunchCounter:

@@ -9,7 +9,8 @@ at layer 1, whose kv rows are raw feature rows gathered from the tables
 (pad rows are the zero id-0 rows, so nothing is masked here). The node and
 edge rows arrive as two slabs, in which a query's K rows are contiguous.
 The forward (``csrc/attention_core.cuh``) never projects a kv row: qk =
-Wk_h q3_h per query and head on the shared f32 tile; one block per query
+Wk_h q3_h per query and head on the split-TF32 tensor-core tile
+(``csrc/head_gemm.cuh``, f32-accurate); one block per query
 stages its K rows once (16-byte loads) and computes Phi(dt) beside them in
 shared memory, each cosine once, then the logits kv . qk, the softmax and
 Av = sum_j w kv_j; out_h = Av Wv_h on the tile. Neither the (M * K, Dt)
@@ -32,19 +33,22 @@ Phi columns of dkv times the staged sines, summed per query, then over
 queries in a fixed order (deterministic).
 
 Bounds on one H100 at the TGAT batch (B = 200 triple, K = 20, Dn = De =
-172, Dt = 100, Dq = 272), f32 on CUDA cores, operations against 67 T/s and
-bytes against 3.35 TB/s, at hop 1 (M = 12,000, 240,000 kv rows):
+172, Dt = 100, Dq = 272), the per-head products at the 165 T/s of three
+TF32 passes, the rest at the 67 T/s of the f32 CUDA cores, bytes against
+3.35 TB/s, at hop 1 (M = 12,000, 240,000 kv rows):
   * forward: the function needs 6.7 G operations (logits against qk =
-    Wk_h q3_h, out_h = (sum_j w kv_j) Wv_h) -> 0.099 ms; 330 MB of
-    feature rows read -> 0.099 ms. The kernels compute exactly that; the
-    (2, M, H, Dkv) scratch of qk and Av adds ~170 MB of traffic.
-  * backward: 16.4 G operations -> 0.245 ms; 330 MB read -> 0.099 ms.
-    Bound by operations.
+    Wk_h q3_h, out_h = (sum_j w kv_j) Wv_h; 5.8 G of them the products)
+    -> 0.048 ms; 330 MB of feature rows read -> 0.099 ms: bound by the
+    bytes. The (2, M, H, Dkv) scratch of qk and Av adds ~170 MB of
+    traffic.
+  * backward: 16.4 G operations (14.5 G the products) -> 0.116 ms; 330 MB
+    read -> 0.099 ms. Bound by operations.
 At hop 0 (M = 600) each is 1/20 of that.
 
-What the design leaves on the table: the per-head products (qk, gv, dq3,
-dWk, dWv) are f32 FMAs on CUDA cores where tensor cores would lift their
-bound 7-15x; qk and Av pass through device memory between the launches.
+What the design leaves on the table: the per-head products run at about a
+quarter of their split-TF32 bound, held by their staging, not by the
+tensor cores (PERF.md); qk and Av pass through device memory between the
+launches.
 """
 from __future__ import annotations
 
@@ -55,11 +59,11 @@ from . import _attention, _build
 _NAME = "gathered_attention"
 _ARGTYPES = (
     [_build.P] * 9 + [_build.I] * 2 + [_build.P] + [_build.I] * 2 + [_build.P] * 2
-    + [_build.I] * 7 + [_build.F, _build.P]
+    + [_build.I] * 7 + [_build.F] + [_build.I] * 2 + [_build.P]
 )
 _BWD_ARGTYPES = (
     [_build.P] * 9 + [_build.I] * 2 + [_build.P] + [_build.I] * 2 + [_build.P] * 8
-    + [_build.I] * 7 + [_build.F, _build.I, _build.P]
+    + [_build.I] * 7 + [_build.F] + [_build.I] * 4 + [_build.P]
 )
 
 
@@ -138,6 +142,7 @@ def _forward_kernel(q3, feat_n, feat_e, dt, mask, keep, tw, tb, wk, wv, num_head
         tb.data_ptr(), mask.data_ptr(), keep.data_ptr(), wk.data_ptr(), wk_sk, wk_sn,
         wv.data_ptr(), wv_sk, wv_sn, scratch.data_ptr(), out.data_ptr(), m, k, dn, de, dt_dim,
         dq, num_heads, _attention.head_scale(dq, num_heads),
+        *_attention.forward_plan(m, dn + de + dt_dim, dq, num_heads, dev),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, _NAME)
@@ -165,8 +170,8 @@ def gathered_attention_backward(q3, feat_n, feat_e, dt, mask, keep, time_wb, wkv
         return (torch.empty((0, dq), dtype=f32, device=dev), torch.zeros_like(tw),
                 torch.zeros_like(tb), torch.zeros_like(wk), torch.zeros_like(wv))
     kv_dim = dn + de + dt_dim
-    scratch, partial, chunk = _attention.backward_scratch(m, k, kv_dim, dq, num_heads, dev,
-                                                              dt_dim)
+    scratch, partial, plan = _attention.backward_scratch(m, k, kv_dim, dq, num_heads, dev,
+                                                             dt_dim)
     new = lambda *shape: torch.empty(shape, dtype=f32, device=dev)
     part = new(m, 2, dt_dim)  # per query: dtw's and dtb's sums
     dq3, dwk, dwv, dt_grads = new(m, dq), new(kv_dim, dq), new(kv_dim, dq), new(2, dt_dim)
@@ -177,7 +182,7 @@ def gathered_attention_backward(q3, feat_n, feat_e, dt, mask, keep, time_wb, wkv
         wv.data_ptr(), wv_sk, wv_sn, dout.data_ptr(), scratch.data_ptr(), partial.data_ptr(),
         part.data_ptr(), dq3.data_ptr(), dwk.data_ptr(), dwv.data_ptr(), dt_grads.data_ptr(),
         m, k, dn, de, dt_dim, dq, num_heads,
-        _attention.head_scale(dq, num_heads), chunk, torch.cuda.current_stream(dev).cuda_stream,
+        _attention.head_scale(dq, num_heads), *plan, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, f"{_NAME} backward")
     _build.count_launch(gathered_attention_backward)

@@ -14,7 +14,8 @@ wv, from the output and from the scores (a missing cotangent counts as
 zeros, as JAX's does); mask and keep are data.
 
 Forward (``csrc/attention_core.cuh``): never projects a kv row. Per query
-and head, qk = Wk_h q3_h (the shared f32 tile of ``csrc/tiled_gemm.cuh``);
+and head, qk = Wk_h q3_h (the split-TF32 tensor-core tile of
+``csrc/head_gemm.cuh``, f32-accurate);
 one block per query stages its K kv rows once (the three parts, each a
 contiguous block, with 16-byte loads where the widths allow; the
 concatenation never exists) and forms the logits kv . qk, the softmax, the
@@ -29,17 +30,18 @@ block holds its K rows in shared memory: that alone bounds K
 (``_attention.check_shared_memory``).
 
 Bounds on one H100 at the TGAT batch (B = 200 triple, M = 600, K = 20,
-Dn = De = 172, Dt = 100, Dq = 272, H = 2), f32 on CUDA cores against
-67 T/s, bytes against 3.35 TB/s:
+Dn = De = 172, Dt = 100, Dq = 272, H = 2), the per-head products at the
+165 T/s of three TF32 passes, the rest at the 67 T/s of the f32 CUDA
+cores, bytes against 3.35 TB/s:
   * forward: the logits against qk = Wk_h q3_h and out_h = (sum_j w kv_j)
-    Wv_h: 0.33 G operations -> 0.005 ms; 21.3 MB of kv read -> 6.4 us.
-  * backward: 0.85 G operations -> 0.013 ms; 21.3 MB of kv read and
+    Wv_h: 0.33 G operations (0.29 G the products) -> 0.0024 ms; 21.3 MB of
+    kv read -> 6.4 us.
+  * backward: 0.85 G operations -> 0.0063 ms; 21.3 MB of kv read and
     21.3 MB of dkv written -> 0.013 ms.
 
-What the simple design leaves on the table: f32 FMAs on CUDA cores where
-TF32 or bf16 tensor cores would lift the bound 7-15x; three launches for
-the forward and seven for the backward, of small grids at M = 600; the
-(2, M, H, Dkv) scratch of qk and Av goes through device memory.
+What the design leaves on the table: three launches for the forward and
+seven for the backward, of small grids at M = 600; the (2, M, H, Dkv)
+scratch of qk and Av goes through device memory.
 """
 from __future__ import annotations
 
@@ -50,11 +52,11 @@ from . import _attention, _build
 _NAME = "temporal_attention"
 _ARGTYPES = (
     [_build.P] * 7 + [_build.I] * 2 + [_build.P] + [_build.I] * 2 + [_build.P] * 3
-    + [_build.I] * 7 + [_build.F, _build.P]
+    + [_build.I] * 7 + [_build.F] + [_build.I] * 2 + [_build.P]
 )
 _BWD_ARGTYPES = (
     [_build.P] * 7 + [_build.I] * 2 + [_build.P] + [_build.I] * 2 + [_build.P] * 10
-    + [_build.I] * 7 + [_build.F, _build.I, _build.P]
+    + [_build.I] * 7 + [_build.F] + [_build.I] * 4 + [_build.P]
 )
 
 
@@ -121,7 +123,9 @@ def _forward_kernel(q3, nbr, edge, phi, mask, keep, wk, wv, num_heads):
         q3.data_ptr(), nbr.data_ptr(), edge.data_ptr(), phi.data_ptr(), mask.data_ptr(),
         keep.data_ptr(), wk.data_ptr(), wk_sk, wk_sn, wv.data_ptr(), wv_sk, wv_sn,
         scratch.data_ptr(), out.data_ptr(), scores.data_ptr(), m, k, dn, de, dt, dq, num_heads,
-        _attention.head_scale(dq, num_heads), torch.cuda.current_stream(dev).cuda_stream,
+        _attention.head_scale(dq, num_heads),
+        *_attention.forward_plan(m, dn + de + dt, dq, num_heads, dev),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, _NAME)
     _build.count_launch(temporal_attention)
@@ -150,7 +154,7 @@ def temporal_attention_backward(q3, nbr, edge, phi, mask, keep, wk, wv, dout, ds
     dq3, dnbr, dedge, dphi = new(m, dq), new(m, k, dn), new(m, k, de), new(m, k, dt)
     if m == 0:
         return dq3, dnbr, dedge, dphi, torch.zeros_like(wk), torch.zeros_like(wv)
-    scratch, partial, chunk = _attention.backward_scratch(m, k, kv_dim, dq, num_heads, dev)
+    scratch, partial, plan = _attention.backward_scratch(m, k, kv_dim, dq, num_heads, dev)
     dwk, dwv = new(kv_dim, dq), new(kv_dim, dq)
     lib = _build.load(_NAME, "temporal_attention_backward", _BWD_ARGTYPES)
     rc = lib.temporal_attention_backward(
@@ -159,7 +163,7 @@ def temporal_attention_backward(q3, nbr, edge, phi, mask, keep, wk, wv, dout, ds
         dout.data_ptr(), 0 if dscores is None else dscores.data_ptr(), scratch.data_ptr(),
         partial.data_ptr(), dq3.data_ptr(), dnbr.data_ptr(), dedge.data_ptr(), dphi.data_ptr(),
         dwk.data_ptr(), dwv.data_ptr(), m, k, dn, de, dt, dq, num_heads,
-        _attention.head_scale(dq, num_heads), chunk, torch.cuda.current_stream(dev).cuda_stream,
+        _attention.head_scale(dq, num_heads), *plan, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, f"{_NAME} backward")
     _build.count_launch(temporal_attention_backward)

@@ -32,13 +32,14 @@ JAX ``_wa_bwd``. The backward is ``ops/gathered_attention.py``'s
 (``csrc/attention_bwd.cuh``) with this kernel's loader.
 
 Bounds on one H100 at the TGAT batch, layer 1, hop 1 (M = 12,000, K = 20,
-a 344-wide table, Dt = 100, Dq = 272), f32 on CUDA cores: as the gathered
-kernel's, forward 6.7 G operations -> 0.099 ms, backward 16.4 G -> 0.245
-ms; the valid window rows read (at most 330 MB) -> 0.099 ms.
+a 344-wide table, Dt = 100, Dq = 272), the per-head products on the tensor
+cores in split TF32: as the gathered kernel's, forward 6.7 G operations ->
+0.048 ms, backward 16.4 G -> 0.116 ms; the valid window rows read (at most
+330 MB) -> 0.099 ms.
 
 What the design leaves on the table: as ``ops/gathered_attention.py``
-(CUDA-core f32 per-head products; qk and Av through device memory between
-launches).
+(per-head products at about a quarter of their split-TF32 bound; qk and Av
+through device memory between launches).
 """
 from __future__ import annotations
 
@@ -49,11 +50,11 @@ from . import _attention, _build
 _NAME = "window_attention"
 _ARGTYPES = (
     [_build.P] * 9 + [_build.I] * 2 + [_build.P] + [_build.I] * 2 + [_build.P] * 2
-    + [_build.I] * 6 + [_build.F, _build.P]
+    + [_build.I] * 6 + [_build.F] + [_build.I] * 2 + [_build.P]
 )
 _BWD_ARGTYPES = (
     [_build.P] * 9 + [_build.I] * 2 + [_build.P] + [_build.I] * 2 + [_build.P] * 8
-    + [_build.I] * 6 + [_build.F, _build.I, _build.P]
+    + [_build.I] * 6 + [_build.F] + [_build.I] * 4 + [_build.P]
 )
 
 
@@ -137,6 +138,7 @@ def _forward_kernel(q3, starts, dt, mask, keep, table, tw, tb, wk, wv, num_heads
         tb.data_ptr(), mask.data_ptr(), keep.data_ptr(), wk.data_ptr(), wk_sk, wk_sn,
         wv.data_ptr(), wv_sk, wv_sn, scratch.data_ptr(), out.data_ptr(), m, k, width, dt_dim,
         dq, num_heads, _attention.head_scale(dq, num_heads),
+        *_attention.forward_plan(m, width + dt_dim, dq, num_heads, dev),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, _NAME)
@@ -164,8 +166,8 @@ def window_attention_backward(q3, starts, dt, mask, keep, table, tw, tb, wkv, do
         return (torch.empty((0, dq), dtype=f32, device=dev), torch.zeros_like(tw),
                 torch.zeros_like(tb), torch.zeros_like(wk), torch.zeros_like(wv))
     kv_dim = width + dt_dim
-    scratch, partial, chunk = _attention.backward_scratch(m, k, kv_dim, dq, num_heads, dev,
-                                                              dt_dim)
+    scratch, partial, plan = _attention.backward_scratch(m, k, kv_dim, dq, num_heads, dev,
+                                                             dt_dim)
     new = lambda *shape: torch.empty(shape, dtype=f32, device=dev)
     part = new(m, 2, dt_dim)  # per query: dtw's and dtb's sums
     dq3, dwk, dwv, dt_grads = new(m, dq), new(kv_dim, dq), new(kv_dim, dq), new(2, dt_dim)
@@ -176,7 +178,7 @@ def window_attention_backward(q3, starts, dt, mask, keep, table, tw, tb, wkv, do
         wv.data_ptr(), wv_sk, wv_sn, dout.data_ptr(), scratch.data_ptr(), partial.data_ptr(),
         part.data_ptr(), dq3.data_ptr(), dwk.data_ptr(), dwv.data_ptr(), dt_grads.data_ptr(),
         m, k, width, dt_dim, dq, num_heads,
-        _attention.head_scale(dq, num_heads), chunk, torch.cuda.current_stream(dev).cuda_stream,
+        _attention.head_scale(dq, num_heads), *plan, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, f"{_NAME} backward")
     _build.count_launch(window_attention_backward)

@@ -260,6 +260,56 @@ def test_attention_checks_refuse_k_only_by_shared_memory():
         _attention.backward_scratch(2, 560, 100, 16, H, "cpu")
 
 
+# (M, Dkv, Dq, heads): TGAT's layer 1 at hop 1 and hop 0, Dkv 443, ragged
+# small widths, one and four heads, 240,000 queries
+HEAD_PLAN_CASES = [(12_000, 444, 272, 2), (600, 444, 272, 2), (333, 443, 272, 2), (37, 26, 30, 3),
+                   (5, 16, 16, 4), (1, 444, 272, 1), (240_000, 444, 272, 4)]
+
+
+@pytest.mark.parametrize("m,kv_dim,dq,heads", HEAD_PLAN_CASES)
+def test_head_plan_is_a_function_of_the_shapes_and_cuts_whole_stages(m, kv_dim, dq, heads):
+    """The per-head products' plan (``ops/_plan.py::head_plan``) depends on
+    the shapes and the SM count alone: planned afresh it is the same, and a
+    CPU caller's is an H100's. Every block's rows are one of HEAD_TILE_MS,
+    the forward's head_combine rows are the backward's, the weight
+    gradient's rows tile Dkv with the least padding, and its chunks are
+    whole TILE_K-deep stages, at least HEAD_MIN_CHUNK rows, at most 65535
+    with the heads (its grid's z)."""
+    from dyglib_tpu_torch.ops import _attention, _plan
+
+    plan = _plan.head_plan(m, kv_dim, dq, heads, _plan.H100_SMS, backward=True)
+    forward = _plan.head_plan(m, kv_dim, dq, heads, _plan.H100_SMS, backward=False)
+    _plan.head_plan.cache_clear()
+    assert _plan.head_plan(m, kv_dim, dq, heads, _plan.H100_SMS, backward=True) == plan
+    assert _attention.forward_plan(m, kv_dim, dq, heads, "cpu") == forward
+    assert _attention.backward_scratch(m, 1, kv_dim, dq, heads, "cpu")[2] == plan
+    project, combine, grad, chunk = plan
+    assert {project, combine, grad, forward[0]} <= set(_plan.HEAD_TILE_MS)
+    assert forward[1] == combine
+    padded = lambda t: -(-kv_dim // t) * t
+    assert padded(grad) == min(padded(t) for t in _plan.HEAD_TILE_MS)
+    assert chunk % _plan.TILE_K == 0 and chunk >= _plan.HEAD_MIN_CHUNK
+    assert -(-m // chunk) * heads <= 65535
+
+
+def test_head_plan_at_tgat_hops_fills_the_card_in_whole_rounds():
+    """At TGAT's hop 1 (M = 12,000) head_project takes 128-row blocks
+    (1,504 of them forward, 3,008 backward: 5.7 and 11.4 rounds of the
+    card's 264 block slots) and head_combine 64 (752 blocks, 2.85 rounds,
+    where 376 of 128 rows would run a second round 42% full); at hop 0
+    (M = 600) the forward's head_project takes 64 (80 blocks of 128 rows
+    would leave 52 of 132 SMs without one) and head_combine 32; the weight
+    gradient's 64-row blocks tile Dkv 444 in 448 rows, and its 19 chunks of
+    640 rows (hop 1) give the block slots two rounds."""
+    from dyglib_tpu_torch.ops import _plan
+
+    sms = _plan.H100_SMS
+    assert _plan.head_plan(12_000, 444, 272, 2, sms, backward=False) == (128, 64)
+    assert _plan.head_plan(12_000, 444, 272, 2, sms, backward=True) == (128, 64, 64, 640)
+    assert _plan.head_plan(600, 444, 272, 2, sms, backward=False) == (64, 32)
+    assert _plan.head_plan(600, 444, 272, 2, sms, backward=True) == (128, 32, 64, 128)
+
+
 # ---- kernel 8: Phi projection
 @pytest.mark.parametrize("seed,r", [(0, 7), (1, 100)])
 def test_phi_projection_plain_matches_jax(seed, r):

@@ -20,7 +20,8 @@ and the wrappers' refusals; the time channel's backward with every
 position masked, theta past 2^40 and Dt 1 to 128; the attention
 backwards at K 1, 33 and 96, with every query masked, and with one head
 and four; the attention kernels at TGN's and DyRep's shape (M = 600, K =
-10); the memory models' launches per eval batch and train step; the
+10), at TGAT's hop 1 (M = 12,000, the per-head products' 128-row blocks)
+and at Dkv 443 (their 4-byte copies); the memory models' launches per eval batch and train step; the
 reduced cosine and sine bit for bit against torch.cos and torch.sin; the
 bf16 forwards (the patch projection's choice of kernel by shape and
 address, ced 1 to 130, K split in many, no rows and one row; the time
@@ -870,13 +871,17 @@ def test_every_parameter_gets_a_gradient_through_the_kernels(dev, model):
 
 # (seed, M, K, dn, de, Dt, Dq, heads)
 ATTN_CASES = [
-    (0, 2, 20, 172, 172, 100, 272, 2),  # fewer queries than one 64-row product tile
-    (1, 700, 20, 172, 172, 100, 272, 2),  # published widths (16-byte staging), ragged tile
+    (0, 2, 20, 172, 172, 100, 272, 2),  # fewer queries than one 32-row product tile
+    # published widths (16-byte staging); M a multiple of no product tile's rows (128, 64, 32)
+    (1, 700, 20, 172, 172, 100, 272, 2),
     (2, 37, 7, 12, 5, 9, 30, 3),  # ragged widths: rows staged a float at a time
     (3, 5, 64, 8, 8, 8, 16, 4),  # K = 64, four heads
     (4, 70, 1, 12, 12, 10, 22, 2),  # K = 1
     (5, 9, 96, 12, 12, 8, 22, 2),  # K = 96: more kv rows a query than one 64-row tile
     (6, 600, 10, 172, 172, 100, 272, 2),  # TGN's and DyRep's shape: the B = 200 triple, K = 10
+    (7, 12_000, 20, 172, 172, 100, 272, 2),  # TGAT's layer 1, hop 1: 128-row product blocks
+    # Dkv 443: the products' rows (a row stride of heads x 443) take 4-byte copies
+    (8, 333, 20, 171, 172, 100, 272, 2),
 ]
 
 
