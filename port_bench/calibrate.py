@@ -1,20 +1,24 @@
 """The readings a cell's limits are set from, in one process.
 
     python3 port_bench/calibrate.py --workload <cell> --seeds 1,2,3 [--control-seeds 1,2,3]
-        [--witness-seeds 1,2]
+        [--witness-seeds 1,2] [--root DIR]
 
 For each seed: the cell's set-up and one sweep of its window, then the
 numbers its check compares for the program (the lower readings), and for
 each control seed the same numbers for the reference put in the
 program's place in TF32 (the control) and, in a train cell, with half of
 each batch left out or with the sweep's steps given the batch before
-their own (faults). Each is judged against the cell's limits by the
-run's own ``harness.judge``, so a control's ``correct`` is the one a run
-would print. A train cell's check here also follows the set-up's whole
+their own (faults), and, under a random sample strategy, drawing its
+neighbours from the seed after the program's (``other_draws``). Each is
+judged against the cell's limits by the run's own ``harness.judge``, so a
+control's ``correct`` is the one a run would print. A train cell's check here also follows the set-up's whole
 sweep, and for each witness seed the reference started one rounding
 away from the starting parameters stands beside the program: how far
-rounding alone carries each reading. One JSON line each; the benchmark's
-own runs never run this.
+rounding alone carries each reading. Under a random strategy each seed
+also counts the sampled entries where the port's sampler and the
+reference's differ (``pick_differences``; 0 expected). ``--root``: a
+benchmark root other than this one (cells kept out of the manifest). One
+JSON line each; the benchmark's own runs never run this.
 """
 from __future__ import annotations
 
@@ -50,6 +54,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", required=True)
     ap.add_argument("--control-seeds", default="")
     ap.add_argument("--witness-seeds", default="")
+    ap.add_argument("--root", default=None)
     args = ap.parse_args(argv)
     os.environ["USE_FLAX"] = "0"
     sys.path.insert(0, str(CHECKOUT))
@@ -60,7 +65,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("no CUDA card", file=sys.stderr)
         return 1
-    cell = catalog.cell(args.workload)
+    cell = catalog.cell(args.workload, Path(args.root) if args.root else catalog.ROOT)
+    random_draws = cell["cfg"].get("sample_neighbor_strategy", "recent") != "recent"
     seeds = [int(s) for s in args.seeds.split(",") if s]
     controls = {int(s) for s in args.control_seeds.split(",") if s}
     witnesses = {int(s) for s in args.witness_seeds.split(",") if s}
@@ -71,12 +77,15 @@ def main(argv=None) -> int:
         run.setup()
         stats = run.window()
         peak = torch.cuda.max_memory_allocated()
+        picks = {"pick_differences": run.pick_differences()} if random_draws else {}
         run.free_program()
         t1 = time.perf_counter()
         rows = [("program", run.gaps())]
         t2 = time.perf_counter()
         if seed in controls:
             rows.append(("tf32", run.gaps("tf32")))
+            if random_draws:
+                rows.append(("other_draws", run.gaps("other_draws")))
             if run.phase == "train":
                 rows += [(fault, run.gaps(fault)) for fault in ("half_batch", "shifted_rows")]
         if seed in witnesses and run.phase == "train":
@@ -87,7 +96,7 @@ def main(argv=None) -> int:
                    "correct": harness.judge(cell, stats, numbers)[0], **numbers}
             if run.phase == "train":
                 out["readings"] = readings(gaps)
-            out.update(setup_window_s=t1 - t0, check_s=t2 - t1, peak_bytes=peak)
+            out.update(setup_window_s=t1 - t0, check_s=t2 - t1, peak_bytes=peak, **picks)
             print(json.dumps(out), flush=True)
         del run
         torch.cuda.empty_cache()

@@ -135,7 +135,7 @@ class Run:
         self.phase = cell["phase"]
         self.batch = self.cfg["batch_size"]
         self.seeds = {k: traffic.sub_seed(seed, k) for k in
-                      ("init", "weights", "dropout", "negatives")}
+                      ("init", "weights", "dropout", "negatives", "sample")}
         # the check follows the set-up's whole sweep too (calibrate.py's)
         self.follow_sweep = False
 
@@ -154,7 +154,9 @@ class Run:
         self.prog = program.Program(self.cfg, self.splits, self.device)
         make = lambda shapes: weights.make(shapes, self.seeds["weights"], self.prog.device)
         self.p0 = {k: v.detach().to("cpu", copy=True) for k, v in self.prog.start(
-            self.seeds["init"], make, self.seeds["dropout"], self.seeds["negatives"]).items()}
+            self.seeds["init"], make, self.seeds["dropout"], self.seeds["negatives"],
+            self.seeds["sample"]).items()}
+        self.eval_seed = self.prog.eval_seed
         t3 = time.perf_counter()
         if self.phase == "train":
             rows = lambda first, n: traffic.train_sweep_rows(len(self.splits.train), self.batch,
@@ -232,7 +234,9 @@ class Run:
         loss's mean (``"half_batch"``), with each step of a followed sweep
         from its second on given the batch before its own
         (``"shifted_rows"``), or started from parameters one rounding away,
-        each element moved by one unit in the last place (``"one_ulp"``)."""
+        each element moved by one unit in the last place (``"one_ulp"``),
+        or drawing its neighbours from the seed after the program's
+        (``"other_draws"``: a random sample strategy's)."""
         from .reference.precision import strict_float32
         from .reference.train import Reference
 
@@ -240,7 +244,7 @@ class Run:
         if not hasattr(self, "_ref"):
             self._inputs = (self._train_batches() if self.phase == "train"
                             else self._eval_batches())
-            self._ref = self._reference(Reference(self.cfg, self.splits, self.device))
+            self._ref = self._reference(self._reference_model())
         if control is None:
             got = self.record if self.phase == "train" else self.last_eval
         else:
@@ -252,6 +256,42 @@ class Run:
                               "after": {k: cpu(v) for k, v in r["after"].items()}}
             return train_gaps(side(got), side(self._ref), self.p0)
         return eval_numbers(got, self._ref, self._inputs[1])
+
+    def _reference_model(self):
+        """The float32 reference of the run's configuration, built once."""
+        from .reference.train import Reference
+
+        if not hasattr(self, "_ref_model"):
+            self._ref_model = Reference(self.cfg, self.splits, self.device)
+        return self._ref_model
+
+    def pick_differences(self) -> int | None:
+        """Sampled entries (a hop's id, edge id, time or validity) where the
+        port's sampler and the reference's differ over the queries the check
+        follows, each drawing from the seed the check follows (calibrate.py's,
+        while the program is alive); None where a side's sample has no hops
+        in TGAT's layout."""
+        if self.phase == "train":
+            batches, hist, seed = self._train_batches(), "train_hist", self.seeds["sample"]
+        else:
+            batches, hist, seed = self._eval_batches()[0], "full_hist", self.eval_seed
+        from .reference.graph import time_keys
+
+        ref = self._reference_model()
+        queries = [(np.concatenate(b[:3]), np.tile(time_keys(b[3]), 3)) for b in batches]
+        port = self.prog.neighbours(self.phase, queries, seed)
+        if port is None:
+            return None
+        gen, diff = ref.generator(seed), 0
+        for (ids, t), hops in zip(queries, port):
+            inp = ref.net.prepare(self.cfg, getattr(ref, hist), ids, t, self.device, gen)
+            if not {"ids", "eids", "t", "mask"} <= set(inp):
+                return None
+            for h, (nid, eid, tt, mask) in enumerate(hops):
+                mine = (inp["ids"][h + 1], inp["eids"][h], inp["t"][h + 1], inp["mask"][h])
+                diff += sum(int((a.cpu().numpy().reshape(-1) != b.reshape(-1)).sum())
+                            for a, b in zip(mine, (nid, eid, tt, mask)))
+        return diff
 
     def _train_batches(self) -> list:
         """The batches the set-up's steps ran, with their negatives."""
@@ -284,8 +324,9 @@ class Run:
     def _reference(self, ref, fault: str | None = None):
         """What ``ref`` gives on the run's inputs: a train cell's record
         (as ``self.record``), an eval cell's (loss, pos, neg) per batch."""
+        other = int(fault == "other_draws")
         if self.phase == "eval":
-            return ref.evaluate(self.p0_device(), self._inputs[0])
+            return ref.evaluate(self.p0_device(), self._inputs[0], self.eval_seed + other)
         import torch
 
         batches, start = self._inputs, self.p0_device()
@@ -297,7 +338,7 @@ class Run:
                 torch.rand(v.shape, generator=gen) < 0.5, -torch.inf, torch.inf).to(v.device))
                 for k, v in start.items()}
         losses, g1, after = ref.follow(start, batches, self.seeds["dropout"],
-                                       (FIRST_STEPS, len(batches)),
+                                       self.seeds["sample"] + other, (FIRST_STEPS, len(batches)),
                                        fault if fault == "half_batch" else None)
         kept = {"first": after[FIRST_STEPS]}
         if self.follow_sweep:

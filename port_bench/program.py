@@ -5,7 +5,10 @@ built through the port's own path (``configs/factory.py::build_backbone``,
 ``train/link_prediction.py::LinkPredictionTrainer`` with
 ``TrainConfig(scan_epochs=True)``), given the benchmark's stream,
 starting parameters and seeds, and driven through its scanned entries:
-``train_epoch_scanned`` and ``evaluate(..., scanned=True)``.
+``train_epoch_scanned`` and ``evaluate(..., scanned=True)``. A random
+sample strategy draws its train neighbours from a generator seeded by the
+benchmark and each evaluation sweep's from the port's own eval seed,
+which ``Program.eval_seed`` reports.
 """
 from __future__ import annotations
 
@@ -19,10 +22,15 @@ from dyglib_tpu_torch.data.containers import EdgeStream
 from dyglib_tpu_torch.data.datasets import LinkPredictionData
 from dyglib_tpu_torch.graph.neg_sampler import NegativeEdgeSampler
 from dyglib_tpu_torch.train.link_prediction import LinkPredictionTrainer, TrainConfig
+from dyglib_tpu_torch.utils.rng import eval_seed
 
 MODEL_FIELDS = ("num_neighbors", "num_layers", "num_heads", "dropout", "time_feat_dim",
                 "sample_neighbor_strategy", "compute_dtype", "max_input_sequence_length",
                 "patch_size", "channel_embedding_dim")
+TRAIN_FIELDS = ("time_scaling_factor",)
+# the salt the val sweep is evaluated with (val / new-node val / test /
+# new-node test: 0 / 1 / 2 / 3)
+EVAL_SALT = 0
 
 
 def _stream(s) -> EdgeStream:
@@ -46,16 +54,20 @@ class Program:
                                   **{k: cfg[k] for k in MODEL_FIELDS if k in cfg})
         self.data = data_of(splits)
         tcfg = TrainConfig(batch_size=cfg["batch_size"], learning_rate=cfg["learning_rate"],
-                           scan_epochs=True)
+                           scan_epochs=True, **{k: cfg[k] for k in TRAIN_FIELDS if k in cfg})
         self.tr = LinkPredictionTrainer(build_backbone(args, self.data), self.data, tcfg,
                                         device=device)
         self.device = self.tr.device
+        # the seed the port re-seeds a val sweep's neighbour draws with
+        self.eval_seed = eval_seed(EVAL_SALT)
 
     # ----------------------------------------------------------- parameters
-    def start(self, init_seed: int, make_params, dropout_seed: int, negatives_seed: int) -> dict:
+    def start(self, init_seed: int, make_params, dropout_seed: int, negatives_seed: int,
+              sample_seed: int) -> dict:
         """Build the networks, load the parameters ``make_params(shapes)``
-        gives, seed dropout and the train negatives. Returns the
-        parameters loaded, by name (the head's under ``head.``)."""
+        gives, seed dropout, the train negatives and, under a random sample
+        strategy, the train neighbour draws. Returns the parameters loaded,
+        by name (the head's under ``head.``)."""
         self.tr.init_params(init_seed)
         sd = self.tr.state_dicts()
         shapes = {k: tuple(v.shape) for k, v in sd["backbone"].items()}
@@ -65,6 +77,8 @@ class Program:
             "backbone": {k: v for k, v in params.items() if not k.startswith("head.")},
             "head": {k[5:]: v for k, v in params.items() if k.startswith("head.")}})
         self.tr.dropout_gen = torch.Generator(device=self.device).manual_seed(dropout_seed)
+        if self.tr.sample_gen is not None:
+            self.tr.sample_gen = torch.Generator(device=self.device).manual_seed(sample_seed)
         train = self.data.train
         self.tr.train_neg = NegativeEdgeSampler(train.src, train.dst, seed=negatives_seed)
         return params
@@ -89,6 +103,25 @@ class Program:
             out[k] = (torch.zeros_like(p) if m is None else m / (1.0 - beta1)).to("cpu")
         return out
 
+    def neighbours(self, phase: str, queries, seed: int) -> list:
+        """The backbone's own sampler over ``queries`` ((ids, time keys) host
+        arrays, one pair a batch) on the train or the whole stream's CSR,
+        drawing from a generator on the device seeded with ``seed`` -> per
+        batch each hop's (ids, edge ids, time keys, mask) on the host; None
+        where the backbone's inputs carry no masked hops (TGAT's do)."""
+        csr = self.tr.train_csr if phase == "train" else self.tr.full_csr
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        host = lambda hops: [t.cpu().numpy() for t in hops]
+        out = []
+        for ids, t in queries:
+            inp = self.tr.backbone.sample(csr, torch.from_numpy(ids).to(self.device),
+                                          torch.from_numpy(t).to(self.device), gen=gen)
+            if not hasattr(inp, "hop_mask"):
+                return None
+            out.append(list(zip(host(inp.hop_ids[1:]), host(inp.hop_eids), host(inp.hop_ts[1:]),
+                                host(inp.hop_mask))))
+        return out
+
     # --------------------------------------------------------------- sweeps
     def train_sweep(self, rows: np.ndarray) -> list[float]:
         """``train_epoch_scanned`` over the train edges ``rows`` -> its losses."""
@@ -100,5 +133,6 @@ class Program:
     def eval_sweep(self):
         """``evaluate`` over the val split with its random negatives,
         scanned -> (losses, probabilities) per batch."""
-        losses, _, probs = self.tr.evaluate(self.data.val, self.tr.val_neg, scanned=True)
+        losses, _, probs = self.tr.evaluate(self.data.val, self.tr.val_neg, EVAL_SALT,
+                                            scanned=True)
         return losses, probs

@@ -42,8 +42,9 @@ def seq_len(cfg: dict) -> int:
     return -(-cfg["max_input_sequence_length"] // p) * p
 
 
-def prepare(cfg: dict, hist: History, ids: np.ndarray, t: np.ndarray, device) -> dict:
-    """Each query's sequence (ids, edge ids, times) and its time, on the device."""
+def prepare(cfg: dict, hist: History, ids: np.ndarray, t: np.ndarray, device, gen=None) -> dict:
+    """Each query's sequence (ids, edge ids, times) and its time, on the
+    device; ``gen`` is not drawn from (the sequence is the recent one)."""
     length = seq_len(cfg)
     sid, seid, st = hist.sequence(ids, t, min(cfg["max_input_sequence_length"], length))
     pad = length - sid.shape[1]

@@ -1,7 +1,8 @@
 """TGAT (Xu et al., ICLR 2020) as DyGLib computes it, plain PyTorch.
 
-For queries (node, t) the L-hop recent neighbourhood is sampled once
-(hop h: K**h entries a query) and the layers run bottom-up:
+For queries (node, t) the L-hop neighbourhood is sampled once, by the
+configuration's ``sample_neighbor_strategy`` (``graph.History``; hop h:
+K**h entries a query), and the layers run bottom-up:
 
     h^0(x)   = node_features[x]
     h^l(x,t) = Merge_l(MHA_l(q = [h^{l-1}(x) || Phi(0)],
@@ -26,19 +27,26 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .graph import History
+from .graph import TIA_ALPHA, History
 
 LN_EPS = 1e-5
 NEG = -1e10
 
 
-def prepare(cfg: dict, hist: History, ids: np.ndarray, t: np.ndarray, device) -> dict:
-    """The sampled neighbourhood of queries (ids, t) as device tensors."""
+def prepare(cfg: dict, hist: History, ids: np.ndarray, t: np.ndarray, device, gen=None) -> dict:
+    """The sampled neighbourhood of queries (ids, t) as device tensors; the
+    configuration's random strategy draws from ``gen``, hop after hop, in
+    the hop's query shape (B,) then (B, K**h)."""
     k, layers = cfg["num_neighbors"], cfg["num_layers"]
+    strategy = cfg["sample_neighbor_strategy"]
+    alpha = cfg.get("time_scaling_factor", TIA_ALPHA)
     q_ids, q_t = [np.asarray(ids, np.int64)], [np.asarray(t, np.int64)]
     eids, masks = [], []
-    for _ in range(layers):
-        nid, eid, tt, mask = hist.recent(q_ids[-1].reshape(-1), q_t[-1].reshape(-1), k)
+    b = len(q_ids[0])
+    for h in range(layers):
+        shape = (b,) if h == 0 else (b, k**h)
+        nid, eid, tt, mask = hist.sample(strategy, q_ids[-1].reshape(-1), q_t[-1].reshape(-1), k,
+                                         gen, shape, alpha)
         q_ids.append(nid.reshape(-1))
         q_t.append(tt.reshape(-1))
         eids.append(eid.reshape(-1))

@@ -4,7 +4,10 @@ A batch of B edges embeds [src || dst || neg_dst] at the edges' times;
 the loss is the mean binary cross-entropy on logits over the B positive
 and B negative pairs of the real rows (padded rows weigh 0). Training
 samples from the train split's history, evaluation from the whole
-stream's. Adam is torch's default (betas 0.9, 0.999, eps 1e-8, no weight
+stream's; a random sample strategy draws its neighbours from a
+``torch.Generator`` on the device, one for the train steps followed
+(seeded with the run's sample seed) and one for an evaluation sweep
+(seeded with the seed the port's sweep is seeded with). Adam is torch's default (betas 0.9, 0.999, eps 1e-8, no weight
 decay), written out.
 """
 from __future__ import annotations
@@ -38,21 +41,25 @@ class Reference:
         self.tables = (torch.from_numpy(splits.node_feats).to(self.device),
                        torch.from_numpy(splits.edge_feats).to(self.device))
 
-    def inputs(self, hist: History, src, dst, neg, ts):
+    def inputs(self, hist: History, src, dst, neg, ts, gen=None):
         ids = np.concatenate([src, dst, neg])
         t = np.tile(time_keys(ts), 3)
-        return self.net.prepare(self.cfg, hist, ids, t, self.device)
+        return self.net.prepare(self.cfg, hist, ids, t, self.device, gen)
 
-    def logits(self, params, hist, batch, drops=None):
+    def generator(self, seed: int) -> torch.Generator:
+        """A generator on the device seeded with ``seed``."""
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def logits(self, params, hist, batch, drops=None, gen=None):
         src, dst, neg, ts, _ = batch
-        inp = self.inputs(hist, src, dst, neg, ts)
+        inp = self.inputs(hist, src, dst, neg, ts, gen)
         return self.net.pair_logits(params, self.cfg, self.tables, inp, self.prec, len(src),
                                     drops)
 
-    def loss(self, params, hist, batch, drops=None, keep_rows=None):
+    def loss(self, params, hist, batch, drops=None, keep_rows=None, gen=None):
         """(loss, pos_logit, neg_logit); ``keep_rows`` (a fault's): count only
         these rows in the mean."""
-        pos, neg = self.logits(params, hist, batch, drops)
+        pos, neg = self.logits(params, hist, batch, drops, gen)
         valid = torch.from_numpy(np.asarray(batch[4], np.float32)).to(self.device)
         if keep_rows is not None:
             valid = valid * keep_rows
@@ -64,17 +71,20 @@ class Reference:
     def draws(self, gen, rows: int):
         return self.net.dropout_draws(self.cfg, rows, gen, self.device)
 
-    def follow(self, params0: dict, batches, dropout_seed: int, keep_after=(), fault=None):
+    def follow(self, params0: dict, batches, dropout_seed: int, sample_seed: int, keep_after=(),
+               fault=None):
         """A train step from ``params0`` on each of ``batches`` -> (each
         step's loss, the first step's gradients, {step: the parameters after
         it} for each step of ``keep_after``); the dropout masks drawn from a
-        generator seeded with ``dropout_seed`` on the device.
+        generator seeded with ``dropout_seed`` on the device, the neighbours
+        from one seeded with ``sample_seed``.
         ``fault="half_batch"``: each loss is the mean over the first half of
         the rows alone."""
         params = {k: v.detach().clone().requires_grad_(True) for k, v in params0.items()}
         m = {k: torch.zeros_like(v) for k, v in params.items()}
         v2 = {k: torch.zeros_like(v) for k, v in params.items()}
-        gen = torch.Generator(device=self.device).manual_seed(dropout_seed)
+        gen = self.generator(dropout_seed)
+        sample_gen = self.generator(sample_seed)
         losses, first, kept = [], None, {}
         for step in range(1, len(batches) + 1):
             batch = batches[step - 1]
@@ -83,7 +93,7 @@ class Reference:
             if fault == "half_batch":
                 keep = (torch.arange(len(batch[0]), device=self.device) < len(batch[0]) // 2)
                 keep = keep.to(torch.float32)
-            loss, _, _ = self.loss(params, self.train_hist, batch, drops, keep)
+            loss, _, _ = self.loss(params, self.train_hist, batch, drops, keep, sample_gen)
             grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
             losses.append(float(loss.detach()))
             with torch.no_grad():
@@ -107,12 +117,14 @@ class Reference:
             p.data.addcdiv_(m[k], denom, value=-lr / (1 - b1**step))
 
     @torch.no_grad()
-    def evaluate(self, params: dict, batches):
+    def evaluate(self, params: dict, batches, eval_seed: int):
         """Each batch's (loss, pos probabilities, neg probabilities), on the
-        whole stream's history."""
+        whole stream's history; the sweep's neighbours drawn from a
+        generator seeded with ``eval_seed``."""
         out = []
+        gen = self.generator(eval_seed)
         for batch in batches:
-            loss, pos, neg = self.loss(params, self.full_hist, batch)
+            loss, pos, neg = self.loss(params, self.full_hist, batch, gen=gen)
             out.append((float(loss), torch.sigmoid(pos).cpu().numpy(),
                         torch.sigmoid(neg).cpu().numpy()))
         return out

@@ -21,6 +21,12 @@ CONFIGS = {
     "tiny_dygformer": {"model": "DyGFormer", "max_input_sequence_length": 16, "patch_size": 4,
                        "channel_embedding_dim": 8, "stream": YEARLY, **COMMON},
     "tiny_tgat": {"model": "TGAT", "num_neighbors": 4, "stream": BIPARTITE, **COMMON},
+    # the random strategies: the reference follows the port's draws
+    "tiny_tgat_uniform": {"model": "TGAT", "num_neighbors": 4, "stream": BIPARTITE,
+                          **{**COMMON, "sample_neighbor_strategy": "uniform"}},
+    "tiny_tgat_tia": {"model": "TGAT", "num_neighbors": 4, "stream": BIPARTITE,
+                      **{**COMMON, "sample_neighbor_strategy": "time_interval_aware",
+                         "time_scaling_factor": 1e-6}},
 }
 LIMITS = {"train": {"loss_gap": 1e-5, "grad_gap": 1e-4, "grad_median_gap": 1e-5,
                     "change_gap": 1e-4},

@@ -49,3 +49,15 @@ def test_throwaway_files_are_picked_up(tmp_path):
     assert cell["cfg"]["num_neighbors"] == 2 and cell["cfg"]["name"] == "extra_cfg"
     assert catalog.metrics(root)["answer.eval"].read(None) == 42.0
     assert catalog.work(root)["new_kernel"].calls(cell) == [(2, 4)]
+
+
+def test_time_interval_aware_cell_is_found():
+    cell = catalog.cell("tgat_tia.train")
+    assert cell["phase"] == "train" and cell["chips"] == 1
+    cfg = cell["cfg"]
+    assert cfg["sample_neighbor_strategy"] == "time_interval_aware"
+    assert cfg["time_scaling_factor"] == 1e-6
+    same = catalog.config("tgat_wikipedia")
+    differ = {k for k in set(cfg) | set(same) if cfg.get(k) != same.get(k)}
+    assert differ == {"name", "sample_neighbor_strategy", "time_scaling_factor", "published_as",
+                      "assumed"}
