@@ -1,7 +1,9 @@
 """One run of one cell: set-up, the measured window, the check, the line.
 
   set-up   the stream and the splits from --seed, the port's trainer, the
-           starting parameters, then the cell's own phase warmed: a train
+           starting parameters, the rows a batch embeds on each side (the
+           program's layout against the reference's: a run whose two
+           differ is not correct), then the cell's own phase warmed: a train
            cell's first three steps (the first eager, the second captured,
            the third replayed: the steps the check follows) and one whole
            sweep; an eval cell's first sweep (eager step, capture, replays);
@@ -157,6 +159,10 @@ class Run:
             self.seeds["init"], make, self.seeds["dropout"], self.seeds["negatives"],
             self.seeds["sample"]).items()}
         self.eval_seed = self.prog.eval_seed
+        from .reference.train import layout_of
+
+        # (the program's, the reference's) rows of a batch of the phase
+        self.layouts = (self.prog.layouts[self.phase], layout_of(self.cfg))
         t3 = time.perf_counter()
         if self.phase == "train":
             rows = lambda first, n: traffic.train_sweep_rows(len(self.splits.train), self.batch,
@@ -222,6 +228,15 @@ class Run:
         if self.device == "cuda":
             torch.cuda.empty_cache()
 
+    def layout_note(self) -> str | None:
+        """Why the run cannot be judged where the program and the reference
+        embed a batch in different rows, else None."""
+        prog, ref = self.layouts
+        if prog == ref:
+            return None
+        return (f"layout: the program embeds a {self.phase} batch as {prog!r}, the reference "
+                f"as {ref!r}; the run is not correct")
+
     def check(self, control: str | None = None) -> dict:
         """The numbers compared (see ``gaps``)."""
         g = self.gaps(control)
@@ -265,24 +280,23 @@ class Run:
             self._ref_model = Reference(self.cfg, self.splits, self.device)
         return self._ref_model
 
-    def pick_differences(self) -> int | None:
+    def pick_differences(self, other: int = 0) -> int | None:
         """Sampled entries (a hop's id, edge id, time or validity) where the
         port's sampler and the reference's differ over the queries the check
-        follows, each drawing from the seed the check follows (calibrate.py's,
-        while the program is alive); None where a side's sample has no hops
-        in TGAT's layout."""
+        follows, in the reference's layout, each drawing from the seed the
+        check follows (calibrate.py's, while the program is alive; the
+        reference from the seed ``other`` after it); None where a side's
+        sample has no hop tables."""
         if self.phase == "train":
             batches, hist, seed = self._train_batches(), "train_hist", self.seeds["sample"]
         else:
             batches, hist, seed = self._eval_batches()[0], "full_hist", self.eval_seed
-        from .reference.graph import time_keys
-
         ref = self._reference_model()
-        queries = [(np.concatenate(b[:3]), np.tile(time_keys(b[3]), 3)) for b in batches]
+        queries = [ref.queries(*b[:4]) for b in batches]
         port = self.prog.neighbours(self.phase, queries, seed)
         if port is None:
             return None
-        gen, diff = ref.generator(seed), 0
+        gen, diff = ref.generator(seed + other), 0
         for (ids, t), hops in zip(queries, port):
             inp = ref.net.prepare(self.cfg, getattr(ref, hist), ids, t, self.device, gen)
             if not {"ids", "eids", "t", "mask"} <= set(inp):
@@ -422,6 +436,8 @@ def execute(cell: dict, seed: int, seconds: float, trace: bool, clock: Clock,
         metrics["setup_s"] = {"value": setup_s, "unit": "s"}
     run.free_program()
     correct, checks = judge(cell, stats, run.check(control))
+    note = run.layout_note()
+    correct = correct and note is None
     result = {"correct": correct, "attempted": stats["steps"], "failed": stats["failed"],
               "metrics": metrics, "device": dev, **extra, "checks": checks}
     lo, mid, hi = stats["sweep_s"]
@@ -430,6 +446,8 @@ def execute(cell: dict, seed: int, seconds: float, trace: bool, clock: Clock,
           f"{stats['halves'][0]:.4f} and {stats['halves'][1]:.4f} s in the first and second "
           f"half); set-up "
           f"{setup_s:.3f} s", file=err)
+    if note is not None:
+        print(note, file=err)
     for k, v in checks.items():
         print(f"check {k} {v['value']:.6g} limit {v['limit']:.6g}", file=err)
     err.flush()

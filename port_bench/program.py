@@ -8,7 +8,10 @@ starting parameters and seeds, and driven through its scanned entries:
 ``train_epoch_scanned`` and ``evaluate(..., scanned=True)``. A random
 sample strategy draws its train neighbours from a generator seeded by the
 benchmark and each evaluation sweep's from the port's own eval seed,
-which ``Program.eval_seed`` reports.
+which ``Program.eval_seed`` reports. A model field that the
+configuration leaves out takes the default of the port's own command
+line (``configs/args.py``), as it would for a user; ``Program.layouts``
+reports the rows the trainer embeds a batch in.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import argparse
 import numpy as np
 import torch
 
+from dyglib_tpu_torch.configs.args import get_link_prediction_args
 from dyglib_tpu_torch.configs.factory import build_backbone
 from dyglib_tpu_torch.data.containers import EdgeStream
 from dyglib_tpu_torch.data.datasets import LinkPredictionData
@@ -24,9 +28,11 @@ from dyglib_tpu_torch.graph.neg_sampler import NegativeEdgeSampler
 from dyglib_tpu_torch.train.link_prediction import LinkPredictionTrainer, TrainConfig
 from dyglib_tpu_torch.utils.rng import eval_seed
 
+# every field the factory reads for TGAT, CAWN, TCL, GraphMixer and DyGFormer
 MODEL_FIELDS = ("num_neighbors", "num_layers", "num_heads", "dropout", "time_feat_dim",
                 "sample_neighbor_strategy", "compute_dtype", "max_input_sequence_length",
-                "patch_size", "channel_embedding_dim")
+                "patch_size", "channel_embedding_dim", "walk_length", "num_walk_heads",
+                "position_feat_dim", "time_gap")
 TRAIN_FIELDS = ("time_scaling_factor",)
 # the salt the val sweep is evaluated with (val / new-node val / test /
 # new-node test: 0 / 1 / 2 / 3)
@@ -35,6 +41,16 @@ EVAL_SALT = 0
 
 def _stream(s) -> EdgeStream:
     return EdgeStream(src=s.src, dst=s.dst, ts=s.ts, eid=s.eid, label=s.label)
+
+
+def model_args(cfg: dict) -> argparse.Namespace:
+    """The factory's arguments: the port's command-line defaults for
+    ``cfg["model"]``, each of ``MODEL_FIELDS`` that ``cfg`` gives set."""
+    args = get_link_prediction_args(["--model_name", cfg["model"]])
+    for k in MODEL_FIELDS:
+        if k in cfg:
+            setattr(args, k, cfg[k])
+    return args
 
 
 def data_of(splits) -> LinkPredictionData:
@@ -50,14 +66,15 @@ class Program:
 
     def __init__(self, cfg: dict, splits, device):
         self.splits = splits
-        args = argparse.Namespace(model_name=cfg["model"],
-                                  **{k: cfg[k] for k in MODEL_FIELDS if k in cfg})
         self.data = data_of(splits)
         tcfg = TrainConfig(batch_size=cfg["batch_size"], learning_rate=cfg["learning_rate"],
                            scan_epochs=True, **{k: cfg[k] for k in TRAIN_FIELDS if k in cfg})
-        self.tr = LinkPredictionTrainer(build_backbone(args, self.data), self.data, tcfg,
-                                        device=device)
+        self.tr = LinkPredictionTrainer(build_backbone(model_args(cfg), self.data), self.data,
+                                        tcfg, device=device)
         self.device = self.tr.device
+        # the rows a train batch and a random-negative eval batch embed (the
+        # trainer's own choice): "dedup", "triple" or "quad"
+        self.layouts = {"train": self.tr._layout(), "eval": self.tr._layout(neg_src_is_src=True)}
         # the seed the port re-seeds a val sweep's neighbour draws with
         self.eval_seed = eval_seed(EVAL_SALT)
 
@@ -108,7 +125,9 @@ class Program:
         arrays, one pair a batch) on the train or the whole stream's CSR,
         drawing from a generator on the device seeded with ``seed`` -> per
         batch each hop's (ids, edge ids, time keys, mask) on the host; None
-        where the backbone's inputs carry no masked hops (TGAT's do)."""
+        where the backbone's inputs carry no hop tables. TGAT's hops carry
+        their mask; CAWN's hop tables start at the query (edge 0) and carry
+        none: their mask is id != 0."""
         csr = self.tr.train_csr if phase == "train" else self.tr.full_csr
         gen = torch.Generator(device=self.device).manual_seed(seed)
         host = lambda hops: [t.cpu().numpy() for t in hops]
@@ -116,10 +135,13 @@ class Program:
         for ids, t in queries:
             inp = self.tr.backbone.sample(csr, torch.from_numpy(ids).to(self.device),
                                           torch.from_numpy(t).to(self.device), gen=gen)
-            if not hasattr(inp, "hop_mask"):
+            if not all(hasattr(inp, k) for k in ("hop_ids", "hop_eids", "hop_ts")):
                 return None
-            out.append(list(zip(host(inp.hop_ids[1:]), host(inp.hop_eids), host(inp.hop_ts[1:]),
-                                host(inp.hop_mask))))
+            nid = host(inp.hop_ids[1:])
+            hops = len(nid)
+            mask = (host(inp.hop_mask) if hasattr(inp, "hop_mask")
+                    else [a != 0 for a in nid])
+            out.append(list(zip(nid, host(inp.hop_eids[-hops:]), host(inp.hop_ts[1:]), mask)))
         return out
 
     # --------------------------------------------------------------- sweeps

@@ -22,7 +22,9 @@ with dropout on the attention scores too, exact-erf GELU, scale
 1/sqrt(hd). Each side's tokens are mean-pooled and projected by
 ``output_layer``. The link head is fc2(relu(fc1([u || v]))). A batch
 pairs (src, dst) and (src, neg_dst): the negative pair's src embedding is
-its own (the joint attention sees the partner). Departures from DyGLib,
+its own (the joint attention sees the partner): the triple [src || dst
+|| neg_dst] embedded, its pairs formed inside the net (``LAYOUT``
+"triple"). Departures from DyGLib,
 as in the port: integer time deltas; the co-occurrence of a padding entry
 is the MLP of a zero count, as DyGLib computes it.
 """
@@ -34,6 +36,8 @@ import torch.nn.functional as F
 
 from .graph import History, occurrences
 
+# the rows a batch embeds, under the port's trainer's name
+LAYOUT = "triple"
 LN_EPS = 1e-5
 
 

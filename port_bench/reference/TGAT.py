@@ -19,7 +19,8 @@ time keys, and the scores' dropout masks are drawn before residual_fc's.
 The link head is Merge(2D -> D -> 1) on [src || dst] embeddings.
 
 A batch embeds the triple [src || dst || neg_dst] (the embeddings
-depend only on (node, time), so neg_src = src reuses src's rows).
+depend only on (node, time), so neg_src = src reuses src's rows):
+``LAYOUT`` "dedup".
 """
 from __future__ import annotations
 
@@ -29,6 +30,8 @@ import torch.nn.functional as F
 
 from .graph import TIA_ALPHA, History
 
+# the rows a batch embeds, under the port's trainer's name
+LAYOUT = "dedup"
 LN_EPS = 1e-5
 NEG = -1e10
 

@@ -1,14 +1,19 @@
 """The reference's link prediction: batches, loss, gradients and Adam.
 
-A batch of B edges embeds [src || dst || neg_dst] at the edges' times;
-the loss is the mean binary cross-entropy on logits over the B positive
-and B negative pairs of the real rows (padded rows weigh 0). Training
-samples from the train split's history, evaluation from the whole
-stream's; a random sample strategy draws its neighbours from a
+A batch of B edges embeds, at the edges' times, the rows its net module's
+``LAYOUT`` names, under the port's trainer's names: the triple [src ||
+dst || neg_dst] ("dedup": src's rows stand for neg_src's; "triple": the
+net pairs the triple itself) or the quad [src || dst || src || neg_dst]
+("quad": a pair-aware net; neg_src = src in training and in
+random-negative evaluation), and the dropout masks are drawn for those
+rows. The loss is the mean binary cross-entropy on logits over the B
+positive and B negative pairs of the real rows (padded rows weigh 0).
+Training samples from the train split's history, evaluation from the
+whole stream's; a random sample strategy draws its neighbours from a
 ``torch.Generator`` on the device, one for the train steps followed
 (seeded with the run's sample seed) and one for an evaluation sweep
-(seeded with the seed the port's sweep is seeded with). Adam is torch's default (betas 0.9, 0.999, eps 1e-8, no weight
-decay), written out.
+(seeded with the seed the port's sweep is seeded with). Adam is torch's
+default (betas 0.9, 0.999, eps 1e-8, no weight decay), written out.
 """
 from __future__ import annotations
 
@@ -23,6 +28,11 @@ from .precision import Precision
 
 BETAS = (0.9, 0.999)
 EPS = 1e-8
+
+
+def layout_of(cfg: dict) -> str:
+    """The rows the reference's net for ``cfg`` embeds a batch in."""
+    return importlib.import_module(f"{__package__}.{cfg['model']}").LAYOUT
 
 
 class Reference:
@@ -41,9 +51,21 @@ class Reference:
         self.tables = (torch.from_numpy(splits.node_feats).to(self.device),
                        torch.from_numpy(splits.edge_feats).to(self.device))
 
+    @property
+    def layout(self) -> str:
+        return self.net.LAYOUT
+
+    def rows(self, b: int) -> int:
+        """The rows a batch of ``b`` edges embeds."""
+        return (4 if self.layout == "quad" else 3) * b
+
+    def queries(self, src, dst, neg, ts) -> tuple[np.ndarray, np.ndarray]:
+        """(ids, time keys) of the rows a batch embeds, in the layout."""
+        parts = [src, dst, src, neg] if self.layout == "quad" else [src, dst, neg]
+        return np.concatenate(parts), np.tile(time_keys(ts), len(parts))
+
     def inputs(self, hist: History, src, dst, neg, ts, gen=None):
-        ids = np.concatenate([src, dst, neg])
-        t = np.tile(time_keys(ts), 3)
+        ids, t = self.queries(src, dst, neg, ts)
         return self.net.prepare(self.cfg, hist, ids, t, self.device, gen)
 
     def generator(self, seed: int) -> torch.Generator:
@@ -88,7 +110,8 @@ class Reference:
         losses, first, kept = [], None, {}
         for step in range(1, len(batches) + 1):
             batch = batches[step - 1]
-            drops = self.draws(gen, 3 * len(batch[0])) if self.cfg["dropout"] > 0 else None
+            drops = (self.draws(gen, self.rows(len(batch[0]))) if self.cfg["dropout"] > 0
+                     else None)
             keep = None
             if fault == "half_batch":
                 keep = (torch.arange(len(batch[0]), device=self.device) < len(batch[0]) // 2)

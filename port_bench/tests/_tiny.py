@@ -28,18 +28,26 @@ CONFIGS = {
                       **{**COMMON, "sample_neighbor_strategy": "time_interval_aware",
                          "time_scaling_factor": 1e-6}},
 }
+# a pair-aware model (no reference module in the benchmark yet: the tests
+# that use it bring their own), kept out of CONFIGS
+PAIR_AWARE = {
+    "tiny_cawn": {"model": "CAWN", "num_neighbors": 4, "walk_length": 1, "num_walk_heads": 2,
+                  "position_feat_dim": 6, "stream": BIPARTITE,
+                  **{**COMMON, "sample_neighbor_strategy": "time_interval_aware",
+                     "time_scaling_factor": 1e-6}},
+}
 LIMITS = {"train": {"loss_gap": 1e-5, "grad_gap": 1e-4, "grad_median_gap": 1e-5,
                     "change_gap": 1e-4},
           "eval": {"prob_gap": 1e-5, "loss_gap": 1e-5}}
 
 
-def make_root(tmp: Path) -> Path:
+def make_root(tmp: Path, configs: dict = CONFIGS) -> Path:
     root = tmp / "bench"
     for d in ("metrics", "work"):
         shutil.copytree(catalog.ROOT / d, root / d)
     (root / "configs").mkdir()
     (root / "workloads").mkdir()
-    for name, cfg in CONFIGS.items():
+    for name, cfg in configs.items():
         (root / "configs" / f"{name}.json").write_text(json.dumps(cfg))
         for phase in ("train", "eval"):
             cell = {"config": name, "phase": phase, "chips": 1, "sweep_batches": 3,

@@ -61,3 +61,17 @@ def test_time_interval_aware_cell_is_found():
     differ = {k for k in set(cfg) | set(same) if cfg.get(k) != same.get(k)}
     assert differ == {"name", "sample_neighbor_strategy", "time_scaling_factor", "published_as",
                       "assumed"}
+
+
+def test_dygformer_wikipedia_cell_is_found():
+    """DyGLib's default 32/1 DyGFormer on tgat_wikipedia's stream: the
+    CanParl configuration's widths at wikipedia's operating point."""
+    cell = catalog.cell("dygformer_wikipedia.train")
+    assert cell["phase"] == "train" and cell["chips"] == 1 and cell["sweep_batches"] == 64
+    cfg = cell["cfg"]
+    assert (cfg["max_input_sequence_length"], cfg["patch_size"]) == (32, 1)
+    assert cfg["stream"] == catalog.config("tgat_wikipedia")["stream"]
+    same = catalog.config("dygformer_canparl")
+    differ = {k for k in set(cfg) | set(same) if cfg.get(k) != same.get(k)}
+    assert differ == {"name", "max_input_sequence_length", "patch_size", "stream",
+                      "stream_source", "published_as", "assumed"}

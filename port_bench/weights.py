@@ -5,8 +5,10 @@ values come from one uniform draw on the device (a ``torch.Generator``
 seeded from --seed), in the distributions the models' own
 initialisations use: a weight (out, in) and its bias U(+-1/sqrt(in)),
 LayerNorm scale 1 and shift 0, the time encoder's fixed spectrum
-1/10**linspace(0, 9, d) and zero phase. The same tensors go to the
-program (``load_params``) and to the reference.
+1/10**linspace(0, 9, d) and zero phase, an LSTM direction's input and
+recurrent weights (in, 4H) and (H, 4H) and its two biases (4H,) each
+U(+-1/sqrt(H)), as torch's ``nn.LSTM`` (CAWN's encoders). The same
+tensors go to the program (``load_params``) and to the reference.
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ import re
 import numpy as np
 import torch
 
-_NORM = re.compile(r"(^|\.)(layer_norm|norm\d*)\.(weight|bias)$")
+_NORM = re.compile(r"(^|[._])(layer_norm|norm\d*)\.(weight|bias)$")
+_LSTM = re.compile(r"(^|\.)(fwd|bwd)_(wx|wh|b|bh)$")
 
 
 def make(shapes: dict[str, tuple], seed: int, device) -> dict[str, torch.Tensor]:
@@ -35,6 +38,8 @@ def make(shapes: dict[str, tuple], seed: int, device) -> dict[str, torch.Tensor]
             fixed[name] = torch.from_numpy(spec.reshape(shape)).to(device)
         elif name.endswith("time_encoder.b"):
             fixed[name] = torch.zeros(shape, device=device)
+        elif _LSTM.search(name) and shape[-1] % 4 == 0:
+            drawn.append((name, shape, (shape[-1] // 4) ** -0.5))
         elif name.endswith(".weight") and len(shape) == 2:
             fan_in[name[: -len("weight")]] = shape[1]
             drawn.append((name, shape, shape[1] ** -0.5))
